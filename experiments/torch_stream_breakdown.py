@@ -1,0 +1,147 @@
+"""Where the time of swtpu_torch's stream path goes, on one CUDA GPU.
+
+    python experiments/torch_stream_breakdown.py [--seed N] [--reps N]
+
+For each of chip_smoke.py's three main-path cases (its shapes, data from --seed):
+  - per-stage host-clock medians of one ScoreBank.score_database call taken
+    apart (pack, wire pack, H2D, unpack + layout, kernel, gather, D2H), with
+    a device synchronise after each stage;
+  - the device busy share of one whole call under torch.profiler (device
+    time of kernels and copies / host wall time);
+  - the kernel alone (CUDA events) over rows 1-16 at ScoreBank's segments,
+    and over 512-4096 physical streams at ScoreBank's rows.
+Prints the card's name and power limit first; every number is this run's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+STAGES = ("pack", "wire", "h2d", "unpack+layout", "kernel", "gather", "d2h", "total")
+
+
+def stages_ms(bank, query, db, reps):
+    """Median ms of each stage of the CUDA stream path over `reps` warm runs."""
+    import numpy as np
+    import torch
+    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.bank.streams import pack_stream_wire, pack_streams
+    from swtpu_torch.ops.stream import (
+        _gather_emissions, _to_kernel_layout, stream_strip_cuda, unpack_stream_wire,
+    )
+
+    seg, rows, phys = stream_geometry(len(query), bank.config, bank.device)
+    pen = bank.config.penalties
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(bank.device)
+
+    parts = {k: [] for k in STAGES}
+    for rep in range(reps + 1):  # the first run warms up
+        t = [time.perf_counter()]
+        b = pack_streams(query, db.mat, n_streams=phys * seg, segments=seg,
+                         lens=db.lens, rows=rows)
+        t.append(time.perf_counter())
+        codes, flags = pack_stream_wire(b.stream)
+        t.append(time.perf_counter())
+        q, c, f = put(b.q), put(codes), put(flags)
+        es, ep = put(b.emit_stream), put(b.emit_step.astype(np.int32))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        qk, sk = _to_kernel_layout(q, unpack_stream_wire(c, f), seg, rows)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        strip = stream_strip_cuda(qk, sk, pen, seg, rows)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        scores = _gather_emissions(strip, es, ep, regular=b.emit_regular)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        scores.cpu().numpy()
+        t.append(time.perf_counter())
+        if rep:
+            for k, a, z in zip(STAGES, t, t[1:]):
+                parts[k].append((z - a) * 1e3)
+            parts["total"].append((t[-1] - t[0]) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}, tuple(sk.shape)
+
+
+def busy_share(bank, query, db):
+    """(device ms of kernels and copies, host wall ms) of one profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bank.score_database(query, db)
+        wall = time.perf_counter() - t0
+    dev_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return dev_us / 1e3, wall * 1e3
+
+
+def kernel_gcups(query, db, seg, rows, phys):
+    from chip_smoke import cuda_ms, laid_out_batch
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.stream import stream_strip_cuda
+
+    qk, sk = laid_out_batch(query, db, seg, rows, phys)
+    ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+    cells = len(query) * int(db.lens.sum())
+    return sk.shape[0], ms, cells / ms / 1e6
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    import subprocess
+
+    import numpy as np
+    import torch
+    from chip_smoke import MAIN_CASES, make_db
+    from swtpu_torch import SWConfig, ScoreBank
+    from swtpu_torch.bank.scorebank import stream_geometry
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: torch.cuda.is_available() is false")
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip(), flush=True)
+    rng = np.random.default_rng(args.seed)
+    bank = ScoreBank(SWConfig(), device="cuda")
+    for name, n, (lo, hi), qlen in MAIN_CASES:
+        db = make_db(rng, n, lo, hi)
+        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+        seg, rows, phys = stream_geometry(qlen, bank.config, bank.device)
+        med, shape = stages_ms(bank, query, db, args.reps)
+        print(f"{name} strip {list(shape)} medians of {args.reps}: "
+              + " ".join(f"{k}={v:.2f}ms" for k, v in med.items()), flush=True)
+        dev_ms, wall_ms = busy_share(bank, query, db)
+        print(f"{name} profiled call: device {dev_ms:.2f} ms of wall "
+              f"{wall_ms:.2f} ms = {dev_ms / wall_ms:.1%} busy", flush=True)
+        for r in (1, 2, 4, 8, 16):
+            if (128 // r) % seg == 0:
+                T, ms, g = kernel_gcups(query, db, seg, r, phys)
+                print(f"  rows sweep {name} seg={seg} rows={r} phys={phys} "
+                      f"T={T} kernel {ms:.3f} ms -> {g:.1f} GCUPS", flush=True)
+        for p in (512, 1024, 2048, 4096):
+            T, ms, g = kernel_gcups(query, db, seg, rows, p)
+            print(f"  phys sweep {name} seg={seg} rows={rows} phys={p} "
+                  f"T={T} kernel {ms:.3f} ms -> {g:.1f} GCUPS", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,33 @@
+"""swtpu_torch — the PyTorch/CUDA port of swtpu's Smith-Waterman scorer.
+
+Batched, score-only Smith-Waterman local alignment with affine gaps, as in
+``swtpu``, on a torch device: the streamed-wavefront ``ScoreBank.score_database``
+path, with a hand-written CUDA kernel on the GPU and its plain PyTorch
+version on the CPU.  Imports torch and never JAX; configuration, oracle,
+FASTA loading and the native packer are swtpu's JAX-free modules, shared.
+
+Layer map (swtpu module -> port):
+
+  swtpu.bank.scorebank   -> swtpu_torch.bank.scorebank (stream path)
+  swtpu.bank.streams     -> swtpu_torch.bank.streams   (host packer)
+  swtpu.ops.pallas_stream-> swtpu_torch.ops.stream     (+ csrc/*.cu kernel)
+  swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream checks)
+  swtpu.cli score        -> swtpu_torch.cli score
+"""
+
+from swtpu.config import DEFAULT_PENALTIES, Penalties, SWConfig
+from swtpu.oracle import score_many_vs_one, sw_score_batch, sw_score_single
+from swtpu_torch.bank import ScoreBank, ScoreResult
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SWConfig",
+    "Penalties",
+    "DEFAULT_PENALTIES",
+    "sw_score_single",
+    "sw_score_batch",
+    "score_many_vs_one",
+    "ScoreBank",
+    "ScoreResult",
+]

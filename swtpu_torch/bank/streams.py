@@ -1,0 +1,341 @@
+"""Host-side packing for the streamed wavefront kernel.
+
+The port of ``swtpu.bank.streams``: each of S streams is one feeder lane;
+reads go greedily to the currently shortest stream, are concatenated with
+a first-char flag, and every read's score-emission coordinate
+(stream, step) is computed up front.  The packing is bit-identical to
+swtpu's, so a batch packed by either package drives either package's
+kernels (``batch_to_device`` moves one onto a torch device).
+
+swtpu's module cannot be imported here: it reaches ``swtpu.ops`` (and so
+JAX) through ``swtpu.ops.common`` and ``swtpu.ops.pallas_stream``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from swtpu_torch.ops.common import Q_PAD
+from swtpu_torch.ops.stream import STEP_CHUNK
+
+STREAM_PAD = 4  # drain/pad char (never matches; no flag)
+FLAG = 8
+LANES = 128
+
+
+@dataclasses.dataclass
+class StreamBatch:
+    """Packed streams + emission map.
+
+    q: [N, 128//segments] int8 per-stream query (replicated, sentinel-padded).
+    stream: [N, T] int8 flagged char streams, T % STEP_CHUNK == 0.
+    emit_stream / emit_step: [n_reads] gather coordinates into the strip.
+    cells: real DP cells (query_len * sum target lens).
+    segments: queries per lane column the batch was packed for.
+    rows: query rows folded per wavefront sublane.
+    emit_regular: (first_step, stride, count) when read r emits at
+      (stream r % N, step first + (r // N) * stride), else None.
+
+    The array fields are numpy arrays as packed, or torch tensors after
+    :func:`batch_to_device`.
+    """
+
+    q: np.ndarray
+    stream: np.ndarray
+    emit_stream: np.ndarray
+    emit_step: np.ndarray
+    cells: int
+    segments: int = 1
+    rows: int = 1
+    emit_regular: Optional[tuple] = None
+
+
+def detect_regular_emissions(
+    emit_stream: np.ndarray, emit_step: np.ndarray, S: int
+) -> Optional[tuple]:
+    """(first, stride, count) if read r emits at (r % S, first + (r//S)*stride)
+    for every r — one vectorized O(R) check at pack time."""
+    R = len(emit_step)
+    if R == 0 or R % S:
+        return None
+    per = R // S
+    r = np.arange(R, dtype=np.int64)
+    if not np.array_equal(np.asarray(emit_stream, np.int64), r % S):
+        return None
+    first = int(emit_step[0])
+    if first < 0:
+        return None
+    stride = int(emit_step[S]) - first if per > 1 else 1
+    if stride <= 0:
+        return None
+    if not np.array_equal(
+        np.asarray(emit_step, np.int64), (r // S) * stride + first
+    ):
+        return None
+    return (first, stride, per)
+
+
+def pack_streams(
+    query: np.ndarray,
+    targets: Sequence[np.ndarray],
+    n_streams: int = 256,
+    segments: int = 1,
+    lens: Optional[np.ndarray] = None,
+    rows: int = 1,
+) -> StreamBatch:
+    """Assign reads to streams (greedy shortest-stream), concatenate with
+    flags, compute emission coordinates.
+
+    targets: either a sequence of 1-D code arrays, or — the dense form — a
+    [n_reads, width] int8 matrix with `lens` giving each read's real length
+    (the rest of each row is ignored).  The dense form takes the native C++
+    plan/fill path when the toolchain is available.
+
+    segments: queries per lane column in the kernel (1/2/4).
+    rows: query rows folded per sublane; the emission drain is
+    128//(rows*segments) - 1."""
+    qcap = LANES // segments
+    if len(query) > qcap:
+        raise ValueError(
+            f"query of {len(query)} bases exceeds capacity {qcap} at "
+            f"segments={segments}"
+        )
+    if lens is not None:
+        tmat = np.asarray(targets)
+        if tmat.ndim != 2:
+            raise ValueError("lens requires a dense [n, width] target matrix")
+        return _pack_streams_dense(
+            query, tmat.astype(np.int8, copy=False),
+            np.asarray(lens, np.int32), n_streams, segments, rows,
+        )
+    n_reads = len(targets)
+    S = n_streams
+    # large ragged lists: densify and take the native plan/fill path
+    # instead of the per-read Python greedy loop
+    if n_reads >= 1024 and not isinstance(targets, np.ndarray) and all(
+        isinstance(t, np.ndarray) and t.ndim == 1 for t in targets[:64]
+    ):
+        try:
+            tlens = np.fromiter((len(t) for t in targets), np.int32, n_reads)
+            flat = np.concatenate(targets).astype(np.int8, copy=False)
+            w = max(int(tlens.max()), 1)
+            tmat = np.zeros((n_reads, w), np.int8)
+            tmat[np.arange(w)[None, :] < tlens[:, None]] = flat
+            return _pack_streams_dense(query, tmat, tlens, S, segments, rows)
+        except (ValueError, TypeError):
+            pass  # odd element shapes/dtypes: fall through to greedy
+    # equal-length reads, count divisible by S: greedy shortest-stream
+    # degenerates to round-robin, packed here without the per-read loop
+    if n_reads and n_reads % S == 0 and len(targets[0]) > 0:
+        tmat = targets if isinstance(targets, np.ndarray) else None
+        if tmat is None and all(
+            isinstance(t, np.ndarray) and t.ndim == 1 and len(t) == len(targets[0])
+            for t in targets[: min(n_reads, 64)]
+        ):
+            lens = {len(t) for t in targets}
+            if len(lens) == 1:
+                tmat = np.stack(targets)
+        if tmat is not None and tmat.ndim == 2:
+            return _pack_streams_equal(
+                query, tmat.astype(np.int8), S, segments, rows
+            )
+    # large equal-width matrix that misses the divisibility condition above
+    if (
+        isinstance(targets, np.ndarray) and targets.ndim == 2
+        and n_reads >= 1024 and targets.shape[1] > 0
+    ):
+        return _pack_streams_dense(
+            query, targets.astype(np.int8, copy=False),
+            np.full(n_reads, targets.shape[1], np.int32), S, segments, rows,
+        )
+    return _pack_streams_greedy(query, targets, S, segments, rows)
+
+
+def _finish_batch(batch: StreamBatch) -> StreamBatch:
+    """Stamp the regular-emission pattern (strided-extract fast path)."""
+    batch.emit_regular = detect_regular_emissions(
+        batch.emit_stream, batch.emit_step, batch.stream.shape[0]
+    )
+    return batch
+
+
+def _query_register(query: np.ndarray, S: int, qcap: int) -> np.ndarray:
+    q = np.full((S, qcap), Q_PAD, dtype=np.int8)
+    q[:, : len(query)] = np.asarray(query, dtype=np.int8)[None, :]
+    return q
+
+
+def _pack_streams_greedy(
+    query: np.ndarray,
+    targets: Sequence[np.ndarray],
+    S: int,
+    segments: int,
+    rows: int = 1,
+) -> StreamBatch:
+    """Pure-Python greedy shortest-stream packing (the reference semantics);
+    terminal, so it is the fallback when the native toolchain is missing."""
+    qcap = LANES // segments
+    drain = LANES // (rows * segments) - 1
+    n_reads = len(targets)
+    chunks: List[List[np.ndarray]] = [[] for _ in range(S)]
+    fill = np.zeros(S, dtype=np.int64)
+    emit_stream = np.zeros(n_reads, dtype=np.int32)
+    emit_step = np.zeros(n_reads, dtype=np.int64)
+    cells = 0
+    for r, t in enumerate(targets):
+        t = np.asarray(t, dtype=np.int8)
+        if len(t) == 0:
+            emit_stream[r] = 0
+            emit_step[r] = -1  # zero-length read: score 0 by definition
+            continue
+        s = int(np.argmin(fill))
+        flagged = t.copy()
+        flagged[0] |= FLAG
+        chunks[s].append(flagged)
+        emit_stream[r] = s
+        emit_step[r] = fill[s] + len(t) - 1 + drain
+        fill[s] += len(t)
+        cells += len(query) * len(t)
+
+    T = int(fill.max()) + drain if n_reads else STEP_CHUNK
+    T = -(-T // STEP_CHUNK) * STEP_CHUNK
+    stream = np.full((S, T), STREAM_PAD, dtype=np.int8)
+    for s in range(S):
+        if chunks[s]:
+            cat = np.concatenate(chunks[s])
+            stream[s, : len(cat)] = cat
+
+    return _finish_batch(StreamBatch(
+        _query_register(query, S, qcap), stream, emit_stream,
+        _check_emit_step(emit_step), cells, segments, rows,
+    ))
+
+
+def _check_emit_step(emit_step: np.ndarray) -> np.ndarray:
+    """Emission steps are consumed as int32 by the kernels' callers; a
+    stream longer than 2^31 steps would wrap at the cast."""
+    if emit_step.size and int(emit_step.max()) >= 2**31:
+        raise ValueError(
+            "stream exceeds 2^31 steps; emission coordinates would overflow "
+            "int32 — split the database into smaller batches"
+        )
+    return emit_step
+
+
+def _pack_streams_dense(
+    query: np.ndarray, tmat: np.ndarray, lens: np.ndarray, S: int,
+    segments: int, rows: int = 1,
+) -> StreamBatch:
+    """Ragged dense-matrix packing via swtpu's native C++ plan/fill
+    pipeline; pure-Python greedy fallback if the toolchain is missing.
+    Bit-identical to the per-read greedy path."""
+    qcap = LANES // segments
+    drain = LANES // (rows * segments) - 1
+    n_reads = tmat.shape[0]
+    try:
+        from swtpu.runtime.native import NativePacker, native_available
+
+        if not native_available():
+            raise RuntimeError("native unavailable")
+        packer = NativePacker()
+        emit_stream, emit_step, max_fill = packer.plan_streams(lens, S, drain)
+        T = max(max_fill + drain, STEP_CHUNK) if n_reads else STEP_CHUNK
+        T = -(-T // STEP_CHUNK) * STEP_CHUNK
+        stream = packer.fill_streams(
+            tmat, lens, emit_stream, emit_step, drain, FLAG, T, S, STREAM_PAD
+        )
+    except RuntimeError:
+        # no native toolchain: the terminal greedy packer (pack_streams()
+        # here would re-enter the densify branch and recurse)
+        return _pack_streams_greedy(
+            query, [tmat[i, : lens[i]] for i in range(n_reads)], S, segments,
+            rows,
+        )
+    cells = int(len(query)) * int(lens.astype(np.int64).sum())
+    return _finish_batch(StreamBatch(
+        _query_register(query, S, qcap), stream, emit_stream,
+        _check_emit_step(emit_step), cells, segments, rows,
+    ))
+
+
+def _pack_streams_equal(
+    query: np.ndarray, tmat: np.ndarray, S: int, segments: int, rows: int = 1
+) -> StreamBatch:
+    """Vectorized round-robin packing of a [B, n] equal-length read matrix."""
+    qcap = LANES // segments
+    drain = LANES // (rows * segments) - 1
+    B, n = tmat.shape
+    per = B // S  # reads per stream
+    flagged = tmat.copy()
+    flagged[:, 0] |= FLAG
+    # read r -> stream r % S, slot r // S (greedy == round-robin here)
+    body = flagged.reshape(per, S, n).transpose(1, 0, 2).reshape(S, per * n)
+    T = -(-(per * n + drain) // STEP_CHUNK) * STEP_CHUNK
+    stream = np.full((S, T), STREAM_PAD, dtype=np.int8)
+    stream[:, : per * n] = body
+    r = np.arange(B, dtype=np.int64)
+    emit_stream = (r % S).astype(np.int32)
+    emit_step = (r // S) * n + (n - 1) + drain
+    return StreamBatch(
+        _query_register(query, S, qcap), stream, emit_stream,
+        _check_emit_step(emit_step), len(query) * B * n, segments, rows,
+        emit_regular=(n - 1 + drain, n, per),  # regular by construction
+    )
+
+
+def pack_stream_wire(stream: np.ndarray):
+    """Compress a flagged char-stream matrix for the host->device copy:
+    2-bit codes packed 4/byte LSB-first plus a first-char flag bitmap
+    packed 8/byte — 2.5 bits/char instead of 8.
+
+    Pad chars lose their identity (code 4 -> 0), which is score-safe: pad
+    columns sit after every gathered emission step, and read boundaries are
+    re-established by the flag bits.
+
+    stream: [N, T] int8, T % 8 == 0.  Returns (codes [N, T//4] uint8,
+    flags [N, T//8] uint8)."""
+    N, T = stream.shape
+    if T % 8:
+        raise ValueError(f"stream length {T} must be a multiple of 8")
+    try:
+        from swtpu.runtime.native import NativePacker, native_available
+
+        if native_available():
+            return NativePacker().pack_wire(stream)
+    except RuntimeError:
+        pass
+    u = stream.astype(np.uint8)
+    quads = (u & 3).reshape(N, T // 4, 4)
+    shifts = np.array([0, 2, 4, 6], dtype=np.uint8)
+    codes = np.bitwise_or.reduce(quads << shifts, axis=2).astype(np.uint8)
+    flags = np.packbits((u & FLAG) != 0, axis=1, bitorder="little")
+    return codes, flags
+
+
+def gather_stream_scores(strip: np.ndarray, batch: StreamBatch) -> np.ndarray:
+    """strip [S, T] -> per-read scores in submission order."""
+    scores = np.zeros(len(batch.emit_step), dtype=np.int32)
+    live = batch.emit_step >= 0
+    scores[live] = strip[batch.emit_stream[live], batch.emit_step[live]]
+    return scores
+
+
+def batch_to_device(batch, device) -> StreamBatch:
+    """Copy a packed batch — a StreamBatch of this package or of
+    ``swtpu.bank.streams``, numpy fields — onto `device` as torch tensors:
+    q and stream int8, the emission coordinates int64 (torch's index
+    type).  Scalars and the emission pattern carry over unchanged."""
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return StreamBatch(
+        put(batch.q, np.int8), put(batch.stream, np.int8),
+        put(batch.emit_stream, np.int64), put(batch.emit_step, np.int64),
+        int(batch.cells), int(batch.segments), int(batch.rows),
+        batch.emit_regular,
+    )
