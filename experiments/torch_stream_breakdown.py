@@ -2,14 +2,17 @@
 
     python experiments/torch_stream_breakdown.py [--seed N] [--reps N]
 
-For each of chip_smoke.py's three main-path cases (its shapes, data from --seed):
+For each of chip_smoke.py's five main-path cases (its shapes, data from --seed):
   - per-stage host-clock medians of one ScoreBank.score_database call taken
-    apart (pack, wire pack, H2D, unpack + layout, kernel, gather, D2H), with
-    a device synchronise after each stage;
+    apart, with a device synchronise after each stage: pack, wire pack,
+    H2D, unpack + layout, kernel, gather, D2H; for the long-query cases
+    (d) and (e) the kernel stage is the sum over the K chained tiles and
+    the boundary shifts between them are a stage of their own;
   - the device busy share of one whole call under torch.profiler (device
     time of kernels and copies / host wall time);
-  - the kernel alone (CUDA events) over rows 1-16 at ScoreBank's segments,
-    and over 512-4096 physical streams at ScoreBank's rows.
+  - the kernel alone (CUDA events; for (d) and (e) the whole chain) over
+    rows 1-16 at ScoreBank's segments, and over 512-4096 physical streams
+    at ScoreBank's rows.
 Prints the card's name and power limit first; every number is this run's.
 """
 
@@ -24,6 +27,9 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 STAGES = ("pack", "wire", "h2d", "unpack+layout", "kernel", "gather", "d2h", "total")
+LONG_STAGES = (
+    "pack", "wire", "h2d", "unpack+layout", "kernel", "shift", "gather", "d2h", "total",
+)
 
 
 def stages_ms(bank, query, db, reps):
@@ -72,6 +78,73 @@ def stages_ms(bank, query, db, reps):
     return {k: statistics.median(v) for k, v in parts.items()}, tuple(sk.shape)
 
 
+def long_stages_ms(bank, query, db, reps):
+    """Median ms of each stage of the CUDA long-query path over `reps` warm
+    runs; the kernel and shift stages sum over the chain's tiles."""
+    import numpy as np
+    import torch
+    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.bank.streams import pack_stream_wire, pack_streams_long
+    from swtpu_torch.ops.stream import (
+        LANES, _gather_emissions, _q_kernel_layout, _shift_steps,
+        stream_chained_cuda, unpack_stream_wire,
+    )
+
+    _, rows, phys = stream_geometry(len(query), bank.config, bank.device)
+    pen = bank.config.penalties
+    SL = LANES // rows
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(bank.device)
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    parts = {k: [] for k in LONG_STAGES}
+    for rep in range(reps + 1):  # the first run warms up
+        # (stage, time at its end); the chain's own stages are summed apart
+        marks = [("start", time.perf_counter())]
+        b = pack_streams_long(query, db.mat, n_streams=phys, rows=rows, lens=db.lens)
+        marks.append(("pack", time.perf_counter()))
+        codes, flags = pack_stream_wire(b.stream)
+        marks.append(("wire", time.perf_counter()))
+        q, c, f = put(b.q), put(codes), put(flags)
+        es, ep = put(b.emit_stream), put(b.emit_step.astype(np.int32))
+        marks.append(("h2d", clock()))
+        sk = unpack_stream_wire(c, f).t().contiguous()
+        K = q.shape[1] // LANES
+        qks = [_q_kernel_layout(q[:, p * LANES : (p + 1) * LANES], 1, rows)
+               .to(torch.int8).contiguous() for p in range(K)]
+        marks.append(("unpack+layout", clock()))
+        kernel = shift = 0.0
+        bD = bG = bH = torch.zeros(tuple(sk.shape), dtype=torch.int32, device=sk.device)
+        for p in range(K):
+            t0 = clock()
+            acc, oD, oG, oH = stream_chained_cuda(qks[p], sk, bD, bG, bH, pen, rows)
+            t1 = clock()
+            if p + 1 < K:
+                bD = _shift_steps(oD, SL - 2)
+                bG = _shift_steps(oG, SL - 1)
+                bH = _shift_steps(oH, SL - 1)
+            del oD, oG, oH
+            kernel += t1 - t0
+            shift += clock() - t1
+        marks.append(("chain", clock()))
+        scores = _gather_emissions(acc, es, ep, regular=b.emit_regular)
+        marks.append(("gather", clock()))
+        scores.cpu().numpy()
+        marks.append(("d2h", time.perf_counter()))
+        if rep:
+            for (_, a), (k, z) in zip(marks, marks[1:]):
+                if k in parts:
+                    parts[k].append((z - a) * 1e3)
+            parts["kernel"].append(kernel * 1e3)
+            parts["shift"].append(shift * 1e3)
+            parts["total"].append((marks[-1][1] - marks[0][1]) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}, tuple(sk.shape)
+
+
 def busy_share(bank, query, db):
     """(device ms of kernels and copies, host wall ms) of one profiled call."""
     import torch
@@ -89,12 +162,17 @@ def busy_share(bank, query, db):
 
 
 def kernel_gcups(query, db, seg, rows, phys):
-    from chip_smoke import cuda_ms, laid_out_batch
+    """(T, ms, GCUPS) of the kernel alone; a long query's whole chain."""
+    from chip_smoke import cuda_ms, laid_out_batch, long_batch
     from swtpu_torch import DEFAULT_PENALTIES
-    from swtpu_torch.ops.stream import stream_strip_cuda
+    from swtpu_torch.ops.stream import _long_strip, stream_strip_cuda
 
-    qk, sk = laid_out_batch(query, db, seg, rows, phys)
-    ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+    if len(query) > 128:
+        q, sk = long_batch(query, db, rows, phys)
+        ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 3)
+    else:
+        qk, sk = laid_out_batch(query, db, seg, rows, phys)
+        ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
     cells = len(query) * int(db.lens.sum())
     return sk.shape[0], ms, cells / ms / 1e6
 
@@ -108,7 +186,7 @@ def main() -> int:
 
     import numpy as np
     import torch
-    from chip_smoke import MAIN_CASES, make_db
+    from chip_smoke import LONG_CASES, MAIN_CASES, make_db
     from swtpu_torch import SWConfig, ScoreBank
     from swtpu_torch.bank.scorebank import stream_geometry
 
@@ -120,12 +198,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
     rng = np.random.default_rng(args.seed)
+    rng_long = np.random.default_rng([args.seed, 1])
     bank = ScoreBank(SWConfig(), device="cuda")
-    for name, n, (lo, hi), qlen in MAIN_CASES:
-        db = make_db(rng, n, lo, hi)
-        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    cases = [(rng, c) for c in MAIN_CASES] + [(rng_long, c) for c in LONG_CASES]
+    for gen, (name, n, (lo, hi), qlen) in cases:
+        db = make_db(gen, n, lo, hi)
+        query = gen.integers(0, 4, size=qlen).astype(np.int8)
         seg, rows, phys = stream_geometry(qlen, bank.config, bank.device)
-        med, shape = stages_ms(bank, query, db, args.reps)
+        stages = long_stages_ms if qlen > 128 else stages_ms
+        med, shape = stages(bank, query, db, args.reps)
         print(f"{name} strip {list(shape)} medians of {args.reps}: "
               + " ".join(f"{k}={v:.2f}ms" for k, v in med.items()), flush=True)
         dev_ms, wall_ms = busy_share(bank, query, db)

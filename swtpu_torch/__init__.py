@@ -2,15 +2,16 @@
 
 Batched, score-only Smith-Waterman local alignment with affine gaps, as in
 ``swtpu``, on a torch device: the streamed-wavefront ``ScoreBank.score_database``
-path, with a hand-written CUDA kernel on the GPU and its plain PyTorch
-version on the CPU.  Imports torch and never JAX; configuration, oracle,
+path for queries of any length (longer than 128 bases on chained tiles),
+with hand-written CUDA kernels on the GPU and their plain PyTorch versions
+on the CPU.  Imports torch and never JAX; configuration, oracle,
 FASTA loading and the native packer are swtpu's JAX-free modules, shared.
 
 Layer map (swtpu module -> port):
 
   swtpu.bank.scorebank   -> swtpu_torch.bank.scorebank (stream path)
   swtpu.bank.streams     -> swtpu_torch.bank.streams   (host packer)
-  swtpu.ops.pallas_stream-> swtpu_torch.ops.stream     (+ csrc/*.cu kernel)
+  swtpu.ops.pallas_stream-> swtpu_torch.ops.stream     (+ csrc/*.cu kernels)
   swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream checks)
   swtpu.cli score        -> swtpu_torch.cli score
 """

@@ -4,10 +4,11 @@ The port of ``swtpu.bank.scorebank``'s main path: ``score_database`` on the
 streamed wavefront.  The host packs the reads into flagged char streams
 (``swtpu_torch.bank.streams``), the streams cross to the device (2-bit
 packed on CUDA), the wavefront writes its [T, N] strip and the emission
-gather returns the scores in read order.  On a CUDA device the wavefront
-is the hand-written kernel; on the CPU it is the plain PyTorch version,
-with the settings swtpu uses in interpret mode, so both packages pack the
-same batch there.
+gather returns the scores in read order.  A query longer than 128 bases
+chains K tiles of 128 query rows over the same streams.  On a CUDA device
+the wavefront is the hand-written kernel; on the CPU it is the plain
+PyTorch version, with the settings swtpu uses in interpret mode, so both
+packages pack the same batch there.
 """
 
 from __future__ import annotations
@@ -22,9 +23,12 @@ import torch
 from swtpu.config import SWConfig
 from swtpu.io.loader import EncodedDB
 from swtpu_torch.bank.streams import (
-    LANES, batch_to_device, pack_stream_wire, pack_streams,
+    LANES, batch_to_device, pack_stream_wire, pack_streams, pack_streams_long,
 )
-from swtpu_torch.ops.stream import sw_scores_stream, sw_scores_stream_packed
+from swtpu_torch.ops.stream import (
+    sw_scores_stream, sw_scores_stream_long, sw_scores_stream_long_packed,
+    sw_scores_stream_packed,
+)
 
 
 def _dense_form(targets):
@@ -41,10 +45,16 @@ def _dense_form(targets):
     return None, None
 
 
+def _put(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a torch tensor on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def stream_geometry(query_len: int, config: SWConfig, device) -> tuple:
     """(segments, rows, phys) of the streamed wavefront for a query of
     `query_len` bases on `device`: swtpu's device settings on CUDA, its
-    interpret settings on the CPU, so both packages pack the same batch."""
+    interpret settings on the CPU, so both packages pack the same batch.
+    A query over 128 bases (the chained tiles) takes segments 1."""
     # short queries pack 2 or 4 per column
     if query_len <= LANES // 4:
         segments = 4
@@ -136,15 +146,28 @@ class ScoreBank:
         dense forms: the database stays one int8 matrix).
 
         event_log: optional swtpu.utils.EventLog receiving one "stream"
-        record per call."""
+        record per call ("stream_long" for a query over 128 bases)."""
         tmat, tlens = _dense_form(targets)
         if len(query) > LANES:
-            raise NotImplementedError(
-                f"queries over {LANES} bases (got {len(query)}) are not "
-                "ported yet (ROADMAP: B3 long queries)"
+            # chained 128-row tiles carry the tail-row D/G/H strips from
+            # tile to tile (the reference's reserved chaining ports)
+            return self._score_database_stream_long(
+                query, targets, event_log, tmat=tmat, tlens=tlens
             )
         return self._score_database_stream(
             query, targets, event_log, tmat=tmat, tlens=tlens
+        )
+
+    def _check_scores(self, scores, query, targets, tlens) -> None:
+        """verify_integrity's bound check on one call's scores."""
+        from swtpu_torch.utils.guards import check_scores
+
+        t_lens = tlens if tlens is not None else np.fromiter(
+            (len(t) for t in targets), np.int64, len(targets)
+        )
+        check_scores(
+            scores, np.full(len(t_lens), len(query)), t_lens,
+            self.config.penalties.match,
         )
 
     def _score_database_stream(
@@ -181,13 +204,11 @@ class ScoreBank:
         if self.config.wire_2bit and on_cuda:
             # the stream crosses at 2.5 bits/char and expands on the device
             codes, flags = pack_stream_wire(batch.stream)
-
-            def put(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
             scores = sw_scores_stream_packed(
-                put(batch.q), put(codes), put(flags), put(batch.emit_stream),
-                put(batch.emit_step.astype(np.int32)), pen,
+                *(_put(a, self.device) for a in (
+                    batch.q, codes, flags, batch.emit_stream,
+                    batch.emit_step.astype(np.int32),
+                )), pen,
                 segments=segments, rows=rows, emit_regular=batch.emit_regular,
             )
         else:
@@ -198,12 +219,7 @@ class ScoreBank:
             )
         scores = scores.cpu().numpy()
         if self.verify_integrity:
-            from swtpu_torch.utils.guards import check_scores
-
-            t_lens = tlens if tlens is not None else np.fromiter(
-                (len(t) for t in targets), np.int64, n_reads
-            )
-            check_scores(scores, np.full(n_reads, len(query)), t_lens, pen.match)
+            self._check_scores(scores, query, targets, tlens)
         elapsed = time.perf_counter() - t0
         # physical wavefront capacity: LANES DP rows per lane column per
         # step, shared by `segments` queries
@@ -216,6 +232,62 @@ class ScoreBank:
                     "stream", t_wall=time.time(), elapsed_s=elapsed,
                     reads=n_reads, cells=batch.cells, padded_cells=padded,
                     note=f"streams={batch.stream.shape[0]} T={batch.stream.shape[1]}",
+                )
+            )
+        return ScoreResult(scores, batch.cells, padded, elapsed)
+
+    def _score_database_stream_long(
+        self, query, targets, event_log=None, tmat=None, tlens=None
+    ) -> ScoreResult:
+        """Queries over 128 bases on the streamed wavefront: K-tile chaining
+        (swtpu_torch.ops.stream.sw_scores_stream_long), up to the
+        reference's 4,095-base LEN_WIDTH envelope and beyond.  Ignores
+        ``stream_chunk_reads``, as swtpu's long path does."""
+        t0 = time.perf_counter()
+        n_reads = len(tlens) if tlens is not None else len(targets)
+        _, rows, phys = stream_geometry(len(query), self.config, self.device)
+        self._stream_dtype()
+        if tlens is not None:
+            batch = pack_streams_long(query, tmat, n_streams=phys, rows=rows, lens=tlens)
+        else:
+            batch = pack_streams_long(query, targets, n_streams=phys, rows=rows)
+        if self.verify_integrity:
+            from swtpu_torch.utils.guards import check_stream_batch
+
+            check_stream_batch(batch)
+        pen = self.config.penalties
+        q = _put(batch.q, self.device)
+        emit = (
+            _put(batch.emit_stream, self.device),
+            _put(batch.emit_step.astype(np.int32), self.device),
+        )
+        if self.config.wire_2bit and self.device.type == "cuda":
+            # the same 2.5 bits/char crossing as the short-query path
+            codes, flags = pack_stream_wire(batch.stream)
+            scores = sw_scores_stream_long_packed(
+                q, _put(codes, self.device), _put(flags, self.device), *emit,
+                pen, rows=rows, emit_regular=batch.emit_regular,
+            )
+        else:
+            scores = sw_scores_stream_long(
+                q, _put(batch.stream, self.device), *emit, pen, rows=rows,
+                emit_regular=batch.emit_regular,
+            )
+        scores = scores.cpu().numpy()
+        if self.verify_integrity:
+            self._check_scores(scores, query, targets, tlens)
+        elapsed = time.perf_counter() - t0
+        K = batch.q.shape[1] // LANES
+        padded = batch.stream.shape[0] * batch.stream.shape[1] * LANES * K
+        if event_log is not None:
+            from swtpu.utils.metrics import BatchEvent
+
+            event_log.emit(
+                BatchEvent(
+                    "stream_long", t_wall=time.time(), elapsed_s=elapsed,
+                    reads=n_reads, cells=batch.cells, padded_cells=padded,
+                    note=f"streams={batch.stream.shape[0]} "
+                    f"T={batch.stream.shape[1]} tiles={K}",
                 )
             )
         return ScoreResult(scores, batch.cells, padded, elapsed)

@@ -155,6 +155,39 @@ def pack_streams(
     return _pack_streams_greedy(query, targets, S, segments, rows)
 
 
+def pack_streams_long(
+    query: np.ndarray,
+    targets: Sequence[np.ndarray],
+    n_streams: int = 256,
+    rows: int = 16,
+    lens: Optional[np.ndarray] = None,
+) -> StreamBatch:
+    """Pack for :func:`swtpu_torch.ops.stream.sw_scores_stream_long`:
+    queries longer than one 128-row tile.  Stream assignment and emission
+    coordinates do not depend on the query length (drain = 128//rows - 1,
+    as for one tile at segments 1); the stream gains (128//rows - 1)*(K - 1)
+    extra drain steps for the K-tile chain."""
+    query = np.asarray(query, np.int8)
+    K = max(1, -(-len(query) // LANES))
+    # emission and stream layout from a length-1 probe query (same drain),
+    # then widen the query register and scale the cell count
+    b = pack_streams(
+        query[:1], targets, n_streams, segments=1, lens=lens, rows=rows,
+    )
+    SL = LANES // rows
+    extra = (SL - 1) * (K - 1)
+    T = -(-(b.stream.shape[1] + extra) // STEP_CHUNK) * STEP_CHUNK
+    stream = np.full((n_streams, T), STREAM_PAD, dtype=np.int8)
+    stream[:, : b.stream.shape[1]] = b.stream
+    q = np.full((n_streams, K * LANES), Q_PAD, dtype=np.int8)
+    q[:, : len(query)] = query[None, :]
+    cells = b.cells * int(len(query))  # the probe counted 1 cell per target char
+    return StreamBatch(
+        q, stream, b.emit_stream, b.emit_step, cells, 1, rows,
+        emit_regular=b.emit_regular,  # the emission layout is query-independent
+    )
+
+
 def _finish_batch(batch: StreamBatch) -> StreamBatch:
     """Stamp the regular-emission pattern (strided-extract fast path)."""
     batch.emit_regular = detect_regular_emissions(

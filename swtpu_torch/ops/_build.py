@@ -89,8 +89,11 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.swtpu_stream_wavefront.restype = ctypes.c_int
             lib.swtpu_stream_wavefront.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                *[ctypes.c_int] * 8, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9, ctypes.c_void_p,
+            ]
+            lib.swtpu_stream_chained.restype = ctypes.c_int
+            lib.swtpu_stream_chained.argtypes = [
+                *[ctypes.c_void_p] * 9, *[ctypes.c_int] * 7, ctypes.c_void_p,
             ]
             lib.swtpu_cuda_error_string.restype = ctypes.c_char_p
             lib.swtpu_cuda_error_string.argtypes = [ctypes.c_int]

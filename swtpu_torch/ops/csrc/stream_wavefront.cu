@@ -1,10 +1,13 @@
 // Streamed anti-diagonal Smith-Waterman wavefront for Hopper (sm_90a).
 //
 // Replaces the TPU kernels swtpu/ops/pallas_stream.py:_stream_kernel_mr
-// (query rows folded R per sublane) and pallas_stream.py:_stream_kernel in
-// its tail-accumulator form (R = 1).  The plain PyTorch version of the same
-// recurrence is swtpu_torch/ops/stream.py:stream_strip_reference; the two
-// must agree bit for bit.
+// (query rows folded R per sublane), pallas_stream.py:_stream_kernel in
+// both its forms (R = 1: tail accumulator, or ripple-H) and
+// pallas_stream.py:_stream_kernel_mr_chained (one 128-row tile of a
+// long-query chain).  The plain PyTorch versions of the same recurrences
+// are swtpu_torch/ops/stream.py:stream_strip_reference and
+// stream_chained_reference; kernel and plain version must agree bit for
+// bit.
 //
 // Contract.  qk [128, S] int8 is the query register in kernel layout
 // (query row k*R + r of segment g of physical stream s at row
@@ -13,6 +16,18 @@
 // [T, seg*S] int32 receives, for every step t, each segment's tail
 // accumulator: strip[t, g*S + s].  No lengths or masks: the sentinel codes
 // (query pad 5, stream pad 4) never match.
+//
+// Ripple-H form (R = 1, tail_acc = 0): each row's H also keeps its own
+// previous H, reset at a read's first char, and the strip row is the
+// segment tail's H itself.
+//
+// Chained tile (seg = 1): bD/bG/bH [T, S] int32 are the tile above's row
+// 127, already shifted by the host, so the tile's row 0 reads them in
+// place of the zero boundary: diag = f0 ? 0 : bD[t], G_up = bG[t],
+// H_up = bH[t].  The tile writes its tail accumulator and its own row 127
+// (oD, oG, oH [T, S] int32) every step.  Per stream-step that is 12 bytes
+// read and 16 written against 128 cells, so the chained tile is bound by
+// the same dependent integer chain as the plain one.
 //
 // What bounds it.  Per stream-step a segment head reads 1 byte and a
 // segment tail writes 4, so the card's memory bandwidth is far from the
@@ -50,8 +65,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // are the sublane above's G[R-1] and H from the previous step and its
 // D[R-1] from two steps back.  Updates D, G (rows 0..R-1), d2l (this
 // sublane's D[R-1] from the previous step, which the sublane below reads
-// next step) and h; returns whether the char starts a read.
-template <int R>
+// next step) and h; returns whether the char starts a read.  kRipple keeps
+// the sublane's own previous h too (the ripple-H form, R = 1).
+template <int R, bool kRipple>
 __device__ __forceinline__ bool sublane_step(
     int c, bool seghead, int g_up, int h_up, int d_diag, const int (&q)[R],
     int (&D)[R], int (&G)[R], int& d2l, int& h, int ma, int mi, int go,
@@ -62,6 +78,7 @@ __device__ __forceinline__ bool sublane_step(
   int M = max(diag + (cv == q[0] ? ma : mi), 0);
   int I = max(seghead ? 0 : g_up, f0 ? 0 : G[0]) + ge;
   int hc = max(seghead ? 0 : h_up, M);
+  if (kRipple) hc = max(hc, f0 ? 0 : h);
   int dprev = D[0];
   d2l = D[R - 1];
   D[0] = max(M, I);
@@ -82,28 +99,47 @@ __device__ __forceinline__ bool sublane_step(
   return f0;
 }
 
-template <int R>
-__global__ void __launch_bounds__(kBlock) stream_wavefront_kernel(
-    const int8_t* __restrict__ qk, const int8_t* __restrict__ sk,
-    int32_t* __restrict__ strip, int S, int T, int seg, int ma, int mi,
-    int go, int ge) {
+// What a launch computes: the strip of tail accumulators (B1, B2), the
+// strip of tail H (B2 ripple-H), or one chained tile (B3).
+enum Mode { kTailAcc, kRippleH, kChained };
+
+struct Args {
+  const int8_t* qk;
+  const int8_t* sk;
+  const int32_t* bD;  // kChained only: the tile above's shifted row 127
+  const int32_t* bG;
+  const int32_t* bH;
+  int32_t* strip;
+  int32_t* oD;  // kChained only: this tile's row 127
+  int32_t* oG;
+  int32_t* oH;
+  int S, T, seg, ma, mi, go, ge;
+};
+
+template <int R, int kMode>
+__global__ void __launch_bounds__(kBlock) stream_wavefront_kernel(const Args a) {
   constexpr int SL = kLanes / R;        // wavefront sublanes per stream
   constexpr int W = SL < 32 ? SL : 32;  // threads per stream
   constexpr int V = SL / W;             // sublanes per thread
+  constexpr bool kRipple = kMode == kRippleH;
+  constexpr bool kChain = kMode == kChained;
+  const int S = a.S;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = tid / W;
   const int lane = tid % W;
   // threads past the last stream run the loop (the shuffles need the
   // whole warp) but read and write nothing
   const bool live = s < S;
-  const int SLg = SL / seg;  // sublanes per segment; a multiple of V
-  const int p0 = lane * V;   // this thread's first sublane
-  const int pt = p0 + V - 1;  // and last
+  const int SLg = SL / a.seg;  // sublanes per segment; a multiple of V
+  const int p0 = lane * V;     // this thread's first sublane
+  const int pt = p0 + V - 1;   // and last
   const bool head = live && p0 % SLg == 0;
   const bool tail = live && pt % SLg == SLg - 1;
-  const size_t ld = (size_t)seg * S;
-  const int8_t* src = sk + (size_t)(p0 / SLg) * S + s;
-  int32_t* dst = strip + (size_t)(pt / SLg) * S + s;
+  // a segment head sees zero boundaries, a chained tile's row 0 the strips
+  const bool seghead = head && !kChain;
+  const size_t ld = (size_t)a.seg * S;
+  const int8_t* src = a.sk + (size_t)(p0 / SLg) * S + s;
+  int32_t* dst = a.strip + (size_t)(pt / SLg) * S + s;
 
   int q[V][R], D[V][R], G[V][R], C[V], D2L[V], H[V];
 #pragma unroll
@@ -115,16 +151,23 @@ __global__ void __launch_bounds__(kBlock) stream_wavefront_kernel(
     for (int r = 0; r < R; ++r) {
       D[v][r] = 0;
       G[v][r] = 0;
-      q[v][r] = live ? qk[(size_t)(r * SL + p0 + v) * S + s] : kQueryPad;
+      q[v][r] = live ? a.qk[(size_t)(r * SL + p0 + v) * S + s] : kQueryPad;
     }
   }
   int acc = 0;
 
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    int cin[kChunk];
+  for (int t0 = 0; t0 < a.T; t0 += kChunk) {
+    int cin[kChunk], bd[kChunk], bg[kChunk], bh[kChunk];
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k)
+    for (int k = 0; k < kChunk; ++k) {
       cin[k] = head ? src[(size_t)(t0 + k) * ld] : kPad;
+      if (kChain) {
+        const size_t o = (size_t)(t0 + k) * S + s;
+        bd[k] = head ? a.bD[o] : 0;
+        bg[k] = head ? a.bG[o] : 0;
+        bh[k] = head ? a.bH[o] : 0;
+      }
+    }
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       // the sublane above this thread's first one lives in lane - 1
@@ -138,55 +181,92 @@ __global__ void __launch_bounds__(kBlock) stream_wavefront_kernel(
 #pragma unroll
       for (int v = V - 1; v >= 1; --v) {
         C[v] = C[v - 1];
-        const bool f0 = sublane_step<R>(
+        const bool f0 = sublane_step<R, kRipple>(
             C[v], false, G[v - 1][R - 1], H[v - 1], D2L[v - 1], q[v], D[v],
-            G[v], D2L[v], H[v], ma, mi, go, ge);
+            G[v], D2L[v], H[v], a.ma, a.mi, a.go, a.ge);
         if (v == V - 1) f0_tail = f0;
       }
       C[0] = head ? cin[k] : nC;
-      const bool f0 = sublane_step<R>(
-          C[0], head, nG, nH, nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go,
-          ge);
+      const bool row0 = kChain && head;
+      const bool f0 = sublane_step<R, kRipple>(
+          C[0], seghead, row0 ? bg[k] : nG, row0 ? bh[k] : nH,
+          row0 ? bd[k] : nD, q[0], D[0], G[0], D2L[0], H[0], a.ma, a.mi,
+          a.go, a.ge);
       if (V == 1) f0_tail = f0;
       if (tail) {
-        acc = max(f0_tail ? 0 : acc, H[V - 1]);
-        dst[(size_t)(t0 + k) * ld] = acc;
+        const size_t o = (size_t)(t0 + k) * ld;
+        if (kRipple) {
+          dst[o] = H[V - 1];
+        } else {
+          acc = max(f0_tail ? 0 : acc, H[V - 1]);
+          dst[o] = acc;
+        }
+        if (kChain) {  // seg = 1: o is (t, s)
+          a.oD[o + s] = D[V - 1][R - 1];
+          a.oG[o + s] = G[V - 1][R - 1];
+          a.oH[o + s] = H[V - 1];
+        }
       }
     }
   }
 }
 
-template <int R>
-cudaError_t launch(const void* qk, const void* sk, void* strip, int S, int T,
-                   int seg, int ma, int mi, int go, int ge,
-                   cudaStream_t stream) {
+template <int R, int kMode>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int SL = kLanes / R;
   constexpr int W = SL < 32 ? SL : 32;
-  const long long threads = (long long)S * W;
+  const long long threads = (long long)a.S * W;
   const int blocks = (int)((threads + kBlock - 1) / kBlock);
-  stream_wavefront_kernel<R><<<blocks, kBlock, 0, stream>>>(
-      static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
-      static_cast<int32_t*>(strip), S, T, seg, ma, mi, go, ge);
+  stream_wavefront_kernel<R, kMode><<<blocks, kBlock, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t launch_rows(int rows, const Args& a, cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch<1, kMode>(a, stream);
+    case 2: return launch<2, kMode>(a, stream);
+    case 4: return launch<4, kMode>(a, stream);
+    case 8: return launch<8, kMode>(a, stream);
+    case 16: return launch<16, kMode>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // rows in {1, 2, 4, 8, 16}; seg in {1, 2, 4, 8} with (128/rows) % seg == 0;
-// T % 8 == 0.  The caller checks these.  Returns the launch's CUDA error.
+// T % 8 == 0.  tail_acc = 0 takes the ripple-H form at rows = 1 and is
+// ignored otherwise.  The caller checks these.  Returns the launch's CUDA
+// error.
 extern "C" int swtpu_stream_wavefront(const void* qk, const void* sk,
                                       void* strip, int S, int T, int seg,
-                                      int rows, int ma, int mi, int go, int ge,
-                                      void* stream) {
+                                      int rows, int tail_acc, int ma, int mi,
+                                      int go, int ge, void* stream) {
+  const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
+               nullptr, nullptr, nullptr, static_cast<int32_t*>(strip),
+               nullptr, nullptr, nullptr, S, T, seg, ma, mi, go, ge};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return launch<1>(qk, sk, strip, S, T, seg, ma, mi, go, ge, st);
-    case 2: return launch<2>(qk, sk, strip, S, T, seg, ma, mi, go, ge, st);
-    case 4: return launch<4>(qk, sk, strip, S, T, seg, ma, mi, go, ge, st);
-    case 8: return launch<8>(qk, sk, strip, S, T, seg, ma, mi, go, ge, st);
-    case 16: return launch<16>(qk, sk, strip, S, T, seg, ma, mi, go, ge, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (!tail_acc && rows == 1) return launch<1, kRippleH>(a, st);
+  return launch_rows<kTailAcc>(rows, a, st);
+}
+
+// One chained tile at segments 1: qk [128, S] int8, sk [T, S] int8,
+// bD/bG/bH [T, S] int32 -> acc, oD, oG, oH [T, S] int32.  rows in
+// {1, 2, 4, 8, 16}; T % 8 == 0.  The caller checks these.  Returns the
+// launch's CUDA error.
+extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
+                                    const void* bD, const void* bG,
+                                    const void* bH, void* acc, void* oD,
+                                    void* oG, void* oH, int S, int T,
+                                    int rows, int ma, int mi, int go, int ge,
+                                    void* stream) {
+  const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
+               static_cast<const int32_t*>(bD), static_cast<const int32_t*>(bG),
+               static_cast<const int32_t*>(bH), static_cast<int32_t*>(acc),
+               static_cast<int32_t*>(oD), static_cast<int32_t*>(oG),
+               static_cast<int32_t*>(oH), S, T, 1, ma, mi, go, ge};
+  return launch_rows<kChained>(rows, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* swtpu_cuda_error_string(int err) {

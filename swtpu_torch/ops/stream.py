@@ -1,18 +1,25 @@
 """The streamed anti-diagonal wavefront on torch tensors.
 
-The port of the single-tile entries of ``swtpu.ops.pallas_stream``.  Query
-positions sit on wavefront sublanes (R query rows folded into each), one
-logical stream per column; every step injects one flagged char per segment
-head, shifts the char pipe one sublane down, and updates every cell on the
-anti-diagonal.  Each segment tail keeps a running-best accumulator that
-resets at a read's first char; the [T, N] int32 strip of those
-accumulators is the emission surface the host-computed coordinates index.
+The port of ``swtpu.ops.pallas_stream``.  Query positions sit on wavefront
+sublanes (R query rows folded into each), one logical stream per column;
+every step injects one flagged char per segment head, shifts the char pipe
+one sublane down, and updates every cell on the anti-diagonal.  Each
+segment tail keeps a running-best accumulator that resets at a read's
+first char; the [T, N] int32 strip of those accumulators is the emission
+surface the host-computed coordinates index.  At rows = 1 the strip can
+instead be the tail row's rippled H (``tail_acc=False``).
 
-``stream_strip_reference`` is the plain PyTorch version of the recurrence.
-``stream_strip_cuda`` launches the hand-written CUDA kernel
-(``csrc/stream_wavefront.cu``).  ``_strip_call`` takes the plain version
-for a tensor on the CPU and the kernel for a CUDA tensor; there is no
-fallback from one to the other.
+Queries longer than 128 bases chain K = ceil(len/128) tiles of 128 query
+rows (``sw_scores_stream_long``): each tile's row 0 reads the tile above's
+row-127 D/G/H from boundary strips, and each tile emits its own row 127
+for the tile below.
+
+``stream_strip_reference`` and ``stream_chained_reference`` are the plain
+PyTorch versions of the two kernels; ``stream_strip_cuda`` and
+``stream_chained_cuda`` launch the hand-written CUDA kernels
+(``csrc/stream_wavefront.cu``).  ``_strip_call`` and
+``_strip_call_chained`` take the plain version for a tensor on the CPU and
+the kernel for a CUDA tensor; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -87,25 +94,11 @@ def _q_kernel_layout(q, segments, rows=1):
     return q4.permute(3, 0, 2, 1).reshape(LANES, S_phys)
 
 
-def stream_strip_reference(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1):
-    """Plain PyTorch wavefront: qk [128, S] int8 (kernel layout), sk
-    [T, segments*S] int8 -> strip [T, segments*S] int32.
-
-    State lives on [SL, S] planes, SL = 128//rows sublanes; plane r of a
-    list holds query row k*rows + r of sublane k.  Per step:
-      - the char pipe C shifts one sublane down and each segment head
-        takes its stream's next char; f0 = C >= 8 marks a read's first
-        char, C & 7 is the base;
-      - row 0 of a sublane reads the sublane above: D from two steps back
-        (the diagonal) and G and H from one step back; rows r > 0 read
-        row r-1 of their own sublane (D from the previous step, G from
-        this one);
-      - M = max(diag + s, 0), I = max(G_up, G_left) + extend,
-        D = max(M, I), G = max(M + open, I); H is the running max of M down
-        the sublane; segment heads and read starts see zero boundaries;
-      - each segment tail folds H into its accumulator, which resets where
-        f0 is set, and the accumulators are the strip row of this step.
-    The initial pipe is the pad char 4 and all state is zero."""
+def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bounds=None):
+    """The recurrence behind :func:`stream_strip_reference` and
+    :func:`stream_chained_reference`; returns the strip [T, segments, S],
+    and with `bounds` (bD, bG, bH, each [T, S]) also the tile's row-127
+    (oD, oG, oH)."""
     ma, mi, go, ge = penalties.astuple()
     S = qk.shape[1]
     T = sk.shape[0]
@@ -113,6 +106,7 @@ def stream_strip_reference(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows
     SLg = SL // segments
     dev = qk.device
     i32 = torch.int32
+    ripple = not tail_acc and rows == 1
     qs = qk.to(i32).reshape(rows, SL, S)
     sc = sk.to(i32).reshape(T, segments, S)
     seghead = (torch.arange(SL, device=dev) % SLg == 0)[:, None]
@@ -132,18 +126,30 @@ def stream_strip_reference(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows
     C = torch.full((SL, S), 4, dtype=i32, device=dev)
     acc = torch.zeros((segments, S), dtype=i32, device=dev)
     strip = torch.empty((T, segments, S), dtype=i32, device=dev)
+    if bounds is not None:
+        bD, bG, bH = (b.to(i32) for b in bounds)
+        outs = [torch.empty((T, S), dtype=i32, device=dev) for _ in range(3)]
     for t in range(T):
         C = torch.roll(C, 1, 0)
         C[heads] = sc[t]
         f0 = C >= FLAG_BIT
         cval = C & 7
         s0 = torch.where(cval == qs[0], ma_t, mi_t)
-        diag = torch.where(seghead | f0, zero, torch.roll(D2L, 1, 0))
-        Mc = torch.clamp_min(diag + s0, 0)
-        G_up = torch.where(seghead, zero, torch.roll(G[rows - 1], 1, 0))
+        # row 0 of a sublane reads the sublane above
+        upD, upG, upH = (torch.roll(x, 1, 0) for x in (D2L, G[rows - 1], Hl))
+        if bounds is None:
+            upD, upG, upH = (torch.where(seghead, zero, x) for x in (upD, upG, upH))
+        else:
+            # the tile's row 0 reads the tile above's row 127: the same
+            # column of the same read, so no zero but the read-start one
+            upD[0], upG[0], upH[0] = bD[t], bG[t], bH[t]
+        Mc = torch.clamp_min(torch.where(f0, zero, upD) + s0, 0)
         G_left = torch.where(f0, zero, G[0])
-        Ic = torch.maximum(G_up, G_left) + ge
-        Hcur = torch.maximum(torch.where(seghead, zero, torch.roll(Hl, 1, 0)), Mc)
+        Ic = torch.maximum(upG, G_left) + ge
+        Hcur = torch.maximum(upH, Mc)
+        if ripple:
+            # H ripples with the data; its own register resets at a read start
+            Hcur = torch.maximum(Hcur, torch.where(f0, zero, Hl))
         newD = [torch.maximum(Mc, Ic)]
         newG = [torch.maximum(Mc + go, Ic)]
         for r in range(1, rows):
@@ -158,25 +164,97 @@ def stream_strip_reference(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows
         D = newD
         G = newG
         Hl = Hcur
-        acc = torch.maximum(torch.where(f0[tails], zero, acc), Hcur[tails])
-        strip[t] = acc
-    return strip.reshape(T, segments * S)
+        if ripple:
+            strip[t] = Hcur[tails]
+        else:
+            acc = torch.maximum(torch.where(f0[tails], zero, acc), Hcur[tails])
+            strip[t] = acc
+        if bounds is not None:
+            for o, x in zip(outs, (newD[-1], newG[-1], Hcur)):
+                o[t] = x[SL - 1]
+    if bounds is None:
+        return strip
+    return (strip, *outs)
 
 
-def stream_strip_cuda(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1):
+def stream_strip_reference(
+    qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1, tail_acc=True,
+):
+    """Plain PyTorch wavefront: qk [128, S] int8 (kernel layout), sk
+    [T, segments*S] int8 -> strip [T, segments*S] int32.
+
+    State lives on [SL, S] planes, SL = 128//rows sublanes; plane r of a
+    list holds query row k*rows + r of sublane k.  Per step:
+      - the char pipe C shifts one sublane down and each segment head
+        takes its stream's next char; f0 = C >= 8 marks a read's first
+        char, C & 7 is the base;
+      - row 0 of a sublane reads the sublane above: D from two steps back
+        (the diagonal) and G and H from one step back; rows r > 0 read
+        row r-1 of their own sublane (D from the previous step, G from
+        this one);
+      - M = max(diag + s, 0), I = max(G_up, G_left) + extend,
+        D = max(M, I), G = max(M + open, I); H is the running max of M down
+        the sublane; segment heads and read starts see zero boundaries;
+      - each segment tail folds H into its accumulator, which resets where
+        f0 is set, and the accumulators are the strip row of this step.
+    tail_acc=False (the ripple-H form; rows = 1 only, ignored otherwise):
+    each row's H also keeps its own previous H, reset where f0 is set, and
+    the strip row is the segment tails' H.
+    The initial pipe is the pad char 4 and all state is zero."""
+    T = sk.shape[0]
+    strip = _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc)
+    return strip.reshape(T, segments * qk.shape[1])
+
+
+def stream_chained_reference(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1):
+    """Plain PyTorch version of one tile of a long-query chain (segments 1):
+    qk [128, S] int8 (kernel layout), sk [T, S] int8, boundary strips bD,
+    bG, bH [T, S] int32 -> (acc, oD, oG, oH), each [T, S] int32.
+
+    The recurrence of :func:`stream_strip_reference` but for the tile's
+    row 0, which reads the tile above's row 127 instead of a zero boundary:
+    diag = f0 ? 0 : bD[t], G_up = bG[t], H_up = bH[t] (neither zeroed at a
+    read start: it is the same column of the same read).  oD, oG and oH
+    are the tile's own row 127 (D, G and H of the last sublane's row R-1)
+    after each step; acc is the tail accumulator.  With zero boundaries it
+    is stream_strip_reference at segments 1."""
+    acc, *outs = _wavefront_reference(qk, sk, penalties, 1, rows, bounds=(bD, bG, bH))
+    return (acc.reshape(sk.shape), *outs)
+
+
+def _check_kernel_tensors(**tensors):
+    """Each (name, (tensor, dtype)) must be a contiguous CUDA tensor of
+    that dtype, all on one device."""
+    dev = None
+    for name, (x, dtype) in tensors.items():
+        if x.device.type != "cuda" or x.dtype != dtype:
+            raise ValueError(
+                f"{name} must be a CUDA {str(dtype).removeprefix('torch.')} "
+                f"tensor, got {x.dtype} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if dev is not None and x.device != dev:
+            raise ValueError(f"{name} on {x.device} but the others on {dev}")
+        dev = x.device
+
+
+def _raise_on_error(lib, err, kernel):
+    if err:
+        msg = lib.swtpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+
+
+def stream_strip_cuda(
+    qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1, tail_acc=True,
+):
     """The CUDA wavefront kernel on the same contract as
     :func:`stream_strip_reference`; CUDA tensors only.  Launches on the
     current stream and counts each launch in ``stream_strip_cuda.launches``."""
     from swtpu_torch.ops._build import load_library
 
     _validate_kernel_layout(qk, sk, segments, rows)
-    for name, x in (("qk", qk), ("sk", sk)):
-        if x.device.type != "cuda" or x.dtype != torch.int8:
-            raise ValueError(f"{name} must be a CUDA int8 tensor, got {x.dtype} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if sk.device != qk.device:
-        raise ValueError(f"qk on {qk.device} but sk on {sk.device}")
+    _check_kernel_tensors(qk=(qk, torch.int8), sk=(sk, torch.int8))
     S = qk.shape[1]
     T = sk.shape[0]
     out = torch.empty((T, segments * S), dtype=torch.int32, device=qk.device)
@@ -187,11 +265,10 @@ def stream_strip_cuda(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1):
     with torch.cuda.device(qk.device):
         err = lib.swtpu_stream_wavefront(
             qk.data_ptr(), sk.data_ptr(), out.data_ptr(), S, T, segments,
-            rows, ma, mi, go, ge, torch.cuda.current_stream().cuda_stream,
+            rows, int(tail_acc), ma, mi, go, ge,
+            torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        msg = lib.swtpu_cuda_error_string(err).decode()
-        raise RuntimeError(f"stream_wavefront launch failed: CUDA error {err} ({msg})")
+    _raise_on_error(lib, err, "stream_wavefront")
     stream_strip_cuda.launches += 1
     return out
 
@@ -199,15 +276,63 @@ def stream_strip_cuda(qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1):
 stream_strip_cuda.launches = 0
 
 
-def _strip_call(qk, sk, penalties, segments, rows):
+def stream_chained_cuda(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1):
+    """The CUDA chained-tile kernel on the same contract as
+    :func:`stream_chained_reference`; CUDA tensors only.  Launches on the
+    current stream and counts each launch in ``stream_chained_cuda.launches``."""
+    from swtpu_torch.ops._build import load_library
+
+    _validate_kernel_layout(qk, sk, 1, rows)
+    _check_kernel_tensors(
+        qk=(qk, torch.int8), sk=(sk, torch.int8), bD=(bD, torch.int32),
+        bG=(bG, torch.int32), bH=(bH, torch.int32),
+    )
+    for name, b in (("bD", bD), ("bG", bG), ("bH", bH)):
+        if b.shape != sk.shape:
+            raise ValueError(
+                f"{name} shape {tuple(b.shape)} != stream shape {tuple(sk.shape)}"
+            )
+    S = qk.shape[1]
+    T = sk.shape[0]
+    outs = [torch.empty((T, S), dtype=torch.int32, device=qk.device) for _ in range(4)]
+    if T == 0 or S == 0:
+        return tuple(outs)
+    lib = load_library()
+    ma, mi, go, ge = penalties.astuple()
+    with torch.cuda.device(qk.device):
+        err = lib.swtpu_stream_chained(
+            qk.data_ptr(), sk.data_ptr(), bD.data_ptr(), bG.data_ptr(),
+            bH.data_ptr(), *(o.data_ptr() for o in outs), S, T, rows,
+            ma, mi, go, ge, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, "stream_chained")
+    stream_chained_cuda.launches += 1
+    return tuple(outs)
+
+
+stream_chained_cuda.launches = 0
+
+
+def _strip_call(qk, sk, penalties, segments, rows, tail_acc=True):
     """qk [128, S_phys] int8, sk [T, seg*S_phys] int8 -> strip
     [T, seg*S_phys] int32: the plain version on the CPU, the kernel on
     CUDA."""
     if qk.device.type == "cpu":
-        return stream_strip_reference(qk, sk, penalties, segments, rows)
+        return stream_strip_reference(qk, sk, penalties, segments, rows, tail_acc)
     if qk.device.type == "cuda":
-        return stream_strip_cuda(qk, sk, penalties, segments, rows)
+        return stream_strip_cuda(qk, sk, penalties, segments, rows, tail_acc)
     raise ValueError(f"no wavefront kernel for device {qk.device}")
+
+
+def _strip_call_chained(qk, sk, bD, bG, bH, penalties, rows):
+    """One chained tile: qk [128, S] int8, sk [T, S] int8, boundary strips
+    [T, S] int32 -> (acc, oD, oG, oH), each [T, S] int32: the plain
+    version on the CPU, the kernel on CUDA."""
+    if qk.device.type == "cpu":
+        return stream_chained_reference(qk, sk, bD, bG, bH, penalties, rows)
+    if qk.device.type == "cuda":
+        return stream_chained_cuda(qk, sk, bD, bG, bH, penalties, rows)
+    raise ValueError(f"no chained wavefront kernel for device {qk.device}")
 
 
 def _to_kernel_layout(q, stream, segments, rows):
@@ -217,7 +342,8 @@ def _to_kernel_layout(q, stream, segments, rows):
 
 
 def sw_scores_stream_strip(
-    q, stream, penalties: Penalties = DEFAULT_PENALTIES, segments=1, rows=1,
+    q, stream, penalties: Penalties = DEFAULT_PENALTIES, segments=1,
+    tail_acc=True, rows=1,
 ):
     """Run the wavefront over packed streams; returns the raw strip.
 
@@ -226,6 +352,8 @@ def sw_scores_stream_strip(
       stream: [N, T] int8 concatenated target chars (codes 0..3, +8 flag on
         each target's first char, 4 = drain/pad), T % STEP_CHUNK == 0.
       segments: queries packed per lane column (1, 2, 4 or 8).
+      tail_acc: the strip is the segment tails' running-best accumulators;
+        False takes the ripple-H form (rows = 1 only; ignored otherwise).
       rows: query rows folded per sublane; the emission drain is
         128//(rows*segments) - 1.
 
@@ -235,7 +363,7 @@ def sw_scores_stream_strip(
     """
     _validate(q, stream, segments, rows)
     qk, sk = _to_kernel_layout(q, stream, segments, rows)
-    return _strip_call(qk, sk, penalties, segments, rows).t()
+    return _strip_call(qk, sk, penalties, segments, rows, tail_acc).t()
 
 
 def unpack_stream_wire(codes, flags):
@@ -271,23 +399,23 @@ def _gather_emissions(strip, emit_stream, emit_step, regular=None):
 
 def sw_scores_stream_kernel_layout(
     qk, streamT, emit_stream, emit_step,
-    penalties: Penalties = DEFAULT_PENALTIES, segments=1, rows=1,
-    emit_regular=None,
+    penalties: Penalties = DEFAULT_PENALTIES, segments=1, tail_acc=True,
+    rows=1, emit_regular=None,
 ):
     """sw_scores_stream on pre-laid-out inputs: qk [128, S_phys]
     (``_q_kernel_layout``) and streamT [T, N] (the stream transposed)."""
     _validate_kernel_layout(qk, streamT, segments, rows)
     strip = _strip_call(
         qk.to(torch.int8).contiguous(), streamT.to(torch.int8).contiguous(),
-        penalties, segments, rows,
+        penalties, segments, rows, tail_acc,
     )
     return _gather_emissions(strip, emit_stream, emit_step, regular=emit_regular)
 
 
 def sw_scores_stream(
     q, stream, emit_stream, emit_step,
-    penalties: Penalties = DEFAULT_PENALTIES, segments=1, rows=1,
-    emit_regular=None,
+    penalties: Penalties = DEFAULT_PENALTIES, segments=1, tail_acc=True,
+    rows=1, emit_regular=None,
 ):
     """Wavefront scoring with the emission gather on the tensors' device:
     q [N, 128//segments], stream [N, T] -> [n_reads] int32 scores.
@@ -296,19 +424,139 @@ def sw_scores_stream(
     coordinates must have been computed for the same rows/segments."""
     _validate(q, stream, segments, rows)
     qk, sk = _to_kernel_layout(q, stream, segments, rows)
-    strip = _strip_call(qk, sk, penalties, segments, rows)  # [T, N]
+    strip = _strip_call(qk, sk, penalties, segments, rows, tail_acc)  # [T, N]
     return _gather_emissions(strip, emit_stream, emit_step, regular=emit_regular)
 
 
 def sw_scores_stream_packed(
     q, codes, flags, emit_stream, emit_step,
-    penalties: Penalties = DEFAULT_PENALTIES, segments=1, rows=1,
-    emit_regular=None,
+    penalties: Penalties = DEFAULT_PENALTIES, segments=1, tail_acc=True,
+    rows=1, emit_regular=None,
 ):
     """sw_scores_stream on the 2-bit wire format (pack_stream_wire): the
     stream crosses to the device at 2.5 bits/char and expands there."""
     stream = unpack_stream_wire(codes, flags)
     return sw_scores_stream(
         q, stream, emit_stream, emit_step, penalties=penalties,
-        segments=segments, rows=rows, emit_regular=emit_regular,
+        segments=segments, tail_acc=tail_acc, rows=rows,
+        emit_regular=emit_regular,
+    )
+
+
+def _shift_steps(x, k):
+    """x[t] <- x[t + k], zero-filled at the tail (a left shift on the step
+    axis of a [T, N] strip)."""
+    T = x.shape[0]
+    k = min(k, T)
+    out = torch.empty_like(x)
+    out[: T - k] = x[k:]
+    out[T - k :] = 0
+    return out
+
+
+def _validate_long(q, T, rows):
+    """Contract checks of the long-query entries; swtpu's TPU-only rules
+    (the 128-lane stream count, the grid chunk) are left out, as in
+    :func:`_validate_config`."""
+    _validate_config(1, rows)
+    if q.shape[1] % LANES:
+        raise ValueError(f"q width {q.shape[1]} must be a multiple of {LANES}")
+    if T % STEP_CHUNK:
+        raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
+
+
+def _unported_long(state_dtype, score_width):
+    if state_dtype != "int32":
+        raise NotImplementedError(
+            f"state_dtype={state_dtype!r} is not ported yet (ROADMAP: float32 "
+            "state on CUDA); the port carries int32 state"
+        )
+    if score_width is not None:
+        raise NotImplementedError(
+            "score_width is not ported yet (ROADMAP: score_width through the "
+            "CUDA kernel)"
+        )
+
+
+def _long_strip(q, sk, penalties, rows, tile=_strip_call_chained):
+    """The K-tile chain on q [N, K*128] and the kernel-layout stream sk
+    [T, N] int8 -> the last tile's accumulator strip [T, N] int32.
+
+    Tile p+1's row 0 computes column j at step j and needs tile p's row 127
+    at column j (G, H: its step j + SL - 1) and column j - 1 (D: step
+    j + SL - 2), SL = 128//rows, so the boundary strips are tile p's
+    outputs shifted left by those steps.  Only the previous tile's strips
+    stay alive.  `tile` runs one tile (``_strip_call_chained``'s contract)."""
+    K = q.shape[1] // LANES
+    SL = LANES // rows
+    acc = bD = bG = bH = torch.zeros(tuple(sk.shape), dtype=torch.int32, device=sk.device)
+    for p in range(K):
+        qk = _q_kernel_layout(q[:, p * LANES : (p + 1) * LANES], 1, rows)
+        acc, oD, oG, oH = tile(qk.to(torch.int8).contiguous(), sk, bD, bG, bH, penalties, rows)
+        if p + 1 < K:
+            bD = _shift_steps(oD, SL - 2)
+            bG = _shift_steps(oG, SL - 1)
+            bH = _shift_steps(oH, SL - 1)
+        del oD, oG, oH
+    return acc
+
+
+def _long_impl(q, sk, emit_stream, emit_step, penalties, rows, emit_regular):
+    """Chain the tiles over the kernel-layout stream sk [T, N] and gather
+    the emissions from the last tile's accumulator strip."""
+    acc = _long_strip(q, sk.to(torch.int8).contiguous(), penalties, rows)
+    return _gather_emissions(acc, emit_stream, emit_step, regular=emit_regular)
+
+
+def sw_scores_stream_long(
+    q, stream, emit_stream, emit_step,
+    penalties: Penalties = DEFAULT_PENALTIES, state_dtype="int32", rows=16,
+    score_width=None, emit_regular=None,
+):
+    """Streamed wavefront scoring for queries longer than 128 bases: chains
+    K = q.shape[1]/128 tiles of the wavefront, carrying the row-127 D/G/H
+    strips between tiles (the reference's chaining ports; up to its
+    4,095-base LEN_WIDTH envelope and beyond).
+
+    Args:
+      q: [N, K*128] int8 per-stream query codes, sentinel-padded (pads in
+        the last tile cannot raise H; they only pass the ripple down).
+      stream: [N, T] packed streams from pack_streams_long (T includes
+        (128//rows - 1)*(K - 1) extra drain steps).
+      emit_stream/emit_step: emission coordinates (drain = 128//rows - 1,
+        as for one tile at segments 1).
+      state_dtype, score_width: only int32 state without wrap-parity is
+        ported; other values raise NotImplementedError.
+
+    Returns [n_reads] int32 scores.
+    """
+    _unported_long(state_dtype, score_width)
+    _validate_long(q, stream.shape[1], rows)
+    return _long_impl(q, stream.t(), emit_stream, emit_step, penalties, rows, emit_regular)
+
+
+def sw_scores_stream_long_kernel_layout(
+    q, streamT, emit_stream, emit_step,
+    penalties: Penalties = DEFAULT_PENALTIES, state_dtype="int32", rows=16,
+    score_width=None, emit_regular=None,
+):
+    """sw_scores_stream_long on a pre-transposed [T, N] stream (the query
+    register is laid out per tile inside, as usual)."""
+    _unported_long(state_dtype, score_width)
+    _validate_long(q, streamT.shape[0], rows)
+    return _long_impl(q, streamT, emit_stream, emit_step, penalties, rows, emit_regular)
+
+
+def sw_scores_stream_long_packed(
+    q, codes, flags, emit_stream, emit_step,
+    penalties: Penalties = DEFAULT_PENALTIES, state_dtype="int32", rows=16,
+    score_width=None, emit_regular=None,
+):
+    """sw_scores_stream_long on the 2-bit wire format: the stream crosses
+    to the device at 2.5 bits/char and expands there."""
+    stream = unpack_stream_wire(codes, flags)
+    return sw_scores_stream_long(
+        q, stream, emit_stream, emit_step, penalties=penalties,
+        state_dtype=state_dtype, rows=rows, score_width=score_width,
+        emit_regular=emit_regular,
     )

@@ -63,6 +63,21 @@ def test_score_with_custom_penalties(tmp_path):
     assert ref_main(["diff", str(port_out), str(ref_out)]) == 0
 
 
+def test_long_query_score_lines_equal_swtpu_cli(tmp_path):
+    """A 200-base query takes the chained-tile path with no change to the
+    CLI."""
+    fa = _fasta(tmp_path / "gen.fa", seed=4, qlen=200)
+    port_out, ref_out = tmp_path / "port.txt", tmp_path / "ref.txt"
+    events = tmp_path / "events.jsonl"
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa),
+                 "-o", str(port_out), "--events", str(events)]) == 0
+    assert json.loads(events.read_text())["kind"] == "stream_long"
+    assert ref_main(["--platform", "cpu", "score", "-q", str(fa), "-l", str(fa),
+                     "-o", str(ref_out), "--backend", "scan"]) == 0
+    assert len(parse_rtl_out_file(port_out)) == 25
+    assert ref_main(["diff", str(port_out), str(ref_out)]) == 0
+
+
 def test_port_never_imports_jax(tmp_path):
     """The port's CPU slice and CLI in a fresh interpreter: neither JAX nor
     a JAX-importing swtpu module may load (the test process has both)."""
@@ -77,6 +92,9 @@ def test_port_never_imports_jax(tmp_path):
         query = rng.integers(0, 4, size=30).astype(np.int8)
         res = swtpu_torch.ScoreBank(device="cpu").score_database(query, reads)
         assert (res.scores == swtpu_torch.score_many_vs_one(query, reads)).all()
+        long_query = rng.integers(0, 4, size=150).astype(np.int8)
+        res = swtpu_torch.ScoreBank(device="cpu").score_database(long_query, reads)
+        assert (res.scores == swtpu_torch.score_many_vs_one(long_query, reads)).all()
         assert main(["--device", "cpu", "score", "-q", {str(fa)!r}, "-l", {str(fa)!r},
                      "-o", {str(tmp_path / "out.txt")!r}]) == 0
         heavy = [m for m in sys.modules if m == "jax" or m.startswith(("jax.",

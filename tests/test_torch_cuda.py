@@ -1,5 +1,5 @@
-"""The CUDA wavefront kernel on the card: its strip against the plain
-PyTorch version, and ScoreBank(device="cuda") against the oracle.
+"""The CUDA wavefront kernels on the card: their strips against the plain
+PyTorch versions, and ScoreBank(device="cuda") against the oracle.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -13,7 +13,7 @@ import torch
 
 from swtpu_torch import DEFAULT_PENALTIES, SWConfig, ScoreBank, score_many_vs_one
 from swtpu_torch.bank.scorebank import EncodedDB
-from swtpu_torch.bank.streams import pack_streams
+from swtpu_torch.bank.streams import pack_streams, pack_streams_long
 from swtpu_torch.ops import stream as port
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +79,114 @@ def test_score_database_equals_oracle(cuda_device, qlen, wire):
     res = ScoreBank(SWConfig(wire_2bit=wire), device=cuda_device).score_database(query, db)
     assert port.stream_strip_cuda.launches == launches + 1
     np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
+
+
+@pytest.mark.parametrize("segments", [1, 2, 4, 8])
+def test_ripple_h_strip_equals_plain_version(cuda_device, segments):
+    rng = np.random.default_rng(segments + 100)
+    db = _db(rng, 400, 200)
+    query = rng.integers(0, 4, size=128 // segments - 1).astype(np.int8)
+    b = pack_streams(query, db.mat, n_streams=40 * segments, segments=segments,
+                     lens=db.lens, rows=1)
+    qk, sk = port._to_kernel_layout(
+        torch.from_numpy(b.q), torch.from_numpy(b.stream), segments, 1
+    )
+    want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, segments, 1, False)
+    got = port.stream_strip_cuda(
+        qk.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES, segments, 1, False
+    )
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    scores = port.sw_scores_stream(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+          for a in (b.q, b.stream, b.emit_stream, b.emit_step)),
+        segments=segments, tail_acc=False,
+    )
+    np.testing.assert_array_equal(scores.cpu().numpy(),
+                                  score_many_vs_one(query, db.as_list()))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 16])
+def test_chained_kernel_equals_plain_version(cuda_device, rows):
+    """All four strips of one tile, on random boundary strips, at 40
+    physical streams (a ragged last block)."""
+    rng = np.random.default_rng(rows + 200)
+    db = _db(rng, 400, 200)
+    b = pack_streams(rng.integers(0, 4, size=1).astype(np.int8), db.mat,
+                     n_streams=40, lens=db.lens, rows=rows)
+    sk = torch.from_numpy(b.stream.T.copy())
+    qk = torch.from_numpy(rng.integers(0, 4, size=(128, 40)).astype(np.int8))
+    bounds = [torch.from_numpy(rng.integers(-20, 60, size=sk.shape).astype(np.int32))
+              for _ in range(3)]
+    want = port.stream_chained_reference(qk, sk, *bounds, DEFAULT_PENALTIES, rows)
+    launches = port.stream_chained_cuda.launches
+    got = port.stream_chained_cuda(
+        qk.to(cuda_device), sk.to(cuda_device), *(x.to(cuda_device) for x in bounds),
+        DEFAULT_PENALTIES, rows,
+    )
+    torch.cuda.synchronize()
+    assert port.stream_chained_cuda.launches == launches + 1
+    for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+
+
+def test_chained_kernel_rejects_bad_tensors(cuda_device):
+    qk = torch.zeros((128, 8), dtype=torch.int8, device=cuda_device)
+    sk = torch.zeros((32, 8), dtype=torch.int8, device=cuda_device)
+    b = torch.zeros((32, 8), dtype=torch.int32, device=cuda_device)
+    launches = port.stream_chained_cuda.launches
+    with pytest.raises(ValueError, match="bD must be a CUDA int32 tensor"):
+        port.stream_chained_cuda(qk, sk, b.to(torch.int64), b, b, DEFAULT_PENALTIES, 16)
+    with pytest.raises(ValueError, match="bH shape"):
+        port.stream_chained_cuda(qk, sk, b, b, b[:8], DEFAULT_PENALTIES, 16)
+    with pytest.raises(ValueError, match="bG must be contiguous"):
+        port.stream_chained_cuda(qk, sk, b, b.t().contiguous().t(), b,
+                                 DEFAULT_PENALTIES, 16)
+    with pytest.raises(ValueError, match="bD must be a CUDA int32 tensor"):
+        port.stream_chained_cuda(qk, sk, b.cpu(), b, b, DEFAULT_PENALTIES, 16)
+    assert port.stream_chained_cuda.launches == launches
+
+
+def test_launch_failure_raises(cuda_device, monkeypatch):
+    """A launch the card refuses raises with the CUDA error, and counts no
+    launch."""
+    from swtpu_torch.ops import _build
+
+    lib = _build.load_library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def swtpu_stream_chained(*args):
+            return 1  # cudaErrorInvalidValue
+
+        @staticmethod
+        def swtpu_stream_wavefront(*args):
+            return 1
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    qk = torch.zeros((128, 8), dtype=torch.int8, device=cuda_device)
+    sk = torch.zeros((32, 8), dtype=torch.int8, device=cuda_device)
+    b = torch.zeros((32, 8), dtype=torch.int32, device=cuda_device)
+    launches = (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches)
+    with pytest.raises(RuntimeError, match="stream_chained launch failed: CUDA error 1"):
+        port.stream_chained_cuda(qk, sk, b, b, b, DEFAULT_PENALTIES, 16)
+    with pytest.raises(RuntimeError, match="stream_wavefront launch failed"):
+        port.stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, 16)
+    assert (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches) == launches
+
+
+@pytest.mark.parametrize("qlen", [200, 600])
+@pytest.mark.parametrize("wire", [True, False])
+def test_long_query_score_database_equals_oracle(cuda_device, qlen, wire):
+    rng = np.random.default_rng(qlen + wire)
+    db = _db(rng, 2000, 200)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    launches = port.stream_chained_cuda.launches
+    res = ScoreBank(SWConfig(wire_2bit=wire), device=cuda_device).score_database(query, db)
+    K = -(-qlen // 128)
+    assert port.stream_chained_cuda.launches == launches + K
+    np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
+    b = pack_streams_long(query, db.mat, n_streams=512, rows=16, lens=db.lens)
+    assert (res.cells, res.padded_cells) == (b.cells, b.stream.size * 128 * K)

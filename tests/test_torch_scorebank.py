@@ -123,8 +123,6 @@ def test_event_log_record(tmp_path):
 @pytest.mark.parametrize(
     "make,match",
     [
-        (lambda: ScoreBank(device="cpu").score_database(np.zeros(200, np.int8), [np.zeros(9, np.int8)]),
-         "B3 long queries"),
         (lambda: ScoreBank(SWConfig(score_width=12), device="cpu"), "score_width"),
         (lambda: ScoreBank(backend="scan", device="cpu"), "scan"),
         (lambda: ScoreBank(SWConfig(stream_chunk_reads=2), device="cpu").score_database(
@@ -147,7 +145,10 @@ def test_unported_settings_raise(make, match):
         (64, "cuda", SWConfig(), (2, 8, 512)),
         (128, "cuda", SWConfig(), (1, 16, 512)),
         (128, "cuda", SWConfig(stream_rows=4, stream_phys=1024), (1, 4, 1024)),
+        (129, "cuda", SWConfig(), (1, 16, 512)),
+        (4095, "cuda", SWConfig(stream_phys=256), (1, 16, 256)),
         (20, "cpu", SWConfig(), (4, 1, 8)),
+        (300, "cpu", SWConfig(), (1, 1, 8)),
         (128, "cpu", SWConfig(stream_rows=16, stream_phys=1024), (1, 16, 8)),
     ],
 )
@@ -155,6 +156,41 @@ def test_stream_geometry(qlen, device, config, want):
     """swtpu's device settings on CUDA and its interpret settings on the
     CPU; needs no card, since it only reads the device's type."""
     assert stream_geometry(qlen, config, device) == want
+
+
+@pytest.mark.parametrize("form", ["list", "encoded_db"])
+@pytest.mark.parametrize("qlen", [129, 256, 300])  # K = 2 / 2 / 3 tiles
+def test_long_query_equals_swtpu_and_oracle(qlen, form, tmp_path):
+    rng = np.random.default_rng(qlen + len(form))
+    db = _db(rng, 40)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    targets = db if form == "encoded_db" else db.as_list()
+    log = EventLog(tmp_path / "events.jsonl")
+    got = ScoreBank(device="cpu").score_database(query, targets, event_log=log)
+    log.close()
+    want = RefBank(backend="stream", interpret=True).score_database(query, targets)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    np.testing.assert_array_equal(got.scores, score_many_vs_one(query, db.as_list()))
+    assert (got.cells, got.padded_cells) == (want.cells, want.padded_cells)
+    assert got.cells == qlen * int(db.lens.sum())
+    assert got.scores[2] == got.scores[5] == 0
+    (ev,) = EventLog.parse(tmp_path / "events.jsonl")
+    assert (ev.kind, ev.reads, ev.cells, ev.padded_cells) == (
+        "stream_long", 40, got.cells, got.padded_cells
+    )
+    assert ev.note.startswith("streams=8 T=") and ev.note.endswith(f"tiles={-(-qlen // 128)}")
+
+
+def test_long_query_settings():
+    """Custom penalties, rows from the config, verify_integrity; the long
+    path ignores stream_chunk_reads, as swtpu's does."""
+    rng = np.random.default_rng(12)
+    db = _db(rng, 30)
+    query = rng.integers(0, 4, size=210).astype(np.int8)
+    pen = Penalties(match=3, mismatch=-2, gap_open=-5, gap_extend=-1)
+    cfg = SWConfig(penalties=pen, stream_rows=4, stream_chunk_reads=4)
+    got = ScoreBank(cfg, device="cpu", verify_integrity=True).score_database(query, db)
+    np.testing.assert_array_equal(got.scores, score_many_vs_one(query, db.as_list(), pen))
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

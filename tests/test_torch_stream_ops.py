@@ -67,6 +67,49 @@ def test_scores_equal_oracle(segments, rows, penalties):
     assert got[3] == 0  # the zero-length read
 
 
+@pytest.mark.parametrize("segments", [1, 2, 4])
+def test_ripple_h_strip_equals_swtpu_interpret_strip(segments):
+    """tail_acc=False: the strip is the segment tails' rippled H."""
+    query, targets, b = _case(segments + 50, segments, 1)
+    got = port.sw_scores_stream_strip(
+        _t(b.q), _t(b.stream), segments=segments, tail_acc=False,
+    )
+    want = np.asarray(ref.sw_scores_stream_strip(
+        b.q, b.stream, interpret=True, segments=segments, tail_acc=False,
+    ))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        streams.gather_stream_scores(got.numpy(), b), score_many_vs_one(query, targets)
+    )
+
+
+@pytest.mark.parametrize("entry", ["logical", "packed", "kernel_layout"])
+def test_ripple_h_entries_equal_oracle(entry):
+    query, targets, b = _case(60, 2, 1)
+    pen = Penalties(3, -1, -3, -2)
+    emit = (_t(b.emit_stream), _t(b.emit_step.astype(np.int32)))
+    kw = dict(segments=2, tail_acc=False, emit_regular=b.emit_regular)
+    if entry == "logical":
+        got = port.sw_scores_stream(_t(b.q), _t(b.stream), *emit, pen, **kw)
+    elif entry == "packed":
+        codes, flags = streams.pack_stream_wire(b.stream)
+        got = port.sw_scores_stream_packed(_t(b.q), _t(codes), _t(flags), *emit, pen, **kw)
+    else:
+        qk = port._q_kernel_layout(_t(b.q), 2, 1)
+        got = port.sw_scores_stream_kernel_layout(qk, _t(b.stream.T), *emit, pen, **kw)
+    np.testing.assert_array_equal(got.numpy(), score_many_vs_one(query, targets, pen))
+
+
+def test_tail_acc_takes_effect_at_one_row_only():
+    """As in swtpu, rows > 1 always emits the tail accumulator."""
+    _, _, b = _case(61, 1, 4)
+    args = (_t(b.q), _t(b.stream))
+    np.testing.assert_array_equal(
+        port.sw_scores_stream_strip(*args, rows=4, tail_acc=False).numpy(),
+        port.sw_scores_stream_strip(*args, rows=4).numpy(),
+    )
+
+
 def test_unpack_stream_wire_equals_swtpu():
     _, _, b = _case(5, 1, 1)
     codes, flags = streams.pack_stream_wire(b.stream)
