@@ -6,12 +6,17 @@
 Phases, each reported on its own line; any failure exits non-zero:
   1. device: a CUDA device is required; prints the card's name and power
      limit (nvidia-smi), torch's CUDA version and nvcc's version;
-  2. build: compiles the wavefront kernels from swtpu_torch/ops/csrc;
-  3. kernel vs plain: each CUDA kernel's strips must equal the plain
-     PyTorch version's bit for bit at 512 physical streams: the wavefront
+  2. build: compiles the wavefront and column kernels from
+     swtpu_torch/ops/csrc (one nvcc per source, in parallel);
+  3. kernel vs plain: each CUDA kernel's output must equal the plain
+     PyTorch version's bit for bit: at 512 physical streams, the wavefront
      for every (segments, rows) that ScoreBank uses on CUDA and for
      rows=1, its ripple-H form at segments 1 and 4, and the chained tile
-     over whole K-tile chains (K=2 at rows 16 and 1, K=4 at rows 16);
+     over whole K-tile chains (K=2 at rows 16 and 1, K=4 at rows 16); on
+     4,096 ragged pairs, the column kernel (B4) at query widths 8, 32, 136
+     and 256, exact and at score widths 12 and 10, and the chained column
+     tile (B5) over whole chains of K=2 and K=3, every tile's h/ms/is,
+     exact and at width 10;
   4. main path: ScoreBank(device="cuda").score_database on five
      databases made from --seed: (a)-(c) short queries (the bench.py
      headline shape, a ragged short-query set and a mid-length set), then
@@ -19,13 +24,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      512-base one against 128-base reads); a sample of 2048 reads and the
      top-10 reads must carry the oracle's scores, the wavefront kernel's
      launch counter must rise in every short case and the chained
-     kernel's by K tiles per call in every long case;
+     kernel's by K tiles per call in every long case.  Then the bucketed
+     column path, ScoreBank(backend="pallas", device="cuda"): (f) a
+     128-base query against 262,144 ragged reads in three length buckets
+     (three B4 launches per call), (g) case (e)'s query and reads (a B5
+     chain of two tiles per call; every score must equal (e)'s, and the
+     sample and top-10 the oracle's), and (h) score_pairs at the RTL's
+     12-bit score width on 65,536 pairs of 24-512 bases, 1 in 64
+     identical so that those over 409 bases wrap: 128 sampled pairs and
+     16 wrapping ones must equal sw_score_single_biased (computed in
+     worker processes);
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
      (a)).  Each long case's chain runs through the kernel at full length,
      and every tile is held against the plain version on the first 4096
-     steps (see phase_chained_at_main_shape).
+     steps (see phase_chained_at_main_shape).  Each bucket batch of (f)
+     and each tile of (g), in full, through B4/B5 and the plain versions.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches, error and times.
 """
@@ -80,13 +95,14 @@ def cuda_once(fn):
 
 
 def strip_error(label, got, want) -> int:
-    """Largest |kernel - plain| over the strip; fails above TOLERANCE."""
+    """Largest |kernel - plain| over a strip (or a score vector); fails
+    above TOLERANCE."""
     err = int((got.long() - want.long()).abs().max())
     if err > TOLERANCE:
         bad = (got != want).nonzero()
-        t, n = (int(x) for x in bad[0])
-        fail(f"kernel vs plain {label}: {len(bad)} strip cells differ, first "
-             f"[t={t}, n={n}] kernel {int(got[t, n])} plain {int(want[t, n])}")
+        at = tuple(int(x) for x in bad[0])
+        fail(f"kernel vs plain {label}: {len(bad)} cells differ, first {list(at)} "
+             f"kernel {int(got[at])} plain {int(want[at])}")
     return err
 
 
@@ -144,6 +160,21 @@ def make_db(rng, n, lo, hi):
     return EncodedDB([f"db{i}" for i in range(n)], mat, lens)
 
 
+def make_pairs(rng, n, lo, hi):
+    """n random (query, target) pairs of lengths in [lo, hi]; every 64th
+    pair identical (target is query)."""
+    import numpy as np
+
+    lens = rng.integers(lo, hi + 1, size=(2, n))
+    lens[1, ::64] = lens[0, ::64]
+    codes = rng.integers(0, 4, size=int(lens.sum()), dtype=np.int8)
+    seqs = np.split(codes, np.cumsum(lens.ravel())[:-1])
+    queries, targets = seqs[:n], seqs[n:]
+    for i in range(0, n, 64):
+        targets[i] = queries[i]
+    return queries, targets
+
+
 def phase_device():
     import torch
 
@@ -176,9 +207,12 @@ def phase_build():
     load_library()
     dt = time.perf_counter() - t0
     print(f"phase build: ok {dt:.2f} s -> {library_path().name}")
+    kernel = "?"
     for line in build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {kernel}: {line.strip()}")
 
 
 def phase_kernel_vs_plain(rng):
@@ -284,9 +318,42 @@ LONG_CASES = (
 )
 
 
-def phase_main_path(rng, card, main_cases):
+def timed_runs(name, run):
+    """One warm call and three timed ones of `run`, which must give the
+    same scores each time; (result, median wall s, the walls, peak GB)."""
     import numpy as np
     import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    res = run()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = run()
+        walls.append(time.perf_counter() - t0)
+        if not np.array_equal(again.scores, res.scores):
+            fail(f"{name}: scores differ between runs")
+    return res, statistics.median(walls), walls, torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_oracle(name, res, query, db, sample, want):
+    """The sampled reads' scores must be `want` (the oracle's), and the
+    top-10 reads must carry the oracle's scores."""
+    import numpy as np
+    from swtpu_torch import score_many_vs_one
+
+    if not np.array_equal(res.scores[sample], want):
+        k = int(np.flatnonzero(res.scores[sample] != want)[0])
+        fail(f"{name}: read {sample[k]} scored {res.scores[sample[k]]}, "
+             f"oracle {want[k]}")
+    top = res.top_k(10)
+    top_want = score_many_vs_one(query, [db.read(i) for _, i in top])
+    if [s for s, _ in top] != top_want.tolist():
+        fail(f"{name}: top-10 {top} vs oracle {top_want.tolist()}")
+
+
+def phase_main_path(rng, card, main_cases):
+    import numpy as np
     from swtpu_torch import SWConfig, ScoreBank, score_many_vs_one
     from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
 
@@ -298,16 +365,7 @@ def phase_main_path(rng, card, main_cases):
         K = -(-qlen // 128)
         wrapper = stream_chained_cuda if K > 1 else stream_strip_cuda
         before = wrapper.launches
-        torch.cuda.reset_peak_memory_stats()
-        res = bank.score_database(query, db)  # warm
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            again = bank.score_database(query, db)
-            walls.append(time.perf_counter() - t0)
-            if not np.array_equal(again.scores, res.scores):
-                fail(f"{name}: scores differ between runs")
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res, wall, walls, peak_gb = timed_runs(name, lambda: bank.score_database(query, db))
         launched = wrapper.launches - before
         if K > 1 and launched != 4 * K:
             fail(f"{name}: chained kernel launched {launched} times in 4 runs "
@@ -318,15 +376,7 @@ def phase_main_path(rng, card, main_cases):
             fail(f"{name}: scores {res.scores.shape} {res.scores.dtype}")
         sample = np.sort(rng.choice(n, size=2048, replace=False))
         want = score_many_vs_one(query, [db.read(i) for i in sample])
-        if not np.array_equal(res.scores[sample], want):
-            k = int(np.flatnonzero(res.scores[sample] != want)[0])
-            fail(f"{name}: read {sample[k]} scored {res.scores[sample[k]]}, "
-                 f"oracle {want[k]}")
-        top = res.top_k(10)
-        top_want = score_many_vs_one(query, [db.read(i) for _, i in top])
-        if [s for s, _ in top] != top_want.tolist():
-            fail(f"{name}: top-10 {top} vs oracle {top_want.tolist()}")
-        wall = statistics.median(walls)
+        check_oracle(name, res, query, db, sample, want)
         gcups = res.cells / wall / 1e9
         print(f"phase main_path: ok {name} reads={n} query={qlen} tiles={K} "
               f"cells={res.cells} padded={res.padded_cells} launches={launched} "
@@ -335,7 +385,8 @@ def phase_main_path(rng, card, main_cases):
               f"(runs {', '.join(f'{w*1e3:.2f}' for w in walls)}) -> "
               f"{gcups:.2f} GCUPS on {card}", flush=True)
         cases.append(dict(name=name, query=query, db=db, wall_s=wall,
-                          gcups=gcups, cells=res.cells))
+                          gcups=gcups, cells=res.cells, scores=res.scores,
+                          sample=sample, oracle=want))
     return bank, cases
 
 
@@ -416,6 +467,265 @@ def phase_chained_at_main_shape(bank, cases):
     return results
 
 
+COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
+# the bucketed column path's cases beside (g), which reuses case (e):
+# (name, reads or pairs, length range, query length or score width)
+F_CASE = ("f_bucketed_q128", 262144, (24, 256), 128)  # buckets 32/128/512
+H_CASE = ("h_pairs_w12", 65536, (24, 512), 12)  # the RTL's register width
+SAMPLE = 2048  # reads of (f) held against the oracle
+PAIR_SAMPLE = (128, 16)  # pairs of (h) held against the biased oracle: random, wrapping
+
+
+def column_batch(rng, B, m, n):
+    """[B, m] queries and [B, n] targets on the card, sentinel-padded
+    ragged lengths (some zero), pair 0 identical over min(m, n) bases so
+    that at score width 10 it wraps past 102 matches."""
+    import numpy as np
+    import torch
+    from swtpu_torch.ops.common import Q_PAD, T_PAD
+
+    q_lens = rng.integers(0, m + 1, size=B)
+    t_lens = rng.integers(0, n + 1, size=B)
+    q = rng.integers(0, 4, size=(B, m), dtype=np.int8)
+    t = rng.integers(0, 4, size=(B, n), dtype=np.int8)
+    k = min(m, n)
+    t[0, :k] = q[0, :k]
+    q_lens[0] = t_lens[0] = k
+    q[np.arange(m)[None, :] >= q_lens[:, None]] = Q_PAD
+    t[np.arange(n)[None, :] >= t_lens[:, None]] = T_PAD
+    return torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
+
+
+def run_column_chain(q, t, width, tile):
+    """The chained column path (``_chained_call``) with `tile` running
+    each tile; returns its scores and every tile's (inputs, outputs)."""
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.column import _chained_call
+
+    tiles = []
+
+    def record(*args):
+        outs = tile(*args)
+        tiles.append((args, outs))
+        return outs
+
+    return _chained_call(q, t, DEFAULT_PENALTIES, width, tile=record), tiles
+
+
+def check_column_tiles(label, tiles, want_tiles) -> int:
+    err = 0
+    for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
+        for name, g, w in zip(COLUMN_OUTS, outs, wouts):
+            err = max(err, strip_error(f"{label} tile {p} {name}", g, w))
+    return err
+
+
+def phase_column_vs_plain(rng, B=4096, n=256):
+    """B4 at each rows-per-lane and B5 over whole chains against their
+    plain versions on B ragged pairs of n target columns."""
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.column import (
+        QUERY_TILE, column_chained_cuda, column_chained_reference,
+        column_scores_cuda, column_scores_reference,
+    )
+
+    scores, chains = [], []
+    for m in (8, 32, 136, 256):
+        for width in (None, 12, 10):
+            q, t = column_batch(rng, B, m, n)
+            args = (q, t, DEFAULT_PENALTIES, width)
+            got = column_scores_cuda(*args)
+            want, plain_ms = cuda_once(lambda: column_scores_reference(*args))
+            err = strip_error(f"column m={m} width={width}", got, want)
+            ms = cuda_ms(lambda: column_scores_cuda(*args), 10)
+            print(f"phase kernel_vs_plain: ok column m={m} width={width} [{B} pairs, "
+                  f"{n} columns] bit-equal | kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.1f} ms")
+            scores.append(dict(m=m, n=n, B=B, score_width=width, max_abs_err=err,
+                               ms=ms, plain_ms=plain_ms))
+    for K in (2, 3):
+        for width in (None, 10):
+            q, t = column_batch(rng, B, K * QUERY_TILE, n)
+            got, tiles = run_column_chain(q, t, width, column_chained_cuda)
+            (want, want_tiles), plain_ms = cuda_once(
+                lambda: run_column_chain(q, t, width, column_chained_reference)
+            )
+            label = f"column chain K={K} width={width}"
+            err = max(strip_error(f"{label} scores", got, want),
+                      check_column_tiles(label, tiles, want_tiles))
+            ms = cuda_ms(lambda: run_column_chain(q, t, width, column_chained_cuda), 5)
+            tile_ms = cuda_ms(lambda: column_chained_cuda(*tiles[0][0]), 10)
+            print(f"phase kernel_vs_plain: ok {label} [{B} pairs, {n} columns] "
+                  f"scores + h/ms/is of every tile bit-equal | chain {ms:.4f} ms "
+                  f"(kernel {tile_ms:.4f} ms per tile), plain chain {plain_ms:.1f} ms")
+            chains.append(dict(tiles=K, n=n, B=B, score_width=width, max_abs_err=err,
+                               ms=ms, tile_ms=tile_ms, plain_ms=plain_ms))
+    return scores, chains
+
+
+def biased_oracle(pairs, width):
+    """sw_score_single_biased on each (query, target) pair, spread over
+    worker processes (the pure-Python oracle takes ~1 s a 450-base pair);
+    the pool is shut down before this returns."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    from functools import partial
+
+    from swtpu.config import DEFAULT_PENALTIES
+    from swtpu.oracle import sw_score_single_biased
+
+    fn = partial(sw_score_single_biased, penalties=DEFAULT_PENALTIES, score_width=width)
+    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(fn, [q for q, _ in pairs], [t for _, t in pairs]))
+
+
+def phase_bucketed_path(rng, card, case_e):
+    """(f)-(h) through ScoreBank(backend="pallas", device="cuda")."""
+    import numpy as np
+    from swtpu_torch import SWConfig, ScoreBank, score_many_vs_one
+    from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
+
+    bank = ScoreBank(SWConfig(), backend="pallas", device="cuda")
+    cases = []
+
+    def drive(name, run, ok_launches, want):
+        """timed_runs of `run`, then (B4, B5) launches over its 4 calls
+        must pass ok_launches; prints the case's line."""
+        before = column_scores_cuda.launches, column_chained_cuda.launches
+        res, wall, walls, peak = timed_runs(name, run)
+        launched = (column_scores_cuda.launches - before[0],
+                    column_chained_cuda.launches - before[1])
+        if not ok_launches(*launched):
+            fail(f"{name}: (B4, B5) launched {launched} times in 4 calls, want {want}")
+        gcups = res.cells / wall / 1e9
+        case = dict(name=name, wall_s=wall, gcups=gcups, cells=res.cells,
+                    padded_cells=res.padded_cells, launches=launched, peak_gb=peak)
+        line = (f"cells={res.cells} padded={res.padded_cells} launches "
+                f"column={launched[0]} chained={launched[1]} peak device memory "
+                f"{peak:.2f} GB | wall median of 3 {wall*1e3:.2f} ms (runs "
+                f"{', '.join(f'{w*1e3:.2f}' for w in walls)}) -> {gcups:.2f} GCUPS "
+                f"on {card}")
+        return res, case, line
+
+    # (f): three buckets (32, 128, 512) of SWConfig's ladder, one B4 each
+    name, n, (lo, hi), qlen = F_CASE
+    db = make_db(rng, n, lo, hi)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    res, case, line = drive(name, lambda: bank.score_database(query, db),
+                            lambda b4, b5: (b4, b5) == (12, 0), "3 B4 per call")
+    sample = np.sort(rng.choice(n, size=SAMPLE, replace=False))
+    check_oracle(name, res, query, db, sample,
+                 score_many_vs_one(query, [db.read(i) for i in sample]))
+    print(f"phase main_path: ok {name} reads={n} sample {SAMPLE} + top-10 = "
+          f"oracle | {line}", flush=True)
+    cases.append(dict(case, query=query, db=db))
+
+    # (g): case (e)'s reads and query on a B5 chain of two 256-row tiles
+    name = "g_bucketed_q512"
+    query, db = case_e["query"], case_e["db"]
+    res, case, line = drive(name, lambda: bank.score_database(query, db),
+                            lambda b4, b5: (b4, b5) == (0, 8), "2 B5 per call")
+    if not np.array_equal(res.scores, case_e["scores"]):
+        k = int(np.flatnonzero(res.scores != case_e["scores"])[0])
+        fail(f"{name}: read {k} scored {res.scores[k]}, the stream path "
+             f"{case_e['scores'][k]}")
+    check_oracle(name, res, query, db, case_e["sample"], case_e["oracle"])
+    print(f"phase main_path: ok {name} reads={len(db.lens)} all = case (e), its "
+          f"oracle sample + top-10 = oracle | {line}", flush=True)
+    cases.append(dict(case, query=query, db=db))
+
+    # (h): pairs at the RTL's 12-bit width, 1 in 64 identical
+    name, n, (lo, hi), width = H_CASE
+    queries, targets = make_pairs(rng, n, lo, hi)
+    wbank = ScoreBank(SWConfig(score_width=width), device="cuda")
+    res, case, line = drive(name, lambda: wbank.score_pairs(queries, targets),
+                            lambda b4, b5: min(b4, b5) >= 4, "both kernels")
+    # an identical pair scores match x length exactly: past 2^(W-1) - 1 it wraps
+    match = wbank.config.penalties.match
+    wrapping = [i for i in range(0, n, 64) if match * len(queries[i]) >= 1 << (width - 1)]
+    n_random, n_wrap = PAIR_SAMPLE
+    picked = np.concatenate([
+        rng.choice(n, size=n_random, replace=False),
+        rng.choice(wrapping, size=n_wrap, replace=False),
+    ])
+    t0 = time.perf_counter()
+    want = biased_oracle([(queries[i], targets[i]) for i in picked], width)
+    oracle_s = time.perf_counter() - t0
+    if res.scores[picked].tolist() != want:
+        k = int(np.flatnonzero(res.scores[picked] != np.asarray(want))[0])
+        fail(f"{name}: pair {picked[k]} scored {res.scores[picked[k]]}, biased "
+             f"oracle {want[k]}")
+    wrapped = sum(res.scores[i] < match * len(queries[i]) for i in picked[n_random:])
+    if wrapped != n_wrap:
+        fail(f"{name}: only {wrapped} of {n_wrap} identical pairs past the "
+             f"{width}-bit ceiling wrapped")
+    print(f"phase main_path: ok {name} pairs={n} score_width={width} {n_random} "
+          f"sampled + {n_wrap} wrapping pairs = sw_score_single_biased "
+          f"({oracle_s:.1f} s), all {n_wrap} wrapped | {line}", flush=True)
+    cases.append(case)
+    return bank, cases
+
+
+def column_batches(bank, query, db):
+    """A database's bucket batches as ScoreBank packs and pads them, on
+    the card."""
+    import torch
+    from swtpu_torch.ops.column import T_CHUNK, pad_column_batch
+
+    for b in bank._bucket_batches(query, db):
+        yield pad_column_batch(torch.from_numpy(b.q).cuda(),
+                               torch.from_numpy(b.t).cuda(), T_CHUNK)
+
+
+def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
+    """Every bucket batch of (f) through B4 and its plain version, and
+    every tile of (g)'s chain through B5 and its plain version, in full;
+    kernel and plain times; (g)'s chain against (e)'s stream chain."""
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.column import (
+        column_chained_cuda, column_chained_reference, column_scores_cuda,
+        column_scores_reference,
+    )
+
+    batches = []
+    for q, t in column_batches(bank, f_case["query"], f_case["db"]):
+        (B, m), n = q.shape, t.shape[1]
+        got = column_scores_cuda(q, t)
+        want, plain_ms = cuda_once(lambda: column_scores_reference(q, t))
+        err = strip_error(f"{f_case['name']} bucket {n}", got, want)
+        ms = cuda_ms(lambda: column_scores_cuda(q, t), 5)
+        print(f"phase column_main_shape: ok {f_case['name']} bucket {n} [{B} pairs, "
+              f"query {m}] bit-equal | kernel {ms:.3f} ms -> "
+              f"{B * m * n / ms / 1e6:.2f} padded GCUPS in the kernel, plain "
+              f"{plain_ms:.1f} ms", flush=True)
+        batches.append(dict(name=f_case["name"], B=B, m=m, n=n, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms))
+    (q, t), = column_batches(bank, g_case["query"], g_case["db"])
+    (B, m), n = q.shape, t.shape[1]
+    _, tiles = run_column_chain(q, t, None, column_chained_cuda)
+    err, ms, plain_ms = 0, [], []
+    for p, (args, outs) in enumerate(tiles):
+        want, t_plain = cuda_once(lambda: column_chained_reference(*args))
+        err = max(err, check_column_tiles(f"{g_case['name']}", [(args, outs)],
+                                          [(args, want)]))
+        ms.append(cuda_ms(lambda: column_chained_cuda(*args), 5))
+        plain_ms.append(t_plain)
+    chain_ms = cuda_ms(lambda: run_column_chain(q, t, None, column_chained_cuda), 3)
+    print(f"phase column_main_shape: ok {g_case['name']} tiles={len(tiles)} [{B} pairs, "
+          f"{n} columns] h/ms/is of every tile bit-equal | chain {chain_ms:.3f} ms -> "
+          f"{g_case['cells'] / chain_ms / 1e6:.2f} GCUPS in the chain "
+          f"({chain_ms / (g_case['wall_s'] * 1e3):.1%} of the wall time); the "
+          f"stream chain of case (e) on the same reads {e_chain_ms:.3f} ms | kernel "
+          f"{', '.join(f'{x:.3f}' for x in ms)} ms, plain "
+          f"{', '.join(f'{x:.1f}' for x in plain_ms)} ms per tile", flush=True)
+    tile = dict(name=g_case["name"], tiles=len(tiles), B=B, n=n, max_abs_err=err,
+                chain_ms=chain_ms, stream_chain_ms_e=e_chain_ms, ms=ms,
+                plain_ms=plain_ms)
+    return batches, tile
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -428,10 +738,12 @@ def main() -> int:
     # added; the long-path checks and cases have generators of their own
     rng = np.random.default_rng(args.seed)
     rng_long = np.random.default_rng([args.seed, 1])
+    rng_col = np.random.default_rng([args.seed, 2])  # the column path's own
     phase_build()
     checks = phase_kernel_vs_plain(rng)
     checks += phase_ripple_vs_plain(rng_long)
     chains = phase_chained_vs_plain(rng_long)
+    col_checks, col_chains = phase_column_vs_plain(rng_col)
     from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
 
     stream_strip_cuda.launches = 0
@@ -444,10 +756,22 @@ def main() -> int:
     chained_launches = stream_chained_cuda.launches
     if chained_launches == 0:
         fail("the long-query path never launched the chained kernel")
+    from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
+
+    column_scores_cuda.launches = column_chained_cuda.launches = 0
+    col_bank, col_cases = phase_bucketed_path(rng_col, card, long_cases[1])
+    column_launches = column_scores_cuda.launches
+    column_chained_launches = column_chained_cuda.launches
+    if column_launches == 0 or column_chained_launches == 0:
+        fail("the bucketed path never launched the column kernels "
+             f"({column_launches}, {column_chained_launches})")
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
+    col_batches, col_tile = phase_column_at_main_shape(
+        col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
     head = mains[0]  # case (a): the headline shape, segments 1, rows 16
     lhead = long_mains[0]  # case (d), tile 0 on its first CHECK_STEPS steps
+    chead = col_batches[-1]  # case (f)'s largest bucket, 512 columns
     print(card)
     print(json.dumps({"kernels": [{
         "name": "stream_wavefront",
@@ -475,7 +799,34 @@ def main() -> int:
         "shape": [lhead["check_steps"], lhead["N"]],
         "main_shapes": long_mains,
         "configs": chains,
-    }]}))
+    }, {
+        "name": "column",
+        "route": "cuda",
+        "source": "swtpu_torch/ops/csrc/column.cu",
+        "replaces": "swtpu/ops/pallas_kernel.py:54",
+        "launches": column_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in col_checks + col_batches),
+        "ms": chead["ms"],
+        "plain_ms": chead["plain_ms"],
+        "shape": [chead["B"], chead["m"], chead["n"]],
+        "main_shapes": col_batches,
+        "configs": col_checks,
+    }, {
+        "name": "column_chained",
+        "route": "cuda",
+        "source": "swtpu_torch/ops/csrc/column.cu",
+        "replaces": "swtpu/ops/pallas_kernel.py:137",
+        "launches": column_chained_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in col_chains + [col_tile]),
+        "ms": col_tile["ms"][0],
+        "plain_ms": col_tile["plain_ms"][0],
+        "shape": [col_tile["B"], 256, col_tile["n"]],
+        "main_shapes": [col_tile],
+        "configs": col_chains,
+    }], "bucketed_cases": [
+        {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
+         if k not in ("query", "db")} for c in col_cases
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

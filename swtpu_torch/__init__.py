@@ -3,16 +3,21 @@
 Batched, score-only Smith-Waterman local alignment with affine gaps, as in
 ``swtpu``, on a torch device: the streamed-wavefront ``ScoreBank.score_database``
 path for queries of any length (longer than 128 bases on chained tiles),
-with hand-written CUDA kernels on the GPU and their plain PyTorch versions
-on the CPU.  Imports torch and never JAX; configuration, oracle,
+and the bucketed column path (``backend="pallas"``: ``score_database``,
+``score_pairs`` and ``SWConfig.score_width``), with hand-written CUDA
+kernels on the GPU and their plain PyTorch versions on the CPU.  Imports torch and never JAX; configuration, oracle,
 FASTA loading and the native packer are swtpu's JAX-free modules, shared.
 
 Layer map (swtpu module -> port):
 
-  swtpu.bank.scorebank   -> swtpu_torch.bank.scorebank (stream path)
-  swtpu.bank.streams     -> swtpu_torch.bank.streams   (host packer)
-  swtpu.ops.pallas_stream-> swtpu_torch.ops.stream     (+ csrc/*.cu kernels)
-  swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream checks)
+  swtpu.bank.scorebank   -> swtpu_torch.bank.scorebank (stream and pallas paths)
+  swtpu.bank.streams     -> swtpu_torch.bank.streams   (stream host packer)
+  swtpu.bank.buckets     -> swtpu_torch.bank.buckets   (length buckets)
+  swtpu.bank.packer      -> swtpu_torch.bank.packer    (bucket host packer)
+  swtpu.ops.pallas_stream-> swtpu_torch.ops.stream     (+ csrc/stream_wavefront.cu)
+  swtpu.ops.pallas_kernel-> swtpu_torch.ops.column     (+ csrc/column.cu)
+  swtpu.ops.common       -> swtpu_torch.ops.common     (sentinel padding)
+  swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream and batch checks)
   swtpu.cli score        -> swtpu_torch.cli score
 """
 

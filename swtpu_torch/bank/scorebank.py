@@ -1,14 +1,23 @@
 """ScoreBank — the batched many-vs-one scoring engine on torch.
 
-The port of ``swtpu.bank.scorebank``'s main path: ``score_database`` on the
-streamed wavefront.  The host packs the reads into flagged char streams
-(``swtpu_torch.bank.streams``), the streams cross to the device (2-bit
-packed on CUDA), the wavefront writes its [T, N] strip and the emission
-gather returns the scores in read order.  A query longer than 128 bases
-chains K tiles of 128 query rows over the same streams.  On a CUDA device
-the wavefront is the hand-written kernel; on the CPU it is the plain
-PyTorch version, with the settings swtpu uses in interpret mode, so both
-packages pack the same batch there.
+The port of ``swtpu.bank.scorebank``'s ``score_database`` and
+``score_pairs`` on two backends:
+
+- ``stream``: the host packs the reads into flagged char streams
+  (``swtpu_torch.bank.streams``), the streams cross to the device (2-bit
+  packed on CUDA), the wavefront writes its [T, N] strip and the emission
+  gather returns the scores in read order.  A query longer than 128 bases
+  chains K tiles of 128 query rows over the same streams.
+- ``pallas`` (the bucketed column path; swtpu's name for it is kept): the
+  host packs the reads into dense length buckets
+  (``swtpu_torch.bank.packer``) and each bucket batch is scored by the
+  column kernels (``swtpu_torch.ops.column``), chained 256-row tiles for a
+  query over 256 bases.  It carries ``SWConfig.score_width``, the RTL's
+  W-bit wrap-parity arithmetic.
+
+On a CUDA device the kernels are the hand-written ones; on the CPU they
+are the plain PyTorch versions, with the settings swtpu uses in interpret
+mode, so both packages pack the same batches there.
 """
 
 from __future__ import annotations
@@ -22,9 +31,12 @@ import torch
 
 from swtpu.config import SWConfig
 from swtpu.io.loader import EncodedDB
+from swtpu_torch.bank.buckets import plan_buckets
+from swtpu_torch.bank.packer import pack_many_vs_one, pack_pairs
 from swtpu_torch.bank.streams import (
     LANES, batch_to_device, pack_stream_wire, pack_streams, pack_streams_long,
 )
+from swtpu_torch.ops.column import sw_scores_column
 from swtpu_torch.ops.stream import (
     sw_scores_stream, sw_scores_stream_long, sw_scores_stream_long_packed,
     sw_scores_stream_packed,
@@ -92,9 +104,11 @@ class ScoreResult:
 class ScoreBank:
     """Batched many-vs-one scorer on one torch device.
 
-    backend: 'auto' or 'stream' (the streamed wavefront; the port's only
-    backend so far).  device: where the wavefront runs — 'cuda' launches
-    the CUDA kernel, 'cpu' runs its plain PyTorch version."""
+    backend: 'stream' (the streamed wavefront), 'pallas' (the bucketed
+    column kernels) or 'auto': 'stream', or 'pallas' when
+    ``config.score_width`` is set, since wrap-parity lives only in the
+    column kernels so far.  device: where the kernels run — 'cuda' launches
+    the CUDA kernels, 'cpu' runs their plain PyTorch versions."""
 
     def __init__(
         self,
@@ -103,16 +117,24 @@ class ScoreBank:
         device="cuda",
         verify_integrity: bool = False,
     ):
-        if backend not in ("auto", "stream"):
+        if backend == "scan":
             raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (ROADMAP: scan "
-                "backend; B4/B5 column kernels); use 'stream'"
+                "backend 'scan' is not ported yet (ROADMAP item 10: scan "
+                "backend); use 'stream' or 'pallas'"
             )
+        if backend not in ("auto", "stream", "pallas"):
+            raise ValueError(f"unknown backend {backend!r}")
         if config.score_width is not None:
-            raise NotImplementedError(
-                "score_width is not ported yet (ROADMAP: score_width "
-                "through the CUDA kernel)"
-            )
+            if backend == "stream":
+                raise NotImplementedError(
+                    "score_width on the stream backend is not ported yet "
+                    "(ROADMAP item 6: score_width through the CUDA "
+                    "wavefront); use backend 'pallas' or 'auto'"
+                )
+            # swtpu resolves wrap-parity to the column kernel off the TPU
+            backend = "pallas"
+        elif backend == "auto":
+            backend = "stream"
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -122,7 +144,7 @@ class ScoreBank:
                 "is available"
             )
         self.config = config
-        self.backend = "stream"
+        self.backend = backend
         # validate packed batches and score bounds; off by default
         self.verify_integrity = verify_integrity
 
@@ -146,8 +168,11 @@ class ScoreBank:
         dense forms: the database stays one int8 matrix).
 
         event_log: optional swtpu.utils.EventLog receiving one "stream"
-        record per call ("stream_long" for a query over 128 bases)."""
+        record per call ("stream_long" for a query over 128 bases), or on
+        the pallas backend one "batch" record per bucket batch."""
         tmat, tlens = _dense_form(targets)
+        if self.backend == "pallas":
+            return self._score_database_bucketed(query, targets, event_log)
         if len(query) > LANES:
             # chained 128-row tiles carry the tail-row D/G/H strips from
             # tile to tile (the reference's reserved chaining ports)
@@ -291,3 +316,130 @@ class ScoreBank:
                 )
             )
         return ScoreResult(scores, batch.cells, padded, elapsed)
+
+    def _score_batch(self, q: np.ndarray, t: np.ndarray) -> np.ndarray:
+        """One dense bucket batch through the column kernels on the bank's
+        device: q [B, m], t [B, n] int8 -> [B] int32 scores."""
+        kw = {}
+        if self.config.score_width is not None:
+            kw = dict(state_dtype="int16_biased", score_width=self.config.score_width)
+        s = sw_scores_column(
+            _put(q, self.device), _put(t, self.device), self.config.penalties, **kw
+        )
+        return s.cpu().numpy()
+
+    def _bucket_batches(self, query, targets) -> list:
+        """score_database's dense batches on the pallas backend: the reads
+        packed into ``SWConfig.target_buckets``, one PackedBatch per
+        non-empty bucket, the query padded to a multiple of 8."""
+        tmat, tlens = _dense_form(targets)
+        return pack_many_vs_one(
+            query,
+            tmat if tlens is not None else targets,
+            bucket_lens=self.config.target_buckets,
+            q_width=max(8, -(-len(query) // 8) * 8),
+            lens=tlens,
+        )
+
+    def _pair_batches(self, queries, targets):
+        """score_pairs' dense batches: one PackedBatch per (query bucket,
+        target bucket) group (``SWConfig.query_buckets``,
+        ``target_buckets``), ids the pairs' submission indices."""
+        cfg = self.config
+        t_plan = plan_buckets([len(t) for t in targets], cfg.target_buckets)
+        q_plan = plan_buckets([len(q) for q in queries], cfg.query_buckets)
+        groups = {}
+        for i in range(len(queries)):
+            groups.setdefault((q_plan.assignments[i], t_plan.assignments[i]), []).append(i)
+        for (qb, tb), idxs in groups.items():
+            yield pack_pairs(
+                [queries[i] for i in idxs],
+                [targets[i] for i in idxs],
+                q_width=q_plan.bucket_lens[qb],
+                t_width=t_plan.bucket_lens[tb],
+                ids=np.asarray(idxs, np.int32),
+            )
+
+    def _score_database_bucketed(self, query, targets, event_log=None) -> ScoreResult:
+        """The bucketed column path: reads pack into dense length buckets,
+        one column-kernel call per bucket, scores scattered back to read
+        order."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        _, tlens = _dense_form(targets)
+        n_reads = len(tlens) if tlens is not None else len(targets)
+        scores = np.zeros((n_reads,), dtype=np.int32)
+        cells = 0
+        padded = 0
+        for batch in self._bucket_batches(query, targets):
+            tb = time.perf_counter()
+            if self.verify_integrity:
+                from swtpu_torch.utils.guards import (
+                    check_packed_query, check_packed_target,
+                )
+
+                check_packed_query(batch.q, batch.q_lens)
+                check_packed_target(batch.t, batch.t_lens)
+            s = self._score_batch(batch.q, batch.t)
+            if self.verify_integrity:
+                from swtpu_torch.utils.guards import check_scores
+
+                check_scores(s, batch.q_lens, batch.t_lens, cfg.penalties.match)
+            live = batch.ids >= 0
+            scores[batch.ids[live]] = s[live]
+            cells += batch.cells
+            padded += batch.padded_cells
+            if event_log is not None:
+                from swtpu.utils.metrics import BatchEvent
+
+                event_log.emit(
+                    BatchEvent(
+                        "batch", t_wall=time.time(),
+                        elapsed_s=time.perf_counter() - tb,
+                        reads=int(live.sum()), cells=batch.cells,
+                        padded_cells=batch.padded_cells,
+                        note=f"bucket_len={batch.t.shape[1]}",
+                    )
+                )
+        return ScoreResult(scores, cells, padded, time.perf_counter() - t0)
+
+    def score_pairs(self, queries, targets, event_log=None) -> ScoreResult:
+        """Score explicit (query, target) pairs (many-vs-many workloads) on
+        the pallas backend.
+
+        Pairs are grouped by (query bucket, target bucket)
+        (``SWConfig.query_buckets``, ``target_buckets``) and each group is
+        one dense column-kernel call; results return in submission order.
+
+        event_log: optional swtpu.utils.EventLog receiving one "pair_batch"
+        record per group."""
+        if len(queries) != len(targets):
+            raise ValueError("queries and targets must pair up")
+        if self.backend == "stream":
+            raise NotImplementedError(
+                "score_pairs on the stream backend is not ported yet "
+                "(ROADMAP item 9: pair streams); use backend 'pallas'"
+            )
+        t0 = time.perf_counter()
+        scores = np.zeros((len(queries),), dtype=np.int32)
+        cells = padded = 0
+        tc = time.perf_counter()
+        for batch in self._pair_batches(queries, targets):
+            s = self._score_batch(batch.q, batch.t)
+            scores[batch.ids] = s
+            cells += batch.cells
+            padded += batch.padded_cells
+            if event_log is not None:
+                from swtpu.utils.metrics import BatchEvent
+
+                event_log.emit(
+                    BatchEvent(
+                        "pair_batch", t_wall=time.time(),
+                        elapsed_s=time.perf_counter() - tc,
+                        reads=len(batch.ids), cells=batch.cells,
+                        padded_cells=batch.padded_cells,
+                        note=f"q_width={batch.q.shape[1]} t_width={batch.t.shape[1]}",
+                    )
+                )
+            tc = time.perf_counter()
+        return ScoreResult(scores, cells, padded, time.perf_counter() - t0)

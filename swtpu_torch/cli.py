@@ -2,7 +2,8 @@
 on a torch device.
 
     python -m swtpu_torch.cli [--device cuda|cpu] score -q query.fa \\
-        -l library.fa [-o out.txt] [--topk K] [--events log.jsonl]
+        -l library.fa [-o out.txt] [--topk K] [--events log.jsonl] \\
+        [--backend auto|stream|pallas] [--score-width W] [--buckets 32,128,...]
 
 Output lines are swtpu's (``@<time>ns: >dbK score: S``, the reference RTL
 testbench's golden format), so ``python -m swtpu.cli diff`` compares the
@@ -60,9 +61,44 @@ def cmd_score(args) -> int:
     from swtpu.config import Penalties, SWConfig
     from swtpu_torch.bank import ScoreBank
 
+    if args.score_width and args.backend not in ("auto", "pallas", "stream"):
+        # a clean SystemExit like every other argument error: wrap-parity
+        # lives in the stream and column kernels
+        raise SystemExit(
+            f"--score-width requires the stream or column kernel: use "
+            f"--backend stream/pallas (or auto), not {args.backend!r}"
+        )
+    if args.backend == "scan":
+        raise SystemExit(
+            "--backend scan is not ported yet (ROADMAP item 10: scan "
+            "backend); use --backend stream or pallas"
+        )
+    if args.score_width and args.backend == "stream":
+        raise SystemExit(
+            "--score-width on --backend stream is not ported yet (ROADMAP "
+            "item 6: score_width through the CUDA wavefront); use --backend "
+            "pallas or auto"
+        )
     pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
     query, names, targets = _load(args.query, args.library)
-    bank = ScoreBank(SWConfig(penalties=pen), device=args.device)
+    max_len = max((len(t) for t in targets), default=0)
+    try:
+        buckets = tuple(int(b) for b in args.buckets.split(","))
+    except ValueError:
+        raise SystemExit(f"--buckets must be comma-separated ints: {args.buckets!r}")
+    cfg = SWConfig(
+        penalties=pen, target_buckets=buckets,
+        score_width=args.score_width or None,
+    )
+    bank = ScoreBank(cfg, backend=args.backend, device=args.device)
+    # the stream backend's target axis is unbounded; a bucketed backend
+    # fails cleanly here, never with a packer traceback mid-run
+    if bank.backend != "stream" and max_len > buckets[-1]:
+        raise SystemExit(
+            f"read length {max_len} exceeds bucket capacity {buckets[-1]} "
+            f"for this configuration (raise --buckets, or use the stream "
+            "backend)"
+        )
     event_log = None
     if args.events:
         from swtpu.utils.metrics import EventLog
@@ -120,8 +156,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="swtpu_torch", description=__doc__)
     ap.add_argument(
         "--device", default="cuda",
-        help="torch device the wavefront runs on (cuda: the CUDA kernel; "
-        "cpu: its plain PyTorch version)",
+        help="torch device the kernels run on (cuda: the CUDA kernels; "
+        "cpu: their plain PyTorch versions)",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -134,6 +170,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="hard job deadline in seconds; exit 16 on expiry. 0 = none",
     )
     ps.add_argument("--topk", type=int, default=0)
+    ps.add_argument(
+        "--backend", default="auto", choices=["auto", "scan", "pallas", "stream"],
+        help="stream: the streamed wavefront; pallas: the bucketed column "
+        "kernels; auto: stream, or pallas with --score-width (scan is not "
+        "ported)",
+    )
+    ps.add_argument(
+        "--score-width", dest="score_width", type=int, default=0,
+        help="emulate the RTL's SCORE_WIDTH-bit biased registers, including "
+        "overflow wrap (0 = exact int32 scoring; the hardware default is 12)",
+    )
+    ps.add_argument(
+        "--buckets", default="32,128,512,2048,8192",
+        help="target-length bucket ladder for the bucketed backend "
+        "(SWConfig.target_buckets); the stream backend ignores it — its "
+        "target axis is unbounded",
+    )
     ps.add_argument("--events", help="write per-batch JSONL event log here")
     ps.add_argument("--match", type=int, default=5)
     ps.add_argument("--mismatch", type=int, default=-4)

@@ -1,2 +1,3 @@
-"""The port's scoring ops: the streamed wavefront (``stream``), its CUDA
-kernels' build (``_build``) and the sentinel contract (``common``)."""
+"""The port's scoring ops: the streamed wavefront (``stream``), the
+bucketed column kernels (``column``), their CUDA kernels' build
+(``_build``) and the sentinel contract (``common``)."""

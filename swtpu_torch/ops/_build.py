@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` compile with nvcc into one shared library with
-a plain C interface, loaded with ctypes.  The build happens at first use,
+The sources under ``csrc/`` compile with nvcc, one process per source, all
+started together, and link into one shared library with a plain C
+interface, loaded with ctypes.  The build happens at first use,
 into ``build_dir()`` (``build/swtpu_torch/`` in a checkout), under a name that
 carries a hash of the sources and flags, so an edited source rebuilds and
 no binary is ever committed.  A missing nvcc or a failed build raises with
@@ -18,10 +19,10 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("stream_wavefront.cu",)
+SOURCES = ("stream_wavefront.cu", "column.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -66,15 +67,34 @@ def build_log_path() -> Path:
 
 
 def _build(lib: Path) -> None:
+    """Compile every source to an object in parallel, then link."""
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [lib.with_name(f"{tag}.{Path(s).stem}.o") for s in SOURCES]
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+        for s, o in zip(SOURCES, objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if not failed:
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        outs.append(res.stdout)
+        if res.returncode:
+            failed.append((link, res.returncode, res.stdout))
+    lib.with_suffix(".log").write_text("".join(outs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)  # atomic against a concurrent build
 
 
@@ -94,6 +114,14 @@ def load_library() -> ctypes.CDLL:
             lib.swtpu_stream_chained.restype = ctypes.c_int
             lib.swtpu_stream_chained.argtypes = [
                 *[ctypes.c_void_p] * 9, *[ctypes.c_int] * 7, ctypes.c_void_p,
+            ]
+            lib.swtpu_column_scores.restype = ctypes.c_int
+            lib.swtpu_column_scores.argtypes = [
+                *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 8, ctypes.c_void_p,
+            ]
+            lib.swtpu_column_chained.restype = ctypes.c_int
+            lib.swtpu_column_chained.argtypes = [
+                *[ctypes.c_void_p] * 8, *[ctypes.c_int] * 7, ctypes.c_void_p,
             ]
             lib.swtpu_cuda_error_string.restype = ctypes.c_char_p
             lib.swtpu_cuda_error_string.argtypes = [ctypes.c_int]

@@ -1,0 +1,239 @@
+// Bucketed column Smith-Waterman for Hopper (sm_90a).
+//
+// Replaces the TPU kernels swtpu/ops/pallas_kernel.py:_sw_kernel (B4: a
+// batch of pairs, one DP column per step, query of at most 256 rows) and
+// pallas_kernel.py:_sw_kernel_chained (B5: one 256-row query tile of a
+// longer query, reading the tile above's last-row M/I strips and writing
+// its own).  The plain PyTorch versions of the same recurrences are
+// swtpu_torch/ops/column.py:column_scores_reference and
+// column_chained_reference; kernel and plain version must agree bit for
+// bit.
+//
+// Contract.  q [B, m] int8 and t [B, n] int8 are sentinel-padded (query
+// pad 5, target pad 4: they never match, so padding never raises a score
+// and the kernel has no lengths or masks).  m is a multiple of 8 and at
+// most 256 (exactly 256 for a tile); n is a multiple of 32.  A tile also
+// takes ms, is [B, n] int32 (the tile above's row 255 M and I per column)
+// and h [B] int32 (the running high score), and writes the same three.
+// Under wrap-parity (score_width W > 0) every state value is the RTL's
+// biased W-bit register, score + 2^(W-1): the M update wraps modulo 2^W
+// and clamps on the sign bit; I is never masked (pallas_kernel.py:70-80:
+// its chain provably never wraps step by step, and masking a k-row jump
+// would be wrong).  The scores kernel subtracts the bias from its result;
+// a tile keeps h and its strips biased and the host subtracts once.
+//
+// The recurrence (pallas_kernel.py:97-119), per target column j:
+//   M[i]  = max(max(M, I)[i-1, j-1] + s(i, j), 0)
+//   base  = max(max(M_up, M[i, j-1]) + open + extend, I[i, j-1] + extend)
+//   I[i]  = max(base[i], I[i-1] + extend)          (down the column)
+//   H     = max(H, M)
+// with M_up = M[i-1, j].  The TPU evaluates the I chain as a log2(m)
+// max-plus prefix scan; any exact evaluation gives the same integers.
+//
+// Thread mapping.  One pair per warp.  Lane L owns query rows
+// L*RPL .. L*RPL + RPL - 1 (RPL = rows per lane, 1/2/4/8 so 32*RPL >= m;
+// rows past m are pad rows at the bottom, which never feed a row above
+// and never raise H) with their M, I and query codes in registers.  Per
+// column:
+//   - one __shfl_up_sync brings the diagonal max(M, I) of the lane above's
+//     last row from column j-1, and one brings this column's M of that row
+//     (M_up); lane 0 row 0 takes the boundary instead (zero, or for a tile
+//     dprev = max(ms, is)[j-1], ms[j] and the seed is[j] + extend);
+//   - the I chain ripples down the lane's own rows, then a 5-step
+//     Hillis-Steele max-plus scan across lanes (offset k lanes adds
+//     k*RPL*extend) and one more shuffle give each lane the I of the row
+//     above its first;
+//   - every lane reads the same 32 target bytes per 32 columns as two
+//     16-byte loads (one broadcast transaction) and takes byte c at column
+//     c; a tile's lane c loads ms/is of column c of the run (coalesced)
+//     and __shfl_sync hands them to lane 0, and lane 31's row 255 M and I
+//     go back to lane c the same way, stored once per run.
+// What bounds it.  Per cell it reads nothing from memory (the target is
+// one byte per column per pair, the strips 8 bytes in and 8 out per column
+// per pair), so it is bound by the dependent integer chain per column and
+// the eight shuffles that carry it across lanes.  All state stays in
+// registers for the whole target; a warp loops over all n columns itself,
+// so no state crosses blocks (the TPU's sequential grid becomes this loop).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kQueryPad = 5;   // query pad code
+constexpr int kTileRows = 256; // rows of a chained tile: 8 per lane
+constexpr int kRun = 32;       // target columns read together
+constexpr int kBlock = 128;    // threads per block: 4 pairs
+constexpr unsigned kFull = 0xffffffffu;
+
+struct ColumnArgs {
+  const int8_t* q;
+  const int8_t* t;
+  const int32_t* ms;  // tile only: the tile above's row 255 M per column
+  const int32_t* is;  // and I
+  const int32_t* h;   // tile only: the running high score
+  int32_t* h_out;     // score (scores kernel) or high score (tile)
+  int32_t* ms_out;    // tile only: this tile's row 255 M and I
+  int32_t* is_out;
+  int B, m, n, ma, mi, go, ge, width;  // width: 0 = exact int32
+};
+
+template <int RPL, bool kBiased, bool kTile>
+__global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
+  const int lane = threadIdx.x % kWarp;
+  const long long b =
+      (long long)blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp;
+  if (b >= a.B) return;  // b is the same for the whole warp
+  const int mask = kBiased ? (1 << a.width) - 1 : 0;
+  const int zero = kBiased ? 1 << (a.width - 1) : 0;  // biased score 0
+  const int oe = a.go + a.ge;
+  const int ge = a.ge;
+  const int n = a.n;
+  const int8_t* qb = a.q + b * a.m;
+  const int8_t* tb = a.t + b * n;
+
+  int q[RPL], M[RPL], I[RPL];
+#pragma unroll
+  for (int r = 0; r < RPL; ++r) {
+    const int i = lane * RPL + r;
+    q[r] = i < a.m ? qb[i] : kQueryPad;
+    M[r] = zero;
+    I[r] = zero;  // boundary column I = 0 (RTL ZERO tie)
+  }
+  int h = zero;
+  int dprev = zero;  // tile: max(ms, is) of column j-1; zero at column -1
+
+  for (int j0 = 0; j0 < n; j0 += kRun) {
+    const int4* tp = reinterpret_cast<const int4*>(tb + j0);
+    const int4 lo = tp[0];
+    const int4 hi = tp[1];
+    const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    int ms_run = zero, is_run = zero, ms_keep = 0, is_keep = 0;
+    if (kTile) {
+      ms_run = a.ms[b * n + j0 + lane];
+      is_run = a.is[b * n + j0 + lane];
+    }
+#pragma unroll
+    for (int c = 0; c < kRun; ++c) {
+      const int tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
+      int msj = zero, isj = zero;
+      if (kTile) {
+        msj = __shfl_sync(kFull, ms_run, c);
+        isj = __shfl_sync(kFull, is_run, c);
+      }
+      // the diagonal of row 0 of this lane: the lane above's last row at j-1
+      int dup = __shfl_up_sync(kFull, max(M[RPL - 1], I[RPL - 1]), 1);
+      if (lane == 0) dup = dprev;
+      int Mn[RPL];
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        const int d = r == 0 ? dup : max(M[r - 1], I[r - 1]);
+        const int x = d + (q[r] == tj ? a.ma : a.mi);
+        if (kBiased) {
+          const int w = x & mask;
+          Mn[r] = (w & zero) ? w : zero;  // sign-bit clamp
+        } else {
+          Mn[r] = max(x, 0);
+        }
+      }
+      int mup = __shfl_up_sync(kFull, Mn[RPL - 1], 1);
+      if (lane == 0) mup = msj;
+      // the I chain inside the lane, from its own rows only
+      int acc[RPL];
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        const int up = r == 0 ? mup : Mn[r - 1];
+        int base = max(max(up, M[r]) + oe, I[r] + ge);
+        if (r == 0 && lane == 0) base = max(base, isj + ge);  // row 0's seed
+        acc[r] = r == 0 ? base : max(base, acc[r - 1] + ge);
+      }
+      // max-plus inclusive scan of the lanes' last rows across the warp
+      int v = acc[RPL - 1];
+#pragma unroll
+      for (int k = 1; k < kWarp; k <<= 1) {
+        const int u = __shfl_up_sync(kFull, v, k);
+        if (lane >= k) v = max(v, u + k * RPL * ge);
+      }
+      const int carry = __shfl_up_sync(kFull, v, 1);  // I of the row above
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        I[r] = lane == 0 ? acc[r] : max(acc[r], carry + (r + 1) * ge);
+        M[r] = Mn[r];
+        h = max(h, Mn[r]);
+      }
+      if (kTile) {
+        dprev = max(msj, isj);
+        const int om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
+        const int oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
+        if (lane == c) {
+          ms_keep = om;
+          is_keep = oi;
+        }
+      }
+    }
+    if (kTile) {
+      a.ms_out[b * n + j0 + lane] = ms_keep;
+      a.is_out[b * n + j0 + lane] = is_keep;
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    h = max(h, __shfl_xor_sync(kFull, h, off));
+  if (lane == 0) a.h_out[b] = kTile ? max(a.h[b], h) : h - zero;
+}
+
+template <int RPL, bool kTile>
+cudaError_t launch(const ColumnArgs& a, cudaStream_t stream) {
+  const long long pairs_per_block = kBlock / kWarp;
+  const long long blocks = (a.B + pairs_per_block - 1) / pairs_per_block;
+  if (a.width)
+    column_kernel<RPL, true, kTile><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
+  else
+    column_kernel<RPL, false, kTile><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// B4: q [B, m] int8, t [B, n] int8 -> out [B] int32 scores.  m % 8 == 0,
+// m <= 256, n % 32 == 0, t 16-byte aligned; score_width 0 = exact, else
+// 2..30.  The caller checks these.  Returns the launch's CUDA error.
+extern "C" int swtpu_column_scores(const void* q, const void* t, void* out,
+                                   int B, int m, int n, int ma, int mi,
+                                   int go, int ge, int score_width,
+                                   void* stream) {
+  const ColumnArgs a{static_cast<const int8_t*>(q),
+                     static_cast<const int8_t*>(t),
+                     nullptr, nullptr, nullptr,
+                     static_cast<int32_t*>(out), nullptr, nullptr,
+                     B, m, n, ma, mi, go, ge, score_width};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m <= 32) return launch<1, false>(a, st);
+  if (m <= 64) return launch<2, false>(a, st);
+  if (m <= 128) return launch<4, false>(a, st);
+  if (m <= kTileRows) return launch<8, false>(a, st);
+  return cudaErrorInvalidValue;
+}
+
+// B5, one tile: q [B, 256] int8, t [B, n] int8, ms/is [B, n] int32, h [B]
+// int32 -> h_out [B], ms_out/is_out [B, n] int32, all biased when
+// score_width > 0.  n % 32 == 0, t 16-byte aligned.  The caller checks
+// these.  Returns the launch's CUDA error.
+extern "C" int swtpu_column_chained(const void* q, const void* t,
+                                    const void* ms, const void* is,
+                                    const void* h, void* h_out, void* ms_out,
+                                    void* is_out, int B, int n, int ma,
+                                    int mi, int go, int ge, int score_width,
+                                    void* stream) {
+  const ColumnArgs a{static_cast<const int8_t*>(q),
+                     static_cast<const int8_t*>(t),
+                     static_cast<const int32_t*>(ms),
+                     static_cast<const int32_t*>(is),
+                     static_cast<const int32_t*>(h),
+                     static_cast<int32_t*>(h_out),
+                     static_cast<int32_t*>(ms_out),
+                     static_cast<int32_t*>(is_out),
+                     B, kTileRows, n, ma, mi, go, ge, score_width};
+  return launch<8, true>(a, static_cast<cudaStream_t>(stream));
+}

@@ -1,20 +1,52 @@
-"""Data-integrity guards on packed stream batches and scores.
+"""Data-integrity guards on packed batches and scores.
 
-The port of the stream-path checks of ``swtpu.utils.guards`` (which
-imports ``swtpu.ops`` and so JAX): structural validation of every packed
-batch before dispatch and of the scores after — the analog of the
-reference's bus parity checks.
+The port of the stream-path and bucketed-path checks of
+``swtpu.utils.guards`` (which imports ``swtpu.ops`` and so JAX):
+structural validation of every packed batch before dispatch and of the
+scores after — the analog of the reference's bus parity checks.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from swtpu_torch.ops.common import Q_PAD
+from swtpu_torch.ops.common import Q_PAD, T_PAD
 
 
 class IntegrityError(ValueError):
     """A packed batch violates the framework's data contract."""
+
+
+def check_packed_query(q: np.ndarray, q_lens: Optional[np.ndarray] = None) -> None:
+    _check_codes(q, Q_PAD, "query", q_lens)
+
+
+def check_packed_target(t: np.ndarray, t_lens: Optional[np.ndarray] = None) -> None:
+    _check_codes(t, T_PAD, "target", t_lens)
+
+
+def _check_codes(arr: np.ndarray, pad: int, what: str, lens) -> None:
+    """A dense [B, L] batch holds only base codes and `pad`, with pads
+    exactly past each row's declared length when `lens` is given."""
+    a = np.asarray(arr)
+    if a.ndim != 2:
+        raise IntegrityError(f"{what} batch must be 2-D, got {a.shape}")
+    bad = ~np.isin(a, (0, 1, 2, 3, pad))
+    if bad.any():
+        i, j = np.argwhere(bad)[0]
+        raise IntegrityError(
+            f"{what}[{i},{j}] = {int(a[i, j])} is not a base code or {pad=}"
+        )
+    if lens is not None:
+        lens = np.asarray(lens)
+        cols = np.arange(a.shape[1])[None, :]
+        in_range = cols < lens[:, None]
+        if (np.where(in_range, a, 0) == pad).any():
+            raise IntegrityError(f"{what}: pad code inside declared length")
+        if (np.where(in_range, pad, a) != pad).any():
+            raise IntegrityError(f"{what}: real code beyond declared length")
 
 
 def check_scores(scores: np.ndarray, q_lens, t_lens, match: int) -> None:

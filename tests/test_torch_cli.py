@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from swtpu.cli import main as ref_main
-from swtpu.io import FastaRecord, write_fasta
+from swtpu.io import FastaRecord, read_fasta, write_fasta
 from swtpu.io.encode import CODE_BASES
 from swtpu.testing.goldens import parse_rtl_out_file
 from swtpu_torch.cli import main
@@ -78,6 +78,44 @@ def test_long_query_score_lines_equal_swtpu_cli(tmp_path):
     assert ref_main(["diff", str(port_out), str(ref_out)]) == 0
 
 
+@pytest.mark.parametrize("flags", [["--backend", "pallas"], ["--score-width", "10"]])
+def test_bucketed_score_lines_equal_swtpu_cli(tmp_path, flags):
+    """The bucketed column path, exact and at a 10-bit score width, against
+    swtpu's CLI with the same flags; a read equal to the 120-base query
+    scores 600 exactly, past the 10-bit ceiling, so its line wraps."""
+    fa = _fasta(tmp_path / "gen.fa", seed=5, qlen=120)
+    recs = read_fasta(fa)
+    write_fasta(fa, [*recs, FastaRecord("dbself", recs[0].seq)])
+    port_out, ref_out = tmp_path / "port.txt", tmp_path / "ref.txt"
+    events = tmp_path / "events.jsonl"
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa),
+                 "-o", str(port_out), "--events", str(events), *flags]) == 0
+    kinds = [json.loads(line)["kind"] for line in events.read_text().splitlines()]
+    assert kinds == ["batch", "batch"]  # buckets 32 and 128
+    assert ref_main(["--platform", "cpu", "score", "-q", str(fa), "-l", str(fa),
+                     "-o", str(ref_out), *flags]) == 0
+    got = parse_rtl_out_file(port_out)
+    assert len(got) == 26 and got == parse_rtl_out_file(ref_out)
+    assert ref_main(["diff", str(port_out), str(ref_out)]) == 0
+    assert (got["dbself"] == 600) == (flags[0] == "--backend")
+
+
+@pytest.mark.parametrize(
+    "flags,match",
+    [
+        (["--backend", "scan"], "ROADMAP item 10"),
+        (["--backend", "scan", "--score-width", "12"], "requires the stream or column"),
+        (["--backend", "stream", "--score-width", "12"], "ROADMAP item 6"),
+        (["--backend", "pallas", "--buckets", "32,64"], "exceeds bucket capacity 64"),
+        (["--buckets", "32,x"], "comma-separated ints"),
+    ],
+)
+def test_score_flag_errors_exit_cleanly(tmp_path, flags, match):
+    fa = _fasta(tmp_path / "gen.fa", seed=6)
+    with pytest.raises(SystemExit, match=match):
+        main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa), *flags])
+
+
 def test_port_never_imports_jax(tmp_path):
     """The port's CPU slice and CLI in a fresh interpreter: neither JAX nor
     a JAX-importing swtpu module may load (the test process has both)."""
@@ -94,6 +132,9 @@ def test_port_never_imports_jax(tmp_path):
         assert (res.scores == swtpu_torch.score_many_vs_one(query, reads)).all()
         long_query = rng.integers(0, 4, size=150).astype(np.int8)
         res = swtpu_torch.ScoreBank(device="cpu").score_database(long_query, reads)
+        assert (res.scores == swtpu_torch.score_many_vs_one(long_query, reads)).all()
+        bank = swtpu_torch.ScoreBank(swtpu_torch.SWConfig(score_width=12), device="cpu")
+        res = bank.score_database(long_query, reads)
         assert (res.scores == swtpu_torch.score_many_vs_one(long_query, reads)).all()
         assert main(["--device", "cpu", "score", "-q", {str(fa)!r}, "-l", {str(fa)!r},
                      "-o", {str(tmp_path / "out.txt")!r}]) == 0

@@ -1,5 +1,6 @@
-"""The CUDA wavefront kernels on the card: their strips against the plain
-PyTorch versions, and ScoreBank(device="cuda") against the oracle.
+"""The CUDA kernels on the card: the wavefront's strips and the column
+kernels' scores and chained-tile strips against their plain PyTorch
+versions, and ScoreBank(device="cuda") on both backends against the oracle.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from swtpu.oracle import sw_score_single_biased
 from swtpu_torch import DEFAULT_PENALTIES, SWConfig, ScoreBank, score_many_vs_one
 from swtpu_torch.bank.scorebank import EncodedDB
 from swtpu_torch.bank.streams import pack_streams, pack_streams_long
+from swtpu_torch.ops import column
 from swtpu_torch.ops import stream as port
 
 pytestmark = pytest.mark.cuda
@@ -190,3 +193,152 @@ def test_long_query_score_database_equals_oracle(cuda_device, qlen, wire):
     np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
     b = pack_streams_long(query, db.mat, n_streams=512, rows=16, lens=db.lens)
     assert (res.cells, res.padded_cells) == (b.cells, b.stream.size * 128 * K)
+
+
+def _column_batch(rng, B, m, n):
+    """Sentinel-padded [B, m] queries and [B, n] targets of ragged lengths,
+    pair 0 identical over min(m, n) bases (its score wraps at W = 10 once
+    it passes 102 matches)."""
+    q_lens = rng.integers(0, m + 1, size=B)
+    t_lens = rng.integers(0, n + 1, size=B)
+    q = rng.integers(0, 4, size=(B, m)).astype(np.int8)
+    t = rng.integers(0, 4, size=(B, n)).astype(np.int8)
+    k = min(m, n)
+    t[0, :k] = q[0, :k]
+    q_lens[0] = t_lens[0] = k
+    q[np.arange(m)[None, :] >= q_lens[:, None]] = column.Q_PAD
+    t[np.arange(n)[None, :] >= t_lens[:, None]] = column.T_PAD
+    return torch.from_numpy(q), torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("width", [None, 12, 10])
+@pytest.mark.parametrize("m", [8, 32, 136, 256])
+def test_column_kernel_equals_plain_version(cuda_device, m, width):
+    """B4 at each rows-per-lane, 1001 pairs (a ragged last block)."""
+    rng = np.random.default_rng(m + (width or 0))
+    q, t = _column_batch(rng, 1001, m, 160)
+    want = column.column_scores_reference(q, t, DEFAULT_PENALTIES, width)
+    launches = column.column_scores_cuda.launches
+    got = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device),
+                                    DEFAULT_PENALTIES, width)
+    torch.cuda.synchronize()
+    assert column.column_scores_cuda.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("width", [None, 10])
+@pytest.mark.parametrize("K", [2, 3])
+def test_column_chain_equals_plain_version(cuda_device, K, width):
+    """Whole K-tile chains through B5 and its plain version: every tile's
+    h, ms and is, and the scores."""
+    rng = np.random.default_rng(K * 7 + (width or 0))
+    q, t = _column_batch(rng, 301, K * column.QUERY_TILE, 160)
+
+    def run(q, t, tile):
+        outs = []
+
+        def record(*args):
+            outs.append(tile(*args))
+            return outs[-1]
+
+        return column._chained_call(q, t, DEFAULT_PENALTIES, width, tile=record), outs
+
+    launches = column.column_chained_cuda.launches
+    got, got_tiles = run(q.to(cuda_device), t.to(cuda_device), column.column_chained_cuda)
+    want, want_tiles = run(q, t, column.column_chained_reference)
+    torch.cuda.synchronize()
+    assert column.column_chained_cuda.launches == launches + K
+    for k, (g, w) in enumerate(zip(got_tiles, want_tiles)):
+        for name, a, b in zip(("h", "ms", "is_"), g, w):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                          err_msg=f"tile {k} {name}")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_column_kernels_reject_bad_tensors(cuda_device):
+    q = torch.zeros((4, 256), dtype=torch.int8, device=cuda_device)
+    t = torch.zeros((4, 64), dtype=torch.int8, device=cuda_device)
+    s = torch.zeros((4, 64), dtype=torch.int32, device=cuda_device)
+    h = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    launches = (column.column_scores_cuda.launches, column.column_chained_cuda.launches)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        column.column_scores_cuda(q, t[:, :40].contiguous())
+    with pytest.raises(ValueError, match="at most 256"):
+        column.column_scores_cuda(torch.zeros((4, 264), dtype=torch.int8,
+                                              device=cuda_device), t)
+    with pytest.raises(ValueError, match="256 query rows"):
+        column.column_chained_cuda(q[:, :128].contiguous(), t, s, s, h)
+    with pytest.raises(ValueError, match="ms must be a CUDA int32 tensor"):
+        column.column_chained_cuda(q, t, s.long(), s, h)
+    with pytest.raises(ValueError, match="h shape"):
+        column.column_chained_cuda(q, t, s, s, h[:2])
+    with pytest.raises(ValueError, match="score_width=5 too narrow"):
+        column.column_scores_cuda(q, t, DEFAULT_PENALTIES, 5)
+    assert (column.column_scores_cuda.launches,
+            column.column_chained_cuda.launches) == launches
+
+
+@pytest.mark.parametrize("qlen", [100, 300])
+def test_bucketed_score_database_equals_oracle(cuda_device, qlen):
+    """ScoreBank(backend="pallas") on three buckets: B4 per bucket, or a B5
+    chain of 2 tiles per bucket for the 300-base query."""
+    rng = np.random.default_rng(qlen + 300)
+    db = _db(rng, 3000, 400)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    wrapper = column.column_chained_cuda if qlen > 256 else column.column_scores_cuda
+    launches = wrapper.launches
+    res = ScoreBank(backend="pallas", device=cuda_device).score_database(query, db)
+    assert wrapper.launches == launches + 3 * (2 if qlen > 256 else 1)
+    np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
+
+
+def test_bucketed_score_pairs_wrap_parity(cuda_device):
+    """score_pairs at the RTL's 12-bit width: identical 450-base pairs
+    wrap; every pair equals the biased oracle."""
+    rng = np.random.default_rng(12)
+    lens = rng.integers(24, 513, size=(2, 120))
+    queries = [rng.integers(0, 4, size=k).astype(np.int8) for k in lens[0]]
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in lens[1]]
+    for i in (0, 1, 2):
+        queries[i] = rng.integers(0, 4, size=450).astype(np.int8)
+        targets[i] = queries[i].copy()
+    bank = ScoreBank(SWConfig(score_width=12), device=cuda_device)
+    assert bank.backend == "pallas"
+    res = bank.score_pairs(queries, targets)
+    want = [sw_score_single_biased(a, b, DEFAULT_PENALTIES, 12)
+            for a, b in zip(queries, targets)]
+    np.testing.assert_array_equal(res.scores, want)
+    assert res.scores[0] < 5 * 450  # wrapped, not the exact score
+
+
+def test_column_launch_failure_raises(cuda_device, monkeypatch):
+    """A column launch the card refuses raises with the CUDA error, and
+    counts no launch."""
+    from swtpu_torch.ops import _build
+
+    lib = _build.load_library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def swtpu_column_scores(*args):
+            return 1  # cudaErrorInvalidValue
+
+        @staticmethod
+        def swtpu_column_chained(*args):
+            return 1
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    q = torch.zeros((4, 256), dtype=torch.int8, device=cuda_device)
+    t = torch.zeros((4, 64), dtype=torch.int8, device=cuda_device)
+    s = torch.zeros((4, 64), dtype=torch.int32, device=cuda_device)
+    h = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    launches = (column.column_scores_cuda.launches, column.column_chained_cuda.launches)
+    with pytest.raises(RuntimeError, match="column_scores launch failed: CUDA error 1"):
+        column.column_scores_cuda(q, t)
+    with pytest.raises(RuntimeError, match="column_chained launch failed"):
+        column.column_chained_cuda(q, t, s, s, h)
+    assert (column.column_scores_cuda.launches,
+            column.column_chained_cuda.launches) == launches

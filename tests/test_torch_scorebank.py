@@ -16,6 +16,7 @@ from swtpu.utils.metrics import EventLog
 from swtpu_torch.bank import ScoreBank, ScoreResult
 from swtpu_torch.bank.scorebank import stream_geometry
 from swtpu_torch.bank.streams import pack_streams
+from swtpu_torch.ops.column import sw_scores_column
 from swtpu_torch.utils.guards import IntegrityError, check_scores, check_stream_batch
 
 torch.set_num_threads(1)
@@ -123,12 +124,18 @@ def test_event_log_record(tmp_path):
 @pytest.mark.parametrize(
     "make,match",
     [
-        (lambda: ScoreBank(SWConfig(score_width=12), device="cpu"), "score_width"),
+        (lambda: ScoreBank(SWConfig(score_width=12), backend="stream", device="cpu"),
+         "score_width"),
         (lambda: ScoreBank(backend="scan", device="cpu"), "scan"),
         (lambda: ScoreBank(SWConfig(stream_chunk_reads=2), device="cpu").score_database(
             np.zeros(9, np.int8), [np.zeros(9, np.int8)] * 3), "chunked"),
         (lambda: ScoreBank(SWConfig(stream_state_dtype="float32"), device="cpu").score_database(
             np.zeros(9, np.int8), [np.zeros(9, np.int8)]), "float32 state"),
+        (lambda: ScoreBank(device="cpu").score_pairs(
+            [np.zeros(9, np.int8)], [np.zeros(9, np.int8)]), "item 9"),
+        (lambda: sw_scores_column(torch.zeros((2, 8), dtype=torch.int8),
+                                  torch.zeros((2, 8), dtype=torch.int8),
+                                  state_dtype="float32"), "float32"),
     ],
 )
 def test_unported_settings_raise(make, match):
