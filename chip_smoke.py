@@ -5,9 +5,12 @@
 
 Phases, each reported on its own line; any failure exits non-zero:
   1. device: a CUDA device is required; prints the card's name and power
-     limit (nvidia-smi), torch's CUDA version and nvcc's version;
-  2. build: compiles the wavefront and column kernels from
-     swtpu_torch/ops/csrc (one nvcc per source, in parallel);
+     limit (nvidia-smi), its SM clock, torch's CUDA version and nvcc's
+     version;
+  2. build: compiles the wavefront, column, lane-major and microbenchmark
+     kernels from swtpu_torch/ops/csrc (one nvcc per source, in parallel)
+     and prints ptxas's report; loads the native host packer (g++) and
+     fails if it did not load, so that host-stage times are its;
   3. kernel vs plain: each CUDA kernel's output must equal the plain
      PyTorch version's bit for bit: at 512 physical streams, the wavefront
      for every (segments, rows) that ScoreBank uses on CUDA and for
@@ -16,7 +19,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      4,096 ragged pairs, the column kernel (B4) at query widths 8, 32, 136
      and 256, exact and at score widths 12 and 10, and the chained column
      tile (B5) over whole chains of K=2 and K=3, every tile's h/ms/is,
-     exact and at width 10;
+     exact and at width 10; the lane-major kernel (B6) at 1 and 1,001
+     pairs, query widths 1/40/128 and target widths 1/150/300; E1 for all
+     16 (dtype, pattern) cases at 64 steps; E2 for all 5 variants x 4
+     dtypes at 128 streams x 256 steps;
   4. main path: ScoreBank(device="cuda").score_database on five
      databases made from --seed: (a)-(c) short queries (the bench.py
      headline shape, a ragged short-query set and a mid-length set), then
@@ -40,9 +46,18 @@ Phases, each reported on its own line; any failure exits non-zero:
      (a)).  Each long case's chain runs through the kernel at full length,
      and every tile is held against the plain version on the first 4096
      steps (see phase_chained_at_main_shape).  Each bucket batch of (f)
-     and each tile of (g), in full, through B4/B5 and the plain versions.
+     and each tile of (g), in full, through B4/B5 and the plain versions;
+  6. the shootout (experiments/torch_shootout.py's own functions) on
+     65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
+     its sizes, B4 == B6 on every pair and the wavefront == B4 on
+     (q[0], t[i]) for every i; then B6 against its plain version on all
+     65,536 pairs, and E2's full int32 strip against the wavefront kernel
+     at rows 1 on 512 streams x 4,096 steps;
+  7. the microbenchmarks: E1's and E2's timing tables
+     (experiments/torch_microbench_ops.py, torch_kernel_ablate.py at 512
+     streams in each of the four dtypes) at those scripts' step counts.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-each kernel with its launches, error and times.
+each kernel with its launches on its path, error, times and bound.
 """
 
 from __future__ import annotations
@@ -58,6 +73,57 @@ REPO = Path(__file__).resolve().parent
 TOLERANCE = 0  # integer strips and scores: bit-equal
 CHECK_STEPS = 4096  # steps of each long-case tile held against the plain version
 STRIPS = ("acc", "oD", "oG", "oH")  # a chained tile's outputs
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# integer or float operations a cell (or element) of each recurrence, for
+# the operations term of each kernel's bound.  An int32 add followed by a
+# max counts once: Hopper's DPX instruction VIADDMNMX does both, and ptxas
+# emits it for these kernels (their SASS holds 32-104 of them).
+WAVEFRONT_OPS = 8  # s: compare + select; max(diag + s, 0); I: max, + extend; H: max; D: max; G: max(M + open, I)
+COLUMN_OPS = 9  # diag: max; s: 2; max(diag + s, 0); I: 2 max, + extend, add-max; H: max
+# E1 per element and op (int32 fuses the add into the max; select is a
+# compare and a predicated add); the step's floor modulo adds 3 per element
+E1_OPS = {"addmax": (1, 2), "select": (2, 2), "roll_lane": (1, 2), "roll_sub": (1, 2)}
+E1_MOD_OPS = 3
+# E2 per cell and step in int32: WAVEFRONT_OPS, the char's flag and code
+# (2), and in full and norolls the read-start selects of the diagonal and
+# of G (2); the other types cannot fuse M's and G's add-max (2 more;
+# minimal's one add-max, 1 more)
+E2_OPS = {"full": 12, "norolls": 12, "nosel": 10, "arith": 10, "minimal": 1}
+
+
+def e1_ops(pattern, dtype):
+    return E1_OPS[pattern][dtype != "int32"]
+
+
+def e2_ops(variant, dtype):
+    extra = 0 if dtype == "int32" else (1 if variant == "minimal" else 2)
+    return E2_OPS[variant] + extra
+
+
+# elementwise results per clock per SM: 64 int32 lanes; 128 fp32 lanes;
+# two 16-bit results per 32-bit lane where E1 packs them (int16 on the
+# integer lanes, bfloat16 on the fp32 lanes); E2 keeps one value a
+# register
+E1_LANES = {"int32": 64, "int16": 128, "float32": 128, "bfloat16": 256}
+E2_LANES = {"int32": 64, "int16": 64, "float32": 128, "bfloat16": 128}
+
+
+class Peaks:
+    """The card's peak rates for the bounds: SM count x lanes x max SM
+    clock for operations, HBM_BYTES_PER_S for bytes."""
+
+    def __init__(self, sms: int, clock_hz: float):
+        self.sms = sms
+        self.clock_hz = clock_hz
+
+    def bound(self, nbytes: float, ops: float, lanes: int = 64):
+        """(least ms for the work, what bounds it): the larger of the bytes
+        over the memory rate and the operations over the lanes' peak."""
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops / (self.sms * lanes * self.clock_hz)
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
 def fail(msg: str) -> None:
@@ -188,25 +254,35 @@ def phase_device():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = subprocess.run(
         [str(Path(CUDA_HOME or "") / "bin" / "nvcc"), "--version"],
         capture_output=True, text=True,
     ).stdout.strip().splitlines()
-    print(f"phase device: ok {torch.cuda.get_device_name(0)} | torch "
-          f"{torch.__version__} CUDA {torch.version.cuda} | nvcc "
-          f"{nvcc[-1] if nvcc else 'not found'}")
-    return card
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"phase device: ok {torch.cuda.get_device_name(0)} | {sms} SMs, max SM "
+          f"clock {clock} MHz | torch {torch.__version__} CUDA {torch.version.cuda} "
+          f"| nvcc {nvcc[-1] if nvcc else 'not found'}")
+    return card, Peaks(sms, float(clock) * 1e6)
 
 
 def phase_build():
     from swtpu_torch.ops._build import build_log_path, library_path, load_library
+    from swtpu_torch.runtime import native
 
     t0 = time.perf_counter()
     load_library()
     dt = time.perf_counter() - t0
-    print(f"phase build: ok {dt:.2f} s -> {library_path().name}")
+    if not native.native_available():
+        fail("the native host packer did not load (g++ missing or failed): host "
+             "stages would run the numpy fallback")
+    print(f"phase build: ok {dt:.2f} s -> {library_path().name}; host packer: "
+          f"native ({native.library_path().name})")
     kernel = "?"
     for line in build_log_path().read_text().splitlines():
         if "Compiling entry function" in line:
@@ -572,8 +648,8 @@ def biased_oracle(pairs, width):
     from concurrent.futures import ProcessPoolExecutor
     from functools import partial
 
-    from swtpu.config import DEFAULT_PENALTIES
-    from swtpu.oracle import sw_score_single_biased
+    from swtpu_torch.config import DEFAULT_PENALTIES
+    from swtpu_torch.oracle import sw_score_single_biased
 
     fn = partial(sw_score_single_biased, penalties=DEFAULT_PENALTIES, score_width=width)
     workers = max(1, min(8, (os.cpu_count() or 1) - 1))
@@ -726,11 +802,155 @@ def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
     return batches, tile
 
 
+LANE_CHECKS = ((1, 1001), (1, 40, 128), (1, 150, 300))  # pairs, query and target widths
+E1_CHECK_STEPS = 64
+E2_CHECK = (128, 256)  # streams, steps
+
+
+def phase_lane_vs_plain(rng):
+    """B6 against its plain version on ragged sentinel-padded pairs, padded
+    as sw_scores_lane pads them."""
+    from swtpu_torch.ops.lane import lane_scores_cuda, lane_scores_reference, pad_lane_batch
+
+    results = []
+    Bs, ms, ns = LANE_CHECKS
+    for B in Bs:
+        for m in ms:
+            for n in ns:
+                qp, tp = pad_lane_batch(*column_batch(rng, B, m, n))
+                got = lane_scores_cuda(qp, tp)
+                want, plain_ms = cuda_once(lambda: lane_scores_reference(qp, tp))
+                err = strip_error(f"lane B={B} m={m} n={n}", got, want)
+                ms_ = cuda_ms(lambda: lane_scores_cuda(qp, tp), 10)
+                results.append(dict(B=B, m=m, n=n, padded=list(tp.shape), max_abs_err=err,
+                                    ms=ms_, plain_ms=plain_ms))
+    print(f"phase kernel_vs_plain: ok lane (B6) at {len(results)} shapes (pairs "
+          f"{Bs}, query {ms}, target {ns}) bit-equal | kernel "
+          f"{min(r['ms'] for r in results):.4f}-{max(r['ms'] for r in results):.4f} ms, "
+          f"plain {min(r['plain_ms'] for r in results):.1f}-"
+          f"{max(r['plain_ms'] for r in results):.1f} ms")
+    return results
+
+
+def phase_microbench_vs_plain(rng):
+    """E1 at every (dtype, pattern) and E2 at every (variant, dtype)
+    against their plain versions; tolerance 0."""
+    import numpy as np
+    import torch
+    from swtpu_torch.ops.microbench import (
+        DTYPES, LANES, PATTERNS, SHAPE, VARIANTS, microbench_ops_cuda,
+        microbench_ops_reference, stream_ablate_cuda, stream_ablate_reference,
+    )
+
+    e1, e2 = [], []
+    x0 = rng.integers(0, 5, SHAPE).astype(np.float32)
+    for name, dtype in DTYPES.items():
+        x = torch.from_numpy(x0).to(dtype).cuda()
+        for pattern in PATTERNS:
+            args = (x, pattern, E1_CHECK_STEPS)
+            got = microbench_ops_cuda(*args)
+            want, plain_ms = cuda_once(lambda: microbench_ops_reference(*args))
+            err = strip_error(f"E1 {name} {pattern}", got, want)
+            e1.append(dict(dtype=name, pattern=pattern, steps=E1_CHECK_STEPS,
+                           max_abs_err=err, ms=cuda_ms(lambda: microbench_ops_cuda(*args), 5),
+                           plain_ms=plain_ms))
+    S, T = E2_CHECK
+    qT = torch.from_numpy(rng.integers(0, 4, (LANES, S)).astype(np.int8)).cuda()
+    sk = rng.integers(0, 4, (T, S)).astype(np.int8)
+    sk[rng.random(sk.shape) < 0.02] |= 8  # read starts: the boundary selects
+    sk = torch.from_numpy(sk).cuda()
+    for variant in VARIANTS:
+        for name, dtype in DTYPES.items():
+            args = (qT, sk, variant, dtype)
+            got = stream_ablate_cuda(*args)
+            want, plain_ms = cuda_once(lambda: stream_ablate_reference(*args))
+            err = strip_error(f"E2 {variant} {name}", got, want)
+            e2.append(dict(variant=variant, dtype=name, S=S, T=T, max_abs_err=err,
+                           ms=cuda_ms(lambda: stream_ablate_cuda(*args), 10),
+                           plain_ms=plain_ms))
+    print(f"phase kernel_vs_plain: ok E1 {len(e1)} (dtype, pattern) cases at "
+          f"{E1_CHECK_STEPS} steps and E2 {len(e2)} (variant, dtype) cases at [{T}, {S}] "
+          f"bit-equal | E1 kernel {min(r['ms'] for r in e1):.3f}-"
+          f"{max(r['ms'] for r in e1):.3f} ms, plain {min(r['plain_ms'] for r in e1):.1f}-"
+          f"{max(r['plain_ms'] for r in e1):.1f} ms; E2 kernel "
+          f"{min(r['ms'] for r in e2):.4f}-{max(r['ms'] for r in e2):.4f} ms, plain "
+          f"{min(r['plain_ms'] for r in e2):.1f}-{max(r['plain_ms'] for r in e2):.1f} ms")
+    return e1, e2
+
+
+def phase_shootout(card, seed):
+    """The shootout's main path through experiments/torch_shootout.py's own
+    functions, then B6 against its plain version at that shape and E2's
+    full strip against the wavefront kernel at rows 1."""
+    import numpy as np
+    import torch
+    from experiments import torch_shootout as so
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.lane import lane_scores_cuda, lane_scores_reference, pad_lane_batch
+    from swtpu_torch.ops.microbench import LANES, stream_ablate_cuda
+    from swtpu_torch.ops.stream import stream_strip_cuda
+
+    q, t = so.make_pairs(seed)
+    lane_scores_cuda.launches = 0
+    race = so.race(q, t, card, reps=5)
+    covered = so.check_like_with_like(q, t)
+    launches = lane_scores_cuda.launches
+    if launches == 0:
+        fail("the shootout never launched the lane-major kernel (B6)")
+    print(f"phase shootout: ok B4 == B6 on all {covered['b4_b6_pairs']} pairs, the "
+          f"wavefront == B4 on (q[0], t[i]) for all {covered['wavefront_pairs']} targets "
+          f"at S = {', '.join(map(str, so.STREAMS))}; B6 launched {launches} times | "
+          + "; ".join(f"{r['name']} {r['big_ms']:.4f} ms ({r['gcups_big']:.1f} GCUPS)"
+                      for r in race) + f" | {card}", flush=True)
+    qp, tp = pad_lane_batch(q, t)
+    got = lane_scores_cuda(qp, tp)
+    want, plain_ms = cuda_once(lambda: lane_scores_reference(qp, tp))
+    err = strip_error("lane at the shootout shape", got, want)
+    ms = cuda_ms(lambda: lane_scores_cuda(qp, tp), 5)
+    B, n = tp.shape
+    print(f"phase shootout: ok lane (B6) [{B} pairs, 128 x {n}] bit-equal to its plain "
+          f"version | kernel {ms:.4f} ms ({B * 128 * n / ms / 1e6:.1f} GCUPS), plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    lane = dict(B=B, m=128, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                launches=launches, race=race, covered=covered)
+    rng = np.random.default_rng([seed, 4])
+    S, T = 512, 4096
+    qT = torch.from_numpy(rng.integers(0, 4, (LANES, S)).astype(np.int8)).cuda()
+    sk = rng.integers(0, 4, (T, S)).astype(np.int8)
+    sk[rng.random(sk.shape) < 0.01] |= 8
+    sk = torch.from_numpy(sk).cuda()
+    got = stream_ablate_cuda(qT, sk, "full")
+    want = stream_strip_cuda(qT, sk, DEFAULT_PENALTIES, 1, 1)
+    err_full = strip_error("E2 full vs the wavefront kernel", got, want)
+    e2_ms = cuda_ms(lambda: stream_ablate_cuda(qT, sk, "full"), 10)
+    b2_ms = cuda_ms(lambda: stream_strip_cuda(qT, sk, DEFAULT_PENALTIES, 1, 1), 10)
+    print(f"phase shootout: ok E2 full int32 strip [{T}, {S}] bit-equal to the wavefront "
+          f"kernel at rows 1 | E2 full {e2_ms:.4f} ms, B2 {b2_ms:.4f} ms", flush=True)
+    return lane, dict(S=S, T=T, max_abs_err=err_full, e2_full_ms=e2_ms, b2_ms=b2_ms)
+
+
+def phase_microbench(card):
+    """E1's and E2's timing tables, as their scripts print them, at their
+    step counts; E2 at 512 streams in each of the four dtypes."""
+    from experiments import torch_kernel_ablate, torch_microbench_ops
+    from swtpu_torch.ops.microbench import DTYPES, microbench_ops_cuda, stream_ablate_cuda
+
+    microbench_ops_cuda.launches = stream_ablate_cuda.launches = 0
+    e1 = torch_microbench_ops.run(card)
+    e2 = [row for name in DTYPES for row in torch_kernel_ablate.run(card, 512, name)]
+    launches = microbench_ops_cuda.launches, stream_ablate_cuda.launches
+    if min(launches) == 0:
+        fail(f"the microbenchmarks never launched E1 or E2 (launches {launches})")
+    print(f"phase microbench: ok E1 {len(e1)} cases, E2 {len(e2)} cases | launches "
+          f"E1 {launches[0]}, E2 {launches[1]} | {card}", flush=True)
+    return e1, e2, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    card = phase_device()
+    card, peaks = phase_device()
     import numpy as np
     import torch
 
@@ -739,11 +959,14 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     rng_long = np.random.default_rng([args.seed, 1])
     rng_col = np.random.default_rng([args.seed, 2])  # the column path's own
+    rng_lane = np.random.default_rng([args.seed, 3])  # B6, E1 and E2's own
     phase_build()
     checks = phase_kernel_vs_plain(rng)
     checks += phase_ripple_vs_plain(rng_long)
     chains = phase_chained_vs_plain(rng_long)
     col_checks, col_chains = phase_column_vs_plain(rng_col)
+    lane_checks = phase_lane_vs_plain(rng_lane)
+    e1_checks, e2_checks = phase_microbench_vs_plain(rng_lane)
     from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
 
     stream_strip_cuda.launches = 0
@@ -769,61 +992,93 @@ def main() -> int:
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     col_batches, col_tile = phase_column_at_main_shape(
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
+    lane, e2_full = phase_shootout(card, args.seed)
+    e1_table, e2_table, (e1_launches, e2_launches) = phase_microbench(card)
     head = mains[0]  # case (a): the headline shape, segments 1, rows 16
     lhead = long_mains[0]  # case (d), tile 0 on its first CHECK_STEPS steps
     chead = col_batches[-1]  # case (f)'s largest bucket, 512 columns
+    e1_head = e1_checks[0]  # int32 addmax at E1_CHECK_STEPS steps
+    e2_head = e2_checks[0]  # full int32 at E2_CHECK
+    S2, T2 = E2_CHECK
+    # each bound: the inputs read once and the outputs written once, and
+    # the recurrence's operations on the cells the kernel computes
+    T, N = head["T"], head["N"]
+    b_wave = peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS)
+    Tc, Nc = lhead["check_steps"], lhead["N"]
+    b_chain = peaks.bound(128 * Nc + Tc * Nc * (1 + 12 + 16), 128 * Tc * Nc * WAVEFRONT_OPS)
+    B, m, n = chead["B"], chead["m"], chead["n"]
+    b_col = peaks.bound(B * (m + n + 4), B * m * n * COLUMN_OPS)
+    Bt, nt = col_tile["B"], col_tile["n"]
+    b_tile = peaks.bound(Bt * (256 + nt + 8 + 16 * nt), Bt * 256 * nt * COLUMN_OPS)
+    Bl, nl = lane["B"], lane["n"]
+    b_lane = peaks.bound(Bl * (128 * 4 + nl + 4), Bl * 128 * nl * COLUMN_OPS)
+    elems = 512 * 128
+    e1_bytes = 2 * elems * (4 if e1_head["dtype"] in ("int32", "float32") else 2)
+    e1_n = e1_head["steps"] * elems * (8 * e1_ops(e1_head["pattern"], e1_head["dtype"])
+                                       + E1_MOD_OPS)
+    b_e1 = peaks.bound(e1_bytes, e1_n, E1_LANES[e1_head["dtype"]])
+    b_e2 = peaks.bound(128 * S2 + T2 * S2 * 5,
+                       128 * S2 * T2 * e2_ops(e2_head["variant"], e2_head["dtype"]),
+                       E2_LANES[e2_head["dtype"]])
+    for row in e1_table:  # the least time of one op over the array
+        row["bound_ns_per_op"] = peaks.bound(
+            0, elems * (e1_ops(row["pattern"], row["dtype"]) + E1_MOD_OPS / 8),
+            E1_LANES[row["dtype"]])[0] * 1e6
+    for row in e2_table:  # the least time of one step over 128 x S cells
+        row["bound_ns_per_step"] = peaks.bound(
+            0, 128 * row["S"] * e2_ops(row["variant"], row["dtype"]),
+            E2_LANES[row["dtype"]])[0] * 1e6
+    no_library = ("no single PyTorch call computes Smith-Waterman scores, the "
+                  "microbenchmarks' op chains or the ablated wavefront step")
+
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, **rest):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None, "library_note": no_library, **rest}
+
+    kernels = [
+        entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
+              "swtpu/ops/pallas_stream.py:193", launches,
+              max(c["max_abs_err"] for c in checks + mains), head["ms"],
+              head["plain_ms"], b_wave,
+              also_replaces="swtpu/ops/pallas_stream.py:57 (tail-accumulator and "
+                            "ripple-H forms)",
+              shape=[head["T"], head["N"]], main_shapes=mains, configs=checks),
+        entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
+              "swtpu/ops/pallas_stream.py:314", chained_launches,
+              max(c["max_abs_err"] for c in chains + long_mains), lhead["ms"][0],
+              lhead["plain_ms"][0], b_chain, shape=[lhead["check_steps"], lhead["N"]],
+              main_shapes=long_mains, configs=chains),
+        entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
+              column_launches, max(c["max_abs_err"] for c in col_checks + col_batches),
+              chead["ms"], chead["plain_ms"], b_col,
+              shape=[chead["B"], chead["m"], chead["n"]], main_shapes=col_batches,
+              configs=col_checks),
+        entry("column_chained", "swtpu_torch/ops/csrc/column.cu",
+              "swtpu/ops/pallas_kernel.py:137", column_chained_launches,
+              max(c["max_abs_err"] for c in col_chains + [col_tile]), col_tile["ms"][0],
+              col_tile["plain_ms"][0], b_tile, shape=[col_tile["B"], 256, col_tile["n"]],
+              main_shapes=[col_tile], configs=col_chains),
+        entry("lane", "swtpu_torch/ops/csrc/lane.cu", "swtpu/ops/pallas_lane.py:37",
+              lane["launches"], max(c["max_abs_err"] for c in lane_checks + [lane]),
+              lane["ms"], lane["plain_ms"], b_lane, shape=[lane["B"], 128, lane["n"]],
+              shootout=lane["race"], configs=lane_checks),
+        entry("microbench_ops", "swtpu_torch/ops/csrc/microbench.cu",
+              "experiments/microbench_ops.py:23", e1_launches,
+              max(c["max_abs_err"] for c in e1_checks), e1_head["ms"], e1_head["plain_ms"],
+              b_e1, shape=[512, 128, e1_head["steps"]],
+              case=[e1_head["dtype"], e1_head["pattern"]], table=e1_table,
+              configs=e1_checks),
+        entry("stream_ablate", "swtpu_torch/ops/csrc/microbench.cu",
+              "experiments/kernel_ablate.py:44", e2_launches,
+              max(c["max_abs_err"] for c in e2_checks + [e2_full]), e2_head["ms"],
+              e2_head["plain_ms"], b_e2, shape=[T2, S2],
+              case=[e2_head["variant"], e2_head["dtype"]], table=e2_table,
+              full_vs_wavefront=e2_full, configs=e2_checks),
+    ]
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "stream_wavefront",
-        "route": "cuda",
-        "source": "swtpu_torch/ops/csrc/stream_wavefront.cu",
-        "replaces": "swtpu/ops/pallas_stream.py:193",
-        "also_replaces": "swtpu/ops/pallas_stream.py:57 (tail-accumulator "
-                         "and ripple-H forms)",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks + mains),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "shape": [head["T"], head["N"]],
-        "main_shapes": mains,
-        "configs": checks,
-    }, {
-        "name": "stream_chained",
-        "route": "cuda",
-        "source": "swtpu_torch/ops/csrc/stream_wavefront.cu",
-        "replaces": "swtpu/ops/pallas_stream.py:314",
-        "launches": chained_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in chains + long_mains),
-        "ms": lhead["ms"][0],
-        "plain_ms": lhead["plain_ms"][0],
-        "shape": [lhead["check_steps"], lhead["N"]],
-        "main_shapes": long_mains,
-        "configs": chains,
-    }, {
-        "name": "column",
-        "route": "cuda",
-        "source": "swtpu_torch/ops/csrc/column.cu",
-        "replaces": "swtpu/ops/pallas_kernel.py:54",
-        "launches": column_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in col_checks + col_batches),
-        "ms": chead["ms"],
-        "plain_ms": chead["plain_ms"],
-        "shape": [chead["B"], chead["m"], chead["n"]],
-        "main_shapes": col_batches,
-        "configs": col_checks,
-    }, {
-        "name": "column_chained",
-        "route": "cuda",
-        "source": "swtpu_torch/ops/csrc/column.cu",
-        "replaces": "swtpu/ops/pallas_kernel.py:137",
-        "launches": column_chained_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in col_chains + [col_tile]),
-        "ms": col_tile["ms"][0],
-        "plain_ms": col_tile["plain_ms"][0],
-        "shape": [col_tile["B"], 256, col_tile["n"]],
-        "main_shapes": [col_tile],
-        "configs": col_chains,
-    }], "bucketed_cases": [
+    print(json.dumps({"kernels": kernels, "bucketed_cases": [
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
     ]}))

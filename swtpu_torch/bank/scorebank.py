@@ -29,18 +29,19 @@ from typing import List
 import numpy as np
 import torch
 
-from swtpu.config import SWConfig
-from swtpu.io.loader import EncodedDB
 from swtpu_torch.bank.buckets import plan_buckets
 from swtpu_torch.bank.packer import pack_many_vs_one, pack_pairs
 from swtpu_torch.bank.streams import (
     LANES, batch_to_device, pack_stream_wire, pack_streams, pack_streams_long,
 )
+from swtpu_torch.config import SWConfig
+from swtpu_torch.io.loader import EncodedDB
 from swtpu_torch.ops.column import sw_scores_column
 from swtpu_torch.ops.stream import (
     sw_scores_stream, sw_scores_stream_long, sw_scores_stream_long_packed,
     sw_scores_stream_packed,
 )
+from swtpu_torch.utils.metrics import BatchEvent
 
 
 def _dense_form(targets):
@@ -250,8 +251,6 @@ class ScoreBank:
         # step, shared by `segments` queries
         padded = batch.stream.shape[0] * batch.stream.shape[1] * (LANES // segments)
         if event_log is not None:
-            from swtpu.utils.metrics import BatchEvent
-
             event_log.emit(
                 BatchEvent(
                     "stream", t_wall=time.time(), elapsed_s=elapsed,
@@ -305,8 +304,6 @@ class ScoreBank:
         K = batch.q.shape[1] // LANES
         padded = batch.stream.shape[0] * batch.stream.shape[1] * LANES * K
         if event_log is not None:
-            from swtpu.utils.metrics import BatchEvent
-
             event_log.emit(
                 BatchEvent(
                     "stream_long", t_wall=time.time(), elapsed_s=elapsed,
@@ -390,8 +387,6 @@ class ScoreBank:
             cells += batch.cells
             padded += batch.padded_cells
             if event_log is not None:
-                from swtpu.utils.metrics import BatchEvent
-
                 event_log.emit(
                     BatchEvent(
                         "batch", t_wall=time.time(),
@@ -430,8 +425,6 @@ class ScoreBank:
             cells += batch.cells
             padded += batch.padded_cells
             if event_log is not None:
-                from swtpu.utils.metrics import BatchEvent
-
                 event_log.emit(
                     BatchEvent(
                         "pair_batch", t_wall=time.time(),

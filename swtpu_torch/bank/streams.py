@@ -263,14 +263,14 @@ def _pack_streams_dense(
     query: np.ndarray, tmat: np.ndarray, lens: np.ndarray, S: int,
     segments: int, rows: int = 1,
 ) -> StreamBatch:
-    """Ragged dense-matrix packing via swtpu's native C++ plan/fill
+    """Ragged dense-matrix packing via the native C++ plan/fill
     pipeline; pure-Python greedy fallback if the toolchain is missing.
     Bit-identical to the per-read greedy path."""
     qcap = LANES // segments
     drain = LANES // (rows * segments) - 1
     n_reads = tmat.shape[0]
     try:
-        from swtpu.runtime.native import NativePacker, native_available
+        from swtpu_torch.runtime.native import NativePacker, native_available
 
         if not native_available():
             raise RuntimeError("native unavailable")
@@ -335,7 +335,7 @@ def pack_stream_wire(stream: np.ndarray):
     if T % 8:
         raise ValueError(f"stream length {T} must be a multiple of 8")
     try:
-        from swtpu.runtime.native import NativePacker, native_available
+        from swtpu_torch.runtime.native import NativePacker, native_available
 
         if native_available():
             return NativePacker().pack_wire(stream)

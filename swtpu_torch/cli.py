@@ -25,7 +25,7 @@ def _load(query_path: str, library_path: str):
     """Load query + library through the dense native pipeline: the library
     stays one int8 matrix end to end.  The query is the first record named
     `query*` (else the first record)."""
-    from swtpu.io.loader import load_encoded
+    from swtpu_torch.io.loader import load_encoded
 
     qdb = load_encoded(query_path)
     if not qdb.names:
@@ -38,7 +38,7 @@ def _load(query_path: str, library_path: str):
 
 def _split_lib(lib):
     """(names, db) of the library without its `query*` records."""
-    from swtpu.io.loader import EncodedDB
+    from swtpu_torch.io.loader import EncodedDB
 
     rows = [i for i, nm in enumerate(lib.names) if not nm.startswith("query")]
     if len(rows) == len(lib.names):
@@ -49,17 +49,22 @@ def _split_lib(lib):
     return db.names, db
 
 
-def _emit(out, names, scores, t_start):
-    from swtpu.server import format_score_line
+def format_score_line(name: str, score: int, ns: int) -> str:
+    """The RTL testbench's golden line format (`@<time>ns: >dbK score: S`,
+    ScoreBank/ScoreBank_v1_tb.sv:280-282): the port's copy of
+    ``swtpu.server.format_score_line``, byte for byte."""
+    return f"@{ns:>9}ns: \t{'>' + name:>10} score: \t{int(score):>10}"
 
+
+def _emit(out, names, scores, t_start):
     for name, s in zip(names, scores):
         ns = int((time.perf_counter() - t_start) * 1e9)
         out.write(format_score_line(name, s, ns) + "\n")
 
 
 def cmd_score(args) -> int:
-    from swtpu.config import Penalties, SWConfig
     from swtpu_torch.bank import ScoreBank
+    from swtpu_torch.config import Penalties, SWConfig
 
     if args.score_width and args.backend not in ("auto", "pallas", "stream"):
         # a clean SystemExit like every other argument error: wrap-parity
@@ -101,7 +106,7 @@ def cmd_score(args) -> int:
         )
     event_log = None
     if args.events:
-        from swtpu.utils.metrics import EventLog
+        from swtpu_torch.utils.metrics import EventLog
 
         event_log = EventLog(args.events)
     t0 = time.perf_counter()

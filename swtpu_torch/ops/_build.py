@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("stream_wavefront.cu", "column.cu")
+SOURCES = ("stream_wavefront.cu", "column.cu", "lane.cu", "microbench.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -122,6 +122,18 @@ def load_library() -> ctypes.CDLL:
             lib.swtpu_column_chained.restype = ctypes.c_int
             lib.swtpu_column_chained.argtypes = [
                 *[ctypes.c_void_p] * 8, *[ctypes.c_int] * 7, ctypes.c_void_p,
+            ]
+            lib.swtpu_lane_scores.restype = ctypes.c_int
+            lib.swtpu_lane_scores.argtypes = [
+                *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 7, ctypes.c_void_p,
+            ]
+            lib.swtpu_microbench_ops.restype = ctypes.c_int
+            lib.swtpu_microbench_ops.argtypes = [
+                *[ctypes.c_void_p] * 2, *[ctypes.c_int] * 4, ctypes.c_void_p,
+            ]
+            lib.swtpu_stream_ablate.restype = ctypes.c_int
+            lib.swtpu_stream_ablate.argtypes = [
+                *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 4, ctypes.c_void_p,
             ]
             lib.swtpu_cuda_error_string.restype = ctypes.c_char_p
             lib.swtpu_cuda_error_string.argtypes = [ctypes.c_int]

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from swtpu.config import DEFAULT_PENALTIES, Penalties
+from swtpu_torch.config import DEFAULT_PENALTIES, Penalties
 from swtpu_torch.ops.common import Q_PAD, T_PAD
 from swtpu_torch.ops.stream import _check_kernel_tensors, _raise_on_error
 

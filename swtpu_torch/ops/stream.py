@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from swtpu.config import DEFAULT_PENALTIES, Penalties
+from swtpu_torch.config import DEFAULT_PENALTIES, Penalties
 
 LANES = 128  # query capacity (wavefront rows)
 FLAG_BIT = 8  # first-char-of-target marker in the stream bytes

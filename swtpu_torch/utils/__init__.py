@@ -1,1 +1,2 @@
-"""Integrity guards of the port's scoring path (``guards``)."""
+"""Integrity guards of the port's scoring path (``guards``) and its
+event log (``metrics``)."""

@@ -12,15 +12,17 @@ from swtpu.bank import ScoreBank as RefBank
 from swtpu.bank.buckets import plan_buckets as ref_plan_buckets
 from swtpu.bank.packer import pack_many_vs_one as ref_pack_many_vs_one
 from swtpu.bank.packer import pack_pairs as ref_pack_pairs
-from swtpu.config import Penalties, SWConfig
-from swtpu.io.loader import EncodedDB
+from swtpu.config import SWConfig as RefConfig
 from swtpu.oracle import score_many_vs_one, sw_score_single, sw_score_single_biased
 from swtpu.utils import guards as ref_guards
-from swtpu.utils.metrics import EventLog
+from swtpu.utils.metrics import EventLog as RefEventLog
 from swtpu_torch.bank import ScoreBank
 from swtpu_torch.bank.buckets import plan_buckets
 from swtpu_torch.bank.packer import pack_many_vs_one, pack_pairs
+from swtpu_torch.config import Penalties, SWConfig
+from swtpu_torch.io.loader import EncodedDB
 from swtpu_torch.utils import guards
+from swtpu_torch.utils.metrics import EventLog
 
 torch.set_num_threads(1)
 
@@ -146,9 +148,9 @@ def test_check_packed_messages_equal_swtpu(case):
     assert str(e.value) == str(e_ref.value)
 
 
-def _events(log_path):
+def _events(log_path, log=EventLog):
     return [(e.kind, e.reads, e.cells, e.padded_cells, e.note)
-            for e in EventLog.parse(log_path)]
+            for e in log.parse(log_path)]
 
 
 def test_score_database_equals_swtpu_pallas(tmp_path):
@@ -157,11 +159,12 @@ def test_score_database_equals_swtpu_pallas(tmp_path):
     rng = np.random.default_rng(5)
     db = _db(rng, 24, hi=100)
     query = rng.integers(0, 4, size=40).astype(np.int8)
-    cfg = SWConfig(target_buckets=(32, 128))
-    port_log, ref_log = (EventLog(tmp_path / f"{k}.jsonl") for k in ("port", "ref"))
-    got = ScoreBank(cfg, backend="pallas", device="cpu").score_database(
-        query, db.as_list(), event_log=port_log)
-    want = RefBank(cfg, backend="pallas", interpret=True).score_database(
+    port_log = EventLog(tmp_path / "port.jsonl")
+    ref_log = RefEventLog(tmp_path / "ref.jsonl")
+    got = ScoreBank(SWConfig(target_buckets=(32, 128)), backend="pallas",
+                    device="cpu").score_database(query, db.as_list(), event_log=port_log)
+    want = RefBank(RefConfig(target_buckets=(32, 128)), backend="pallas",
+                   interpret=True).score_database(
         query, db.as_list(), event_log=ref_log)
     port_log.close()
     ref_log.close()
@@ -170,7 +173,7 @@ def test_score_database_equals_swtpu_pallas(tmp_path):
     assert (got.cells, got.padded_cells) == (want.cells, want.padded_cells)
     assert got.scores[2] == got.scores[5] == 0
     events = _events(tmp_path / "port.jsonl")
-    assert events == _events(tmp_path / "ref.jsonl")
+    assert events == _events(tmp_path / "ref.jsonl", RefEventLog)
     assert [e[0] for e in events] == ["batch", "batch"]
     assert events[1][-1] == "bucket_len=128"
 
@@ -239,9 +242,11 @@ def test_score_pairs_equal_swtpu_pallas():
     rng = np.random.default_rng(8)
     queries = [rng.integers(0, 4, size=k).astype(np.int8) for k in (12, 40, 30, 9)]
     targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in (30, 20, 100, 0)]
-    cfg = SWConfig(target_buckets=(32, 128), query_buckets=(16, 64))
-    got = ScoreBank(cfg, backend="pallas", device="cpu").score_pairs(queries, targets)
-    want = RefBank(cfg, backend="pallas", interpret=True).score_pairs(queries, targets)
+    buckets = dict(target_buckets=(32, 128), query_buckets=(16, 64))
+    got = ScoreBank(SWConfig(**buckets), backend="pallas", device="cpu").score_pairs(
+        queries, targets)
+    want = RefBank(RefConfig(**buckets), backend="pallas", interpret=True).score_pairs(
+        queries, targets)
     np.testing.assert_array_equal(got.scores, want.scores)
     assert (got.cells, got.padded_cells) == (want.cells, want.padded_cells)
 

@@ -118,7 +118,8 @@ def test_score_flag_errors_exit_cleanly(tmp_path, flags, match):
 
 def test_port_never_imports_jax(tmp_path):
     """The port's CPU slice and CLI in a fresh interpreter: neither JAX nor
-    a JAX-importing swtpu module may load (the test process has both)."""
+    any module of swtpu may load (the test process has both): the port
+    keeps its own copies of what it uses."""
     fa = _fasta(tmp_path / "gen.fa", seed=3)
     code = textwrap.dedent(f"""
         import sys
@@ -138,8 +139,8 @@ def test_port_never_imports_jax(tmp_path):
         assert (res.scores == swtpu_torch.score_many_vs_one(long_query, reads)).all()
         assert main(["--device", "cpu", "score", "-q", {str(fa)!r}, "-l", {str(fa)!r},
                      "-o", {str(tmp_path / "out.txt")!r}]) == 0
-        heavy = [m for m in sys.modules if m == "jax" or m.startswith(("jax.",
-                 "swtpu.ops", "swtpu.bank", "swtpu.parallel", "swtpu.cli"))]
+        heavy = [m for m in sys.modules
+                 if m in ("jax", "swtpu") or m.startswith(("jax.", "swtpu."))]
         print("HEAVY", heavy)
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))

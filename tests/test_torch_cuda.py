@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: the wavefront's strips and the column
-kernels' scores and chained-tile strips against their plain PyTorch
-versions, and ScoreBank(device="cuda") on both backends against the oracle.
+"""The CUDA kernels on the card: the wavefront's strips, the column
+kernels' scores and chained-tile strips, the lane-major kernel's scores
+and the microbenchmarks' outputs against their plain PyTorch versions, and
+ScoreBank(device="cuda") on both backends against the oracle.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -12,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from swtpu.oracle import sw_score_single_biased
 from swtpu_torch import DEFAULT_PENALTIES, SWConfig, ScoreBank, score_many_vs_one
 from swtpu_torch.bank.scorebank import EncodedDB
 from swtpu_torch.bank.streams import pack_streams, pack_streams_long
-from swtpu_torch.ops import column
+from swtpu_torch.ops import column, lane, microbench
 from swtpu_torch.ops import stream as port
+from swtpu_torch.oracle import sw_score_single_biased
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +343,129 @@ def test_column_launch_failure_raises(cuda_device, monkeypatch):
         column.column_chained_cuda(q, t, s, s, h)
     assert (column.column_scores_cuda.launches,
             column.column_chained_cuda.launches) == launches
+
+
+@pytest.mark.parametrize("rows", lane.ROWS)
+@pytest.mark.parametrize("B,n", [(1, 128), (1001, 256)])
+def test_lane_kernel_equals_plain_version(cuda_device, rows, B, n):
+    """B6 at each strip height, ragged pairs (a ragged last block at 1001)."""
+    rng = np.random.default_rng(rows + B)
+    q, t = _column_batch(rng, B, 128, n)
+    q = q.to(torch.int32)
+    want = lane.lane_scores_reference(q, t)
+    launches = lane.lane_scores_cuda.launches
+    got = lane.lane_scores_cuda(q.to(cuda_device), t.to(cuda_device), rows=rows)
+    torch.cuda.synchronize()
+    assert lane.lane_scores_cuda.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (40, 150), (128, 300)])
+def test_sw_scores_lane_equals_column_and_oracle(cuda_device, m, n):
+    rng = np.random.default_rng(m + n)
+    q, t = _column_batch(rng, 1001, m, n)
+    got = lane.sw_scores_lane(q.to(cuda_device), t.to(cuda_device))
+    col = column.sw_scores_column(q.to(cuda_device), t.to(cuda_device))
+    np.testing.assert_array_equal(got.cpu().numpy(), col.cpu().numpy())
+    qn, tn = q.numpy(), t.numpy()
+    want = [score_many_vs_one(qn[i][qn[i] != column.Q_PAD],
+                              [tn[i][tn[i] != column.T_PAD]])[0] for i in range(0, 1001, 50)]
+    np.testing.assert_array_equal(got.cpu().numpy()[::50], want)
+
+
+def test_lane_kernel_rejects_bad_tensors(cuda_device):
+    q = torch.full((4, 128), 5, dtype=torch.int32, device=cuda_device)
+    t = torch.full((4, 128), 4, dtype=torch.int8, device=cuda_device)
+    launches = lane.lane_scores_cuda.launches
+    with pytest.raises(ValueError, match="q must be a CUDA int32 tensor"):
+        lane.lane_scores_cuda(q.to(torch.int8), t)
+    with pytest.raises(ValueError, match="128 rows"):
+        lane.lane_scores_cuda(q[:, :64].contiguous(), t)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        lane.lane_scores_cuda(q, t[:, :64].contiguous())
+    with pytest.raises(ValueError, match="rows 8"):
+        lane.lane_scores_cuda(q, t, rows=8)
+    assert lane.lane_scores_cuda.launches == launches
+
+
+@pytest.mark.parametrize("pattern", microbench.PATTERNS)
+@pytest.mark.parametrize("dtype", list(microbench.DTYPES))
+def test_microbench_ops_kernel_equals_plain_version(cuda_device, dtype, pattern):
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 5, microbench.SHAPE)
+                         .astype(np.float32)).to(microbench.DTYPES[dtype])
+    want = microbench.microbench_ops_reference(x, pattern, 5)
+    launches = microbench.microbench_ops_cuda.launches
+    got = microbench.microbench_ops_cuda(x.to(cuda_device), pattern, 5)
+    torch.cuda.synchronize()
+    assert microbench.microbench_ops_cuda.launches == launches + 1
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.cpu().float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("variant", microbench.VARIANTS)
+@pytest.mark.parametrize("dtype", list(microbench.DTYPES))
+def test_stream_ablate_kernel_equals_plain_version(cuda_device, dtype, variant):
+    """E2 at 40 streams (a ragged last block), with read starts."""
+    rng = np.random.default_rng(len(variant) + len(dtype))
+    qT = torch.from_numpy(rng.integers(0, 4, (128, 40)).astype(np.int8))
+    sk = rng.integers(0, 4, (128, 40)).astype(np.int8)
+    sk[rng.random(sk.shape) < 0.02] |= 8
+    sk = torch.from_numpy(sk)
+    want = microbench.stream_ablate_reference(qT, sk, variant, microbench.DTYPES[dtype])
+    launches = microbench.stream_ablate_cuda.launches
+    got = microbench.stream_ablate_cuda(qT.to(cuda_device), sk.to(cuda_device), variant,
+                                        microbench.DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert microbench.stream_ablate_cuda.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_stream_ablate_full_equals_the_wavefront_kernel(cuda_device):
+    rng = np.random.default_rng(3)
+    qT = torch.from_numpy(rng.integers(0, 4, (128, 64)).astype(np.int8)).to(cuda_device)
+    sk = rng.integers(0, 4, (512, 64)).astype(np.int8)
+    sk[rng.random(sk.shape) < 0.01] |= 8
+    sk = torch.from_numpy(sk).to(cuda_device)
+    got = microbench.stream_ablate_cuda(qT, sk, "full")
+    want = port.stream_strip_cuda(qT, sk, DEFAULT_PENALTIES, 1, 1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_new_launch_failures_raise(cuda_device, monkeypatch):
+    """A launch of B6, E1 or E2 that the card refuses raises with the CUDA
+    error, and counts no launch."""
+    from swtpu_torch.ops import _build
+
+    lib = _build.load_library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def swtpu_lane_scores(*args):
+            return 1  # cudaErrorInvalidValue
+
+        @staticmethod
+        def swtpu_microbench_ops(*args):
+            return 1
+
+        @staticmethod
+        def swtpu_stream_ablate(*args):
+            return 1
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    wrappers = (lane.lane_scores_cuda, microbench.microbench_ops_cuda,
+                microbench.stream_ablate_cuda)
+    launches = [w.launches for w in wrappers]
+    q = torch.full((4, 128), 5, dtype=torch.int32, device=cuda_device)
+    t = torch.full((4, 128), 4, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="lane_scores launch failed: CUDA error 1"):
+        lane.lane_scores_cuda(q, t)
+    with pytest.raises(RuntimeError, match="microbench_ops launch failed"):
+        microbench.microbench_ops_cuda(
+            torch.zeros(microbench.SHAPE, dtype=torch.int32, device=cuda_device),
+            "addmax", 1)
+    with pytest.raises(RuntimeError, match="stream_ablate launch failed"):
+        microbench.stream_ablate_cuda(t.t().contiguous(), t.t()[:32].contiguous(), "full")
+    assert [w.launches for w in wrappers] == launches

@@ -7,17 +7,18 @@ import torch
 
 from swtpu.bank import ScoreBank as RefBank
 from swtpu.bank import ScoreResult as RefResult
-from swtpu.config import Penalties, SWConfig
-from swtpu.io.loader import EncodedDB
+from swtpu.io.loader import EncodedDB as RefEncodedDB
 from swtpu.oracle import score_many_vs_one
 from swtpu.utils.guards import IntegrityError as RefIntegrityError
 from swtpu.utils.guards import check_stream_batch as ref_check_stream_batch
-from swtpu.utils.metrics import EventLog
 from swtpu_torch.bank import ScoreBank, ScoreResult
 from swtpu_torch.bank.scorebank import stream_geometry
 from swtpu_torch.bank.streams import pack_streams
+from swtpu_torch.config import Penalties, SWConfig
+from swtpu_torch.io.loader import EncodedDB
 from swtpu_torch.ops.column import sw_scores_column
 from swtpu_torch.utils.guards import IntegrityError, check_scores, check_stream_batch
+from swtpu_torch.utils.metrics import EventLog
 
 torch.set_num_threads(1)
 
@@ -175,6 +176,8 @@ def test_long_query_equals_swtpu_and_oracle(qlen, form, tmp_path):
     log = EventLog(tmp_path / "events.jsonl")
     got = ScoreBank(device="cpu").score_database(query, targets, event_log=log)
     log.close()
+    if form == "encoded_db":
+        targets = RefEncodedDB(db.names, db.mat, db.lens)
     want = RefBank(backend="stream", interpret=True).score_database(query, targets)
     np.testing.assert_array_equal(got.scores, want.scores)
     np.testing.assert_array_equal(got.scores, score_many_vs_one(query, db.as_list()))

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 import swtpu.runtime.native as native
+import swtpu_torch.runtime.native as port_native
 from swtpu.bank import streams as ref
 from swtpu_torch.bank import streams as port
 
@@ -60,7 +61,7 @@ def test_greedy_packer_matches(segments, rows):
 
 @pytest.mark.parametrize("segments,rows", [(1, 16), (2, 8), (4, 4), (1, 1)])
 def test_dense_native_packer_matches(segments, rows):
-    assert native.native_available()
+    assert native.native_available() and port_native.native_available()
     rng = np.random.default_rng(20 + segments + rows)
     query = _query(rng, segments)
     mat, lens = _dense(rng, 300)
@@ -84,6 +85,7 @@ def test_large_ragged_list_densifies_like_swtpu():
 
 def test_dense_packer_without_native_toolchain(monkeypatch):
     monkeypatch.setattr(native, "native_available", lambda: False)
+    monkeypatch.setattr(port_native, "native_available", lambda: False)
     rng = np.random.default_rng(31)
     query = _query(rng, 1)
     mat, lens = _dense(rng, 120)
@@ -112,6 +114,7 @@ def test_equal_length_packer_matches(segments, rows, as_list):
 def test_pack_stream_wire_matches(use_native, monkeypatch):
     if not use_native:
         monkeypatch.setattr(native, "native_available", lambda: False)
+        monkeypatch.setattr(port_native, "native_available", lambda: False)
     rng = np.random.default_rng(50)
     b = port.pack_streams(_query(rng, 1), _ragged(rng, 40), n_streams=8)
     for got, want in zip(port.pack_stream_wire(b.stream), ref.pack_stream_wire(b.stream)):
