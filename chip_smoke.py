@@ -21,8 +21,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      tile (B5) over whole chains of K=2 and K=3, every tile's h/ms/is,
      exact and at width 10; the lane-major kernel (B6) at 1 and 1,001
      pairs, query widths 1/40/128 and target widths 1/150/300; E1 for all
-     16 (dtype, pattern) cases at 64 steps; E2 for all 5 variants x 4
-     dtypes at 128 streams x 256 steps;
+     16 (dtype, pattern) cases on its script's input at 2,000 steps (the
+     table's shorter run); E2 for all 5 variants x 4 dtypes at 128
+     streams x 256 steps with read starts, and on its script's inputs at
+     512 streams, the kernel at 2,048 and 16,384 steps (the table's two
+     runs) held on the first 2,048;
   4. main path: ScoreBank(device="cuda").score_database on five
      databases made from --seed: (a)-(c) short queries (the bench.py
      headline shape, a ragged short-query set and a mid-length set), then
@@ -51,8 +54,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
      its sizes, B4 == B6 on every pair and the wavefront == B4 on
      (q[0], t[i]) for every i; then B6 against its plain version on all
-     65,536 pairs, and E2's full int32 strip against the wavefront kernel
-     at rows 1 on 512 streams x 4,096 steps;
+     65,536 pairs, the wavefront's strip at 512 streams (B2, rows 1)
+     against its plain version, and E2's full int32 strip against the
+     wavefront kernel at rows 1 on 512 streams x 4,096 steps;
   7. the microbenchmarks: E1's and E2's timing tables
      (experiments/torch_microbench_ops.py, torch_kernel_ablate.py at 512
      streams in each of the four dtypes) at those scripts' step counts.
@@ -82,32 +86,38 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # emits it for these kernels (their SASS holds 32-104 of them).
 WAVEFRONT_OPS = 8  # s: compare + select; max(diag + s, 0); I: max, + extend; H: max; D: max; G: max(M + open, I)
 COLUMN_OPS = 9  # diag: max; s: 2; max(diag + s, 0); I: 2 max, + extend, add-max; H: max
-# E1 per element and op (int32 fuses the add into the max; select is a
-# compare and a predicated add); the step's floor modulo adds 3 per element
+# The integer types fuse an add and the max after it (DPX: VIADDMNMX for
+# int32, its packed 16x2 form for int16); the float types cannot.
+FUSED_ADD_MAX = ("int32", "int16")
+# E1 per element and op (fused, not fused; select is a compare and a
+# predicated add); the step's floor modulo adds 3 per element
 E1_OPS = {"addmax": (1, 2), "select": (2, 2), "roll_lane": (1, 2), "roll_sub": (1, 2)}
 E1_MOD_OPS = 3
-# E2 per cell and step in int32: WAVEFRONT_OPS, the char's flag and code
-# (2), and in full and norolls the read-start selects of the diagonal and
-# of G (2); the other types cannot fuse M's and G's add-max (2 more;
-# minimal's one add-max, 1 more)
+E1_SMS = {"int32": 4, "int16": 2, "float32": 4, "bfloat16": 2}  # SMs its cluster holds
+# E2 per cell and step, fused: WAVEFRONT_OPS, the char's flag and code (2),
+# and in full and norolls the read-start selects of the diagonal and of G
+# (2); unfused, M's and G's add-max take 2 more (minimal's one add-max, 1)
 E2_OPS = {"full": 12, "norolls": 12, "nosel": 10, "arith": 10, "minimal": 1}
+# rows of E2's step that the strip depends on: in norolls and minimal no
+# value moves between rows, so only row 127, the one the strip reads, is
+# live (in norolls it never even sees a char); elsewhere all 128
+E2_LIVE_ROWS = {"norolls": 1, "minimal": 1}
 
 
 def e1_ops(pattern, dtype):
-    return E1_OPS[pattern][dtype != "int32"]
+    return E1_OPS[pattern][dtype not in FUSED_ADD_MAX]
 
 
 def e2_ops(variant, dtype):
-    extra = 0 if dtype == "int32" else (1 if variant == "minimal" else 2)
-    return E2_OPS[variant] + extra
+    """Operations of one step per stream."""
+    extra = 0 if dtype in FUSED_ADD_MAX else (1 if variant == "minimal" else 2)
+    return E2_LIVE_ROWS.get(variant, 128) * (E2_OPS[variant] + extra)
 
 
-# elementwise results per clock per SM: 64 int32 lanes; 128 fp32 lanes;
-# two 16-bit results per 32-bit lane where E1 packs them (int16 on the
-# integer lanes, bfloat16 on the fp32 lanes); E2 keeps one value a
-# register
-E1_LANES = {"int32": 64, "int16": 128, "float32": 128, "bfloat16": 256}
-E2_LANES = {"int32": 64, "int16": 64, "float32": 128, "bfloat16": 128}
+# the card's elementwise results per clock per SM: 64 int32 lanes; 128
+# fp32 lanes; two 16-bit results per 32-bit lane (int16 on the integer
+# lanes, bfloat16 on the fp32 lanes), whatever layout a kernel chose
+LANES_PER_SM = {"int32": 64, "int16": 128, "float32": 128, "bfloat16": 256}
 
 
 class Peaks:
@@ -118,46 +128,18 @@ class Peaks:
         self.sms = sms
         self.clock_hz = clock_hz
 
-    def bound(self, nbytes: float, ops: float, lanes: int = 64):
+    def bound(self, nbytes: float, ops: float, lanes: int = 64, sms: int | None = None):
         """(least ms for the work, what bounds it): the larger of the bytes
-        over the memory rate and the operations over the lanes' peak."""
+        over the memory rate and the operations over the lanes' peak, on
+        every SM or on `sms` of them."""
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = ops / (self.sms * lanes * self.clock_hz)
+        t_ops = ops / ((sms or self.sms) * lanes * self.clock_hz)
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def cuda_once(fn):
-    """(fn(), its device time in ms) for one call, no warm-up: for the
-    plain version, whose one call at a main-path shape takes minutes."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def strip_error(label, got, want) -> int:
@@ -296,6 +278,7 @@ def phase_kernel_vs_plain(rng):
     import numpy as np
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     results = []
     for seg, rows in ((1, 16), (2, 8), (4, 4), (1, 1)):
@@ -322,6 +305,7 @@ def phase_ripple_vs_plain(rng):
     import numpy as np
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     results = []
     for seg in (1, 4):
@@ -354,6 +338,7 @@ def phase_chained_vs_plain(rng):
     from swtpu_torch.ops.stream import (
         _long_strip, stream_chained_cuda, stream_chained_reference,
     )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     results = []
     for K, rows in CHAIN_CHECKS:
@@ -472,6 +457,7 @@ def phase_kernel_at_main_shape(bank, cases):
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     results = []
     for c in cases:
@@ -511,6 +497,7 @@ def phase_chained_at_main_shape(bank, cases):
     from swtpu_torch.ops.stream import (
         _long_strip, stream_chained_cuda, stream_chained_reference,
     )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     n = CHECK_STEPS
     results = []
@@ -604,6 +591,7 @@ def phase_column_vs_plain(rng, B=4096, n=256):
         QUERY_TILE, column_chained_cuda, column_chained_reference,
         column_scores_cuda, column_scores_reference,
     )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     scores, chains = [], []
     for m in (8, 32, 136, 256):
@@ -764,6 +752,7 @@ def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
         column_chained_cuda, column_chained_reference, column_scores_cuda,
         column_scores_reference,
     )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     batches = []
     for q, t in column_batches(bank, f_case["query"], f_case["db"]):
@@ -803,14 +792,15 @@ def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
 
 
 LANE_CHECKS = ((1, 1001), (1, 40, 128), (1, 150, 300))  # pairs, query and target widths
-E1_CHECK_STEPS = 64
-E2_CHECK = (128, 256)  # streams, steps
+E2_CHECK = (128, 256)  # streams, steps of the strip with read starts
+E2_STREAMS = 512  # the E2 table's streams
 
 
 def phase_lane_vs_plain(rng):
     """B6 against its plain version on ragged sentinel-padded pairs, padded
     as sw_scores_lane pads them."""
     from swtpu_torch.ops.lane import lane_scores_cuda, lane_scores_reference, pad_lane_batch
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     results = []
     Bs, ms, ns = LANE_CHECKS
@@ -834,25 +824,33 @@ def phase_lane_vs_plain(rng):
 
 def phase_microbench_vs_plain(rng):
     """E1 at every (dtype, pattern) and E2 at every (variant, dtype)
-    against their plain versions; tolerance 0."""
+    against their plain versions; tolerance 0.  E1 on its script's input
+    at the table's shorter run (2,000 steps).  E2 on a small strip with
+    read starts (the boundary selects), then on its script's inputs at
+    E2_STREAMS streams: the kernel at both of the table's lengths, each
+    held against the plain version on the shorter length's steps (a strip
+    is causal in t, so the longer run's first steps are exactly what the
+    shorter input gives)."""
     import numpy as np
     import torch
+    from experiments import torch_kernel_ablate, torch_microbench_ops
     from swtpu_torch.ops.microbench import (
-        DTYPES, LANES, PATTERNS, SHAPE, VARIANTS, microbench_ops_cuda,
+        DTYPES, LANES, PATTERNS, STEP_CHUNK, VARIANTS, microbench_ops_cuda,
         microbench_ops_reference, stream_ablate_cuda, stream_ablate_reference,
     )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
-    e1, e2 = [], []
-    x0 = rng.integers(0, 5, SHAPE).astype(np.float32)
-    for name, dtype in DTYPES.items():
-        x = torch.from_numpy(x0).to(dtype).cuda()
+    e1, e2, e2_main = [], [], []
+    steps = torch_microbench_ops.LO
+    for name in DTYPES:
+        x = torch_microbench_ops.inputs(name)
         for pattern in PATTERNS:
-            args = (x, pattern, E1_CHECK_STEPS)
+            args = (x, pattern, steps)
             got = microbench_ops_cuda(*args)
             want, plain_ms = cuda_once(lambda: microbench_ops_reference(*args))
             err = strip_error(f"E1 {name} {pattern}", got, want)
-            e1.append(dict(dtype=name, pattern=pattern, steps=E1_CHECK_STEPS,
-                           max_abs_err=err, ms=cuda_ms(lambda: microbench_ops_cuda(*args), 5),
+            e1.append(dict(dtype=name, pattern=pattern, steps=steps, max_abs_err=err,
+                           ms=cuda_ms(lambda: microbench_ops_cuda(*args), 5),
                            plain_ms=plain_ms))
     S, T = E2_CHECK
     qT = torch.from_numpy(rng.integers(0, 4, (LANES, S)).astype(np.int8)).cuda()
@@ -868,38 +866,62 @@ def phase_microbench_vs_plain(rng):
             e2.append(dict(variant=variant, dtype=name, S=S, T=T, max_abs_err=err,
                            ms=cuda_ms(lambda: stream_ablate_cuda(*args), 10),
                            plain_ms=plain_ms))
-    print(f"phase kernel_vs_plain: ok E1 {len(e1)} (dtype, pattern) cases at "
-          f"{E1_CHECK_STEPS} steps and E2 {len(e2)} (variant, dtype) cases at [{T}, {S}] "
-          f"bit-equal | E1 kernel {min(r['ms'] for r in e1):.3f}-"
+    S = E2_STREAMS
+    T_lo, T_hi = (c * STEP_CHUNK for c in torch_kernel_ablate.CHUNKS)
+    small, big = torch_kernel_ablate.inputs(S, T_lo), torch_kernel_ablate.inputs(S, T_hi)
+    if not (torch.equal(small[0], big[0]) and torch.equal(small[1], big[1][:T_lo])):
+        fail(f"E2's inputs at {T_lo} steps are not the first steps of those at {T_hi}")
+    for variant in VARIANTS:
+        for name, dtype in DTYPES.items():
+            got, got_hi = (stream_ablate_cuda(*x, variant, dtype) for x in (small, big))
+            want, plain_ms = cuda_once(lambda: stream_ablate_reference(*small, variant, dtype))
+            err = max(strip_error(f"E2 {variant} {name} [{T_lo}, {S}]", got, want),
+                      strip_error(f"E2 {variant} {name} [{T_hi}, {S}] first {T_lo} steps",
+                                  got_hi[:T_lo], want))
+            e2_main.append(dict(variant=variant, dtype=name, S=S, T=T_lo, T_long=T_hi,
+                                max_abs_err=err, plain_ms=plain_ms,
+                                ms=cuda_ms(lambda: stream_ablate_cuda(*small, variant, dtype), 10)))
+    print(f"phase kernel_vs_plain: ok E1 {len(e1)} (dtype, pattern) cases at {steps} "
+          f"steps bit-equal | kernel {min(r['ms'] for r in e1):.3f}-"
           f"{max(r['ms'] for r in e1):.3f} ms, plain {min(r['plain_ms'] for r in e1):.1f}-"
-          f"{max(r['plain_ms'] for r in e1):.1f} ms; E2 kernel "
-          f"{min(r['ms'] for r in e2):.4f}-{max(r['ms'] for r in e2):.4f} ms, plain "
-          f"{min(r['plain_ms'] for r in e2):.1f}-{max(r['plain_ms'] for r in e2):.1f} ms")
-    return e1, e2
+          f"{max(r['plain_ms'] for r in e1):.1f} ms")
+    for rows, shape in ((e2, f"[{E2_CHECK[1]}, {E2_CHECK[0]}] with read starts"),
+                        (e2_main, f"[{T_lo}, {S}] and the first {T_lo} steps of [{T_hi}, {S}]")):
+        print(f"phase kernel_vs_plain: ok E2 {len(rows)} (variant, dtype) cases at {shape} "
+              f"bit-equal | kernel {min(r['ms'] for r in rows):.4f}-"
+              f"{max(r['ms'] for r in rows):.4f} ms, plain "
+              f"{min(r['plain_ms'] for r in rows):.1f}-{max(r['plain_ms'] for r in rows):.1f} ms")
+    return e1, e2, e2_main
 
 
 def phase_shootout(card, seed):
     """The shootout's main path through experiments/torch_shootout.py's own
-    functions, then B6 against its plain version at that shape and E2's
-    full strip against the wavefront kernel at rows 1."""
+    functions, then B6 against its plain version at that shape, the
+    wavefront's strip at 512 streams (B2 at rows 1) against its plain
+    version, and E2's full strip against the wavefront kernel at rows 1."""
     import numpy as np
     import torch
     from experiments import torch_shootout as so
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.lane import lane_scores_cuda, lane_scores_reference, pad_lane_batch
     from swtpu_torch.ops.microbench import LANES, stream_ablate_cuda
-    from swtpu_torch.ops.stream import stream_strip_cuda
+    from swtpu_torch.ops.stream import (
+        _to_kernel_layout, stream_strip_cuda, stream_strip_reference,
+    )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     q, t = so.make_pairs(seed)
-    lane_scores_cuda.launches = 0
+    lane_scores_cuda.launches = stream_strip_cuda.launches = 0
     race = so.race(q, t, card, reps=5)
     covered = so.check_like_with_like(q, t)
-    launches = lane_scores_cuda.launches
-    if launches == 0:
-        fail("the shootout never launched the lane-major kernel (B6)")
+    launches, b2_launches = lane_scores_cuda.launches, stream_strip_cuda.launches
+    if launches == 0 or b2_launches == 0:
+        fail(f"the shootout never launched the lane-major kernel (B6) or the wavefront "
+             f"(B2) (launches {launches}, {b2_launches})")
     print(f"phase shootout: ok B4 == B6 on all {covered['b4_b6_pairs']} pairs, the "
           f"wavefront == B4 on (q[0], t[i]) for all {covered['wavefront_pairs']} targets "
-          f"at S = {', '.join(map(str, so.STREAMS))}; B6 launched {launches} times | "
+          f"at S = {', '.join(map(str, so.STREAMS))}; B6 launched {launches} times, B2 "
+          f"{b2_launches} | "
           + "; ".join(f"{r['name']} {r['big_ms']:.4f} ms ({r['gcups_big']:.1f} GCUPS)"
                       for r in race) + f" | {card}", flush=True)
     qp, tp = pad_lane_batch(q, t)
@@ -913,6 +935,21 @@ def phase_shootout(card, seed):
           f"{plain_ms:.1f} ms", flush=True)
     lane = dict(B=B, m=128, n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 launches=launches, race=race, covered=covered)
+    S = max(so.STREAMS)
+    _, d = so.wavefront_batches(q, t, so.BIG)[S]
+    args = (*_to_kernel_layout(d.q, d.stream, 1, 1), DEFAULT_PENALTIES, 1, 1)
+    got = stream_strip_cuda(*args)
+    ms = cuda_ms(lambda: stream_strip_cuda(*args), 10)
+    want, plain_ms = cuda_once(lambda: stream_strip_reference(*args))
+    err = strip_error(f"the shootout's wavefront strip at S = {S}", got, want)
+    del want
+    ms_after = cuda_ms(lambda: stream_strip_cuda(*args), 10)
+    T = args[1].shape[0]
+    print(f"phase shootout: ok wavefront (B2, rows 1) strip [{T}, {S}] bit-equal to its "
+          f"plain version | kernel {ms:.4f} ms ({ms_after:.4f} ms after the plain "
+          f"version ran), plain {plain_ms:.1f} ms", flush=True)
+    b2 = dict(T=T, N=S, rows=1, max_abs_err=err, ms=ms, ms_after_plain=ms_after,
+              plain_ms=plain_ms, launches=b2_launches)
     rng = np.random.default_rng([seed, 4])
     S, T = 512, 4096
     qT = torch.from_numpy(rng.integers(0, 4, (LANES, S)).astype(np.int8)).cuda()
@@ -926,7 +963,7 @@ def phase_shootout(card, seed):
     b2_ms = cuda_ms(lambda: stream_strip_cuda(qT, sk, DEFAULT_PENALTIES, 1, 1), 10)
     print(f"phase shootout: ok E2 full int32 strip [{T}, {S}] bit-equal to the wavefront "
           f"kernel at rows 1 | E2 full {e2_ms:.4f} ms, B2 {b2_ms:.4f} ms", flush=True)
-    return lane, dict(S=S, T=T, max_abs_err=err_full, e2_full_ms=e2_ms, b2_ms=b2_ms)
+    return lane, b2, dict(S=S, T=T, max_abs_err=err_full, e2_full_ms=e2_ms, b2_ms=b2_ms)
 
 
 def phase_microbench(card):
@@ -966,7 +1003,7 @@ def main() -> int:
     chains = phase_chained_vs_plain(rng_long)
     col_checks, col_chains = phase_column_vs_plain(rng_col)
     lane_checks = phase_lane_vs_plain(rng_lane)
-    e1_checks, e2_checks = phase_microbench_vs_plain(rng_lane)
+    e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
     from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
 
     stream_strip_cuda.launches = 0
@@ -992,18 +1029,19 @@ def main() -> int:
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     col_batches, col_tile = phase_column_at_main_shape(
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
-    lane, e2_full = phase_shootout(card, args.seed)
+    lane, b2, e2_full = phase_shootout(card, args.seed)
     e1_table, e2_table, (e1_launches, e2_launches) = phase_microbench(card)
     head = mains[0]  # case (a): the headline shape, segments 1, rows 16
     lhead = long_mains[0]  # case (d), tile 0 on its first CHECK_STEPS steps
     chead = col_batches[-1]  # case (f)'s largest bucket, 512 columns
-    e1_head = e1_checks[0]  # int32 addmax at E1_CHECK_STEPS steps
-    e2_head = e2_checks[0]  # full int32 at E2_CHECK
-    S2, T2 = E2_CHECK
+    e1_head = e1_checks[0]  # int32 addmax at the E1 table's 2,000 steps
+    e2_head = e2_mains[0]  # full int32 at the E2 table's [2048, 512]
     # each bound: the inputs read once and the outputs written once, and
     # the recurrence's operations on the cells the kernel computes
     T, N = head["T"], head["N"]
     b_wave = peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS)
+    b2["bound_ms"], b2["bound_by"] = peaks.bound(
+        128 * b2["N"] + b2["T"] * b2["N"] * 5, 128 * b2["T"] * b2["N"] * WAVEFRONT_OPS)
     Tc, Nc = lhead["check_steps"], lhead["N"]
     b_chain = peaks.bound(128 * Nc + Tc * Nc * (1 + 12 + 16), 128 * Tc * Nc * WAVEFRONT_OPS)
     B, m, n = chead["B"], chead["m"], chead["n"]
@@ -1013,21 +1051,28 @@ def main() -> int:
     Bl, nl = lane["B"], lane["n"]
     b_lane = peaks.bound(Bl * (128 * 4 + nl + 4), Bl * 128 * nl * COLUMN_OPS)
     elems = 512 * 128
-    e1_bytes = 2 * elems * (4 if e1_head["dtype"] in ("int32", "float32") else 2)
-    e1_n = e1_head["steps"] * elems * (8 * e1_ops(e1_head["pattern"], e1_head["dtype"])
-                                       + E1_MOD_OPS)
-    b_e1 = peaks.bound(e1_bytes, e1_n, E1_LANES[e1_head["dtype"]])
-    b_e2 = peaks.bound(128 * S2 + T2 * S2 * 5,
-                       128 * S2 * T2 * e2_ops(e2_head["variant"], e2_head["dtype"]),
-                       E2_LANES[e2_head["dtype"]])
-    for row in e1_table:  # the least time of one op over the array
-        row["bound_ns_per_op"] = peaks.bound(
-            0, elems * (e1_ops(row["pattern"], row["dtype"]) + E1_MOD_OPS / 8),
-            E1_LANES[row["dtype"]])[0] * 1e6
-    for row in e2_table:  # the least time of one step over 128 x S cells
+    for row in e1_checks:  # the array read and written once, `steps` steps of ops
+        row["bound_ms"], row["bound_by"] = peaks.bound(
+            2 * elems * (4 if row["dtype"] in ("int32", "float32") else 2),
+            row["steps"] * elems * (8 * e1_ops(row["pattern"], row["dtype"]) + E1_MOD_OPS),
+            LANES_PER_SM[row["dtype"]])
+    for row in e2_mains:  # qT and the stream read, the int32 strip written
+        S2, T2 = row["S"], row["T"]
+        row["bound_ms"], row["bound_by"] = peaks.bound(
+            128 * S2 + T2 * S2 * 5, S2 * T2 * e2_ops(row["variant"], row["dtype"]),
+            LANES_PER_SM[row["dtype"]])
+    b_e1 = e1_head["bound_ms"], e1_head["bound_by"]
+    b_e2 = e2_head["bound_ms"], e2_head["bound_by"]
+    for row in e1_table:  # the least time of one op over the array: card, its SMs
+        per_op = elems * (e1_ops(row["pattern"], row["dtype"]) + E1_MOD_OPS / 8)
+        lanes = LANES_PER_SM[row["dtype"]]
+        row["bound_ns_per_op"] = peaks.bound(0, per_op, lanes)[0] * 1e6
+        row["bound_ns_per_op_on_its_sms"] = peaks.bound(
+            0, per_op, lanes, E1_SMS[row["dtype"]])[0] * 1e6
+    for row in e2_table:  # the least time of one step over S streams
         row["bound_ns_per_step"] = peaks.bound(
-            0, 128 * row["S"] * e2_ops(row["variant"], row["dtype"]),
-            E2_LANES[row["dtype"]])[0] * 1e6
+            0, row["S"] * e2_ops(row["variant"], row["dtype"]),
+            LANES_PER_SM[row["dtype"]])[0] * 1e6
     no_library = ("no single PyTorch call computes Smith-Waterman scores, the "
                   "microbenchmarks' op chains or the ablated wavefront step")
 
@@ -1040,11 +1085,12 @@ def main() -> int:
     kernels = [
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches,
-              max(c["max_abs_err"] for c in checks + mains), head["ms"],
+              max(c["max_abs_err"] for c in checks + mains + [b2]), head["ms"],
               head["plain_ms"], b_wave,
               also_replaces="swtpu/ops/pallas_stream.py:57 (tail-accumulator and "
                             "ripple-H forms)",
-              shape=[head["T"], head["N"]], main_shapes=mains, configs=checks),
+              shape=[head["T"], head["N"]], main_shapes=mains, shootout_rows1=b2,
+              configs=checks),
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:314", chained_launches,
               max(c["max_abs_err"] for c in chains + long_mains), lhead["ms"][0],
@@ -1072,10 +1118,10 @@ def main() -> int:
               configs=e1_checks),
         entry("stream_ablate", "swtpu_torch/ops/csrc/microbench.cu",
               "experiments/kernel_ablate.py:44", e2_launches,
-              max(c["max_abs_err"] for c in e2_checks + [e2_full]), e2_head["ms"],
-              e2_head["plain_ms"], b_e2, shape=[T2, S2],
+              max(c["max_abs_err"] for c in e2_checks + e2_mains + [e2_full]),
+              e2_head["ms"], e2_head["plain_ms"], b_e2, shape=[e2_head["T"], e2_head["S"]],
               case=[e2_head["variant"], e2_head["dtype"]], table=e2_table,
-              full_vs_wavefront=e2_full, configs=e2_checks),
+              full_vs_wavefront=e2_full, main_shapes=e2_mains, configs=e2_checks),
     ]
     print(card)
     print(json.dumps({"kernels": kernels, "bucketed_cases": [

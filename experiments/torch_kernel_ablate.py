@@ -7,11 +7,12 @@ The port's counterpart of experiments/kernel_ablate.py: the E2 kernel
 512) with the state in `dtype` (int32, int16, float32 or bfloat16;
 default int32) in five variants, minimal, arith, norolls, nosel and full
 (only full is a correct score), at 64 and 512 chunks of 32 steps; the
-difference of the two device times (CUDA events, best of --reps launches
-after a warm-up) over the steps between them is one step's cost.  Prints
-ns/step and Gcell/s (128 x S cells a step) per variant, each line with the
-card's name and power limit.  Inputs follow the reference: codes 0-3 from
-seed 0, no read starts.
+difference of the two device times (CUDA events, the mean of --reps calls
+after a warm-up; default 20, since the shorter run of minimal and norolls
+takes ~40 us, of the order of the launches' jitter) over the steps between
+them is one step's cost.  Prints ns/step and Gcell/s (128 x S cells a
+step) per variant, each line with the card's name and power limit.  Inputs
+follow the reference: codes 0-3 from seed 0, no read starts.
 """
 
 from __future__ import annotations
@@ -39,19 +40,19 @@ def inputs(S: int, T: int):
     return torch.from_numpy(qT).cuda(), torch.from_numpy(stream).cuda()
 
 
-def run(card: str, S: int = 512, dtype_name: str = "int32", reps: int = 3):
+def run(card: str, S: int = 512, dtype_name: str = "int32", reps: int = 20):
     """Time the five variants; prints one line each and returns
     [{dtype, variant, S, lo_ms, hi_ms, ns_per_step, gcell_per_s}]."""
-    from swtpu_torch.ops.microbench import DTYPES, LANES, STEP_CHUNK, stream_ablate_cuda
-    from experiments.torch_microbench_ops import best_ms
+    from swtpu_torch.ops.microbench import DTYPES, LANES, STEP_CHUNK, stream_ablate
+    from swtpu_torch.utils.timing import cuda_ms
 
     dtype = DTYPES[dtype_name]
     T_lo, T_hi = (c * STEP_CHUNK for c in CHUNKS)
     small, big = inputs(S, T_lo), inputs(S, T_hi)
     rows = []
     for variant in ORDER:
-        t_lo = best_ms(lambda: stream_ablate_cuda(*small, variant, dtype), reps)
-        t_hi = best_ms(lambda: stream_ablate_cuda(*big, variant, dtype), reps)
+        t_lo = cuda_ms(lambda: stream_ablate(*small, variant, dtype), reps)
+        t_hi = cuda_ms(lambda: stream_ablate(*big, variant, dtype), reps)
         per_step = (t_hi - t_lo) * 1e-3 / (T_hi - T_lo)
         row = dict(dtype=dtype_name, variant=variant, S=S, lo_ms=t_lo, hi_ms=t_hi,
                    ns_per_step=per_step * 1e9, gcell_per_s=LANES * S / per_step / 1e9)
@@ -67,7 +68,7 @@ def main() -> int:
     ap.add_argument("S", type=int, nargs="?", default=512)
     ap.add_argument("dtype", nargs="?", default="int32",
                     choices=["int32", "int16", "float32", "bfloat16"])
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     import torch
     from experiments.torch_shootout import card_line

@@ -6,8 +6,8 @@ The port's counterpart of experiments/microbench_ops.py: for each of
 int32, int16, float32 and bfloat16 and each pattern (addmax, select,
 roll_lane, roll_sub), the E1 kernel (swtpu_torch/ops/csrc/microbench.cu)
 runs 2,000 and 20,000 steps of 8 dependent ops on a [512, 128] array; the
-difference of the two device times (CUDA events, best of --reps launches
-after a warm-up) over 18,000 x 8 ops is one op's cost, so fixed launch
+difference of the two device times (CUDA events, the mean of --reps
+calls after a warm-up) over 18,000 x 8 ops is one op's cost, so fixed launch
 costs cancel.  Prints ns/op and Telem/s (elements of the array updated per
 second) per case, each line with the card's name and power limit.  The
 kernel keeps the array in registers on one SM (16-bit types) or a cluster
@@ -25,39 +25,29 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 LO, HI = 2000, 20000  # steps (microbench_ops.py:68)
 
 
-def best_ms(fn, reps: int) -> float:
-    """Least device time of one fn() call over reps calls, after a warm-up."""
+def inputs(dtype_name: str):
+    """The reference's input on the card: a [512, 128] array of 0-4 from
+    seed 0 in the named dtype."""
+    import numpy as np
     import torch
+    from swtpu_torch.ops.microbench import DTYPES, SHAPE
 
-    fn()
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
+    x0 = np.random.default_rng(0).integers(0, 5, SHAPE).astype(np.float32)
+    return torch.from_numpy(x0).to(DTYPES[dtype_name]).cuda()
 
 
 def run(card: str, reps: int = 3, lo: int = LO, hi: int = HI):
     """Time all 16 (dtype, pattern) cases; prints one line each and returns
     [{dtype, pattern, lo_ms, hi_ms, ns_per_op, telem_per_s}]."""
-    import numpy as np
-    import torch
-    from swtpu_torch.ops.microbench import (
-        DTYPES, OPS_PER_STEP, PATTERNS, SHAPE, microbench_ops_cuda,
-    )
+    from swtpu_torch.ops.microbench import DTYPES, OPS_PER_STEP, PATTERNS, SHAPE, microbench_ops
+    from swtpu_torch.utils.timing import cuda_ms
 
-    x0 = np.random.default_rng(0).integers(0, 5, SHAPE).astype(np.float32)
     rows = []
-    for name, dtype in DTYPES.items():
-        x = torch.from_numpy(x0).to(dtype).cuda()
+    for name in DTYPES:
+        x = inputs(name)
         for pattern in PATTERNS:
-            t_lo = best_ms(lambda: microbench_ops_cuda(x, pattern, lo), reps)
-            t_hi = best_ms(lambda: microbench_ops_cuda(x, pattern, hi), reps)
+            t_lo = cuda_ms(lambda: microbench_ops(x, pattern, lo), reps)
+            t_hi = cuda_ms(lambda: microbench_ops(x, pattern, hi), reps)
             per_op = (t_hi - t_lo) * 1e-3 / ((hi - lo) * OPS_PER_STEP)
             elems = SHAPE[0] * SHAPE[1]
             row = dict(dtype=name, pattern=pattern, lo_ms=t_lo, hi_ms=t_hi,

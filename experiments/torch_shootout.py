@@ -1,6 +1,6 @@
 """Kernel shootout on one CUDA GPU: column (B4) vs lane-major (B6) vs wavefront.
 
-    python experiments/torch_shootout.py [--seed N] [--reps N] [--rows-sweep]
+    python experiments/torch_shootout.py [--seed N] [--reps N]
 
 The port's counterpart of experiments/shootout.py.  65,536 random pairs
 of 128 x 128 bases (1.07 G cells) and the reference's small run of 8,192
@@ -8,8 +8,8 @@ pairs, made from --seed:
   - sw_scores_column (B4: a warp per pair), sw_scores_lane (B6: a thread
     per pair) and the streamed wavefront (pack_streams at S = 256 and 512
     streams, once on the host, then sw_scores_stream_strip at rows 1),
-    each timed warm with CUDA events (chip_smoke.cuda_ms: the mean of
-    --reps calls after one);
+    each timed warm with CUDA events (swtpu_torch.utils.timing.cuda_ms:
+    the mean of --reps calls after one);
   - each contestant's time and GCUPS at both sizes, and the reference's
     figure, (big - small cells) / (big - small time);
   - like with like: B4 and B6 give the same scores on all 65,536 pairs,
@@ -17,8 +17,7 @@ pairs, made from --seed:
     scores on (q[0], t[i]) for every i.  (The reference's spot check
     compares wavefront scores of (q[0], t[i]) with column scores of
     (q[i], t[i]): different pairs.)
---rows-sweep also times B6's kernel at each strip height.  Every line
-carries the card's name and power limit.
+Every line carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -91,7 +90,7 @@ def race(q, t, card, reps):
     """Time every contestant at BIG and SMALL pairs; prints one line each
     and returns [{name, big_ms, small_ms, gcups_big, gcups_small,
     gcups_diff}]."""
-    from chip_smoke import cuda_ms
+    from swtpu_torch.utils.timing import cuda_ms
 
     cells, cells_s = BIG * M * N, SMALL * M * N
     big, small = contestants(q, t, BIG), contestants(q, t, SMALL)
@@ -135,26 +134,10 @@ def check_like_with_like(q, t):
     return dict(b4_b6_pairs=len(col), wavefront_pairs=len(want))
 
 
-def rows_sweep(q, t, card, reps):
-    """B6's kernel alone at each strip height on the padded BIG batch."""
-    from chip_smoke import cuda_ms
-    from swtpu_torch.ops.lane import ROWS, lane_scores_cuda, pad_lane_batch
-
-    qp, tp = pad_lane_batch(q, t)
-    out = {}
-    for rows in ROWS:
-        ms = cuda_ms(lambda: lane_scores_cuda(qp, tp, rows=rows), reps)
-        out[rows] = ms
-        print(f"shootout lane B6 kernel rows={rows}: {ms:.4f} ms "
-              f"({BIG * M * N / ms / 1e6:.1f} GCUPS) | {card}", flush=True)
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--rows-sweep", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -169,8 +152,6 @@ def main() -> int:
     print(f"shootout like with like: B4 == B6 on all {n['b4_b6_pairs']} pairs, "
           f"wavefront == B4 on (q[0], t[i]) for all {n['wavefront_pairs']} targets "
           f"at S = {', '.join(map(str, STREAMS))} | {card}", flush=True)
-    if args.rows_sweep:
-        rows_sweep(q, t, card, args.reps)
     return 0
 
 

@@ -163,9 +163,10 @@ def busy_share(bank, query, db):
 
 def kernel_gcups(query, db, seg, rows, phys):
     """(T, ms, GCUPS) of the kernel alone; a long query's whole chain."""
-    from chip_smoke import cuda_ms, laid_out_batch, long_batch
+    from chip_smoke import laid_out_batch, long_batch
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.stream import _long_strip, stream_strip_cuda
+    from swtpu_torch.utils.timing import cuda_ms
 
     if len(query) > 128:
         q, sk = long_batch(query, db, rows, phys)

@@ -125,7 +125,7 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.swtpu_lane_scores.restype = ctypes.c_int
             lib.swtpu_lane_scores.argtypes = [
-                *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 7, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 6, ctypes.c_void_p,
             ]
             lib.swtpu_microbench_ops.restype = ctypes.c_int
             lib.swtpu_microbench_ops.argtypes = [

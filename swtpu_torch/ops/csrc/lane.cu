@@ -25,9 +25,9 @@
 // it is intra-task against inter-task.  B4's port (column.cu) is
 // intra-task: a warp per pair, I as a shuffle scan across lanes.  This is
 // the inter-task design: a thread per pair, and no thread talks to another.
-//   - The thread sweeps its query in 128/R strips of R rows (R = 16, 32 or
-//     64, a template parameter) and keeps each strip's query codes, M and I
-//     in registers, with one running high score.
+//   - The thread sweeps its query in 128/R strips of R = 32 rows (kRows)
+//     and keeps each strip's query codes, M and I in registers, with one
+//     running high score.
 //   - Within a strip, I is an in-register ripple down the rows, cell by
 //     cell in the order of the recurrence above.
 //   - Strip hand-off: a strip writes its last row's M and I for every
@@ -49,8 +49,10 @@
 // the pair of them, 67 MB, exceeds the 50 MB L2 and the hand-off goes to
 // device memory: about 0.12 ms at 3.35 TB/s, under the issue time).
 // Occupancy is what one pair per thread costs: 65,536 pairs are 512 blocks
-// of 128, about four per SM.  R = 32 is the default (ops/lane.py): ptxas
-// gives it 186 registers, R = 64 spills at 255.
+// of 128, about four per SM.  R = 32 was chosen by measurement on the H100
+// (PERF.md): ptxas gives it 186 registers; R = 16 ran 8 % slower and R = 64
+// spilled at 255 registers and ran 1.8x slower.  Building with
+// -DSWTPU_LANE_ROWS=16 (or 64) brings another height back for a sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +62,11 @@ namespace {
 constexpr int kQuery = 128;  // query rows: one TPU lane tile
 constexpr int kRun = 16;     // target columns read together (one int4)
 constexpr int kBlock = 128;  // threads (pairs) per block
+#ifndef SWTPU_LANE_ROWS
+#define SWTPU_LANE_ROWS 32
+#endif
+constexpr int kRows = SWTPU_LANE_ROWS;  // query rows per strip, in registers
+static_assert(kRows % 4 == 0 && kQuery % kRows == 0, "strips load 4 rows at a time");
 
 struct LaneArgs {
   const int32_t* q;
@@ -70,7 +77,6 @@ struct LaneArgs {
   int B, n, ma, mi, go, ge;
 };
 
-template <int R>
 __global__ void __launch_bounds__(kBlock) lane_kernel(const LaneArgs a) {
   const long long b = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (b >= a.B) return;  // no thread talks to another: nothing to keep alive
@@ -83,12 +89,12 @@ __global__ void __launch_bounds__(kBlock) lane_kernel(const LaneArgs a) {
   int h = 0;
 
 #pragma unroll 1
-  for (int i0 = 0; i0 < kQuery; i0 += R) {
+  for (int i0 = 0; i0 < kQuery; i0 += kRows) {
     const bool first = i0 == 0;
-    const bool last = i0 + R == kQuery;
-    int q[R], M[R], I[R];
+    const bool last = i0 + kRows == kQuery;
+    int q[kRows], M[kRows], I[kRows];
 #pragma unroll
-    for (int r = 0; r < R; r += 4) {
+    for (int r = 0; r < kRows; r += 4) {
       const int4 v = *reinterpret_cast<const int4*>(qb + i0 + r);
       q[r] = v.x;
       q[r + 1] = v.y;
@@ -96,7 +102,7 @@ __global__ void __launch_bounds__(kBlock) lane_kernel(const LaneArgs a) {
       q[r + 3] = v.w;
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
+    for (int r = 0; r < kRows; ++r) {
       M[r] = 0;  // column -1: the zero boundary
       I[r] = 0;
     }
@@ -115,7 +121,7 @@ __global__ void __launch_bounds__(kBlock) lane_kernel(const LaneArgs a) {
         const int upi = first ? 0 : a.bi[o];
         int mup = upm, iup = upi, dg = dprev;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
+        for (int r = 0; r < kRows; ++r) {
           const int dnext = max(M[r], I[r]);  // row r + 1's diagonal
           const int mn = max(dg + (q[r] == tj ? a.ma : a.mi), 0);
           const int in = max(max(mup, M[r]) + oe, max(I[r] + ge, iup + ge));
@@ -128,8 +134,8 @@ __global__ void __launch_bounds__(kBlock) lane_kernel(const LaneArgs a) {
         }
         dprev = max(upm, upi);
         if (!last) {
-          a.bm[o] = M[R - 1];
-          a.bi[o] = I[R - 1];
+          a.bm[o] = M[kRows - 1];
+          a.bi[o] = I[kRows - 1];
         }
       }
     }
@@ -137,30 +143,19 @@ __global__ void __launch_bounds__(kBlock) lane_kernel(const LaneArgs a) {
   a.out[b] = h;
 }
 
-template <int R>
-cudaError_t launch(const LaneArgs& a, cudaStream_t stream) {
-  const long long blocks = (a.B + kBlock - 1) / kBlock;
-  lane_kernel<R><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // B6: q [B, 128] int32, t [B, n] int8 -> out [B] int32 scores; bm, bi
-// [n, B] int32 scratch.  n % 16 == 0, q and t 16-byte aligned, rows in
-// {16, 32, 64}.  The caller checks these.  Returns the launch's CUDA error.
+// [n, B] int32 scratch.  n % 16 == 0, q and t 16-byte aligned.  The
+// caller checks these.  Returns the launch's CUDA error.
 extern "C" int swtpu_lane_scores(const void* q, const void* t, void* out,
-                                 void* bm, void* bi, int B, int n, int rows,
+                                 void* bm, void* bi, int B, int n,
                                  int ma, int mi, int go, int ge,
                                  void* stream) {
   const LaneArgs a{static_cast<const int32_t*>(q), static_cast<const int8_t*>(t),
                    static_cast<int32_t*>(out), static_cast<int32_t*>(bm),
                    static_cast<int32_t*>(bi), B, n, ma, mi, go, ge};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 16: return launch<16>(a, st);
-    case 32: return launch<32>(a, st);
-    case 64: return launch<64>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
+  const long long blocks = (a.B + kBlock - 1) / kBlock;
+  lane_kernel<<<(unsigned)blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }

@@ -6,9 +6,9 @@ first axis and the query on the second, for queries of at most 128 bases.
 The TPU kernel asked which axis carries the pairs; on the GPU the same
 question is intra-task against inter-task, and the CUDA kernel
 (``csrc/lane.cu``) answers it the other way from B4's port: one pair per
-thread, sweeping its query in strips of ``LANE_ROWS`` rows kept in
-registers, the I chain an in-register ripple, and the strips handing their
-last row's M and I over through a [n, B] buffer in device memory.
+thread, sweeping its query in strips of 32 rows kept in registers, the I
+chain an in-register ripple, and the strips handing their last row's M
+and I over through a [n, B] buffer in device memory.
 
 ``lane_scores_reference`` is the plain PyTorch version of the kernel and
 ``lane_scores_cuda`` launches the CUDA kernel; ``_lane_call`` takes the
@@ -37,8 +37,6 @@ from swtpu_torch.ops.stream import _check_kernel_tensors, _raise_on_error
 
 LANE_TILE = 128  # query capacity: one lane tile on the TPU
 BLOCK_PAIRS = 512  # swtpu's default block_pairs: it only sets the pair padding
-ROWS = (16, 32, 64)  # query rows per strip the CUDA kernel is built for
-LANE_ROWS = 32  # the default strip height: the fastest of ROWS on the H100 (PERF.md)
 
 
 def lane_scores_reference(q, t, penalties=DEFAULT_PENALTIES):
@@ -96,7 +94,7 @@ def lane_scores_reference(q, t, penalties=DEFAULT_PENALTIES):
     return H.amax(1) if m else torch.zeros((B,), dtype=i32, device=dev)
 
 
-def _validate_lane(q, t, rows):
+def _validate_lane(q, t):
     B, m = q.shape
     if m != LANE_TILE:
         raise ValueError(f"the lane kernel takes q of {LANE_TILE} rows, got {m}")
@@ -104,19 +102,16 @@ def _validate_lane(q, t, rows):
         raise ValueError(f"q has {B} pairs but t has {t.shape[0]}")
     if t.shape[1] % LANE_TILE:
         raise ValueError(f"target width {t.shape[1]} not a multiple of {LANE_TILE}")
-    if rows not in ROWS:
-        raise ValueError(f"rows {rows} must be one of {'/'.join(map(str, ROWS))}")
 
 
-def lane_scores_cuda(q, t, penalties=DEFAULT_PENALTIES, rows=LANE_ROWS):
+def lane_scores_cuda(q, t, penalties=DEFAULT_PENALTIES):
     """The CUDA lane-major kernel on the contract of
-    :func:`lane_scores_reference`; CUDA tensors only.  `rows` is the strip
-    height (query rows a thread keeps in registers).  Launches on the
+    :func:`lane_scores_reference`; CUDA tensors only.  Launches on the
     current stream and counts each launch in ``lane_scores_cuda.launches``."""
     from swtpu_torch.ops._build import load_library
 
     _check_kernel_tensors(q=(q, torch.int32), t=(t, torch.int8))
-    _validate_lane(q, t, rows)
+    _validate_lane(q, t)
     _check_aligned(q=q, t=t)
     B, n = t.shape
     out = torch.empty((B,), dtype=torch.int32, device=q.device)
@@ -129,7 +124,7 @@ def lane_scores_cuda(q, t, penalties=DEFAULT_PENALTIES, rows=LANE_ROWS):
     with torch.cuda.device(q.device):
         err = lib.swtpu_lane_scores(
             q.data_ptr(), t.data_ptr(), out.data_ptr(), buf[0].data_ptr(),
-            buf[1].data_ptr(), B, n, rows, ma, mi, go, ge,
+            buf[1].data_ptr(), B, n, ma, mi, go, ge,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, "lane_scores")

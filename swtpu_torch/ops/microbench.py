@@ -14,9 +14,11 @@ The ports of the two TPU microbenchmark kernels:
 
 ``microbench_ops_reference`` and ``stream_ablate_reference`` are the plain
 PyTorch versions; ``microbench_ops_cuda`` and ``stream_ablate_cuda``
-launch the hand-written CUDA kernels (``csrc/microbench.cu``).  On the
-CPU only the plain versions run; a CUDA tensor launches the kernel or
-raises.  Every value either computes is a small integer, exact in all four
+launch the hand-written CUDA kernels (``csrc/microbench.cu``);
+``microbench_ops`` and ``stream_ablate``, the entries that
+``experiments/torch_microbench_ops.py`` and ``torch_kernel_ablate.py``
+call, take one or the other by the tensor's device.  On the CPU only the
+plain versions run; a CUDA tensor launches the kernel or raises.  Every value either computes is a small integer, exact in all four
 types, so kernel and plain version agree bit for bit.
 """
 

@@ -1,2 +1,2 @@
-"""Integrity guards of the port's scoring path (``guards``) and its
-event log (``metrics``)."""
+"""Integrity guards of the port's scoring path (``guards``), its event
+log (``metrics``) and the card's device timers (``timing``)."""

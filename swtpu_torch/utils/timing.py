@@ -1,0 +1,31 @@
+"""Device timers for the card's measurements (``chip_smoke.py`` and
+``experiments/torch_*.py``), on CUDA events."""
+
+from __future__ import annotations
+
+import torch
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls, after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_once(fn):
+    """(fn(), its device time in ms) for one call, no warm-up: for a plain
+    version, whose one call at a main-path shape can take minutes."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)

@@ -345,16 +345,16 @@ def test_column_launch_failure_raises(cuda_device, monkeypatch):
             column.column_chained_cuda.launches) == launches
 
 
-@pytest.mark.parametrize("rows", lane.ROWS)
-@pytest.mark.parametrize("B,n", [(1, 128), (1001, 256)])
-def test_lane_kernel_equals_plain_version(cuda_device, rows, B, n):
-    """B6 at each strip height, ragged pairs (a ragged last block at 1001)."""
-    rng = np.random.default_rng(rows + B)
+@pytest.mark.parametrize("B,n", [(1, 128), (1001, 256), (128, 128), (129, 384),
+                                 (31, 640), (4096, 128)])
+def test_lane_kernel_equals_plain_version(cuda_device, B, n):
+    """B6 on ragged pairs, whole blocks and ragged last blocks."""
+    rng = np.random.default_rng(B + n)
     q, t = _column_batch(rng, B, 128, n)
     q = q.to(torch.int32)
     want = lane.lane_scores_reference(q, t)
     launches = lane.lane_scores_cuda.launches
-    got = lane.lane_scores_cuda(q.to(cuda_device), t.to(cuda_device), rows=rows)
+    got = lane.lane_scores_cuda(q.to(cuda_device), t.to(cuda_device))
     torch.cuda.synchronize()
     assert lane.lane_scores_cuda.launches == launches + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
@@ -383,8 +383,6 @@ def test_lane_kernel_rejects_bad_tensors(cuda_device):
         lane.lane_scores_cuda(q[:, :64].contiguous(), t)
     with pytest.raises(ValueError, match="multiple of 128"):
         lane.lane_scores_cuda(q, t[:, :64].contiguous())
-    with pytest.raises(ValueError, match="rows 8"):
-        lane.lane_scores_cuda(q, t, rows=8)
     assert lane.lane_scores_cuda.launches == launches
 
 

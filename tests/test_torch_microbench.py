@@ -128,7 +128,7 @@ CASES = [(v, "int32") for v in microbench.VARIANTS] + [
 @pytest.mark.parametrize("variant,dtype", CASES)
 def test_stream_ablate_equals_interpret_kernel(e2, variant, dtype):
     T = 160 + 32 * (CASES.index((variant, dtype)) % 3)  # 160-224 steps
-    qT, stream = _ablate_inputs(len(variant), T, flags=dtype == "int32")
+    qT, stream = _ablate_inputs(len(variant), T, flags=True)
     want = _ablate_interpret(e2, variant, dtype, qT, stream)
     got = microbench.stream_ablate_reference(
         torch.from_numpy(qT), torch.from_numpy(stream), variant,
