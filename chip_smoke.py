@@ -46,10 +46,14 @@ Phases, each reported on its own line; any failure exits non-zero:
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
-     (a)).  Each long case's chain runs through the kernel at full length,
-     and every tile is held against the plain version on the first 4096
-     steps (see phase_chained_at_main_shape).  Each bucket batch of (f)
-     and each tile of (g), in full, through B4/B5 and the plain versions;
+     (a)); the wavefront runs in the time slices its wrapper chooses, and
+     is timed in one slice too.  Each long case's chain runs through the
+     kernel at full length; every tile must equal, in full, the same
+     kernel in one slice, and is held against the plain version on the
+     first 4096 steps, both as the full run's first steps and as a run of
+     the cut in 8 slices (see phase_chained_at_main_shape).  Each bucket
+     batch of (f) and each tile of (g), in full, through B4/B5 and the
+     plain versions;
   6. the shootout (experiments/torch_shootout.py's own functions) on
      65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
      its sizes, B4 == B6 on every pair and the wavefront == B4 on
@@ -61,7 +65,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      (experiments/torch_microbench_ops.py, torch_kernel_ablate.py at 512
      streams in each of the four dtypes) at those scripts' step counts.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-each kernel with its launches on its path, error, times and bound.
+each kernel with its launches on its path, error, times and bound (the
+wavefront and the chained tile also with their slices and registers).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 TOLERANCE = 0  # integer strips and scores: bit-equal
 CHECK_STEPS = 4096  # steps of each long-case tile held against the plain version
+CUT_SLICES = 8  # slices of the CHECK_STEPS cut's own run: 7 boundaries inside it
 STRIPS = ("acc", "oD", "oG", "oH")  # a chained tile's outputs
 
 
@@ -142,15 +148,15 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def strip_error(label, got, want) -> int:
+def strip_error(label, got, want, what=("kernel", "plain")) -> int:
     """Largest |kernel - plain| over a strip (or a score vector); fails
-    above TOLERANCE."""
+    above TOLERANCE.  `what` names the two sides."""
     err = int((got.long() - want.long()).abs().max())
     if err > TOLERANCE:
         bad = (got != want).nonzero()
         at = tuple(int(x) for x in bad[0])
-        fail(f"kernel vs plain {label}: {len(bad)} cells differ, first {list(at)} "
-             f"kernel {int(got[at])} plain {int(want[at])}")
+        fail(f"{what[0]} vs {what[1]} {label}: {len(bad)} cells differ, first "
+             f"{list(at)} {what[0]} {int(got[at])} {what[1]} {int(want[at])}")
     return err
 
 
@@ -453,7 +459,9 @@ def phase_main_path(rng, card, main_cases):
 
 def phase_kernel_at_main_shape(bank, cases):
     """Kernel vs plain version, full strip, on each main-path case's own
-    batch at the geometry ScoreBank chose for it; both times."""
+    batch at the geometry ScoreBank chose for it, in the slices the
+    wrapper chose; the kernel's time in those slices and in one, and the
+    plain version's."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
@@ -464,34 +472,42 @@ def phase_kernel_at_main_shape(bank, cases):
         seg, rows, phys = stream_geometry(len(c["query"]), bank.config, bank.device)
         qk, sk = laid_out_batch(c["query"], c["db"], seg, rows, phys)
         got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
+        slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
         want, plain_ms = cuda_once(
             lambda: stream_strip_reference(qk, sk, DEFAULT_PENALTIES, seg, rows)
         )
-        err = strip_error(f"{c['name']} seg={seg} rows={rows}", got, want)
+        err = strip_error(f"{c['name']} seg={seg} rows={rows} in {slices} slices", got, want)
         del want
         ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+        ms_one = cuda_ms(
+            lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, slices=1), 3)
         T, N = sk.shape
         print(f"phase kernel_main_shape: ok {c['name']} seg={seg} rows={rows} "
-              f"strip [{T}, {N}] bit-equal | kernel {ms:.3f} ms -> "
-              f"{c['cells'] / ms / 1e6:.2f} GCUPS in the kernel "
-              f"({ms / (c['wall_s'] * 1e3):.1%} of the wall time), plain "
-              f"{plain_ms:.1f} ms", flush=True)
+              f"strip [{T}, {N}] in {slices} slices of up to {steps} steps bit-equal | "
+              f"kernel {ms:.3f} ms -> {c['cells'] / ms / 1e6:.2f} GCUPS in the kernel "
+              f"({ms / (c['wall_s'] * 1e3):.1%} of the wall time), in one slice "
+              f"{ms_one:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
         results.append(dict(name=c["name"], segments=seg, rows=rows, T=T, N=N,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                            slices=slices, slice_steps=steps, max_abs_err=err, ms=ms,
+                            ms_one_slice=ms_one, plain_ms=plain_ms))
     return results
 
 
 def phase_chained_at_main_shape(bank, cases):
     """Each long case's batch, at the geometry ScoreBank chose for it,
-    through the kernel chain at full length (timed as the main path runs
-    it).  Then every tile against the plain version on the first
-    CHECK_STEPS steps of every stream: both get the same inputs, the
-    stream rows and the kernel's own shifted boundary strips, cut to
-    CHECK_STEPS rows.  A tile is causal in t (step t reads only steps
-    <= t of its inputs), so the first CHECK_STEPS rows of its four output
-    strips are exactly what the cut inputs give: the check is exact for
-    those steps.  The plain version takes ~1.8 ms per step at rows 16, so
-    the full length would take minutes per tile."""
+    through the kernel chain at full length in the slices the wrapper
+    chose (timed as the main path runs it).  Every tile's four strips must
+    equal, in full, the same kernel's in one slice (timed too).  Then
+    every tile against the plain version on the first CHECK_STEPS steps
+    of every stream: both get the same inputs, the stream rows and the
+    kernel's own shifted boundary strips, cut to CHECK_STEPS rows.  A tile
+    is causal in t (step t reads only steps <= t of its inputs), so the
+    first CHECK_STEPS rows of its four output strips are exactly what the
+    cut inputs give: the check is exact for those steps.  It holds the
+    full run's first steps, and a run of the cut in CUT_SLICES slices, so
+    that slice boundaries fall inside the steps held.  The plain version
+    takes ~1.8 ms per step at rows 16, so the full length would take
+    minutes per tile."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.ops.stream import (
@@ -505,28 +521,47 @@ def phase_chained_at_main_shape(bank, cases):
         _, rows, phys = stream_geometry(len(c["query"]), bank.config, bank.device)
         q, sk = long_batch(c["query"], c["db"], rows, phys)
         _, tiles = run_chain(q, sk, rows, stream_chained_cuda)
+        slices, steps = stream_chained_cuda.slices, stream_chained_cuda.slice_steps
         chain_ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 3)
-        full_ms = cuda_ms(lambda: stream_chained_cuda(*tiles[0][0]), 3)
-        err, ms, plain_ms = 0, [], []
-        for p, ((qk, _, bD, bG, bH, pen, r), outs) in enumerate(tiles):
+        err = 0
+        tile_ms, tile_ms_one, check_ms, plain_ms = [], [], [], []
+        for p, (args, outs) in enumerate(tiles):
+            one = stream_chained_cuda(*args, slices=1)
+            for name, g, w in zip(STRIPS, outs, one):
+                err = max(err, strip_error(f"{c['name']} tile {p} {name}", g, w,
+                                           (f"{slices} slices", "one slice")))
+            del one
+            tile_ms.append(cuda_ms(lambda: stream_chained_cuda(*args), 3))
+            tile_ms_one.append(cuda_ms(lambda: stream_chained_cuda(*args, slices=1), 3))
+            qk, _, bD, bG, bH, pen, r = args
             cut = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
             want, t_plain = cuda_once(lambda: stream_chained_reference(qk, *cut, pen, r))
-            for name, g, w in zip(STRIPS, outs, want):
-                err = max(err, strip_error(f"{c['name']} tile {p} {name}", g[:n], w))
-            ms.append(cuda_ms(lambda: stream_chained_cuda(qk, *cut, pen, r), 10))
+            got_cut = stream_chained_cuda(qk, *cut, pen, r, slices=CUT_SLICES)
+            for name, g, gc, w in zip(STRIPS, outs, got_cut, want):
+                label = f"{c['name']} tile {p} {name} first {n} steps"
+                err = max(err, strip_error(label, g[:n], w),
+                          strip_error(f"{label} in {CUT_SLICES} slices", gc, w))
+            check_ms.append(cuda_ms(
+                lambda: stream_chained_cuda(qk, *cut, pen, r, slices=CUT_SLICES), 10))
             plain_ms.append(t_plain)
         del tiles
         T, N = sk.shape
-        print(f"phase chained_main_shape: ok {c['name']} rows={rows} tiles={len(ms)} "
+        print(f"phase chained_main_shape: ok {c['name']} rows={rows} tiles={len(tile_ms)} "
               f"strips [{T}, {N}] | chain {chain_ms:.3f} ms -> "
               f"{c['cells'] / chain_ms / 1e6:.2f} GCUPS in the chain "
-              f"({chain_ms / (c['wall_s'] * 1e3):.1%} of the wall time), one tile "
-              f"{full_ms:.3f} ms | first {n} steps of every tile bit-equal "
-              f"(4 strips): kernel {', '.join(f'{x:.4f}' for x in ms)} ms, plain "
+              f"({chain_ms / (c['wall_s'] * 1e3):.1%} of the wall time) | every tile "
+              f"in {slices} slices of up to {steps} steps = one slice (4 strips, full "
+              f"length): {', '.join(f'{x:.3f}' for x in tile_ms)} ms, one slice "
+              f"{', '.join(f'{x:.3f}' for x in tile_ms_one)} ms | first {n} steps of "
+              f"every tile bit-equal to the plain version (4 strips; the full run's, and "
+              f"a run of the cut in {CUT_SLICES} slices: kernel "
+              f"{', '.join(f'{x:.4f}' for x in check_ms)} ms), plain "
               f"{', '.join(f'{x:.1f}' for x in plain_ms)} ms per tile", flush=True)
-        results.append(dict(name=c["name"], rows=rows, tiles=len(ms), T=T, N=N,
-                            max_abs_err=err, chain_ms=chain_ms, tile_ms=full_ms,
-                            check_steps=n, ms=ms, plain_ms=plain_ms))
+        results.append(dict(name=c["name"], rows=rows, tiles=len(tile_ms), T=T, N=N,
+                            slices=slices, slice_steps=steps, max_abs_err=err,
+                            chain_ms=chain_ms, tile_ms=tile_ms, tile_ms_one_slice=tile_ms_one,
+                            check_steps=n, check_slices=CUT_SLICES, check_ms=check_ms,
+                            plain_ms=plain_ms))
     return results
 
 
@@ -939,17 +974,18 @@ def phase_shootout(card, seed):
     _, d = so.wavefront_batches(q, t, so.BIG)[S]
     args = (*_to_kernel_layout(d.q, d.stream, 1, 1), DEFAULT_PENALTIES, 1, 1)
     got = stream_strip_cuda(*args)
+    slices = stream_strip_cuda.slices
     ms = cuda_ms(lambda: stream_strip_cuda(*args), 10)
     want, plain_ms = cuda_once(lambda: stream_strip_reference(*args))
     err = strip_error(f"the shootout's wavefront strip at S = {S}", got, want)
     del want
     ms_after = cuda_ms(lambda: stream_strip_cuda(*args), 10)
     T = args[1].shape[0]
-    print(f"phase shootout: ok wavefront (B2, rows 1) strip [{T}, {S}] bit-equal to its "
-          f"plain version | kernel {ms:.4f} ms ({ms_after:.4f} ms after the plain "
-          f"version ran), plain {plain_ms:.1f} ms", flush=True)
-    b2 = dict(T=T, N=S, rows=1, max_abs_err=err, ms=ms, ms_after_plain=ms_after,
-              plain_ms=plain_ms, launches=b2_launches)
+    print(f"phase shootout: ok wavefront (B2, rows 1) strip [{T}, {S}] in {slices} "
+          f"slices bit-equal to its plain version | kernel {ms:.4f} ms ({ms_after:.4f} "
+          f"ms after the plain version ran), plain {plain_ms:.1f} ms", flush=True)
+    b2 = dict(T=T, N=S, rows=1, slices=slices, max_abs_err=err, ms=ms,
+              ms_after_plain=ms_after, plain_ms=plain_ms, launches=b2_launches)
     rng = np.random.default_rng([seed, 4])
     S, T = 512, 4096
     qT = torch.from_numpy(rng.integers(0, 4, (LANES, S)).astype(np.int8)).cuda()
@@ -1004,7 +1040,9 @@ def main() -> int:
     col_checks, col_chains = phase_column_vs_plain(rng_col)
     lane_checks = phase_lane_vs_plain(rng_lane)
     e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import (
+        stream_chained_cuda, stream_kernel_info, stream_strip_cuda,
+    )
 
     stream_strip_cuda.launches = 0
     bank, cases = phase_main_path(rng, card, MAIN_CASES)
@@ -1032,7 +1070,7 @@ def main() -> int:
     lane, b2, e2_full = phase_shootout(card, args.seed)
     e1_table, e2_table, (e1_launches, e2_launches) = phase_microbench(card)
     head = mains[0]  # case (a): the headline shape, segments 1, rows 16
-    lhead = long_mains[0]  # case (d), tile 0 on its first CHECK_STEPS steps
+    lhead = long_mains[0]  # case (d), tile 0
     chead = col_batches[-1]  # case (f)'s largest bucket, 512 columns
     e1_head = e1_checks[0]  # int32 addmax at the E1 table's 2,000 steps
     e2_head = e2_mains[0]  # full int32 at the E2 table's [2048, 512]
@@ -1042,8 +1080,10 @@ def main() -> int:
     b_wave = peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS)
     b2["bound_ms"], b2["bound_by"] = peaks.bound(
         128 * b2["N"] + b2["T"] * b2["N"] * 5, 128 * b2["T"] * b2["N"] * WAVEFRONT_OPS)
-    Tc, Nc = lhead["check_steps"], lhead["N"]
-    b_chain = peaks.bound(128 * Nc + Tc * Nc * (1 + 12 + 16), 128 * Tc * Nc * WAVEFRONT_OPS)
+    # a chained tile reads 1 + 12 bytes and writes 16 a stream-step
+    Tl, Nl, Tc = lhead["T"], lhead["N"], lhead["check_steps"]
+    b_chain = peaks.bound(128 * Nl + Tl * Nl * (1 + 12 + 16), 128 * Tl * Nl * WAVEFRONT_OPS)
+    b_cut = peaks.bound(128 * Nl + Tc * Nl * (1 + 12 + 16), 128 * Tc * Nl * WAVEFRONT_OPS)
     B, m, n = chead["B"], chead["m"], chead["n"]
     b_col = peaks.bound(B * (m + n + 4), B * m * n * COLUMN_OPS)
     Bt, nt = col_tile["B"], col_tile["n"]
@@ -1082,6 +1122,8 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": None, "library_note": no_library, **rest}
 
+    regs, _, blocks_sm = stream_kernel_info(head["rows"])
+    regs_chain, _, blocks_sm_chain = stream_kernel_info(lhead["rows"], chained=True)
     kernels = [
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches,
@@ -1089,12 +1131,20 @@ def main() -> int:
               head["plain_ms"], b_wave,
               also_replaces="swtpu/ops/pallas_stream.py:57 (tail-accumulator and "
                             "ripple-H forms)",
-              shape=[head["T"], head["N"]], main_shapes=mains, shootout_rows1=b2,
-              configs=checks),
+              shape=[head["T"], head["N"]], slices=head["slices"],
+              slice_steps=head["slice_steps"], registers=regs,
+              resident_blocks_per_sm=blocks_sm, ms_one_slice=head["ms_one_slice"],
+              main_shapes=mains, shootout_rows1=b2, configs=checks),
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:314", chained_launches,
-              max(c["max_abs_err"] for c in chains + long_mains), lhead["ms"][0],
-              lhead["plain_ms"][0], b_chain, shape=[lhead["check_steps"], lhead["N"]],
+              max(c["max_abs_err"] for c in chains + long_mains), lhead["tile_ms"][0],
+              lhead["plain_ms"][0], b_chain, shape=[Tl, Nl], plain_shape=[Tc, Nl],
+              slices=lhead["slices"], slice_steps=lhead["slice_steps"],
+              registers=regs_chain, resident_blocks_per_sm=blocks_sm_chain,
+              ms_one_slice=lhead["tile_ms_one_slice"][0],
+              check_cut=dict(steps=Tc, slices=lhead["check_slices"],
+                             ms=lhead["check_ms"][0], plain_ms=lhead["plain_ms"][0],
+                             bound_ms=b_cut[0], bound_by=b_cut[1]),
               main_shapes=long_mains, configs=chains),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
               column_launches, max(c["max_abs_err"] for c in col_checks + col_batches),

@@ -1,6 +1,7 @@
 """Where the time of swtpu_torch's stream path goes, on one CUDA GPU.
 
     python experiments/torch_stream_breakdown.py [--seed N] [--reps N]
+        [--sweeps stages,rows,phys,slices] [--slice-counts 1,2,...]
 
 For each of chip_smoke.py's five main-path cases (its shapes, data from --seed):
   - per-stage host-clock medians of one ScoreBank.score_database call taken
@@ -11,9 +12,12 @@ For each of chip_smoke.py's five main-path cases (its shapes, data from --seed):
   - the device busy share of one whole call under torch.profiler (device
     time of kernels and copies / host wall time);
   - the kernel alone (CUDA events; for (d) and (e) the whole chain) over
-    rows 1-16 at ScoreBank's segments, and over 512-4096 physical streams
-    at ScoreBank's rows.
-Prints the card's name and power limit first; every number is this run's.
+    rows 1-16 at ScoreBank's segments (also in one slice), over 512-4096
+    physical streams at ScoreBank's rows, and over the kernel's time
+    slices a stream at ScoreBank's geometry (the wrapper's choice marked).
+--sweeps picks which of these run (stages: the per-stage medians and the
+busy share).  Prints the card's name and power limit first; every number
+is this run's.
 """
 
 from __future__ import annotations
@@ -161,28 +165,42 @@ def busy_share(bank, query, db):
     return dev_us / 1e3, wall * 1e3
 
 
-def kernel_gcups(query, db, seg, rows, phys):
-    """(T, ms, GCUPS) of the kernel alone; a long query's whole chain."""
+def kernel_gcups(query, db, seg, rows, phys, slices=None):
+    """(T, ms, GCUPS) of the kernel alone at `slices` (None: the
+    wrapper's choice); a long query's whole chain."""
+    from functools import partial
+
     from chip_smoke import laid_out_batch, long_batch
     from swtpu_torch import DEFAULT_PENALTIES
-    from swtpu_torch.ops.stream import _long_strip, stream_strip_cuda
+    from swtpu_torch.ops.stream import _long_strip, stream_chained_cuda, stream_strip_cuda
     from swtpu_torch.utils.timing import cuda_ms
 
     if len(query) > 128:
         q, sk = long_batch(query, db, rows, phys)
-        ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 3)
+        tile = partial(stream_chained_cuda, slices=slices)
+        ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows, tile=tile), 3)
     else:
         qk, sk = laid_out_batch(query, db, seg, rows, phys)
-        ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+        ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows,
+                                               slices=slices), 3)
     cells = len(query) * int(db.lens.sum())
     return sk.shape[0], ms, cells / ms / 1e6
+
+
+SLICE_SWEEP = (1, 2, 4, 8, 12, 16, 20, 24, 32, 48, 64)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--sweeps", default="stages,rows,phys,slices",
+                    help="comma list of stages, rows, phys, slices")
+    ap.add_argument("--slice-counts", default=",".join(map(str, SLICE_SWEEP)),
+                    help="slice counts of the slices sweep (the wrapper's choice is added)")
     args = ap.parse_args()
+    sweeps = set(args.sweeps.split(","))
+    slice_counts = [int(c) for c in args.slice_counts.split(",")]
     import subprocess
 
     import numpy as np
@@ -190,6 +208,9 @@ def main() -> int:
     from chip_smoke import LONG_CASES, MAIN_CASES, make_db
     from swtpu_torch import SWConfig, ScoreBank
     from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.ops.stream import (
+        STEP_CHUNK, choose_slices, slice_steps, stream_kernel_info,
+    )
 
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is false")
@@ -201,27 +222,43 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     rng_long = np.random.default_rng([args.seed, 1])
     bank = ScoreBank(SWConfig(), device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(rng, c) for c in MAIN_CASES] + [(rng_long, c) for c in LONG_CASES]
     for gen, (name, n, (lo, hi), qlen) in cases:
         db = make_db(gen, n, lo, hi)
         query = gen.integers(0, 4, size=qlen).astype(np.int8)
         seg, rows, phys = stream_geometry(qlen, bank.config, bank.device)
-        stages = long_stages_ms if qlen > 128 else stages_ms
-        med, shape = stages(bank, query, db, args.reps)
-        print(f"{name} strip {list(shape)} medians of {args.reps}: "
-              + " ".join(f"{k}={v:.2f}ms" for k, v in med.items()), flush=True)
-        dev_ms, wall_ms = busy_share(bank, query, db)
-        print(f"{name} profiled call: device {dev_ms:.2f} ms of wall "
-              f"{wall_ms:.2f} ms = {dev_ms / wall_ms:.1%} busy", flush=True)
-        for r in (1, 2, 4, 8, 16):
+        if "stages" in sweeps:
+            stages = long_stages_ms if qlen > 128 else stages_ms
+            med, shape = stages(bank, query, db, args.reps)
+            print(f"{name} strip {list(shape)} medians of {args.reps}: "
+                  + " ".join(f"{k}={v:.2f}ms" for k, v in med.items()), flush=True)
+            dev_ms, wall_ms = busy_share(bank, query, db)
+            print(f"{name} profiled call: device {dev_ms:.2f} ms of wall "
+                  f"{wall_ms:.2f} ms = {dev_ms / wall_ms:.1%} busy", flush=True)
+        for r in (1, 2, 4, 8, 16) if "rows" in sweeps else ():
             if (128 // r) % seg == 0:
                 T, ms, g = kernel_gcups(query, db, seg, r, phys)
-                print(f"  rows sweep {name} seg={seg} rows={r} phys={phys} "
-                      f"T={T} kernel {ms:.3f} ms -> {g:.1f} GCUPS", flush=True)
-        for p in (512, 1024, 2048, 4096):
+                ms_one = kernel_gcups(query, db, seg, r, phys, 1)[1]
+                print(f"  rows sweep {name} seg={seg} rows={r} phys={phys} T={T} "
+                      f"kernel {ms:.3f} ms -> {g:.1f} GCUPS (one slice {ms_one:.3f} ms)",
+                      flush=True)
+        for p in (512, 1024, 2048, 4096) if "phys" in sweeps else ():
             T, ms, g = kernel_gcups(query, db, seg, rows, p)
             print(f"  phys sweep {name} seg={seg} rows={rows} phys={p} "
                   f"T={T} kernel {ms:.3f} ms -> {g:.1f} GCUPS", flush=True)
+        if "slices" in sweeps:
+            T = kernel_gcups(query, db, seg, rows, phys, 1)[0]
+            chosen = choose_slices(phys, rows, T, sms, seg)
+            regs, local, blocks = stream_kernel_info(rows, chained=qlen > 128)
+            print(f"  {name} kernel rows={rows}: {regs} registers, {local} local "
+                  f"bytes, {blocks} resident blocks an SM", flush=True)
+            for c in sorted({c for c in slice_counts if c * STEP_CHUNK <= T} | {chosen}):
+                T, ms, g = kernel_gcups(query, db, seg, rows, phys, c)
+                print(f"  slices sweep {name} seg={seg} rows={rows} phys={phys} T={T} "
+                      f"slices={c}{' (chosen)' if c == chosen else ''} "
+                      f"({slice_steps(T, c)} steps) kernel {ms:.3f} ms -> {g:.1f} GCUPS",
+                      flush=True)
     return 0
 
 

@@ -1,0 +1,133 @@
+"""The wavefront kernels (B1, B2, B3) over their time-slice counts, on one
+CUDA GPU.
+
+    python experiments/torch_stream_slices.py [--root DIR] [--tag NAME]
+
+Times stream_strip_cuda / stream_chained_cuda (CUDA events, mean of warm
+calls) at the wrapper's slice count ("default") and at fixed counts, on:
+short streams like chip_smoke.py's phase 3 (~1,600 steps: rows 16, rows 4
+at segments 4, rows 1 in both forms, one chained tile at rows 16); E2's
+comparison strip (rows 1, [4096, 512], 1 % of chars start a read); the
+shootout's rows-1 strip; and cases (a)-(d) of chip_smoke.py at their
+geometry.  --root runs the package of another checkout of the repo (a
+parent commit's tree, say) so that two trees are compared within one
+call; a tree whose wrappers take no `slices` is timed at its default only.
+Each line ends with a digest of the outputs: equal digests across trees
+and counts mean bit-equal strips.  Prints the card's name and power limit
+first; every number is this run's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+                    help="checkout whose swtpu_torch and chip_smoke.py to run")
+    ap.add_argument("--tag", default="this", help="label of every line")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    os.chdir(root)  # the kernels build under the checkout's own build/
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: torch.cuda.is_available() is false")
+        return 1
+    from chip_smoke import laid_out_batch, long_batch, make_db
+    from experiments import torch_shootout as so
+    from swtpu_torch import DEFAULT_PENALTIES as P
+    from swtpu_torch.ops import stream as st
+    from swtpu_torch.utils.timing import cuda_ms
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip(), flush=True)
+    sliced = "slices" in inspect.signature(st.stream_strip_cuda).parameters
+
+    def digest(outs):
+        h = 0
+        for x in outs:
+            x = x.long().flatten()
+            w = torch.arange(1, x.numel() + 1, device=x.device) % 1000003
+            h = (h * 1000033 + int((x * w).sum())) % (1 << 48)
+        return h
+
+    def report(name, fn, counts, reps=10):
+        digests, parts = set(), []
+        for c in [None, *counts] if sliced else [None]:
+            kw = {} if c is None else dict(slices=c)
+            out = fn(**kw)
+            digests.add(digest(out if isinstance(out, tuple) else (out,)))
+            ms = cuda_ms(lambda: fn(**kw), reps)
+            parts.append(f"{'default' if c is None else c}:{ms:.4f}")
+        print(f"{args.tag} {name} | ms at slices " + " ".join(parts)
+              + f" | digest {'/'.join(f'{d:012x}' for d in sorted(digests))}", flush=True)
+
+    def tile0(query, db, rows):
+        q, sk = long_batch(query, db, rows, 512)
+        qk = st._q_kernel_layout(q[:, :128], 1, rows).to(torch.int8).contiguous()
+        z = torch.zeros(tuple(sk.shape), dtype=torch.int32, device="cuda")
+        return qk, sk, z
+
+    rng = np.random.default_rng(1)
+    for seg, rows in ((1, 16), (4, 4), (1, 1)):
+        db = make_db(rng, 512 * seg * 10, 24, 256)
+        query = rng.integers(0, 4, size=128 // seg).astype(np.int8)
+        qk, sk = laid_out_batch(query, db, seg, rows, 512)
+        report(f"short seg={seg} rows={rows} [{sk.shape[0]}, {sk.shape[1]}]",
+               lambda **kw: st.stream_strip_cuda(qk, sk, P, seg, rows, **kw), [1, 2])
+        if rows == 1:
+            report(f"short ripple-H seg={seg} [{sk.shape[0]}, {sk.shape[1]}]",
+                   lambda **kw: st.stream_strip_cuda(qk, sk, P, seg, 1, False, **kw), [1, 2])
+    qk, sk, z = tile0(rng.integers(0, 4, size=256).astype(np.int8),
+                      make_db(rng, 5120, 24, 256), 16)
+    report(f"short chained tile rows=16 [{sk.shape[0]}, 512]",
+           lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, P, 16, **kw), [1, 2])
+
+    r2 = np.random.default_rng([0, 4])  # chip_smoke.py's E2 comparison, seed 0
+    qT = torch.from_numpy(r2.integers(0, 4, (128, 512)).astype(np.int8)).cuda()
+    s2 = r2.integers(0, 4, (4096, 512)).astype(np.int8)
+    s2[r2.random(s2.shape) < 0.01] |= 8
+    s2 = torch.from_numpy(s2).cuda()
+    report("E2 comparison rows=1 [4096, 512]",
+           lambda **kw: st.stream_strip_cuda(qT, s2, P, 1, 1, **kw), [1, 2, 3, 4])
+
+    qs, ts = so.make_pairs(0)
+    _, d = so.wavefront_batches(qs, ts, so.BIG)[512]
+    qk, sk = st._to_kernel_layout(d.q, d.stream, 1, 1)
+    report(f"shootout rows=1 [{sk.shape[0]}, 512]",
+           lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 1, **kw), [1, 4, 8, 16])
+
+    rng = np.random.default_rng(9)
+    for name, n, qlen, seg, rows in (("(b)", 262144, 32, 4, 4), ("(c)", 65536, 64, 2, 8)):
+        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+        qk, sk = laid_out_batch(query, make_db(rng, n, 24, 256), seg, rows, 512)
+        report(f"{name} seg={seg} rows={rows} [{sk.shape[0]}, {sk.shape[1]}]",
+               lambda **kw: st.stream_strip_cuda(qk, sk, P, seg, rows, **kw), [1, 4, 8, 16],
+               reps=5)
+    rng = np.random.default_rng(7)
+    query = rng.integers(0, 4, size=128).astype(np.int8)
+    qk, sk = laid_out_batch(query, make_db(rng, 262144, 128, 128), 1, 16, 512)
+    report(f"(a) rows=16 [{sk.shape[0]}, 512]",
+           lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **kw), [1], reps=5)
+    del qk, sk
+    qk, sk, z = tile0(rng.integers(0, 4, size=256).astype(np.int8),
+                      make_db(rng, 262144, 24, 256), 16)
+    report(f"(d) tile 0 rows=16 [{sk.shape[0]}, 512]",
+           lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, P, 16, **kw), [1], reps=5)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,12 +17,17 @@ for the tile below.
 ``stream_strip_reference`` and ``stream_chained_reference`` are the plain
 PyTorch versions of the two kernels; ``stream_strip_cuda`` and
 ``stream_chained_cuda`` launch the hand-written CUDA kernels
-(``csrc/stream_wavefront.cu``).  ``_strip_call`` and
-``_strip_call_chained`` take the plain version for a tensor on the CPU and
-the kernel for a CUDA tensor; there is no fallback from one to the other.
+(``csrc/stream_wavefront.cu``), which cut each stream's steps into time
+slices that restart at read starts (``choose_slices``) and give the same
+strips bit for bit.  ``_strip_call`` and ``_strip_call_chained`` take the
+plain version for a tensor on the CPU and the kernel for a CUDA tensor;
+there is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import functools
+import operator
 
 import torch
 
@@ -33,6 +38,21 @@ FLAG_BIT = 8  # first-char-of-target marker in the stream bytes
 # stream lengths are multiples of this many steps (the packers round up)
 STEP_CHUNK = 32
 ROWS = (1, 2, 4, 8, 16)
+KERNEL_BLOCK = 128  # threads a block of the CUDA wavefront kernel
+RESIDENT_WARPS_PER_SM = 12  # what the kernel's __launch_bounds__ guarantees
+# The wrapper's slice count aims for a grid of SLICE_WARPS_PER_SM warps for
+# each SM (more than one wave of the resident warps at rows 16, so that
+# SMs that finish early take more blocks) and gives no slice fewer steps than
+# MIN_SLICE_STEPS (each slice reruns up to a read's steps) nor fewer than
+# PIPE_FILLS_PER_SLICE times a segment's sublanes (each slice refills the
+# char pipe: 127 steps at rows 1), except that a stream too short for two
+# such slices but of MIN_SLICE_STEPS or more is halved (one slice leaves
+# most SMs idle).  They come from sweeps of slice counts at chip_smoke.py's
+# cases (experiments/torch_stream_breakdown.py --sweeps slices), at rows 1
+# over 4,096 steps (2 slices beat 4) and at ~1,600 steps (2 beat 1).
+SLICE_WARPS_PER_SM = 32
+MIN_SLICE_STEPS = 1024
+PIPE_FILLS_PER_SLICE = 16
 
 
 def _validate_config(segments, rows=1):
@@ -245,18 +265,66 @@ def _raise_on_error(lib, err, kernel):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
+def choose_slices(S, rows, T, sms, segments=1):
+    """The wrapper's slice count for S physical streams at `rows` and
+    `segments` over T steps on a card of `sms` SMs: a grid of about
+    SLICE_WARPS_PER_SM warps for every SM, with no slice under
+    MIN_SLICE_STEPS steps nor under PIPE_FILLS_PER_SLICE times the steps
+    a slice takes to fill a segment's pipe; 2 slices where that leaves
+    fewer and T >= MIN_SLICE_STEPS; at least 1."""
+    blocks = -(-S * min(LANES // rows, 32) // KERNEL_BLOCK)
+    want = round(sms * SLICE_WARPS_PER_SM * 32 / KERNEL_BLOCK / blocks)
+    shortest = max(MIN_SLICE_STEPS, PIPE_FILLS_PER_SLICE * (LANES // rows // segments))
+    fit = max(T // shortest, 2 if T >= MIN_SLICE_STEPS else 1)
+    return max(1, min(want, fit))
+
+
+def slice_steps(T, slices):
+    """Steps of the longest of `slices` slices over T steps: slice k owns
+    steps from STEP_CHUNK * floor(k * floor(T / STEP_CHUNK) / slices)."""
+    return STEP_CHUNK * -(-(T // STEP_CHUNK) // slices) if slices > 1 else T
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _slice_count(slices, S, rows, T, device, segments=1):
+    """`slices` checked, or the wrapper's choice for None."""
+    if slices is None:
+        return choose_slices(S, rows, T, _sm_count(device), segments)
+    slices = operator.index(slices)
+    if slices < 1 or (slices > 1 and slices * STEP_CHUNK > T):
+        raise ValueError(
+            f"slices {slices} must be >= 1 and leave every slice at least "
+            f"{STEP_CHUNK} steps of the {T}"
+        )
+    return slices
+
+
+def _record_slices(wrapper, slices, T):
+    wrapper.slices = slices
+    wrapper.slice_steps = slice_steps(T, slices)
+
+
 def stream_strip_cuda(
     qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1, tail_acc=True,
+    slices=None,
 ):
     """The CUDA wavefront kernel on the same contract as
-    :func:`stream_strip_reference`; CUDA tensors only.  Launches on the
-    current stream and counts each launch in ``stream_strip_cuda.launches``."""
+    :func:`stream_strip_reference`; CUDA tensors only.  ``slices`` time
+    slices a stream (None: :func:`choose_slices`; 1 runs each stream in one
+    pass); the strip does not depend on it.  Launches on the current stream,
+    counts each launch in ``stream_strip_cuda.launches`` and records the
+    last launch's ``.slices`` and ``.slice_steps``."""
     from swtpu_torch.ops._build import load_library
 
     _validate_kernel_layout(qk, sk, segments, rows)
     _check_kernel_tensors(qk=(qk, torch.int8), sk=(sk, torch.int8))
     S = qk.shape[1]
     T = sk.shape[0]
+    slices = _slice_count(slices, S, rows, T, qk.device, segments)
     out = torch.empty((T, segments * S), dtype=torch.int32, device=qk.device)
     if T == 0 or S == 0:
         return out
@@ -266,20 +334,25 @@ def stream_strip_cuda(
         err = lib.swtpu_stream_wavefront(
             qk.data_ptr(), sk.data_ptr(), out.data_ptr(), S, T, segments,
             rows, int(tail_acc), ma, mi, go, ge,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, slices,
         )
     _raise_on_error(lib, err, "stream_wavefront")
     stream_strip_cuda.launches += 1
+    _record_slices(stream_strip_cuda, slices, T)
     return out
 
 
-stream_strip_cuda.launches = 0
+stream_strip_cuda.launches = stream_strip_cuda.slices = stream_strip_cuda.slice_steps = 0
 
 
-def stream_chained_cuda(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1):
+def stream_chained_cuda(
+    qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1, slices=None,
+):
     """The CUDA chained-tile kernel on the same contract as
-    :func:`stream_chained_reference`; CUDA tensors only.  Launches on the
-    current stream and counts each launch in ``stream_chained_cuda.launches``."""
+    :func:`stream_chained_reference`; CUDA tensors only.  ``slices`` as for
+    :func:`stream_strip_cuda`.  Launches on the current stream, counts each
+    launch in ``stream_chained_cuda.launches`` and records the last
+    launch's ``.slices`` and ``.slice_steps``."""
     from swtpu_torch.ops._build import load_library
 
     _validate_kernel_layout(qk, sk, 1, rows)
@@ -294,6 +367,7 @@ def stream_chained_cuda(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1)
             )
     S = qk.shape[1]
     T = sk.shape[0]
+    slices = _slice_count(slices, S, rows, T, qk.device)
     outs = [torch.empty((T, S), dtype=torch.int32, device=qk.device) for _ in range(4)]
     if T == 0 or S == 0:
         return tuple(outs)
@@ -303,14 +377,31 @@ def stream_chained_cuda(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1)
         err = lib.swtpu_stream_chained(
             qk.data_ptr(), sk.data_ptr(), bD.data_ptr(), bG.data_ptr(),
             bH.data_ptr(), *(o.data_ptr() for o in outs), S, T, rows,
-            ma, mi, go, ge, torch.cuda.current_stream().cuda_stream,
+            ma, mi, go, ge, torch.cuda.current_stream().cuda_stream, slices,
         )
     _raise_on_error(lib, err, "stream_chained")
     stream_chained_cuda.launches += 1
+    _record_slices(stream_chained_cuda, slices, T)
     return tuple(outs)
 
 
-stream_chained_cuda.launches = 0
+stream_chained_cuda.launches = stream_chained_cuda.slices = stream_chained_cuda.slice_steps = 0
+
+
+def stream_kernel_info(rows, tail_acc=True, chained=False):
+    """(registers a thread, local spill bytes a thread, resident blocks an
+    SM) of the CUDA wavefront kernel's instantiation for `rows` (the
+    ripple-H form at rows 1 with tail_acc=False; the chained tile with
+    chained=True), from the CUDA runtime on the current device."""
+    import ctypes
+
+    from swtpu_torch.ops._build import load_library
+
+    lib = load_library()
+    mode = 2 if chained else (1 if not tail_acc and rows == 1 else 0)
+    out = (ctypes.c_int * 3)()
+    _raise_on_error(lib, lib.swtpu_stream_kernel_info(rows, mode, out), "stream_kernel_info")
+    return tuple(out)
 
 
 def _strip_call(qk, sk, penalties, segments, rows, tail_acc=True):

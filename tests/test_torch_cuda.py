@@ -39,10 +39,15 @@ def _db(rng, n, hi):
     return EncodedDB([f"db{i}" for i in range(n)], mat, lens)
 
 
+# time slices a stream: one pass, a few, and the wrapper's choice (None)
+SLICES = [1, 2, 7, None]
+
+
+@pytest.mark.parametrize("slices", SLICES)
 @pytest.mark.parametrize(
     "segments,rows", [(1, 1), (1, 2), (1, 16), (2, 8), (4, 4), (8, 1), (8, 16)]
 )
-def test_kernel_strip_equals_plain_version(cuda_device, segments, rows):
+def test_kernel_strip_equals_plain_version(cuda_device, segments, rows, slices):
     rng = np.random.default_rng(segments * 31 + rows)
     db = _db(rng, 400, 200)
     query = rng.integers(0, 4, size=128 // segments - 1).astype(np.int8)
@@ -55,10 +60,13 @@ def test_kernel_strip_equals_plain_version(cuda_device, segments, rows):
     want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, segments, rows)
     launches = port.stream_strip_cuda.launches
     got = port.stream_strip_cuda(
-        qk.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES, segments, rows
+        qk.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES, segments, rows,
+        slices=slices,
     )
     torch.cuda.synchronize()
     assert port.stream_strip_cuda.launches == launches + 1
+    assert port.stream_strip_cuda.slices == (slices or port.choose_slices(
+        phys, rows, sk.shape[0], port._sm_count(cuda_device), segments))
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
@@ -85,8 +93,9 @@ def test_score_database_equals_oracle(cuda_device, qlen, wire):
     np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
 
 
+@pytest.mark.parametrize("slices", SLICES)
 @pytest.mark.parametrize("segments", [1, 2, 4, 8])
-def test_ripple_h_strip_equals_plain_version(cuda_device, segments):
+def test_ripple_h_strip_equals_plain_version(cuda_device, segments, slices):
     rng = np.random.default_rng(segments + 100)
     db = _db(rng, 400, 200)
     query = rng.integers(0, 4, size=128 // segments - 1).astype(np.int8)
@@ -97,7 +106,8 @@ def test_ripple_h_strip_equals_plain_version(cuda_device, segments):
     )
     want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, segments, 1, False)
     got = port.stream_strip_cuda(
-        qk.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES, segments, 1, False
+        qk.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES, segments, 1, False,
+        slices=slices,
     )
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     scores = port.sw_scores_stream(
@@ -109,8 +119,9 @@ def test_ripple_h_strip_equals_plain_version(cuda_device, segments):
                                   score_many_vs_one(query, db.as_list()))
 
 
+@pytest.mark.parametrize("slices", SLICES)
 @pytest.mark.parametrize("rows", [1, 2, 4, 8, 16])
-def test_chained_kernel_equals_plain_version(cuda_device, rows):
+def test_chained_kernel_equals_plain_version(cuda_device, rows, slices):
     """All four strips of one tile, on random boundary strips, at 40
     physical streams (a ragged last block)."""
     rng = np.random.default_rng(rows + 200)
@@ -125,12 +136,87 @@ def test_chained_kernel_equals_plain_version(cuda_device, rows):
     launches = port.stream_chained_cuda.launches
     got = port.stream_chained_cuda(
         qk.to(cuda_device), sk.to(cuda_device), *(x.to(cuda_device) for x in bounds),
-        DEFAULT_PENALTIES, rows,
+        DEFAULT_PENALTIES, rows, slices=slices,
     )
     torch.cuda.synchronize()
     assert port.stream_chained_cuda.launches == launches + 1
+    assert port.stream_chained_cuda.slices == (slices or port.choose_slices(
+        40, rows, sk.shape[0], port._sm_count(cuda_device)))
     for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+
+
+def _edge_streams(rng, case, S=40):
+    """[T, S] int8 kernel-layout streams: "long_reads", reads of 150-300
+    bases, longer than a 32-step slice; "pad_tail", reads of 1-60 bases in
+    which every stream goes pad-only somewhere in its second half, and
+    stream 0 after its first read."""
+    T = 1024
+    sk = rng.integers(0, 4, size=(T, S)).astype(np.int8)
+    lo, hi = (150, 301) if case == "long_reads" else (1, 61)
+    for s in range(S):
+        t = 0
+        while t < T:
+            sk[t, s] |= 8
+            t += int(rng.integers(lo, hi))
+    if case == "pad_tail":
+        ends = rng.integers(T // 2, T, size=S)
+        ends[0] = int(np.flatnonzero(sk[1:, 0] >= 8)[0]) + 1
+        sk[np.arange(T)[:, None] >= ends[None, :]] = 4
+    return torch.from_numpy(sk)
+
+
+@pytest.mark.parametrize("case", ["long_reads", "pad_tail"])
+@pytest.mark.parametrize("rows", [1, 16])
+def test_kernels_slice_edge_cases_equal_plain_version(cuda_device, case, rows):
+    """Both kernels at 32-step slices (every slice shorter than a read in
+    "long_reads"; slices of pads only in "pad_tail") and at 5 slices."""
+    rng = np.random.default_rng(rows + len(case))
+    sk = _edge_streams(rng, case)
+    qk = torch.from_numpy(rng.integers(0, 4, size=(128, sk.shape[1])).astype(np.int8))
+    bounds = [torch.from_numpy(rng.integers(-20, 60, size=sk.shape).astype(np.int32))
+              for _ in range(3)]
+    want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, 1, rows)
+    want_chain = port.stream_chained_reference(qk, sk, *bounds, DEFAULT_PENALTIES, rows)
+    dev = [x.to(cuda_device) for x in (qk, sk, *bounds)]
+    for slices in (sk.shape[0] // port.STEP_CHUNK, 5):
+        got = port.stream_strip_cuda(*dev[:2], DEFAULT_PENALTIES, 1, rows, slices=slices)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"{slices}")
+        got = port.stream_chained_cuda(*dev, DEFAULT_PENALTIES, rows, slices=slices)
+        for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want_chain):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                          err_msg=f"{name} {slices}")
+
+
+@pytest.mark.parametrize("slices", [0, -3, 2.0, 33])
+def test_bad_slice_counts_raise(cuda_device, slices):
+    """0, a negative count, a non-integer or a slice under 32 steps
+    (33 slices of 1,024 steps) raise before any launch."""
+    qk = torch.zeros((128, 8), dtype=torch.int8, device=cuda_device)
+    sk = torch.zeros((1024, 8), dtype=torch.int8, device=cuda_device)
+    b = torch.zeros((1024, 8), dtype=torch.int32, device=cuda_device)
+    launches = (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches)
+    error = TypeError if isinstance(slices, float) else ValueError
+    with pytest.raises(error):
+        port.stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, 16, slices=slices)
+    with pytest.raises(error):
+        port.stream_chained_cuda(qk, sk, b, b, b, DEFAULT_PENALTIES, 16, slices=slices)
+    assert (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches) == launches
+
+
+@pytest.mark.parametrize(
+    "rows,mode",
+    [(r, "tail_acc") for r in port.ROWS] + [(1, "ripple_h")]
+    + [(r, "chained") for r in port.ROWS],
+)
+def test_kernel_holds_the_slices_occupancy(cuda_device, rows, mode):
+    """Every instantiation holds the resident warps the kernel's launch
+    bounds promise, without spilling."""
+    regs, local, blocks = port.stream_kernel_info(
+        rows, tail_acc=mode != "ripple_h", chained=mode == "chained")
+    assert 0 < regs <= 65536 // (port.RESIDENT_WARPS_PER_SM * 32)
+    assert local == 0
+    assert blocks * port.KERNEL_BLOCK >= port.RESIDENT_WARPS_PER_SM * 32
 
 
 def test_chained_kernel_rejects_bad_tensors(cuda_device):
