@@ -148,6 +148,25 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+def live_children() -> list[str]:
+    """The command lines of this process's children that are still
+    running (Linux /proc; none where /proc is missing)."""
+    pids = set()
+    for f in Path("/proc/self/task").glob("*/children"):
+        pids.update(f.read_text().split())
+    live = []
+    for pid in sorted(pids):
+        try:
+            state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ")
+        except OSError:
+            continue
+        if state == "Z":  # exited, not yet reaped
+            continue
+        live.append(f"{pid}: {cmd.decode(errors='replace').strip()[:200]}")
+    return live
+
+
 def strip_error(label, got, want, what=("kernel", "plain")) -> int:
     """Largest |kernel - plain| over a strip (or a score vector); fails
     above TOLERANCE.  `what` names the two sides."""
@@ -662,22 +681,49 @@ def phase_column_vs_plain(rng, B=4096, n=256):
     return scores, chains
 
 
+BIASED_WORKER = """\
+import json, sys
+import numpy as np
+from swtpu_torch.config import DEFAULT_PENALTIES
+from swtpu_torch.oracle import sw_score_single_biased
+width, *seqs = sys.argv[1:]
+codes = [np.frombuffer(s.encode(), np.uint8) - ord("0") for s in seqs]
+print(json.dumps([
+    sw_score_single_biased(q, t, penalties=DEFAULT_PENALTIES, score_width=int(width))
+    for q, t in zip(codes[::2], codes[1::2])
+]))
+"""
+
+
 def biased_oracle(pairs, width):
     """sw_score_single_biased on each (query, target) pair, spread over
-    worker processes (the pure-Python oracle takes ~1 s a 450-base pair);
-    the pool is shut down before this returns."""
-    import multiprocessing
+    worker processes (the pure-Python oracle takes ~1 s a 450-base pair).
+    The workers are plain subprocesses, each waited for (or killed) before
+    this returns; a multiprocessing pool would also start a resource
+    tracker process, which some Python releases leave running past the
+    script's end."""
     import os
-    from concurrent.futures import ProcessPoolExecutor
-    from functools import partial
+    import sys
 
-    from swtpu_torch.config import DEFAULT_PENALTIES
-    from swtpu_torch.oracle import sw_score_single_biased
-
-    fn = partial(sw_score_single_biased, penalties=DEFAULT_PENALTIES, score_width=width)
-    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        return list(ex.map(fn, [q for q, _ in pairs], [t for _, t in pairs]))
+    workers = max(1, min(8, (os.cpu_count() or 1) - 1, len(pairs)))
+    procs = []
+    try:
+        for k in range(workers):
+            seqs = ["".join(map(str, s.tolist())) for pair in pairs[k::workers] for s in pair]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", BIASED_WORKER, str(width), *seqs],
+                cwd=REPO, stdout=subprocess.PIPE, text=True,
+            ))
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"biased oracle workers exited {[p.returncode for p in procs]}")
+    scores = [json.loads(o) for o in outs]
+    return [scores[i % workers][i // workers] for i in range(len(pairs))]
 
 
 def phase_bucketed_path(rng, card, case_e):
@@ -1173,6 +1219,9 @@ def main() -> int:
               case=[e2_head["variant"], e2_head["dtype"]], table=e2_table,
               full_vs_wavefront=e2_full, main_shapes=e2_mains, configs=e2_checks),
     ]
+    left = live_children()
+    if left:
+        fail(f"processes this script started are still running: {left}")
     print(card)
     print(json.dumps({"kernels": kernels, "bucketed_cases": [
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
