@@ -15,7 +15,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      PyTorch version's bit for bit: at 512 physical streams, the wavefront
      for every (segments, rows) that ScoreBank uses on CUDA and for
      rows=1, its ripple-H form at segments 1 and 4, and the chained tile
-     over whole K-tile chains (K=2 at rows 16 and 1, K=4 at rows 16); on
+     over whole K-tile chains (K=2 at rows 16 and 1, K=4 at rows 16); the
+     same wavefront shapes and both forms in the state modes, W-bit
+     wrap-parity at W = 8, 12 and 16 on reads that pass the ceiling and
+     float32 state (whose strip must also equal int32's), and whole chains
+     of K=2 and K=4 at W = 12 (the 512-base query's own reads wrap) and in
+     float32; on
      4,096 ragged pairs, the column kernel (B4) at query widths 8, 32, 136
      and 256, exact and at score widths 12 and 10, and the chained column
      tile (B5) over whole chains of K=2 and K=3, every tile's h/ms/is,
@@ -42,7 +47,19 @@ Phases, each reported on its own line; any failure exits non-zero:
      12-bit score width on 65,536 pairs of 24-512 bases, 1 in 64
      identical so that those over 409 bases wrap: 128 sampled pairs and
      16 wrapping ones must equal sw_score_single_biased (computed in
-     worker processes);
+     worker processes).  Then pairs on the wavefront: (i) score_pairs on
+     the default backend (stream) with 65,536 pairs over 4,096 distinct
+     queries (8 wavefront launches a call), every score equal to the
+     column path's (timed the same way, for the backend comparison) and
+     2,048 sampled ones to the oracle's; (j) score_pairs
+     at score width 12 on the stream backend, short pairs on the pair
+     streams and 16 distinct 410-512-base queries on chained tiles (4
+     tiles each), every score equal to the column path's at width 12, 64
+     sampled and 16 wrapping pairs to sw_score_single_biased; and
+     score_database in the new modes: case (e) at width 12 equal to (e)'s
+     exact scores, cases (a) and (d) with float32 state equal to their
+     int32 scores.  Each path's kernels' launch counters are set to 0
+     just before it and must have risen just after;
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
@@ -53,7 +70,14 @@ Phases, each reported on its own line; any failure exits non-zero:
      first 4096 steps, both as the full run's first steps and as a run of
      the cut in 8 slices (see phase_chained_at_main_shape).  Each bucket
      batch of (f) and each tile of (g), in full, through B4/B5 and the
-     plain versions;
+     plain versions.  In the state modes: at (a)'s batch the kernel at
+     W = 12 and in float32 over the full strip against the int32 kernel,
+     at W = 8 against the plain version on the first 4096 steps (the full
+     run's, and a run of the cut in 8 slices); (d)'s chain at W = 12 and
+     in float32 against the int32 chain (every tile's four strips in full:
+     float32 equal, W = 12 equal plus the bias, since no (d) score nears
+     2^11), and each W = 12 tile against the plain version on its first
+     4096 steps; every mode timed beside int32;
   6. the shootout (experiments/torch_shootout.py's own functions) on
      65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
      its sizes, B4 == B6 on every pair and the wavefront == B4 on
@@ -66,7 +90,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      streams in each of the four dtypes) at those scripts' step counts.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, error, times and bound (the
-wavefront and the chained tile also with their slices and registers).
+wavefront and the chained tile also with their slices and registers, and
+each state mode's time, bound, slices and registers at the main shape).
 """
 
 from __future__ import annotations
@@ -95,6 +120,16 @@ COLUMN_OPS = 9  # diag: max; s: 2; max(diag + s, 0); I: 2 max, + extend, add-max
 # The integer types fuse an add and the max after it (DPX: VIADDMNMX for
 # int32, its packed 16x2 form for int16); the float types cannot.
 FUSED_ADD_MAX = ("int32", "int16")
+# the wavefront's state modes beside exact int32: (label, score width,
+# state dtype); the operations a cell they add to WAVEFRONT_OPS, counted
+# from stream_wavefront.cu: the biased M update is an add, an and, a
+# sign-bit test and a select where the exact one is one fused add-max (3
+# more); float32 unfuses M's and G's add-max (2 more), on the fp32 lanes
+STATE_MODES = (("biased W=8", 8, "int32"), ("biased W=12", 12, "int32"),
+               ("biased W=16", 16, "int32"), ("float32", None, "float32"))
+MODE_EXTRA_OPS = {"int32": 3, "float32": 2}  # biased int32; float32
+MAIN_MODES = (("biased W=12", 12, "int32"), ("float32", None, "float32"))
+MODE_DTYPES = {label: dtype for label, _, dtype in STATE_MODES}
 # E1 per element and op (fused, not fused; select is a compare and a
 # predicated add); the step's floor modulo adds 3 per element
 E1_OPS = {"addmax": (1, 2), "select": (2, 2), "roll_lane": (1, 2), "roll_sub": (1, 2)}
@@ -205,21 +240,22 @@ def long_batch(query, db, rows, phys):
     return torch.from_numpy(b.q).cuda(), torch.from_numpy(b.stream.T.copy()).cuda()
 
 
-def run_chain(q, sk, rows, tile):
-    """The long-query chain (``_long_strip``) with `tile` running each
-    tile; returns its last accumulator strip and every tile's (inputs,
-    outputs)."""
+def run_chain(q, sk, rows, tile, **mode):
+    """The long-query chain (``_long_strip``) in the state `mode`
+    (score_width, state_dtype) with `tile` running each tile; returns its
+    last accumulator strip and every tile's (inputs, outputs); a tile's
+    inputs are the positional arguments of `tile`, which runs in `mode`."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.stream import _long_strip
 
     tiles = []
 
-    def record(*args):
-        outs = tile(*args)
+    def record(*args, **kw):
+        outs = tile(*args, **kw)
         tiles.append((args, outs))
         return outs
 
-    return _long_strip(q, sk, DEFAULT_PENALTIES, rows, tile=record), tiles
+    return _long_strip(q, sk, DEFAULT_PENALTIES, rows, tile=record, **mode), tiles
 
 
 def make_db(rng, n, lo, hi):
@@ -246,6 +282,70 @@ def make_pairs(rng, n, lo, hi):
     for i in range(0, n, 64):
         targets[i] = queries[i]
     return queries, targets
+
+
+def with_copies(db, query, every):
+    """`db` with every `every`-th read (from read 0) replaced by `query`
+    itself, the matrix widened to hold it."""
+    import numpy as np
+    from swtpu_torch.bank.scorebank import EncodedDB
+
+    n, w = db.mat.shape
+    mat = np.full((n, max(w, len(query))), 4, np.int8)
+    mat[:, :w] = db.mat
+    lens = db.lens.copy()
+    mat[::every] = 4
+    mat[::every, : len(query)] = query
+    lens[::every] = len(query)
+    return EncodedDB(db.names, mat, lens)
+
+
+def mode_penalties(width, qlen):
+    """The penalties of a state-mode check: the default ones, except at a
+    width over 8, where a match so large that a read equal to a query of
+    `qlen` bases passes the ceiling (one tile's query cannot reach 2^11 at
+    +5 a match)."""
+    from swtpu_torch import DEFAULT_PENALTIES, Penalties
+
+    if width is None or width <= 8:
+        return DEFAULT_PENALTIES
+    return Penalties(match=(1 << (width - 1)) // qlen + 3, mismatch=-4, gap_open=-12,
+                     gap_extend=-4)
+
+
+def query_pairs(rng, n_queries, per, qrange, trange, self_every=0):
+    """Pairs over n_queries distinct random queries with lengths in qrange,
+    `per` targets each with lengths in trange, in a random order; with
+    `self_every`, every self_every-th target of a query is the query."""
+    import numpy as np
+
+    qs = [rng.integers(0, 4, size=k).astype(np.int8)
+          for k in rng.integers(qrange[0], qrange[1] + 1, size=n_queries)]
+    owner = rng.permutation(np.repeat(np.arange(n_queries), per))
+    lens = rng.integers(trange[0], trange[1] + 1, size=len(owner))
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in lens]
+    if self_every:
+        seen = np.zeros(n_queries, np.int64)
+        for i, u in enumerate(owner):
+            if seen[u] % self_every == 0:
+                targets[i] = qs[u].copy()
+            seen[u] += 1
+    return [qs[u] for u in owner], targets
+
+
+def pair_oracle(queries, targets, idx):
+    """The exact oracle's scores of the pairs at `idx`, in one batch."""
+    import numpy as np
+    from swtpu_torch.oracle import sw_score_batch
+
+    m = max(len(queries[i]) for i in idx)
+    n = max(len(targets[i]) for i in idx)
+    q = np.zeros((len(idx), m), np.int8)
+    t = np.zeros((len(idx), n), np.int8)
+    for k, i in enumerate(idx):
+        q[k, : len(queries[i])] = queries[i]
+        t[k, : len(targets[i])] = targets[i]
+    return sw_score_batch(q, t, [len(queries[i]) for i in idx], [len(targets[i]) for i in idx])
 
 
 def phase_device():
@@ -391,6 +491,107 @@ def phase_chained_vs_plain(rng):
     return results
 
 
+# (segments, rows, tail accumulator) of the state-mode checks: ScoreBank's
+# CUDA geometries, and rows 1 in both forms
+MODE_CHECKS = ((1, 16, True), (2, 8, True), (4, 4, True), (1, 1, True), (1, 1, False),
+               (4, 1, False))
+COPY_EVERY = 97  # reads of a state-mode check that are the query itself
+MODE_STREAMS = 512  # physical streams of the state-mode checks
+
+
+def phase_modes_vs_plain(rng):
+    """The wavefront in each state mode against its plain version, bit for
+    bit, at 512 physical streams, on reads of which every COPY_EVERY-th is
+    the query, so that each biased width wraps (mode_penalties); the
+    biased strip must differ from the exact one there, and the float32
+    strip must equal the int32 kernel's everywhere."""
+    import numpy as np
+    from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    results = []
+    for seg, rows, tail_acc in MODE_CHECKS:
+        S = MODE_STREAMS
+        query = rng.integers(0, 4, size=128 // seg).astype(np.int8)
+        db = with_copies(make_db(rng, S * seg * 4, 24, 256), query, COPY_EVERY)
+        qk, sk = laid_out_batch(query, db, seg, rows, S)
+        form = "tail-acc" if tail_acc else "ripple-H"
+        for label, width, dtype in STATE_MODES:
+            pen = mode_penalties(width, len(query))
+            mode = dict(score_width=width, state_dtype=dtype)
+            args = (qk, sk, pen, seg, rows, tail_acc)
+            got = stream_strip_cuda(*args, **mode)
+            want, plain_ms = cuda_once(lambda: stream_strip_reference(*args, **mode))
+            name = f"{label} {form} seg={seg} rows={rows}"
+            err = strip_error(name, got, want)
+            exact = stream_strip_cuda(*args)
+            wrapped = int((got != exact).sum())
+            if dtype == "float32":
+                err = max(err, strip_error(name, got, exact, ("float32", "int32")))
+            elif wrapped == 0:
+                fail(f"{name}: no strip cell wrapped")
+            ms = cuda_ms(lambda: stream_strip_cuda(*args, **mode), 10)
+            int32_ms = cuda_ms(lambda: stream_strip_cuda(*args), 10)
+            T, N = sk.shape
+            print(f"phase kernel_vs_plain: ok {name} strip [{T}, {N}] bit-equal"
+                  f"{'' if dtype == 'float32' else f', {wrapped} cells wrapped'}"
+                  f"{' (= the int32 strip)' if dtype == 'float32' else ''} | kernel "
+                  f"{ms:.4f} ms (int32 {int32_ms:.4f}), plain {plain_ms:.1f} ms")
+            results.append(dict(mode=label, form=form, segments=seg, rows=rows, T=T, N=N,
+                                match=pen.match, wrapped_cells=wrapped, max_abs_err=err,
+                                ms=ms, int32_ms=int32_ms, plain_ms=plain_ms))
+    return results
+
+
+CHAIN_MODE_CHECKS = (2, 4)  # tiles K at rows 16; K = 4 (512 bases) wraps at W = 12
+
+
+def phase_chain_modes_vs_plain(rng):
+    """Whole chains in the state modes through the kernel and the plain
+    version, every tile's four strips and the last accumulator; at K = 4
+    the reads equal to the 512-base query pass 2^11 and wrap."""
+    import numpy as np
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.stream import (
+        _long_strip, stream_chained_cuda, stream_chained_reference,
+    )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    results = []
+    rows = 16
+    for K in CHAIN_MODE_CHECKS:
+        S = MODE_STREAMS
+        query = rng.integers(0, 4, size=128 * K).astype(np.int8)
+        db = with_copies(make_db(rng, S * 4, 24, 256), query, COPY_EVERY)
+        q, sk = long_batch(query, db, rows, S)
+        exact, _ = run_chain(q, sk, rows, stream_chained_cuda)
+        for label, width, dtype in MAIN_MODES:
+            mode = dict(score_width=width, state_dtype=dtype)
+            acc, tiles = run_chain(q, sk, rows, stream_chained_cuda, **mode)
+            (want, want_tiles), plain_ms = cuda_once(
+                lambda: run_chain(q, sk, rows, stream_chained_reference, **mode))
+            name = f"{label} chain K={K} rows={rows}"
+            err = strip_error(f"{name} last acc", acc, want)
+            for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
+                for strip, g, w in zip(STRIPS, outs, wouts):
+                    err = max(err, strip_error(f"{name} tile {p} {strip}", g, w))
+            bias = 0 if width is None else 1 << (width - 1)
+            wrapped = int((acc - bias != exact).sum())
+            if dtype == "float32":
+                err = max(err, strip_error(name, acc, exact, ("float32", "int32")))
+            elif K == 4 and wrapped == 0:
+                fail(f"{name}: no cell of the last accumulator strip wrapped")
+            ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows, **mode), 5)
+            T, N = sk.shape
+            print(f"phase kernel_vs_plain: ok {name} strips [{T}, {N}] bit-equal (last acc "
+                  f"+ 4 per tile){f', {wrapped} cells wrapped' if wrapped else ''} | chain "
+                  f"{ms:.4f} ms, plain chain {plain_ms:.1f} ms")
+            results.append(dict(mode=label, tiles=K, rows=rows, T=T, N=N,
+                                wrapped_cells=wrapped, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms))
+    return results
+
+
 MAIN_CASES = (
     # (name, reads, read length range, query length): segments/rows follow
     ("a_equal128_q128", 262144, (128, 128), 128),  # seg 1, rows 16, regular
@@ -474,6 +675,164 @@ def phase_main_path(rng, card, main_cases):
                           gcups=gcups, cells=res.cells, scores=res.scores,
                           sample=sample, oracle=want))
     return bank, cases
+
+
+# pairs on the wavefront: (name, distinct queries, targets each, query
+# lengths, target lengths, a query's own read every so many targets)
+I_CASE = ("i_pairs_stream", 4096, 16, (24, 128), (24, 512), 0)
+J_SHORT = ("j_pairs_stream_w12_mixed", 2048, 8, (24, 128), (24, 512), 0)
+J_LONG = (16, 64, (410, 512), (24, 512), 8)  # 4 chained tiles each; 1 in 8 wraps
+J_WIDTH = 12
+PAIR_ORACLE = 2048  # pairs of (i) held against the exact oracle
+J_SAMPLE = (64, 16)  # pairs of (j) held against the biased oracle: random, wrapping
+
+
+def launches_of(run):
+    """run() with the stream kernels' launch counters set to 0 just before
+    it; (its result, (wavefront launches, chained launches)) read just
+    after."""
+    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+
+    stream_strip_cuda.launches = stream_chained_cuda.launches = 0
+    out = run()
+    return out, (stream_strip_cuda.launches, stream_chained_cuda.launches)
+
+
+def phase_pairs_path(rng, card):
+    """(i) and (j): score_pairs on the stream backend, through the user's
+    entry points, timed as the other cases are; every score against the
+    column path's, samples against the oracles."""
+    import numpy as np
+    from swtpu_torch import SWConfig, ScoreBank
+    from swtpu_torch.bank.scorebank import stream_geometry
+
+    out = []
+    # (i): the default backend, which is now the stream's
+    name, nq, per, qr, tr, _ = I_CASE
+    queries, targets = query_pairs(rng, nq, per, qr, tr)
+    bank = ScoreBank(device="cuda")
+    if bank.backend != "stream":
+        fail(f"{name}: the default backend is {bank.backend!r}, not the stream")
+    (res, wall, walls, peak), (b1, b3) = launches_of(
+        lambda: timed_runs(name, lambda: bank.score_pairs(queries, targets)))
+    want_calls = -(-nq // stream_geometry(max(qr), bank.config, bank.device)[2])
+    if b1 != 4 * want_calls or b3:
+        fail(f"{name}: (wavefront, chained) launched ({b1}, {b3}) times in 4 calls, want "
+             f"({4 * want_calls}, 0)")
+    cbank = ScoreBank(backend="pallas", device="cuda")
+    col, col_wall, _, _ = timed_runs(name, lambda: cbank.score_pairs(queries, targets))
+    if not np.array_equal(res.scores, col.scores):
+        k = int(np.flatnonzero(res.scores != col.scores)[0])
+        fail(f"{name}: pair {k} scored {res.scores[k]}, the column path {col.scores[k]}")
+    idx = np.sort(rng.choice(len(queries), size=PAIR_ORACLE, replace=False))
+    t0 = time.perf_counter()
+    want = pair_oracle(queries, targets, idx)
+    oracle_s = time.perf_counter() - t0
+    if not np.array_equal(res.scores[idx], want):
+        k = int(np.flatnonzero(res.scores[idx] != want)[0])
+        fail(f"{name}: pair {idx[k]} scored {res.scores[idx[k]]}, oracle {want[k]}")
+    gcups = res.cells / wall / 1e9
+    print(f"phase main_path: ok {name} pairs={len(queries)} distinct queries={nq} "
+          f"cells={res.cells} padded={res.padded_cells} launches wavefront={b1} "
+          f"peak device memory {peak:.2f} GB | all = the column path, {PAIR_ORACLE} sampled "
+          f"= oracle ({oracle_s:.1f} s) | wall median of 3 {wall*1e3:.2f} ms (runs "
+          f"{', '.join(f'{w*1e3:.2f}' for w in walls)}), the column path {col_wall*1e3:.2f} "
+          f"ms -> {gcups:.2f} GCUPS on {card}", flush=True)
+    out.append(dict(name=name, pairs=len(queries), cells=res.cells,
+                    padded_cells=res.padded_cells, wall_s=wall, gcups=gcups,
+                    launches=[b1, b3], column_wall_s=col_wall, peak_gb=peak))
+
+    # (j): score_width 12 on the stream backend, short and long queries
+    name, nq, per, qr, tr, _ = J_SHORT
+    queries, targets = query_pairs(rng, nq, per, qr, tr)
+    n_long, per_long, qr_long, tr_long, self_every = J_LONG
+    longs, ltargets = query_pairs(rng, n_long, per_long, qr_long, tr_long, self_every)
+    queries, targets = queries + longs, targets + ltargets
+    wbank = ScoreBank(SWConfig(score_width=J_WIDTH), backend="stream", device="cuda")
+    (res, wall, walls, peak), (b1, b3) = launches_of(
+        lambda: timed_runs(name, lambda: wbank.score_pairs(queries, targets)))
+    want_calls = -(-nq // stream_geometry(max(qr), wbank.config, wbank.device)[2])
+    if b1 < 4 * want_calls or b3 != 4 * n_long * 4:
+        fail(f"{name}: (wavefront, chained) launched ({b1}, {b3}) times in 4 calls, want "
+             f"(>= {4 * want_calls}, {4 * n_long * 4})")
+    cbank = ScoreBank(SWConfig(score_width=J_WIDTH), device="cuda")
+    col, col_wall, _, _ = timed_runs(name, lambda: cbank.score_pairs(queries, targets))
+    if not np.array_equal(res.scores, col.scores):
+        k = int(np.flatnonzero(res.scores != col.scores)[0])
+        fail(f"{name}: pair {k} scored {res.scores[k]}, the column path {col.scores[k]}")
+    first_long = len(queries) - len(longs)
+    wrapping = {}
+    for i in range(first_long, len(queries)):
+        if np.array_equal(queries[i], targets[i]):
+            wrapping.setdefault(queries[i].tobytes(), i)
+    n_random, n_wrap = J_SAMPLE
+    if len(wrapping) != n_wrap:
+        fail(f"{name}: {len(wrapping)} long queries have their own read, want {n_wrap}")
+    picked = np.concatenate([rng.choice(len(queries), size=n_random, replace=False),
+                             sorted(wrapping.values())])
+    t0 = time.perf_counter()
+    want = biased_oracle([(queries[i], targets[i]) for i in picked], J_WIDTH)
+    oracle_s = time.perf_counter() - t0
+    if res.scores[picked].tolist() != want:
+        k = int(np.flatnonzero(res.scores[picked] != np.asarray(want))[0])
+        fail(f"{name}: pair {picked[k]} scored {res.scores[picked[k]]}, biased oracle "
+             f"{want[k]}")
+    wrapped = sum(int(res.scores[i]) < 5 * len(queries[i]) for i in picked[n_random:])
+    if wrapped != n_wrap:
+        fail(f"{name}: only {wrapped} of {n_wrap} pairs past the {J_WIDTH}-bit ceiling wrapped")
+    gcups = res.cells / wall / 1e9
+    print(f"phase main_path: ok {name} pairs={len(queries)} ({len(queries) - len(longs)} "
+          f"over {nq} short queries, {len(longs)} over {n_long} of {qr_long[0]}-{qr_long[1]} "
+          f"bases) score_width={J_WIDTH} cells={res.cells} padded={res.padded_cells} "
+          f"launches wavefront={b1} chained={b3} peak device memory {peak:.2f} GB | all = "
+          f"the column path at width {J_WIDTH}, {n_random} sampled + {n_wrap} wrapping pairs "
+          f"= sw_score_single_biased ({oracle_s:.1f} s), all {n_wrap} wrapped | wall median "
+          f"of 3 {wall*1e3:.2f} ms (runs {', '.join(f'{w*1e3:.2f}' for w in walls)}), the "
+          f"column path {col_wall*1e3:.2f} ms -> {gcups:.2f} GCUPS on {card}", flush=True)
+    out.append(dict(name=name, pairs=len(queries), cells=res.cells,
+                    padded_cells=res.padded_cells, wall_s=wall, gcups=gcups,
+                    launches=[b1, b3], column_wall_s=col_wall, peak_gb=peak))
+    return out
+
+
+def phase_mode_databases(card, cases, long_cases):
+    """score_database in the new modes on the main cases' data: (e) at
+    width 12 on the stream backend, equal to (e)'s exact scores (none
+    reaches 2^11); (a) and (d) with float32 state, equal to their int32
+    scores."""
+    import numpy as np
+    from swtpu_torch import SWConfig, ScoreBank
+
+    case_a, case_d, case_e = cases[0], long_cases[0], long_cases[1]
+    runs = (
+        ("e_w12_stream", case_e, SWConfig(score_width=J_WIDTH), (0, 16)),
+        ("a_float32", case_a, SWConfig(stream_state_dtype="float32"), (4, 0)),
+        ("d_float32", case_d, SWConfig(stream_state_dtype="float32"), (0, 8)),
+    )
+    if int(case_e["scores"].max()) >= 1 << (J_WIDTH - 1):
+        fail(f"case (e) scores reach 2^{J_WIDTH - 1}: width {J_WIDTH} would wrap them")
+    out = []
+    for name, c, cfg, want_launches in runs:
+        bank = ScoreBank(cfg, backend="stream", device="cuda")
+        (res, wall, walls, peak), launched = launches_of(
+            lambda: timed_runs(name, lambda: bank.score_database(c["query"], c["db"])))
+        if launched != want_launches:
+            fail(f"{name}: (wavefront, chained) launched {launched} times in 4 calls, want "
+                 f"{want_launches}")
+        if not np.array_equal(res.scores, c["scores"]):
+            k = int(np.flatnonzero(res.scores != c["scores"])[0])
+            fail(f"{name}: read {k} scored {res.scores[k]}, the exact int32 run "
+                 f"{c['scores'][k]}")
+        gcups = res.cells / wall / 1e9
+        print(f"phase main_path: ok {name} reads={len(c['db'].lens)} launches "
+              f"wavefront={launched[0]} chained={launched[1]} | all = {c['name']}'s exact "
+              f"int32 scores | wall median of 3 {wall*1e3:.2f} ms (runs "
+              f"{', '.join(f'{w*1e3:.2f}' for w in walls)}; int32 {c['wall_s']*1e3:.2f}) -> "
+              f"{gcups:.2f} GCUPS on {card}", flush=True)
+        out.append(dict(name=name, case=c["name"], cells=res.cells, wall_s=wall,
+                        int32_wall_s=c["wall_s"], gcups=gcups, launches=list(launched),
+                        peak_gb=peak))
+    return out
 
 
 def phase_kernel_at_main_shape(bank, cases):
@@ -582,6 +941,133 @@ def phase_chained_at_main_shape(bank, cases):
                             check_steps=n, check_slices=CUT_SLICES, check_ms=check_ms,
                             plain_ms=plain_ms))
     return results
+
+
+def time_modes(run, reps):
+    """Device ms of run(label, score_width=, state_dtype=) for int32 and
+    each of MAIN_MODES, in turns (int32, the modes, int32 again); {label:
+    ms}, int32 the mean of its two."""
+    from swtpu_torch.utils.timing import cuda_ms
+
+    first = cuda_ms(lambda: run("int32"), reps)
+    out = {label: cuda_ms(lambda: run(label, score_width=w, state_dtype=d), reps)
+           for label, w, d in MAIN_MODES}
+    out["int32"] = (first + cuda_ms(lambda: run("int32"), reps)) / 2
+    return out
+
+
+def phase_modes_at_main_shape(bank, case_a, case_d):
+    """The state modes at the main shapes.  (a)'s batch: the W = 12 and
+    float32 kernels over the full strip against the int32 kernel (no (a)
+    score nears 2^11, so the unbiased strip is the exact one), and the
+    W = 8 kernel against its plain version on the first CHECK_STEPS steps
+    (the full run's, and a run of the cut in CUT_SLICES slices; a strip is
+    causal in t), the float32 one too for the plain version's time.  (d)'s
+    chain at W = 12 and in float32 against the int32 chain, every tile's
+    four strips in full (float32 equal; W = 12 equal plus the bias, as no
+    (d) value nears 2^11), and each W = 12 tile against the plain version
+    on its first CHECK_STEPS steps.  Every mode timed beside int32, on its
+    own chain's inputs."""
+    from swtpu_torch import DEFAULT_PENALTIES as P
+    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.ops.stream import (
+        stream_chained_cuda, stream_chained_reference, stream_kernel_info,
+        stream_strip_cuda, stream_strip_reference,
+    )
+    from swtpu_torch.utils.timing import cuda_once
+
+    n = CHECK_STEPS
+    seg, rows, phys = stream_geometry(len(case_a["query"]), bank.config, bank.device)
+    qk, sk = laid_out_batch(case_a["query"], case_a["db"], seg, rows, phys)
+    exact = stream_strip_cuda(qk, sk, P, seg, rows)
+    a = dict(name=case_a["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={})
+    err = 0
+    for label, width, dtype in MAIN_MODES:
+        got = stream_strip_cuda(qk, sk, P, seg, rows, score_width=width, state_dtype=dtype)
+        err = max(err, strip_error(f"(a) {label} full strip", got, exact, (label, "int32")))
+        regs, _, blocks = stream_kernel_info(rows, score_width=width, state_dtype=dtype)
+        a["modes"][label] = dict(slices=stream_strip_cuda.slices,
+                                 slice_steps=stream_strip_cuda.slice_steps, registers=regs,
+                                 resident_blocks_per_sm=blocks)
+        del got
+    del exact
+    a["ms"] = time_modes(lambda _, **m: stream_strip_cuda(qk, sk, P, seg, rows, **m), 3)
+    cut = sk[:n].contiguous()
+    full8 = stream_strip_cuda(qk, sk, P, seg, rows, score_width=8)[:n]
+    want8, plain8_ms = cuda_once(
+        lambda: stream_strip_reference(qk, cut, P, seg, rows, score_width=8))
+    cut8 = stream_strip_cuda(qk, cut, P, seg, rows, slices=CUT_SLICES, score_width=8)
+    err = max(err, strip_error(f"(a) W=8 first {n} steps", full8, want8),
+              strip_error(f"(a) W=8 first {n} steps in {CUT_SLICES} slices", cut8, want8))
+    wantf, plainf_ms = cuda_once(
+        lambda: stream_strip_reference(qk, cut, P, seg, rows, state_dtype="float32"))
+    err = max(err, strip_error(f"(a) float32 first {n} steps",
+                               stream_strip_cuda(qk, cut, P, seg, rows, state_dtype="float32"),
+                               wantf))
+    a.update(max_abs_err=err, check_steps=n, plain_ms={"biased W=8": plain8_ms,
+                                                       "float32": plainf_ms})
+    print(f"phase modes_main_shape: ok {a['name']} seg={seg} rows={rows} strip "
+          f"[{a['T']}, {a['N']}]: W=12 and float32 = the int32 kernel (full strip), W=8 "
+          f"and float32 = the plain version on the first {n} steps (full run's and in "
+          f"{CUT_SLICES} slices) | kernel " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in a["ms"].items())
+          + f"; plain on {n} steps W=8 {plain8_ms:.1f} ms, float32 {plainf_ms:.1f} ms | "
+          + ", ".join(f"{k}: {v['slices']} slices, {v['registers']} registers"
+                      for k, v in a["modes"].items()), flush=True)
+
+    _, rows, phys = stream_geometry(len(case_d["query"]), bank.config, bank.device)
+    q, sk = long_batch(case_d["query"], case_d["db"], rows, phys)
+    _, tiles = run_chain(q, sk, rows, stream_chained_cuda)
+    d = dict(name=case_d["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={},
+             tile_ms=[], plain_ms=[])
+    err = 0
+    inputs = {"int32": [args for args, _ in tiles]}  # each mode's tiles' own inputs
+    for label, width, dtype in MAIN_MODES:
+        bias = 0 if width is None else 1 << (width - 1)
+        _, mtiles = run_chain(q, sk, rows, stream_chained_cuda, score_width=width,
+                              state_dtype=dtype)
+        regs, _, blocks = stream_kernel_info(rows, chained=True, score_width=width,
+                                             state_dtype=dtype)
+        d["modes"][label] = dict(slices=stream_chained_cuda.slices,
+                                 slice_steps=stream_chained_cuda.slice_steps,
+                                 registers=regs, resident_blocks_per_sm=blocks)
+        for p, ((_, outs), (margs, mouts)) in enumerate(zip(tiles, mtiles)):
+            for name, g, w in zip(STRIPS, mouts, outs):
+                err = max(err, strip_error(f"(d) {label} tile {p} {name} - {bias}", g - bias,
+                                           w, (label, "int32")))
+            if width is None:
+                continue
+            mqk, _, bD, bG, bH, pen, r = margs
+            cutin = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
+            want, t_plain = cuda_once(lambda: stream_chained_reference(
+                mqk, *cutin, pen, r, score_width=width, state_dtype=dtype))
+            got_cut = stream_chained_cuda(mqk, *cutin, pen, r, slices=CUT_SLICES,
+                                          score_width=width, state_dtype=dtype)
+            for name, g, gc, w in zip(STRIPS, mouts, got_cut, want):
+                label_n = f"(d) {label} tile {p} {name} first {n} steps"
+                err = max(err, strip_error(label_n, g[:n], w),
+                          strip_error(f"{label_n} in {CUT_SLICES} slices", gc, w))
+            d["plain_ms"].append((label, p, t_plain))
+    # float32's plain chained tile is timed in phase 3 (its whole chains)
+        inputs[label] = [args for args, _ in mtiles]
+        del mtiles
+    del tiles
+    for p in range(len(inputs["int32"])):
+        d["tile_ms"].append(time_modes(
+            lambda label, **m: stream_chained_cuda(*inputs[label][p], **m), 3))
+    del inputs
+    d.update(max_abs_err=err, check_steps=n)
+    print(f"phase modes_main_shape: ok {d['name']} rows={rows} tiles={len(d['tile_ms'])} "
+          f"strips [{d['T']}, {d['N']}]: float32 = int32 and W=12 = int32 + 2^11 (4 strips "
+          f"of every tile, full length), W=12 = the plain version on the first {n} steps "
+          f"of every tile (full run's and in {CUT_SLICES} slices) | kernel "
+          f"a tile " + "; ".join(
+              ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()) for t in d["tile_ms"])
+          + f"; plain on {n} steps " + ", ".join(
+              f"{k} tile {p} {x:.1f} ms" for k, p, x in d["plain_ms"]) + " | "
+          + ", ".join(f"{k}: {v['slices']} slices, {v['registers']} registers"
+                      for k, v in d["modes"].items()), flush=True)
+    return a, d
 
 
 COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
@@ -1065,6 +1551,9 @@ def phase_microbench(card):
     return e1, e2, launches
 
 
+T0 = time.perf_counter()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1079,10 +1568,13 @@ def main() -> int:
     rng_long = np.random.default_rng([args.seed, 1])
     rng_col = np.random.default_rng([args.seed, 2])  # the column path's own
     rng_lane = np.random.default_rng([args.seed, 3])  # B6, E1 and E2's own
+    rng_modes = np.random.default_rng([args.seed, 5])  # the state modes' and pairs' own
     phase_build()
     checks = phase_kernel_vs_plain(rng)
     checks += phase_ripple_vs_plain(rng_long)
     chains = phase_chained_vs_plain(rng_long)
+    mode_checks = phase_modes_vs_plain(rng_modes)
+    chain_mode_checks = phase_chain_modes_vs_plain(rng_modes)
     col_checks, col_chains = phase_column_vs_plain(rng_col)
     lane_checks = phase_lane_vs_plain(rng_lane)
     e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
@@ -1100,6 +1592,8 @@ def main() -> int:
     chained_launches = stream_chained_cuda.launches
     if chained_launches == 0:
         fail("the long-query path never launched the chained kernel")
+    pair_cases = phase_pairs_path(rng_modes, card)
+    mode_dbs = phase_mode_databases(card, cases, long_cases)
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
 
     column_scores_cuda.launches = column_chained_cuda.launches = 0
@@ -1111,6 +1605,7 @@ def main() -> int:
              f"({column_launches}, {column_chained_launches})")
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
+    mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
     col_batches, col_tile = phase_column_at_main_shape(
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
     lane, b2, e2_full = phase_shootout(card, args.seed)
@@ -1147,6 +1642,11 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S2 + T2 * S2 * 5, S2 * T2 * e2_ops(row["variant"], row["dtype"]),
             LANES_PER_SM[row["dtype"]])
+    for row in mode_checks:  # the wavefront's bytes and its mode's operations
+        S3, T3, dtype = row["N"] // row["segments"], row["T"], MODE_DTYPES[row["mode"]]
+        row["bound_ms"], row["bound_by"] = peaks.bound(
+            128 * S3 + T3 * row["N"] * 5,
+            128 * T3 * S3 * (WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]), LANES_PER_SM[dtype])
     b_e1 = e1_head["bound_ms"], e1_head["bound_by"]
     b_e2 = e2_head["bound_ms"], e2_head["bound_by"]
     for row in e1_table:  # the least time of one op over the array: card, its SMs
@@ -1168,13 +1668,47 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": None, "library_note": no_library, **rest}
 
+    def mode_rows(at, bound_of, plain, plain_note):
+        """Each of MAIN_MODES at a main shape: its time beside int32's in
+        the same call, its bound with the mode's operations, slices and
+        registers."""
+        rows = {}
+        for label, _, dtype in MAIN_MODES:
+            b = bound_of(WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
+            rows[label] = dict(at["modes"][label], ms=at["ms"][label],
+                               int32_ms=at["ms"]["int32"], bound_ms=b[0], bound_by=b[1],
+                               plain_ms=plain[label], plain_note=plain_note)
+        return rows
+
+    # per path, (wavefront, chained) launches on the main path: the exact
+    # cases, the pairs and the state modes' score_database runs
+    by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
+               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs}}
+    launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
+    plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
+               "float32": mode_a["plain_ms"]["float32"]}
+    modes_a = mode_rows(
+        mode_a, lambda ops, lanes: peaks.bound(128 * N + T * N * 5, 128 * T * N * ops, lanes),
+        plain_a, f"the first {mode_a['check_steps']} steps (biased: at W = 8, the same "
+        "operations)")
+    plain_d = {k: x for k, p, x in mode_d["plain_ms"] if p == 0}
+    plain_d["float32"] = next(c["plain_ms"] for c in chain_mode_checks
+                              if c["mode"] == "float32")
+    modes_d = mode_rows(
+        dict(mode_d, ms=mode_d["tile_ms"][0]),
+        lambda ops, lanes: peaks.bound(128 * Nl + Tl * Nl * (1 + 12 + 16),
+                                       128 * Tl * Nl * ops, lanes),
+        plain_d, f"W = 12: tile 0's first {mode_d['check_steps']} steps; float32: phase "
+        "3's whole K = 2 chain")
     regs, _, blocks_sm = stream_kernel_info(head["rows"])
     regs_chain, _, blocks_sm_chain = stream_kernel_info(lhead["rows"], chained=True)
     kernels = [
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
-              "swtpu/ops/pallas_stream.py:193", launches,
-              max(c["max_abs_err"] for c in checks + mains + [b2]), head["ms"],
-              head["plain_ms"], b_wave,
+              "swtpu/ops/pallas_stream.py:193", launches_total[0],
+              max(c["max_abs_err"] for c in checks + mains + [b2] + mode_checks + [mode_a]),
+              head["ms"], head["plain_ms"], b_wave,
+              launches_by_path={k: v[0] for k, v in by_path.items()},
+              modes=modes_a, mode_configs=mode_checks,
               also_replaces="swtpu/ops/pallas_stream.py:57 (tail-accumulator and "
                             "ripple-H forms)",
               shape=[head["T"], head["N"]], slices=head["slices"],
@@ -1182,9 +1716,13 @@ def main() -> int:
               resident_blocks_per_sm=blocks_sm, ms_one_slice=head["ms_one_slice"],
               main_shapes=mains, shootout_rows1=b2, configs=checks),
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
-              "swtpu/ops/pallas_stream.py:314", chained_launches,
-              max(c["max_abs_err"] for c in chains + long_mains), lhead["tile_ms"][0],
-              lhead["plain_ms"][0], b_chain, shape=[Tl, Nl], plain_shape=[Tc, Nl],
+              "swtpu/ops/pallas_stream.py:314", launches_total[1],
+              max(c["max_abs_err"] for c in chains + long_mains + chain_mode_checks
+                  + [mode_d]),
+              lhead["tile_ms"][0], lhead["plain_ms"][0], b_chain,
+              launches_by_path={k: v[1] for k, v in by_path.items()},
+              modes=modes_d, mode_tile_ms=mode_d["tile_ms"], mode_configs=chain_mode_checks,
+              shape=[Tl, Nl], plain_shape=[Tc, Nl],
               slices=lhead["slices"], slice_steps=lhead["slice_steps"],
               registers=regs_chain, resident_blocks_per_sm=blocks_sm_chain,
               ms_one_slice=lhead["tile_ms_one_slice"][0],
@@ -1226,7 +1764,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "bucketed_cases": [
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
-    ]}))
+    ], "pair_cases": pair_cases, "mode_databases": mode_dbs,
+        "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -15,9 +15,14 @@ For each of chip_smoke.py's five main-path cases (its shapes, data from --seed):
     rows 1-16 at ScoreBank's segments (also in one slice), over 512-4096
     physical streams at ScoreBank's rows, and over the kernel's time
     slices a stream at ScoreBank's geometry (the wrapper's choice marked).
+Then chip_smoke.py's pair case (i) (its shapes, data of its own from
+--seed): the stages of one ScoreBank.score_pairs call on the stream
+backend taken apart in the same way (dedupe and chunking, pack_pair_streams,
+H2D, layout, kernel, gather, D2H, summed over the call's wavefront calls),
+the share of the wall the pair packer takes, and the busy share.
 --sweeps picks which of these run (stages: the per-stage medians and the
-busy share).  Prints the card's name and power limit first; every number
-is this run's.
+busy share; pairs: case (i)'s).  Prints the card's name and power limit
+first; every number is this run's.
 """
 
 from __future__ import annotations
@@ -149,14 +154,70 @@ def long_stages_ms(bank, query, db, reps):
     return {k: statistics.median(v) for k, v in parts.items()}, tuple(sk.shape)
 
 
-def busy_share(bank, query, db):
-    """(device ms of kernels and copies, host wall ms) of one profiled call."""
+PAIR_STAGES = ("dedupe", "pack", "h2d", "layout", "kernel", "gather", "d2h", "total")
+
+
+def pair_stages_ms(bank, queries, targets, reps):
+    """Median ms of each stage of the CUDA pair-stream path over `reps`
+    warm runs, each stage summed over the call's wavefront calls; and the
+    number of those calls."""
+    import numpy as np
+    import torch
+    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.bank.streams import batch_to_device, dedupe_queries, pack_pair_streams
+    from swtpu_torch.ops.stream import _gather_emissions, _to_kernel_layout, stream_strip_cuda
+
+    seg, rows, phys = stream_geometry(max(len(q) for q in queries), bank.config, bank.device)
+    S = phys * seg
+    pen = bank.config.penalties
+    parts = {k: [] for k in PAIR_STAGES}
+    for rep in range(reps + 1):  # the first run warms up
+        acc = dict.fromkeys(PAIR_STAGES, 0.0)
+        t0 = time.perf_counter()
+        qlist, uid = dedupe_queries(queries)
+        groups = [[] for _ in qlist]
+        for i, u in enumerate(uid):
+            groups[u].append(i)
+        chunks = [groups[i : i + S] for i in range(0, len(groups), S)]
+        acc["dedupe"] = time.perf_counter() - t0
+        for chunk in chunks:
+            idxs = [i for g in chunk for i in g]
+            t = [time.perf_counter()]
+            b = pack_pair_streams([queries[i] for i in idxs], [targets[i] for i in idxs],
+                                  n_streams=S, segments=seg, rows=rows)
+            t.append(time.perf_counter())
+            d = batch_to_device(b, bank.device)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            qk, sk = _to_kernel_layout(d.q, d.stream, seg, rows)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            strip = stream_strip_cuda(qk, sk, pen, seg, rows)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            s = _gather_emissions(strip, d.emit_stream, d.emit_step, regular=b.emit_regular)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            np.asarray(s.cpu())
+            t.append(time.perf_counter())
+            for k, a, z in zip(PAIR_STAGES[1:], t, t[1:]):
+                acc[k] += z - a
+        acc["total"] = time.perf_counter() - t0
+        if rep:
+            for k, v in acc.items():
+                parts[k].append(v * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}, len(chunks)
+
+
+def busy_share(bank, query, db, run=None):
+    """(device ms of kernels and copies, host wall ms) of one profiled
+    call: bank.score_database(query, db), or run()."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bank.score_database(query, db)
+        run() if run else bank.score_database(query, db)
         wall = time.perf_counter() - t0
     dev_us = sum(
         e.self_device_time_total for e in prof.key_averages()
@@ -194,8 +255,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--sweeps", default="stages,rows,phys,slices",
-                    help="comma list of stages, rows, phys, slices")
+    ap.add_argument("--sweeps", default="stages,rows,phys,slices,pairs",
+                    help="comma list of stages, rows, phys, slices, pairs")
     ap.add_argument("--slice-counts", default=",".join(map(str, SLICE_SWEEP)),
                     help="slice counts of the slices sweep (the wrapper's choice is added)")
     args = ap.parse_args()
@@ -205,7 +266,7 @@ def main() -> int:
 
     import numpy as np
     import torch
-    from chip_smoke import LONG_CASES, MAIN_CASES, make_db
+    from chip_smoke import I_CASE, LONG_CASES, MAIN_CASES, make_db, query_pairs
     from swtpu_torch import SWConfig, ScoreBank
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.ops.stream import (
@@ -259,6 +320,24 @@ def main() -> int:
                       f"slices={c}{' (chosen)' if c == chosen else ''} "
                       f"({slice_steps(T, c)} steps) kernel {ms:.3f} ms -> {g:.1f} GCUPS",
                       flush=True)
+    if "pairs" in sweeps:
+        name, nq, per, qr, tr, _ = I_CASE
+        queries, targets = query_pairs(np.random.default_rng([args.seed, 6]), nq, per, qr, tr)
+        med, calls = pair_stages_ms(bank, queries, targets, args.reps)
+        walls = []
+        for _ in range(args.reps + 1):
+            t0 = time.perf_counter()
+            bank.score_pairs(queries, targets)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls[1:])
+        print(f"{name} {len(queries)} pairs, {calls} wavefront calls, medians of {args.reps}: "
+              + " ".join(f"{k}={v:.2f}ms" for k, v in med.items())
+              + f" | pack_pair_streams {med['pack'] / med['total']:.1%} of the staged total; "
+              f"score_pairs wall {wall:.2f} ms", flush=True)
+        dev_ms, wall_ms = busy_share(bank, None, None,
+                                     lambda: bank.score_pairs(queries, targets))
+        print(f"{name} profiled call: device {dev_ms:.2f} ms of wall {wall_ms:.2f} ms = "
+              f"{dev_ms / wall_ms:.1%} busy", flush=True)
     return 0
 
 

@@ -12,6 +12,8 @@ shootout's rows-1 strip; and cases (a)-(d) of chip_smoke.py at their
 geometry.  --root runs the package of another checkout of the repo (a
 parent commit's tree, say) so that two trees are compared within one
 call; a tree whose wrappers take no `slices` is timed at its default only.
+Where the wrappers take `score_width` and `state_dtype`, (a) and (d)'s tile
+are timed again in the W = 12 wrap-parity and float32 state modes.
 Each line ends with a digest of the outputs: equal digests across trees
 and counts mean bit-equal strips.  Prints the card's name and power limit
 first; every number is this run's.
@@ -54,6 +56,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
     sliced = "slices" in inspect.signature(st.stream_strip_cuda).parameters
+    modes = "score_width" in inspect.signature(st.stream_strip_cuda).parameters
+    # (label, wrapper keywords, boundary zero of a chained tile)
+    mode_runs = [("W=12", dict(score_width=12), 1 << 11),
+                 ("float32", dict(state_dtype="float32"), 0)] if modes else []
 
     def digest(outs):
         h = 0
@@ -121,11 +127,19 @@ def main() -> int:
     qk, sk = laid_out_batch(query, make_db(rng, 262144, 128, 128), 1, 16, 512)
     report(f"(a) rows=16 [{sk.shape[0]}, 512]",
            lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **kw), [1], reps=5)
+    for label, mode, _ in mode_runs:
+        report(f"(a) rows=16 {label} [{sk.shape[0]}, 512]",
+               lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **mode, **kw), [1], reps=5)
     del qk, sk
     qk, sk, z = tile0(rng.integers(0, 4, size=256).astype(np.int8),
                       make_db(rng, 262144, 24, 256), 16)
     report(f"(d) tile 0 rows=16 [{sk.shape[0]}, 512]",
            lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, P, 16, **kw), [1], reps=5)
+    for label, mode, zero in mode_runs:
+        b = torch.full_like(z, zero)
+        report(f"(d) tile 0 rows=16 {label} [{sk.shape[0]}, 512]",
+               lambda **kw: st.stream_chained_cuda(qk, sk, b, b, b, P, 16, **mode, **kw), [1],
+               reps=5)
     return 0
 
 

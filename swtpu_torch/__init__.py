@@ -1,10 +1,12 @@
 """swtpu_torch — the PyTorch/CUDA port of swtpu's Smith-Waterman scorer.
 
 Batched, score-only Smith-Waterman local alignment with affine gaps, as in
-``swtpu``, on a torch device: the streamed-wavefront ``ScoreBank.score_database``
-path for queries of any length (longer than 128 bases on chained tiles),
-and the bucketed column path (``backend="pallas"``: ``score_database``,
-``score_pairs`` and ``SWConfig.score_width``), with hand-written CUDA
+``swtpu``, on a torch device: the streamed-wavefront path
+(``ScoreBank.score_database`` for queries of any length, longer than 128
+bases on chained tiles, and ``score_pairs`` on pair streams), and the
+bucketed column path (``backend="pallas"``: ``score_database`` and
+``score_pairs``), both exact or with ``SWConfig.score_width`` (the
+wavefront also with float32 state), with hand-written CUDA
 kernels on the GPU and their plain PyTorch versions on the CPU; and the
 kernel shootout's lane-major column kernel and the two microbenchmarks'
 kernels.  Imports torch and never JAX, and nothing of ``swtpu``: the

@@ -7,7 +7,11 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   (``swtpu_torch.bank.streams``), the streams cross to the device (2-bit
   packed on CUDA), the wavefront writes its [T, N] strip and the emission
   gather returns the scores in read order.  A query longer than 128 bases
-  chains K tiles of 128 query rows over the same streams.
+  chains K tiles of 128 query rows over the same streams.  ``score_pairs``
+  packs pair streams (one query register per stream) for the queries of
+  up to 128 bases, and runs each distinct longer query's pairs as a
+  chained many-vs-one job.  It carries ``SWConfig.score_width`` and
+  float32 state.
 - ``pallas`` (the bucketed column path; swtpu's name for it is kept): the
   host packs the reads into dense length buckets
   (``swtpu_torch.bank.packer``) and each bucket batch is scored by the
@@ -32,14 +36,15 @@ import torch
 from swtpu_torch.bank.buckets import plan_buckets
 from swtpu_torch.bank.packer import pack_many_vs_one, pack_pairs
 from swtpu_torch.bank.streams import (
-    LANES, batch_to_device, pack_stream_wire, pack_streams, pack_streams_long,
+    LANES, batch_to_device, dedupe_queries, pack_pair_streams, pack_stream_wire,
+    pack_streams, pack_streams_long,
 )
 from swtpu_torch.config import SWConfig
 from swtpu_torch.io.loader import EncodedDB
 from swtpu_torch.ops.column import sw_scores_column
 from swtpu_torch.ops.stream import (
-    sw_scores_stream, sw_scores_stream_long, sw_scores_stream_long_packed,
-    sw_scores_stream_packed,
+    _validate_config, sw_scores_stream, sw_scores_stream_long,
+    sw_scores_stream_long_packed, sw_scores_stream_packed,
 )
 from swtpu_torch.utils.metrics import BatchEvent
 
@@ -67,7 +72,8 @@ def stream_geometry(query_len: int, config: SWConfig, device) -> tuple:
     """(segments, rows, phys) of the streamed wavefront for a query of
     `query_len` bases on `device`: swtpu's device settings on CUDA, its
     interpret settings on the CPU, so both packages pack the same batch.
-    A query over 128 bases (the chained tiles) takes segments 1."""
+    A query over 128 bases (the chained tiles) takes segments 1; for a
+    pair set, `query_len` is its longest query."""
     # short queries pack 2 or 4 per column
     if query_len <= LANES // 4:
         segments = 4
@@ -107,9 +113,9 @@ class ScoreBank:
 
     backend: 'stream' (the streamed wavefront), 'pallas' (the bucketed
     column kernels) or 'auto': 'stream', or 'pallas' when
-    ``config.score_width`` is set, since wrap-parity lives only in the
-    column kernels so far.  device: where the kernels run — 'cuda' launches
-    the CUDA kernels, 'cpu' runs their plain PyTorch versions."""
+    ``config.score_width`` is set.  Both backends carry
+    ``config.score_width``.  device: where the kernels run — 'cuda'
+    launches the CUDA kernels, 'cpu' runs their plain PyTorch versions."""
 
     def __init__(
         self,
@@ -125,17 +131,14 @@ class ScoreBank:
             )
         if backend not in ("auto", "stream", "pallas"):
             raise ValueError(f"unknown backend {backend!r}")
-        if config.score_width is not None:
-            if backend == "stream":
-                raise NotImplementedError(
-                    "score_width on the stream backend is not ported yet "
-                    "(ROADMAP item 6: score_width through the CUDA "
-                    "wavefront); use backend 'pallas' or 'auto'"
-                )
-            # swtpu resolves wrap-parity to the column kernel off the TPU
-            backend = "pallas"
-        elif backend == "auto":
-            backend = "stream"
+        if backend == "auto":
+            # Wrap-parity runs on both backends; 'auto' sends it to the
+            # column kernels, as swtpu does off the TPU.  A wrap-parity pair
+            # set such as chip_smoke.py's case (h) (65,536 pairs of 24-512
+            # bases) holds ~51,000 distinct queries over 128 bases, and the
+            # stream backend runs one chained job for each.  PERF.md times
+            # both backends on chip_smoke.py's pair cases.
+            backend = "pallas" if config.score_width is not None else "stream"
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -150,27 +153,35 @@ class ScoreBank:
         self.verify_integrity = verify_integrity
 
     def _stream_dtype(self) -> str:
-        sdt = self.config.stream_state_dtype
-        if sdt in ("auto", "int32"):
-            # swtpu's "auto" is float32 on the TPU, where it measured
-            # faster on the VPU; the scores are identical, and the port's
-            # kernel carries int32 state
+        """The wavefront's state type: int32 for "auto" (swtpu's "auto" is
+        float32 on the TPU, where it measured faster; the scores are
+        identical, and which is faster on this card is measured in
+        PERF.md), and int32 whenever score_width is set (the wrap is
+        integer bit arithmetic; float lanes cannot wrap)."""
+        if self.config.score_width is not None:
             return "int32"
-        raise NotImplementedError(
-            f"stream_state_dtype={sdt!r} is not ported yet (ROADMAP: "
-            "float32 state on CUDA); the port carries int32 state"
-        )
+        sdt = self.config.stream_state_dtype
+        return "int32" if sdt == "auto" else sdt
+
+    def _stream_modes(self) -> dict:
+        """The state keywords of every wavefront entry, for this bank;
+        raises before any packing for a state or width the wavefront does
+        not take."""
+        modes = dict(state_dtype=self._stream_dtype(), score_width=self.config.score_width)
+        _validate_config(1, 1, penalties=self.config.penalties, **modes)
+        return modes
 
     def score_database(self, query: np.ndarray, targets, event_log=None) -> ScoreResult:
         """Score every target read against `query`; returns read-order scores.
 
         targets: a sequence of 1-D code arrays, an
-        :class:`swtpu.io.loader.EncodedDB`, or a (mat, lens) tuple (the
-        dense forms: the database stays one int8 matrix).
+        :class:`swtpu_torch.io.loader.EncodedDB`, or a (mat, lens) tuple
+        (the dense forms: the database stays one int8 matrix).
 
-        event_log: optional swtpu.utils.EventLog receiving one "stream"
-        record per call ("stream_long" for a query over 128 bases), or on
-        the pallas backend one "batch" record per bucket batch."""
+        event_log: optional :class:`swtpu_torch.utils.metrics.EventLog`
+        receiving one "stream" record per call ("stream_long" for a query
+        over 128 bases), or on the pallas backend one "batch" record per
+        bucket batch."""
         tmat, tlens = _dense_form(targets)
         if self.backend == "pallas":
             return self._score_database_bucketed(query, targets, event_log)
@@ -211,7 +222,7 @@ class ScoreBank:
                 "stream_chunk_reads is not ported yet (ROADMAP: chunked "
                 "overlap/resume)"
             )
-        self._stream_dtype()
+        modes = self._stream_modes()
         if tlens is not None:
             batch = pack_streams(
                 query, tmat, n_streams=phys * segments, segments=segments,
@@ -236,12 +247,14 @@ class ScoreBank:
                     batch.emit_step.astype(np.int32),
                 )), pen,
                 segments=segments, rows=rows, emit_regular=batch.emit_regular,
+                **modes,
             )
         else:
             d = batch_to_device(batch, self.device)
             scores = sw_scores_stream(
                 d.q, d.stream, d.emit_stream, d.emit_step, pen,
                 segments=segments, rows=rows, emit_regular=batch.emit_regular,
+                **modes,
             )
         scores = scores.cpu().numpy()
         if self.verify_integrity:
@@ -270,7 +283,7 @@ class ScoreBank:
         t0 = time.perf_counter()
         n_reads = len(tlens) if tlens is not None else len(targets)
         _, rows, phys = stream_geometry(len(query), self.config, self.device)
-        self._stream_dtype()
+        modes = self._stream_modes()
         if tlens is not None:
             batch = pack_streams_long(query, tmat, n_streams=phys, rows=rows, lens=tlens)
         else:
@@ -290,12 +303,12 @@ class ScoreBank:
             codes, flags = pack_stream_wire(batch.stream)
             scores = sw_scores_stream_long_packed(
                 q, _put(codes, self.device), _put(flags, self.device), *emit,
-                pen, rows=rows, emit_regular=batch.emit_regular,
+                pen, rows=rows, emit_regular=batch.emit_regular, **modes,
             )
         else:
             scores = sw_scores_stream_long(
                 q, _put(batch.stream, self.device), *emit, pen, rows=rows,
-                emit_regular=batch.emit_regular,
+                emit_regular=batch.emit_regular, **modes,
             )
         scores = scores.cpu().numpy()
         if self.verify_integrity:
@@ -399,22 +412,27 @@ class ScoreBank:
         return ScoreResult(scores, cells, padded, time.perf_counter() - t0)
 
     def score_pairs(self, queries, targets, event_log=None) -> ScoreResult:
-        """Score explicit (query, target) pairs (many-vs-many workloads) on
-        the pallas backend.
+        """Score explicit (query, target) pairs (many-vs-many workloads);
+        results return in submission order.
 
-        Pairs are grouped by (query bucket, target bucket)
+        On the stream backend, the pairs whose query fits one wavefront
+        tile (128 bases) ride pair streams, each distinct query in its own
+        streams' query registers; each distinct longer query's pairs run
+        as one chained many-vs-one job.  On the pallas backend, pairs are
+        grouped by (query bucket, target bucket)
         (``SWConfig.query_buckets``, ``target_buckets``) and each group is
-        one dense column-kernel call; results return in submission order.
+        one dense column-kernel call.
 
-        event_log: optional swtpu.utils.EventLog receiving one "pair_batch"
-        record per group."""
+        event_log: optional :class:`swtpu_torch.utils.metrics.EventLog`
+        receiving one "pair_stream" record per pair-stream call and one
+        "stream_long" record per long query, or on the pallas backend one
+        "pair_batch" record per group."""
         if len(queries) != len(targets):
             raise ValueError("queries and targets must pair up")
         if self.backend == "stream":
-            raise NotImplementedError(
-                "score_pairs on the stream backend is not ported yet "
-                "(ROADMAP item 9: pair streams); use backend 'pallas'"
-            )
+            if all(len(q) <= LANES for q in queries):
+                return self._score_pairs_stream(queries, targets, event_log)
+            return self._score_pairs_stream_mixed(queries, targets, event_log)
         t0 = time.perf_counter()
         scores = np.zeros((len(queries),), dtype=np.int32)
         cells = padded = 0
@@ -435,4 +453,104 @@ class ScoreBank:
                     )
                 )
             tc = time.perf_counter()
+        return ScoreResult(scores, cells, padded, time.perf_counter() - t0)
+
+    def _score_pairs_stream_mixed(self, queries, targets, event_log=None) -> ScoreResult:
+        """Pair sets with a query longer than one wavefront tile: the pairs
+        whose query fits one tile go through the pair streams together;
+        each distinct long query's pairs become one many-vs-one job on the
+        chained tiles (deduped, so pairs sharing a 500-base query share
+        one pack and one chain)."""
+        t0 = time.perf_counter()
+        n = len(queries)
+        short_idx = [i for i in range(n) if len(queries[i]) <= LANES]
+        long_idx = [i for i in range(n) if len(queries[i]) > LANES]
+        scores = np.zeros((n,), dtype=np.int32)
+        cells = padded = 0
+        if short_idx:
+            res = self._score_pairs_stream(
+                [queries[i] for i in short_idx], [targets[i] for i in short_idx],
+                event_log,
+            )
+            scores[np.asarray(short_idx, np.int64)] = res.scores
+            cells += res.cells
+            padded += res.padded_cells
+        qlist, uid = dedupe_queries([queries[i] for i in long_idx])
+        groups: list = [[] for _ in qlist]
+        for pos, i in enumerate(long_idx):
+            groups[uid[pos]].append(i)
+        for u, group in enumerate(groups):
+            res = self._score_database_stream_long(
+                qlist[u], [targets[i] for i in group], event_log
+            )
+            scores[np.asarray(group, np.int64)] = res.scores
+            cells += res.cells
+            padded += res.padded_cells
+        return ScoreResult(scores, cells, padded, time.perf_counter() - t0)
+
+    def _score_pairs_stream(self, queries, targets, event_log=None) -> ScoreResult:
+        """Many-vs-many on the streamed wavefront: distinct queries load
+        into per-stream query registers (pack_pair_streams) and targets
+        ride streams owned by their query.  A pair set with more distinct
+        queries than logical streams (S = phys x segments) takes one
+        wavefront call per S distinct queries."""
+        t0 = time.perf_counter()
+        n = len(queries)
+        qmax = max((len(q) for q in queries), default=0)
+        segments, rows, phys = stream_geometry(qmax, self.config, self.device)
+        S = phys * segments
+        modes = self._stream_modes()
+        # group pair indices by distinct query (the packer's own dedup, so
+        # the chunk bound and the packer's count always agree); chunk the
+        # groups to <= S queries
+        qlist, uid = dedupe_queries(queries)
+        groups: list = [[] for _ in qlist]
+        for i, u in enumerate(uid):
+            groups[u].append(i)
+        chunks = [groups[i : i + S] for i in range(0, len(groups), S)]
+        scores = np.zeros((n,), dtype=np.int32)
+        cells = padded = 0
+        for chunk in chunks:
+            tc = time.perf_counter()
+            idxs = [i for g in chunk for i in g]
+            batch = pack_pair_streams(
+                [queries[i] for i in idxs], [targets[i] for i in idxs],
+                n_streams=S, segments=segments, rows=rows,
+            )
+            if self.verify_integrity:
+                from swtpu_torch.utils.guards import check_stream_batch
+
+                check_stream_batch(batch)
+            d = batch_to_device(batch, self.device)
+            s = sw_scores_stream(
+                d.q, d.stream, d.emit_stream, d.emit_step, self.config.penalties,
+                segments=segments, rows=rows, emit_regular=batch.emit_regular,
+                **modes,
+            ).cpu().numpy()
+            if self.verify_integrity:
+                from swtpu_torch.utils.guards import check_scores
+
+                check_scores(
+                    s,
+                    np.fromiter((len(queries[i]) for i in idxs), np.int64),
+                    np.fromiter((len(targets[i]) for i in idxs), np.int64),
+                    self.config.penalties.match,
+                )
+            scores[np.asarray(idxs, np.int64)] = s
+            cells += batch.cells
+            # the same accounting as score_database's: stream rows x steps
+            # x wavefront rows a lane column
+            chunk_padded = batch.stream.shape[0] * batch.stream.shape[1] * (LANES // segments)
+            padded += chunk_padded
+            if event_log is not None:
+                event_log.emit(
+                    BatchEvent(
+                        "pair_stream", t_wall=time.time(),
+                        elapsed_s=time.perf_counter() - tc,
+                        reads=len(idxs), cells=batch.cells,
+                        padded_cells=chunk_padded,
+                        note=f"streams={batch.stream.shape[0]} "
+                        f"T={batch.stream.shape[1]} queries={len(chunk)}",
+                    )
+                )
         return ScoreResult(scores, cells, padded, time.perf_counter() - t0)

@@ -3,9 +3,12 @@
 The port of ``swtpu.bank.streams``: each of S streams is one feeder lane;
 reads go greedily to the currently shortest stream, are concatenated with
 a first-char flag, and every read's score-emission coordinate
-(stream, step) is computed up front.  The packing is bit-identical to
-swtpu's, so a batch packed by either package drives either package's
-kernels (``batch_to_device`` moves one onto a torch device).
+(stream, step) is computed up front.  For explicit pairs
+(``pack_pair_streams``) each stream holds one distinct query in its query
+register and carries only that query's targets.  The packing is
+bit-identical to swtpu's, so a batch packed by either package drives
+either package's kernels (``batch_to_device`` moves one onto a torch
+device).
 
 swtpu's module cannot be imported here: it reaches ``swtpu.ops`` (and so
 JAX) through ``swtpu.ops.common`` and ``swtpu.ops.pallas_stream``.
@@ -318,6 +321,118 @@ def _pack_streams_equal(
         _check_emit_step(emit_step), len(query) * B * n, segments, rows,
         emit_regular=(n - 1 + drain, n, per),  # regular by construction
     )
+
+
+def dedupe_queries(queries) -> tuple:
+    """(distinct int8 query arrays, [n] int32 uid per input): the one
+    content-keyed dedup that the pair packer and ScoreBank's chunker both
+    use, so that their distinct-query counts always agree."""
+    uid_by_key = {}
+    qlist: List[np.ndarray] = []
+    uid = np.empty(len(queries), np.int32)
+    for i, qq in enumerate(queries):
+        qq = np.asarray(qq, dtype=np.int8)
+        u = uid_by_key.get(qq.tobytes())
+        if u is None:
+            u = uid_by_key[qq.tobytes()] = len(qlist)
+            qlist.append(qq)
+        uid[i] = u
+    return qlist, uid
+
+
+def pack_pair_streams(
+    queries: Sequence[np.ndarray],
+    targets: Sequence[np.ndarray],
+    n_streams: int = 256,
+    segments: int = 1,
+    rows: int = 1,
+) -> StreamBatch:
+    """Pack explicit (query, target) pairs onto the wavefront: each logical
+    stream holds ONE query in its per-stream query register (the kernel's q
+    is per stream already: the reference's per-module `ld_q`), and every
+    pair's target rides a stream owned by its query.
+
+    Streams go to the distinct queries in proportion to their total target
+    chars (largest remainder, at least one each); within a query's streams,
+    targets go to the shortest stream.  Raises if there are more distinct
+    queries than logical streams: the caller chunks the pair set
+    (ScoreBank.score_pairs does).  Emission coordinates follow
+    pack_streams' drain contract."""
+    if len(queries) != len(targets):
+        raise ValueError("queries and targets must pair up")
+    qcap = LANES // segments
+    drain = LANES // (rows * segments) - 1
+    n = len(queries)
+    S = n_streams
+    # pairs sharing a query (by content) share its streams
+    qlist, uid = dedupe_queries(queries)
+    for qq in qlist:
+        if len(qq) > qcap:
+            raise ValueError(
+                f"query of {len(qq)} bases exceeds capacity {qcap} at "
+                f"segments={segments}"
+            )
+    U = len(qlist)
+    if U > S:
+        raise ValueError(
+            f"{U} distinct queries exceed {S} logical streams; split the "
+            "pair set into chunks of <= n_streams distinct queries"
+        )
+    load = np.zeros(U, np.int64)
+    for i in range(n):
+        load[uid[i]] += len(targets[i])
+    # largest-remainder proportional stream allocation, >= 1 per query
+    total = max(int(load.sum()), 1)
+    want = load.astype(np.float64) * S / total
+    alloc = np.maximum(np.floor(want).astype(np.int64), 1)
+    while alloc.sum() > S:
+        alloc[int(np.argmax(alloc))] -= 1
+    # leftovers go to the largest fractional remainders
+    rema = want - np.floor(want)
+    while alloc.sum() < S:
+        k = int(np.argmax(rema))
+        alloc[k] += 1
+        rema[k] = -1.0
+    first = np.zeros(U, np.int64)
+    np.cumsum(alloc[:-1], out=first[1:])
+    # greedy shortest-stream within each query's stream span
+    fill = np.zeros(S, dtype=np.int64)
+    chunks: List[List[np.ndarray]] = [[] for _ in range(S)]
+    emit_stream = np.zeros(n, dtype=np.int32)
+    emit_step = np.zeros(n, dtype=np.int64)
+    cells = 0
+    for i in range(n):
+        t = np.asarray(targets[i], dtype=np.int8)
+        if len(t) == 0:
+            emit_stream[i] = 0
+            emit_step[i] = -1  # zero-length target: score 0 by definition
+            continue
+        u = uid[i]
+        lo, hi = int(first[u]), int(first[u] + alloc[u])
+        s = lo + int(np.argmin(fill[lo:hi]))
+        flagged = t.copy()
+        flagged[0] |= FLAG
+        chunks[s].append(flagged)
+        emit_stream[i] = s
+        emit_step[i] = fill[s] + len(t) - 1 + drain
+        fill[s] += len(t)
+        cells += len(qlist[u]) * len(t)
+
+    T = int(fill.max()) + drain if n else STEP_CHUNK
+    T = -(-T // STEP_CHUNK) * STEP_CHUNK
+    stream = np.full((S, T), STREAM_PAD, dtype=np.int8)
+    for s in range(S):
+        if chunks[s]:
+            cat = np.concatenate(chunks[s])
+            stream[s, : len(cat)] = cat
+    q = np.full((S, qcap), Q_PAD, dtype=np.int8)
+    for u in range(U):
+        qq = qlist[u]
+        q[int(first[u]) : int(first[u] + alloc[u]), : len(qq)] = qq[None, :]
+    return _finish_batch(StreamBatch(
+        q, stream, emit_stream, _check_emit_step(emit_step), cells, segments,
+        rows,
+    ))
 
 
 def pack_stream_wire(stream: np.ndarray):

@@ -73,16 +73,14 @@ def cmd_score(args) -> int:
             f"--score-width requires the stream or column kernel: use "
             f"--backend stream/pallas (or auto), not {args.backend!r}"
         )
+    if args.score_width and not 2 <= args.score_width <= 30:
+        raise SystemExit(
+            f"--score-width {args.score_width} out of range (need 2..30)"
+        )
     if args.backend == "scan":
         raise SystemExit(
             "--backend scan is not ported yet (ROADMAP item 10: scan "
             "backend); use --backend stream or pallas"
-        )
-    if args.score_width and args.backend == "stream":
-        raise SystemExit(
-            "--score-width on --backend stream is not ported yet (ROADMAP "
-            "item 6: score_width through the CUDA wavefront); use --backend "
-            "pallas or auto"
         )
     pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
     query, names, targets = _load(args.query, args.library)

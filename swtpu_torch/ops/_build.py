@@ -110,16 +110,16 @@ def load_library() -> ctypes.CDLL:
             lib.swtpu_stream_wavefront.restype = ctypes.c_int
             lib.swtpu_stream_wavefront.argtypes = [
                 *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9, ctypes.c_void_p,
-                ctypes.c_int,
+                *[ctypes.c_int] * 3,
             ]
             lib.swtpu_stream_chained.restype = ctypes.c_int
             lib.swtpu_stream_chained.argtypes = [
                 *[ctypes.c_void_p] * 9, *[ctypes.c_int] * 7, ctypes.c_void_p,
-                ctypes.c_int,
+                *[ctypes.c_int] * 3,
             ]
             lib.swtpu_stream_kernel_info.restype = ctypes.c_int
             lib.swtpu_stream_kernel_info.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                *[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int),
             ]
             lib.swtpu_column_scores.restype = ctypes.c_int
             lib.swtpu_column_scores.argtypes = [

@@ -75,6 +75,25 @@
 //     strip stores stay as coalesced as with one slice.
 // The overlap costs at most a read plus SLg - 1 steps a slice.  The
 // wrapper picks C from S, W, T, SLg and the SM count (ops/stream.py).
+//
+// State modes (kState), each form in each, as the TPU kernels have them:
+//   - kExact: int32 state, the boundary zero 0, M = max(diag + s, 0);
+//   - kBiased: the RTL's W-bit wrap-parity (SCORE_WIDTH) on int32 state
+//     (pallas_stream.py's biased_width): every value is biased by
+//     zbit = 2^(W-1), which is the boundary zero (initial state, segment
+//     heads, read starts), and only M wraps: M = (diag + s) & (2^W - 1),
+//     or zbit where that has its sign bit zbit clear.  I, G, D, H and the
+//     accumulator need no mask (the I/G chain cannot wrap: each cell's I
+//     has an M + open + extend candidate with M >= zbit).  B1 and B2 store
+//     acc - zbit (or H - zbit); B3 reads biased boundary strips and stores
+//     all four outputs biased, and the chain unbiases at its gather.  A
+//     slice starts from zbit, the same value a read's first char resets
+//     to, so the slicing rule above holds unchanged;
+//   - kFloat: float32 state (fmaxf, no fused add-max), the same integer
+//     values as kExact (all far below 2^24), stored as int32; a chained
+//     tile's boundary strips stay int32 in memory.
+// Each mode is its own instantiation, so the exact kernel's code is what
+// it was before the other modes existed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,38 +115,88 @@ constexpr int kMinBlocks = 3;
 constexpr int kSliceQuantum = 32;  // slice starts are multiples of this
 constexpr unsigned kFull = 0xffffffffu;
 
+enum StateMode { kExact, kBiased, kFloat };
+
+__device__ __forceinline__ int mx(int a, int b) { return max(a, b); }
+__device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
+
+// The arithmetic of each state mode: the state type T, the boundary zero,
+// the M update, what a one-tile form stores (emit) and what a chained tile
+// stores (store) and reads (load).
+template <int kState>
+struct Arith;
+
+template <>
+struct Arith<kExact> {
+  using T = int;
+  __device__ explicit Arith(int) {}
+  __device__ int zero() const { return 0; }
+  __device__ int m(int x) const { return max(x, 0); }
+  __device__ int emit(int x) const { return x; }
+  __device__ int store(int x) const { return x; }
+  __device__ int load(int x) const { return x; }
+};
+
+template <>
+struct Arith<kBiased> {
+  using T = int;
+  int zbit, mask;
+  __device__ explicit Arith(int width)
+      : zbit(1 << (width - 1)), mask((1 << width) - 1) {}
+  __device__ int zero() const { return zbit; }
+  __device__ int m(int x) const {
+    const int ms = x & mask;       // the W-bit adder's wrap
+    return (ms & zbit) ? ms : zbit;  // the sign-bit clamp
+  }
+  __device__ int emit(int x) const { return x - zbit; }
+  __device__ int store(int x) const { return x; }
+  __device__ int load(int x) const { return x; }
+};
+
+template <>
+struct Arith<kFloat> {
+  using T = float;
+  __device__ explicit Arith(int) {}
+  __device__ float zero() const { return 0.f; }
+  __device__ float m(float x) const { return fmaxf(x, 0.f); }
+  __device__ int emit(float x) const { return static_cast<int>(x); }
+  __device__ int store(float x) const { return static_cast<int>(x); }
+  __device__ float load(int x) const { return static_cast<float>(x); }
+};
+
 // One step of one sublane: R query rows, one char.  g_up, h_up and d_diag
 // are the sublane above's G[R-1] and H from the previous step and its
 // D[R-1] from two steps back.  Updates D, G (rows 0..R-1), d2l (this
 // sublane's D[R-1] from the previous step, which the sublane below reads
 // next step) and h; returns whether the char starts a read.  kRipple keeps
 // the sublane's own previous h too (the ripple-H form, R = 1).
-template <int R, bool kRipple>
+template <int R, bool kRipple, class A, class T = typename A::T>
 __device__ __forceinline__ bool sublane_step(
-    int c, bool seghead, int g_up, int h_up, int d_diag, const int (&q)[R],
-    int (&D)[R], int (&G)[R], int& d2l, int& h, int ma, int mi, int go,
-    int ge) {
+    const A& ar, int c, bool seghead, T g_up, T h_up, T d_diag,
+    const int (&q)[R], T (&D)[R], T (&G)[R], T& d2l, T& h, T ma, T mi, T go,
+    T ge) {
   const bool f0 = c >= kFlag;
   const int cv = c & 7;
-  const int diag = (seghead || f0) ? 0 : d_diag;
-  int M = max(diag + (cv == q[0] ? ma : mi), 0);
-  int I = max(seghead ? 0 : g_up, f0 ? 0 : G[0]) + ge;
-  int hc = max(seghead ? 0 : h_up, M);
-  if (kRipple) hc = max(hc, f0 ? 0 : h);
-  int dprev = D[0];
+  const T z = ar.zero();
+  const T diag = (seghead || f0) ? z : d_diag;
+  T M = ar.m(diag + (cv == q[0] ? ma : mi));
+  T I = mx(seghead ? z : g_up, f0 ? z : G[0]) + ge;
+  T hc = mx(seghead ? z : h_up, M);
+  if (kRipple) hc = mx(hc, f0 ? z : h);
+  T dprev = D[0];
   d2l = D[R - 1];
-  D[0] = max(M, I);
-  int g = max(M + go, I);
+  D[0] = mx(M, I);
+  T g = mx(M + go, I);
   G[0] = g;
 #pragma unroll
   for (int r = 1; r < R; ++r) {
-    const int dr = f0 ? 0 : dprev;
+    const T dr = f0 ? z : dprev;
     dprev = D[r];
-    M = max(dr + (cv == q[r] ? ma : mi), 0);
-    I = max(g, f0 ? 0 : G[r]) + ge;
-    hc = max(hc, M);
-    D[r] = max(M, I);
-    g = max(M + go, I);
+    M = ar.m(dr + (cv == q[r] ? ma : mi));
+    I = mx(g, f0 ? z : G[r]) + ge;
+    hc = mx(hc, M);
+    D[r] = mx(M, I);
+    g = mx(M + go, I);
     G[r] = g;
   }
   h = hc;
@@ -149,27 +218,33 @@ struct Args {
   int32_t* oG;
   int32_t* oH;
   int S, T, seg, ma, mi, go, ge;
+  int width;  // kBiased only: W
 };
 
 // The head's char of step t and, for a chained tile, the tile above's
 // shifted row 127 at step t; a pad and zeros where `in` is false (off the
 // head, or past T).
-template <bool kChain>
-__device__ __forceinline__ void fetch(const Args& a, const int8_t* src,
-                                      size_t ld, int s, bool in, int t,
-                                      int& c, int& d, int& g, int& h) {
+template <bool kChain, class A, class T = typename A::T>
+__device__ __forceinline__ void fetch(const A& ar, const Args& a,
+                                      const int8_t* src, size_t ld, int s,
+                                      bool in, int t, int& c, T& d, T& g,
+                                      T& h) {
   c = in ? src[(size_t)t * ld] : kPad;
   if (kChain) {
     const size_t o = (size_t)t * a.S + s;
-    d = in ? a.bD[o] : 0;
-    g = in ? a.bG[o] : 0;
-    h = in ? a.bH[o] : 0;
+    d = in ? ar.load(a.bD[o]) : ar.zero();
+    g = in ? ar.load(a.bG[o]) : ar.zero();
+    h = in ? ar.load(a.bH[o]) : ar.zero();
   }
 }
 
-template <int R, int kMode>
+template <int R, int kMode, int kState>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_wavefront_kernel(const Args a) {
+  using A = Arith<kState>;
+  using T = typename A::T;
+  const A ar(a.width);
+  const T ma = a.ma, mi = a.mi, go = a.go, ge = a.ge, z = ar.zero();
   constexpr int SL = kLanes / R;        // wavefront sublanes per stream
   constexpr int W = SL < 32 ? SL : 32;  // threads per stream
   constexpr int V = SL / W;             // sublanes per thread
@@ -208,30 +283,32 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   bool writing = tail && slice == 0;
   bool done = !tail;
 
-  int q[V][R], D[V][R], G[V][R], C[V], D2L[V], H[V];
+  int q[V][R], C[V];
+  T D[V][R], G[V][R], D2L[V], H[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     C[v] = kPad;
-    D2L[v] = 0;
-    H[v] = 0;
+    D2L[v] = z;
+    H[v] = z;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      D[v][r] = 0;
-      G[v][r] = 0;
+      D[v][r] = z;
+      G[v][r] = z;
       q[v][r] = live ? a.qk[(size_t)(r * SL + p0 + v) * S + s] : kQueryPad;
     }
   }
-  int acc = 0;
+  T acc = z;
 
   // slot k holds the inputs of step t0 + k; once used it is refilled with
   // step t0 + kChunk + k, so each load is issued a chunk ahead of its use
   // and across the slice's early exit (loading each chunk at its top
   // instead left the one-slice kernel 24-29 % slower).  A chunk never
   // straddles T (T % 8 == 0, b0 % 32 == 0), so one test covers a chunk.
-  int cin[kChunk], bd[kChunk], bg[kChunk], bh[kChunk];
+  int cin[kChunk];
+  T bd[kChunk], bg[kChunk], bh[kChunk];
 #pragma unroll
   for (int k = 0; k < kChunk; ++k) {
-    fetch<kChain>(a, src, ld, s, head, b0 + k, cin[k], bd[k], bg[k], bh[k]);
+    fetch<kChain>(ar, a, src, ld, s, head, b0 + k, cin[k], bd[k], bg[k], bh[k]);
   }
   for (int t0 = b0; t0 < a.T; t0 += kChunk) {
     if (t0 >= b1 && __all_sync(kFull, done)) break;
@@ -239,16 +316,16 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const int c_in = cin[k];
-      const int d_in = kChain ? bd[k] : 0;
-      const int g_in = kChain ? bg[k] : 0;
-      const int h_in = kChain ? bh[k] : 0;
-      fetch<kChain>(a, src, ld, s, next, t0 + kChunk + k, cin[k], bd[k], bg[k],
-                    bh[k]);
+      const T d_in = kChain ? bd[k] : z;
+      const T g_in = kChain ? bg[k] : z;
+      const T h_in = kChain ? bh[k] : z;
+      fetch<kChain>(ar, a, src, ld, s, next, t0 + kChunk + k, cin[k], bd[k],
+                    bg[k], bh[k]);
       // the sublane above this thread's first one lives in lane - 1
       const int nC = __shfl_up_sync(kFull, C[V - 1], 1, W);
-      const int nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
-      const int nH = __shfl_up_sync(kFull, H[V - 1], 1, W);
-      const int nD = __shfl_up_sync(kFull, D2L[V - 1], 1, W);
+      const T nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
+      const T nH = __shfl_up_sync(kFull, H[V - 1], 1, W);
+      const T nD = __shfl_up_sync(kFull, D2L[V - 1], 1, W);
       bool f0_tail = false;
       // last sublane first, so each one still reads its upper
       // neighbour's state from the previous step
@@ -256,45 +333,46 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       for (int v = V - 1; v >= 1; --v) {
         C[v] = C[v - 1];
         const bool f0 = sublane_step<R, kRipple>(
-            C[v], false, G[v - 1][R - 1], H[v - 1], D2L[v - 1], q[v], D[v],
-            G[v], D2L[v], H[v], a.ma, a.mi, a.go, a.ge);
+            ar, C[v], false, G[v - 1][R - 1], H[v - 1], D2L[v - 1], q[v],
+            D[v], G[v], D2L[v], H[v], ma, mi, go, ge);
         if (v == V - 1) f0_tail = f0;
       }
       C[0] = head ? c_in : nC;
       const bool row0 = kChain && head;
       const bool f0 = sublane_step<R, kRipple>(
-          C[0], seghead, row0 ? g_in : nG, row0 ? h_in : nH,
-          row0 ? d_in : nD, q[0], D[0], G[0], D2L[0], H[0], a.ma, a.mi,
-          a.go, a.ge);
+          ar, C[0], seghead, row0 ? g_in : nG, row0 ? h_in : nH,
+          row0 ? d_in : nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
       if (V == 1) f0_tail = f0;
       // branch-free, so that the tail lanes do not split the warp: every
       // lane keeps an accumulator, only a writing tail stores.  Every flag
       // from the handover on is the next slice's, so a flag's step alone
       // says whether this slice writes on.
       const int t = t0 + k;
-      if (!kRipple) acc = max(f0_tail ? 0 : acc, H[V - 1]);
+      if (!kRipple) acc = mx(f0_tail ? z : acc, H[V - 1]);
       writing = f0_tail ? tail && t < handover : writing;
       done = f0_tail ? !writing : done;
       if (writing) {
         const size_t o = (size_t)t * ld;
-        dst[o] = kRipple ? H[V - 1] : acc;
         if (kChain) {  // seg = 1: o is (t, s)
-          a.oD[o + s] = D[V - 1][R - 1];
-          a.oG[o + s] = G[V - 1][R - 1];
-          a.oH[o + s] = H[V - 1];
+          dst[o] = ar.store(acc);
+          a.oD[o + s] = ar.store(D[V - 1][R - 1]);
+          a.oG[o + s] = ar.store(G[V - 1][R - 1]);
+          a.oH[o + s] = ar.store(H[V - 1]);
+        } else {
+          dst[o] = ar.emit(kRipple ? H[V - 1] : acc);
         }
       }
     }
   }
 }
 
-template <int R, int kMode>
+template <int R, int kMode, int kState>
 cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
   constexpr int SL = kLanes / R;
   constexpr int W = SL < 32 ? SL : 32;
   const long long threads = (long long)a.S * W;
   const int blocks = (int)((threads + kBlock - 1) / kBlock);
-  stream_wavefront_kernel<R, kMode>
+  stream_wavefront_kernel<R, kMode, kState>
       <<<dim3(blocks, slices), kBlock, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -312,25 +390,44 @@ cudaError_t with_rows(int rows, F f) {
   }
 }
 
+// f(std::integral_constant<int, kState>{}) for the state mode of a score
+// width (0: none) and a float32 flag; float32 with a width is refused.
+template <typename F>
+cudaError_t with_state(int width, int fp32, F f) {
+  if (fp32) {
+    return width ? cudaErrorInvalidValue
+                 : f(std::integral_constant<int, kFloat>{});
+  }
+  if (width) {
+    return width < 2 || width > 30 ? cudaErrorInvalidValue
+                                   : f(std::integral_constant<int, kBiased>{});
+  }
+  return f(std::integral_constant<int, kExact>{});
+}
+
 template <int kMode>
-cudaError_t launch_rows(int rows, const Args& a, int slices,
-                        cudaStream_t stream) {
-  return with_rows(rows, [&](auto r) {
-    return launch<decltype(r)::value, kMode>(a, slices, stream);
+cudaError_t launch_rows(int rows, int width, int fp32, const Args& a,
+                        int slices, cudaStream_t stream) {
+  return with_state(width, fp32, [&](auto st) {
+    return with_rows(rows, [&](auto r) {
+      return launch<decltype(r)::value, kMode, decltype(st)::value>(a, slices,
+                                                                    stream);
+    });
   });
 }
 
 // Registers a thread, local (spill) bytes a thread and resident blocks an
 // SM of one instantiation.
-template <int R, int kMode>
+template <int R, int kMode, int kState>
 cudaError_t kernel_info(int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, stream_wavefront_kernel<R, kMode>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&fa, stream_wavefront_kernel<R, kMode, kState>);
   if (err != cudaSuccess) return err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], stream_wavefront_kernel<R, kMode>, kBlock, 0);
+      &out[2], stream_wavefront_kernel<R, kMode, kState>, kBlock, 0);
 }
 
 }  // namespace
@@ -338,51 +435,65 @@ cudaError_t kernel_info(int* out) {
 // rows in {1, 2, 4, 8, 16}; seg in {1, 2, 4, 8} with (128/rows) % seg == 0;
 // T % 8 == 0; 1 <= slices, and slices * 32 <= T when slices > 1 (slice k
 // owns steps from 32 * floor(k * floor(T/32) / slices)).  tail_acc = 0
-// takes the ripple-H form at rows = 1 and is ignored otherwise.  The caller
-// checks these.  Returns the launch's CUDA error.
+// takes the ripple-H form at rows = 1 and is ignored otherwise.  width
+// = W in 2..30 takes the W-bit biased mode (0: exact), fp32 = 1 float32
+// state (not with a width).  The caller checks these.  Returns the
+// launch's CUDA error.
 extern "C" int swtpu_stream_wavefront(const void* qk, const void* sk,
                                       void* strip, int S, int T, int seg,
                                       int rows, int tail_acc, int ma, int mi,
                                       int go, int ge, void* stream,
-                                      int slices) {
+                                      int slices, int width, int fp32) {
   const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
                nullptr, nullptr, nullptr, static_cast<int32_t*>(strip),
-               nullptr, nullptr, nullptr, S, T, seg, ma, mi, go, ge};
+               nullptr, nullptr, nullptr, S, T, seg, ma, mi, go, ge, width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!tail_acc && rows == 1) return launch<1, kRippleH>(a, slices, st);
-  return launch_rows<kTailAcc>(rows, a, slices, st);
+  if (!tail_acc && rows == 1) {
+    return with_state(width, fp32, [&](auto m) {
+      return launch<1, kRippleH, decltype(m)::value>(a, slices, st);
+    });
+  }
+  return launch_rows<kTailAcc>(rows, width, fp32, a, slices, st);
 }
 
 // One chained tile at segments 1: qk [128, S] int8, sk [T, S] int8,
-// bD/bG/bH [T, S] int32 -> acc, oD, oG, oH [T, S] int32.  rows in
-// {1, 2, 4, 8, 16}; T % 8 == 0; slices as for swtpu_stream_wavefront.
-// The caller checks these.  Returns the launch's CUDA error.
+// bD/bG/bH [T, S] int32 -> acc, oD, oG, oH [T, S] int32 (biased in the
+// biased mode).  rows in {1, 2, 4, 8, 16}; T % 8 == 0; slices, width and
+// fp32 as for swtpu_stream_wavefront.  The caller checks these.  Returns
+// the launch's CUDA error.
 extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
                                     const void* bD, const void* bG,
                                     const void* bH, void* acc, void* oD,
                                     void* oG, void* oH, int S, int T,
                                     int rows, int ma, int mi, int go, int ge,
-                                    void* stream, int slices) {
+                                    void* stream, int slices, int width,
+                                    int fp32) {
   const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
                static_cast<const int32_t*>(bD), static_cast<const int32_t*>(bG),
                static_cast<const int32_t*>(bH), static_cast<int32_t*>(acc),
                static_cast<int32_t*>(oD), static_cast<int32_t*>(oG),
-               static_cast<int32_t*>(oH), S, T, 1, ma, mi, go, ge};
-  return launch_rows<kChained>(rows, a, slices,
-                              static_cast<cudaStream_t>(stream));
+               static_cast<int32_t*>(oH), S, T, 1, ma, mi, go, ge, width};
+  return launch_rows<kChained>(rows, width, fp32, a, slices,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // out[3] = registers a thread, local bytes a thread, resident blocks an SM
 // of the instantiation for `rows` in `mode` (0 tail accumulator, 1 ripple-H
-// at rows 1, 2 chained tile).  Returns the CUDA error.
-extern "C" int swtpu_stream_kernel_info(int rows, int mode, int* out) {
-  if (mode == kRippleH) {
-    return rows == 1 ? kernel_info<1, kRippleH>(out) : cudaErrorInvalidValue;
-  }
-  return with_rows(rows, [&](auto r) {
-    constexpr int R = decltype(r)::value;
-    return mode == kChained ? kernel_info<R, kChained>(out)
-                            : kernel_info<R, kTailAcc>(out);
+// at rows 1, 2 chained tile) and the state mode of width and fp32.
+// Returns the CUDA error.
+extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
+                                        int fp32, int* out) {
+  return with_state(width, fp32, [&](auto m) {
+    constexpr int K = decltype(m)::value;
+    if (mode == kRippleH) {
+      return rows == 1 ? kernel_info<1, kRippleH, K>(out)
+                       : cudaErrorInvalidValue;
+    }
+    return with_rows(rows, [&](auto r) {
+      constexpr int R = decltype(r)::value;
+      return mode == kChained ? kernel_info<R, kChained, K>(out)
+                              : kernel_info<R, kTailAcc, K>(out);
+    });
   });
 }
 

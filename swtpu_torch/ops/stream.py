@@ -14,6 +14,13 @@ rows (``sw_scores_stream_long``): each tile's row 0 reads the tile above's
 row-127 D/G/H from boundary strips, and each tile emits its own row 127
 for the tile below.
 
+Every form runs in three state modes, as swtpu's kernels do: exact int32
+state; float32 state (the same values, exact below 2^24); and the RTL's
+W-bit biased wrap-parity (``score_width``) on int32 state, where zero is
+2^(W-1) and only the M update wraps.  The one-tile forms write their
+strips unbiased; a chained tile writes biased strips and the chain
+unbiases at its gather.
+
 ``stream_strip_reference`` and ``stream_chained_reference`` are the plain
 PyTorch versions of the two kernels; ``stream_strip_cuda`` and
 ``stream_chained_cuda`` launch the hand-written CUDA kernels
@@ -55,11 +62,39 @@ MIN_SLICE_STEPS = 1024
 PIPE_FILLS_PER_SLICE = 16
 
 
-def _validate_config(segments, rows=1):
-    """Shape-independent contract checks shared by every entry.  swtpu's
-    TPU-only rules are left out: physical streams need not be a multiple
-    of the 128-lane vreg width, and rows=16 composes with segments > 1 (it
-    hit a Mosaic layout limit, not a semantic one)."""
+# the wavefront's state types: the kernels compute in one of these and
+# write int32 strips
+STATE_DTYPES = {"int32": torch.int32, "float32": torch.float32}
+UNPORTED_STATE_DTYPES = ("int16", "uint16", "bfloat16")
+
+
+def _validate_config(
+    segments, rows=1, state_dtype="int32", score_width=None,
+    penalties=DEFAULT_PENALTIES,
+):
+    """Shape-independent contract checks shared by every entry, with
+    swtpu's messages.  swtpu's TPU-only rules are left out: physical
+    streams need not be a multiple of the 128-lane vreg width, and rows=16
+    composes with segments > 1 (it hit a Mosaic layout limit, not a
+    semantic one).  int16, uint16 and bfloat16 state are not ported."""
+    if score_width is not None:
+        if state_dtype != "int32":
+            # & and sign-bit tests are integer ops; float lanes cannot wrap
+            raise ValueError(
+                "score_width (wrap-parity) requires state_dtype='int32', "
+                f"got {state_dtype!r}"
+            )
+        if not 2 <= score_width <= 30:
+            raise ValueError(
+                f"score_width={score_width} out of range (need 2..30)"
+            )
+        _, _, go, ge = penalties.astuple()
+        if (1 << (score_width - 1)) + (go + ge) + ge < 0:
+            # the I-chain no-wrap proof needs ZERO + open + extend >= -extend
+            raise ValueError(
+                f"score_width={score_width} too narrow for penalties "
+                f"(need 2^(W-1) >= |open+extend| + |extend|)"
+            )
     if LANES % segments or segments > 8:
         raise ValueError(f"segments {segments} must divide {LANES} and be <= 8")
     if rows not in ROWS:
@@ -68,12 +103,21 @@ def _validate_config(segments, rows=1):
         raise ValueError(
             f"sublane rows {LANES//rows} must divide by segments {segments}"
         )
+    if state_dtype in UNPORTED_STATE_DTYPES:
+        raise NotImplementedError(
+            f"state_dtype={state_dtype!r} is not ported yet (ROADMAP item 20: "
+            "16-bit and bfloat16 wavefront state); the port's wavefront "
+            "carries int32 or float32 state"
+        )
+    if state_dtype not in STATE_DTYPES:
+        raise ValueError(f"unknown state_dtype {state_dtype!r}")
 
 
-def _validate_kernel_layout(qk, streamT, segments, rows=1):
+def _validate_kernel_layout(qk, streamT, segments, rows=1, state_dtype="int32",
+                            score_width=None, penalties=DEFAULT_PENALTIES):
     """Contract checks for pre-laid-out inputs (qk [128, S_phys],
     streamT [T, seg*S_phys])."""
-    _validate_config(segments, rows)
+    _validate_config(segments, rows, state_dtype, score_width, penalties)
     if qk.shape[0] != LANES:
         raise ValueError(f"kernel q must have {LANES} rows, got {tuple(qk.shape)}")
     S_phys = qk.shape[1]
@@ -88,8 +132,9 @@ def _validate_kernel_layout(qk, streamT, segments, rows=1):
         )
 
 
-def _validate(q, stream, segments, rows=1):
-    _validate_config(segments, rows)
+def _validate(q, stream, segments, rows=1, state_dtype="int32", score_width=None,
+              penalties=DEFAULT_PENALTIES):
+    _validate_config(segments, rows, state_dtype, score_width, penalties)
     N, qcap = q.shape
     T = stream.shape[1]
     if qcap != LANES // segments:
@@ -100,6 +145,11 @@ def _validate(q, stream, segments, rows=1):
         raise ValueError(f"n_streams {N} must divide by segments {segments}")
     if T % STEP_CHUNK:
         raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
+
+
+def _bias(score_width):
+    """The zero of W-bit biased state, 2^(W-1); 0 for exact state."""
+    return 0 if score_width is None else 1 << (score_width - 1)
 
 
 def _q_kernel_layout(q, segments, rows=1):
@@ -114,11 +164,12 @@ def _q_kernel_layout(q, segments, rows=1):
     return q4.permute(3, 0, 2, 1).reshape(LANES, S_phys)
 
 
-def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bounds=None):
+def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bounds=None,
+                         score_width=None, state_dtype="int32"):
     """The recurrence behind :func:`stream_strip_reference` and
     :func:`stream_chained_reference`; returns the strip [T, segments, S],
     and with `bounds` (bD, bG, bH, each [T, S]) also the tile's row-127
-    (oD, oG, oH)."""
+    (oD, oG, oH), all int32."""
     ma, mi, go, ge = penalties.astuple()
     S = qk.shape[1]
     T = sk.shape[0]
@@ -126,28 +177,51 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
     SLg = SL // segments
     dev = qk.device
     i32 = torch.int32
+    dt = STATE_DTYPES[state_dtype]
     ripple = not tail_acc and rows == 1
     qs = qk.to(i32).reshape(rows, SL, S)
     sc = sk.to(i32).reshape(T, segments, S)
     seghead = (torch.arange(SL, device=dev) % SLg == 0)[:, None]
     heads = torch.arange(segments, device=dev) * SLg
     tails = heads + SLg - 1
-    zero = torch.zeros((), dtype=i32, device=dev)
-    ma_t = torch.tensor(ma, dtype=i32, device=dev)
-    mi_t = torch.tensor(mi, dtype=i32, device=dev)
+    # the boundary zero: 0, or in W-bit wrap-parity the bias 2^(W-1)
+    zbit = _bias(score_width)
+    zero = torch.tensor(zbit, dtype=dt, device=dev)
+    ma_t = torch.tensor(ma, dtype=dt, device=dev)
+    mi_t = torch.tensor(mi, dtype=dt, device=dev)
+    if score_width is None:
+        def m_update(x):
+            return torch.clamp_min(x, 0)
+    else:
+        # The RTL's SCORE_WIDTH registers: state holds W-bit *biased
+        # unsigned* values (score + 2^(W-1)) in 32-bit lanes.  Only the M
+        # update wraps (& mask) and clamps on the sign bit; the I/G chain
+        # provably never wraps step-wise (every cell's merged I includes an
+        # M + open + extend candidate with M >= ZERO, so I lies in
+        # [ZERO + open + extend, mask]), as in the column kernel's biased
+        # mode.  So I, G, D, H and the accumulator are never masked.
+        mask = (1 << score_width) - 1
+
+        def m_update(x):
+            ms = x & mask  # the W-bit adder's wrap
+            return torch.where((ms & zbit) != 0, ms, zero)  # sign-bit clamp
+
+    # B1/B2 write their strips unbiased; a chained tile (B3) writes biased
+    # strips, and the chain unbiases at its gather
+    unbias = zbit if bounds is None else 0
 
     def plane():
-        return torch.zeros((SL, S), dtype=i32, device=dev)
+        return torch.full((SL, S), zbit, dtype=dt, device=dev)
 
     G = [plane() for _ in range(rows)]
     D = [plane() for _ in range(rows)]
     D2L = plane()  # D of row R-1, two steps back
     Hl = plane()  # H of row R-1, one step back
     C = torch.full((SL, S), 4, dtype=i32, device=dev)
-    acc = torch.zeros((segments, S), dtype=i32, device=dev)
+    acc = torch.full((segments, S), zbit, dtype=dt, device=dev)
     strip = torch.empty((T, segments, S), dtype=i32, device=dev)
     if bounds is not None:
-        bD, bG, bH = (b.to(i32) for b in bounds)
+        bD, bG, bH = (b.to(dt) for b in bounds)
         outs = [torch.empty((T, S), dtype=i32, device=dev) for _ in range(3)]
     for t in range(T):
         C = torch.roll(C, 1, 0)
@@ -163,7 +237,7 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
             # the tile's row 0 reads the tile above's row 127: the same
             # column of the same read, so no zero but the read-start one
             upD[0], upG[0], upH[0] = bD[t], bG[t], bH[t]
-        Mc = torch.clamp_min(torch.where(f0, zero, upD) + s0, 0)
+        Mc = m_update(torch.where(f0, zero, upD) + s0)
         G_left = torch.where(f0, zero, G[0])
         Ic = torch.maximum(upG, G_left) + ge
         Hcur = torch.maximum(upH, Mc)
@@ -174,7 +248,7 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
         newG = [torch.maximum(Mc + go, Ic)]
         for r in range(1, rows):
             sr = torch.where(cval == qs[r], ma_t, mi_t)
-            Mc = torch.clamp_min(torch.where(f0, zero, D[r - 1]) + sr, 0)
+            Mc = m_update(torch.where(f0, zero, D[r - 1]) + sr)
             G_left = torch.where(f0, zero, G[r])
             Ic = torch.maximum(newG[r - 1], G_left) + ge
             Hcur = torch.maximum(Hcur, Mc)
@@ -185,10 +259,10 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
         G = newG
         Hl = Hcur
         if ripple:
-            strip[t] = Hcur[tails]
+            strip[t] = Hcur[tails] - unbias
         else:
             acc = torch.maximum(torch.where(f0[tails], zero, acc), Hcur[tails])
-            strip[t] = acc
+            strip[t] = acc - unbias
         if bounds is not None:
             for o, x in zip(outs, (newD[-1], newG[-1], Hcur)):
                 o[t] = x[SL - 1]
@@ -199,6 +273,7 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
 
 def stream_strip_reference(
     qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1, tail_acc=True,
+    score_width=None, state_dtype="int32",
 ):
     """Plain PyTorch wavefront: qk [128, S] int8 (kernel layout), sk
     [T, segments*S] int8 -> strip [T, segments*S] int32.
@@ -220,13 +295,22 @@ def stream_strip_reference(
     tail_acc=False (the ripple-H form; rows = 1 only, ignored otherwise):
     each row's H also keeps its own previous H, reset where f0 is set, and
     the strip row is the segment tails' H.
-    The initial pipe is the pad char 4 and all state is zero."""
+    The initial pipe is the pad char 4 and all state is zero.
+
+    score_width=W: the RTL's W-bit wrap-parity.  Zero is the bias
+    2^(W-1): the initial state, the segment heads' and read starts'
+    boundaries; M = (diag + s) & (2^W - 1), or the bias where that has its
+    sign bit 2^(W-1) clear; nothing else is masked; the strip rows are the
+    accumulators (or H) less the bias.  state_dtype="float32" carries the
+    state as float32 (exact: every value is an integer far below 2^24)."""
     T = sk.shape[0]
-    strip = _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc)
+    strip = _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc,
+                                 score_width=score_width, state_dtype=state_dtype)
     return strip.reshape(T, segments * qk.shape[1])
 
 
-def stream_chained_reference(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1):
+def stream_chained_reference(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1,
+                             score_width=None, state_dtype="int32"):
     """Plain PyTorch version of one tile of a long-query chain (segments 1):
     qk [128, S] int8 (kernel layout), sk [T, S] int8, boundary strips bD,
     bG, bH [T, S] int32 -> (acc, oD, oG, oH), each [T, S] int32.
@@ -237,8 +321,10 @@ def stream_chained_reference(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, ro
     read start: it is the same column of the same read).  oD, oG and oH
     are the tile's own row 127 (D, G and H of the last sublane's row R-1)
     after each step; acc is the tail accumulator.  With zero boundaries it
-    is stream_strip_reference at segments 1."""
-    acc, *outs = _wavefront_reference(qk, sk, penalties, 1, rows, bounds=(bD, bG, bH))
+    is stream_strip_reference at segments 1.  With score_width the
+    boundaries are read, and all four outputs written, biased."""
+    acc, *outs = _wavefront_reference(qk, sk, penalties, 1, rows, bounds=(bD, bG, bH),
+                                      score_width=score_width, state_dtype=state_dtype)
     return (acc.reshape(sk.shape), *outs)
 
 
@@ -308,9 +394,14 @@ def _record_slices(wrapper, slices, T):
     wrapper.slice_steps = slice_steps(T, slices)
 
 
+def _kernel_state(score_width, state_dtype):
+    """(W or 0, 1 for float32 state) as the CUDA entry points take them."""
+    return score_width or 0, int(state_dtype == "float32")
+
+
 def stream_strip_cuda(
     qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1, tail_acc=True,
-    slices=None,
+    slices=None, score_width=None, state_dtype="int32",
 ):
     """The CUDA wavefront kernel on the same contract as
     :func:`stream_strip_reference`; CUDA tensors only.  ``slices`` time
@@ -320,7 +411,7 @@ def stream_strip_cuda(
     last launch's ``.slices`` and ``.slice_steps``."""
     from swtpu_torch.ops._build import load_library
 
-    _validate_kernel_layout(qk, sk, segments, rows)
+    _validate_kernel_layout(qk, sk, segments, rows, state_dtype, score_width, penalties)
     _check_kernel_tensors(qk=(qk, torch.int8), sk=(sk, torch.int8))
     S = qk.shape[1]
     T = sk.shape[0]
@@ -335,6 +426,7 @@ def stream_strip_cuda(
             qk.data_ptr(), sk.data_ptr(), out.data_ptr(), S, T, segments,
             rows, int(tail_acc), ma, mi, go, ge,
             torch.cuda.current_stream().cuda_stream, slices,
+            *_kernel_state(score_width, state_dtype),
         )
     _raise_on_error(lib, err, "stream_wavefront")
     stream_strip_cuda.launches += 1
@@ -347,6 +439,7 @@ stream_strip_cuda.launches = stream_strip_cuda.slices = stream_strip_cuda.slice_
 
 def stream_chained_cuda(
     qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, rows=1, slices=None,
+    score_width=None, state_dtype="int32",
 ):
     """The CUDA chained-tile kernel on the same contract as
     :func:`stream_chained_reference`; CUDA tensors only.  ``slices`` as for
@@ -355,7 +448,7 @@ def stream_chained_cuda(
     launch's ``.slices`` and ``.slice_steps``."""
     from swtpu_torch.ops._build import load_library
 
-    _validate_kernel_layout(qk, sk, 1, rows)
+    _validate_kernel_layout(qk, sk, 1, rows, state_dtype, score_width, penalties)
     _check_kernel_tensors(
         qk=(qk, torch.int8), sk=(sk, torch.int8), bD=(bD, torch.int32),
         bG=(bG, torch.int32), bH=(bH, torch.int32),
@@ -378,6 +471,7 @@ def stream_chained_cuda(
             qk.data_ptr(), sk.data_ptr(), bD.data_ptr(), bG.data_ptr(),
             bH.data_ptr(), *(o.data_ptr() for o in outs), S, T, rows,
             ma, mi, go, ge, torch.cuda.current_stream().cuda_stream, slices,
+            *_kernel_state(score_width, state_dtype),
         )
     _raise_on_error(lib, err, "stream_chained")
     stream_chained_cuda.launches += 1
@@ -388,41 +482,49 @@ def stream_chained_cuda(
 stream_chained_cuda.launches = stream_chained_cuda.slices = stream_chained_cuda.slice_steps = 0
 
 
-def stream_kernel_info(rows, tail_acc=True, chained=False):
+def stream_kernel_info(rows, tail_acc=True, chained=False, score_width=None,
+                       state_dtype="int32"):
     """(registers a thread, local spill bytes a thread, resident blocks an
     SM) of the CUDA wavefront kernel's instantiation for `rows` (the
     ripple-H form at rows 1 with tail_acc=False; the chained tile with
-    chained=True), from the CUDA runtime on the current device."""
+    chained=True) in the state mode that `score_width` and `state_dtype`
+    pick, from the CUDA runtime on the current device."""
     import ctypes
 
     from swtpu_torch.ops._build import load_library
 
+    _validate_config(1, rows, state_dtype, score_width)
     lib = load_library()
     mode = 2 if chained else (1 if not tail_acc and rows == 1 else 0)
     out = (ctypes.c_int * 3)()
-    _raise_on_error(lib, lib.swtpu_stream_kernel_info(rows, mode, out), "stream_kernel_info")
+    err = lib.swtpu_stream_kernel_info(rows, mode, *_kernel_state(score_width, state_dtype), out)
+    _raise_on_error(lib, err, "stream_kernel_info")
     return tuple(out)
 
 
-def _strip_call(qk, sk, penalties, segments, rows, tail_acc=True):
+def _strip_call(qk, sk, penalties, segments, rows, tail_acc=True, score_width=None,
+                state_dtype="int32"):
     """qk [128, S_phys] int8, sk [T, seg*S_phys] int8 -> strip
     [T, seg*S_phys] int32: the plain version on the CPU, the kernel on
-    CUDA."""
+    CUDA, in the state mode asked for."""
+    mode = dict(score_width=score_width, state_dtype=state_dtype)
     if qk.device.type == "cpu":
-        return stream_strip_reference(qk, sk, penalties, segments, rows, tail_acc)
+        return stream_strip_reference(qk, sk, penalties, segments, rows, tail_acc, **mode)
     if qk.device.type == "cuda":
-        return stream_strip_cuda(qk, sk, penalties, segments, rows, tail_acc)
+        return stream_strip_cuda(qk, sk, penalties, segments, rows, tail_acc, **mode)
     raise ValueError(f"no wavefront kernel for device {qk.device}")
 
 
-def _strip_call_chained(qk, sk, bD, bG, bH, penalties, rows):
+def _strip_call_chained(qk, sk, bD, bG, bH, penalties, rows, score_width=None,
+                        state_dtype="int32"):
     """One chained tile: qk [128, S] int8, sk [T, S] int8, boundary strips
-    [T, S] int32 -> (acc, oD, oG, oH), each [T, S] int32: the plain
-    version on the CPU, the kernel on CUDA."""
+    [T, S] int32 -> (acc, oD, oG, oH), each [T, S] int32 (biased with
+    score_width): the plain version on the CPU, the kernel on CUDA."""
+    mode = dict(score_width=score_width, state_dtype=state_dtype)
     if qk.device.type == "cpu":
-        return stream_chained_reference(qk, sk, bD, bG, bH, penalties, rows)
+        return stream_chained_reference(qk, sk, bD, bG, bH, penalties, rows, **mode)
     if qk.device.type == "cuda":
-        return stream_chained_cuda(qk, sk, bD, bG, bH, penalties, rows)
+        return stream_chained_cuda(qk, sk, bD, bG, bH, penalties, rows, **mode)
     raise ValueError(f"no chained wavefront kernel for device {qk.device}")
 
 
@@ -434,7 +536,7 @@ def _to_kernel_layout(q, stream, segments, rows):
 
 def sw_scores_stream_strip(
     q, stream, penalties: Penalties = DEFAULT_PENALTIES, segments=1,
-    tail_acc=True, rows=1,
+    state_dtype="int32", tail_acc=True, rows=1, score_width=None,
 ):
     """Run the wavefront over packed streams; returns the raw strip.
 
@@ -443,18 +545,23 @@ def sw_scores_stream_strip(
       stream: [N, T] int8 concatenated target chars (codes 0..3, +8 flag on
         each target's first char, 4 = drain/pad), T % STEP_CHUNK == 0.
       segments: queries packed per lane column (1, 2, 4 or 8).
+      state_dtype: the state the kernel carries, "int32" or "float32"
+        (the same strip).
       tail_acc: the strip is the segment tails' running-best accumulators;
         False takes the ripple-H form (rows = 1 only; ignored otherwise).
       rows: query rows folded per sublane; the emission drain is
         128//(rows*segments) - 1.
+      score_width: W, the RTL's W-bit biased wrap-parity arithmetic
+        (int32 state only); the strip comes back unbiased.
 
     Returns: [N, T] int32 — each logical stream's segment-tail accumulator
     after each step; [n, off+len-1+drain] holds the score of the target at
     offset `off`.  swtpu_torch.bank.streams builds inputs and gathers.
     """
-    _validate(q, stream, segments, rows)
+    _validate(q, stream, segments, rows, state_dtype, score_width, penalties)
     qk, sk = _to_kernel_layout(q, stream, segments, rows)
-    return _strip_call(qk, sk, penalties, segments, rows, tail_acc).t()
+    return _strip_call(qk, sk, penalties, segments, rows, tail_acc, score_width,
+                       state_dtype).t()
 
 
 def unpack_stream_wire(codes, flags):
@@ -470,8 +577,10 @@ def unpack_stream_wire(codes, flags):
     return (chars | (fbits << 3)).to(torch.int8)
 
 
-def _gather_emissions(strip, emit_stream, emit_step, regular=None):
+def _gather_emissions(strip, emit_stream, emit_step, bias=0, regular=None):
     """[T, N] strip -> per-read scores (emit_step < 0 = zero-length read).
+    `bias` unbiases a wrap-parity strip (the long-query chain's); a
+    zero-length read scores 0 either way.
 
     regular: (first, stride, count) from detect_regular_emissions — read r
     emits at (r % N, first + (r // N) * stride), so read-order scores are a
@@ -480,123 +589,129 @@ def _gather_emissions(strip, emit_stream, emit_step, regular=None):
     if regular is not None:
         first, stride, count = regular
         ex = strip[first : first + (count - 1) * stride + 1 : stride]
-        return ex.reshape(-1).to(torch.int32)
+        return (ex.reshape(-1) - bias).to(torch.int32)
     emit_step = emit_step.long()
     live = emit_step >= 0
     safe_step = torch.where(live, emit_step, 0)
-    scores = strip[safe_step, emit_stream.long()]
+    scores = strip[safe_step, emit_stream.long()] - bias
     return torch.where(live, scores, 0).to(torch.int32)
 
 
 def sw_scores_stream_kernel_layout(
     qk, streamT, emit_stream, emit_step,
-    penalties: Penalties = DEFAULT_PENALTIES, segments=1, tail_acc=True,
-    rows=1, emit_regular=None,
+    penalties: Penalties = DEFAULT_PENALTIES, segments=1, state_dtype="int32",
+    tail_acc=True, rows=1, score_width=None, emit_regular=None,
 ):
     """sw_scores_stream on pre-laid-out inputs: qk [128, S_phys]
     (``_q_kernel_layout``) and streamT [T, N] (the stream transposed)."""
-    _validate_kernel_layout(qk, streamT, segments, rows)
+    _validate_kernel_layout(qk, streamT, segments, rows, state_dtype, score_width,
+                            penalties)
     strip = _strip_call(
         qk.to(torch.int8).contiguous(), streamT.to(torch.int8).contiguous(),
-        penalties, segments, rows, tail_acc,
+        penalties, segments, rows, tail_acc, score_width, state_dtype,
     )
     return _gather_emissions(strip, emit_stream, emit_step, regular=emit_regular)
 
 
 def sw_scores_stream(
     q, stream, emit_stream, emit_step,
-    penalties: Penalties = DEFAULT_PENALTIES, segments=1, tail_acc=True,
-    rows=1, emit_regular=None,
+    penalties: Penalties = DEFAULT_PENALTIES, segments=1, state_dtype="int32",
+    tail_acc=True, rows=1, score_width=None, emit_regular=None,
 ):
     """Wavefront scoring with the emission gather on the tensors' device:
     q [N, 128//segments], stream [N, T] -> [n_reads] int32 scores.
 
     emit_step < 0 marks a zero-length read (score 0).  The emission
-    coordinates must have been computed for the same rows/segments."""
-    _validate(q, stream, segments, rows)
+    coordinates must have been computed for the same rows/segments.
+
+    score_width: the RTL's W-bit biased-register arithmetic, overflow wrap
+    included (int32 state only); the scores match
+    oracle.sw_score_single_biased."""
+    _validate(q, stream, segments, rows, state_dtype, score_width, penalties)
     qk, sk = _to_kernel_layout(q, stream, segments, rows)
-    strip = _strip_call(qk, sk, penalties, segments, rows, tail_acc)  # [T, N]
+    strip = _strip_call(qk, sk, penalties, segments, rows, tail_acc, score_width,
+                        state_dtype)  # [T, N], unbiased
     return _gather_emissions(strip, emit_stream, emit_step, regular=emit_regular)
 
 
 def sw_scores_stream_packed(
     q, codes, flags, emit_stream, emit_step,
-    penalties: Penalties = DEFAULT_PENALTIES, segments=1, tail_acc=True,
-    rows=1, emit_regular=None,
+    penalties: Penalties = DEFAULT_PENALTIES, segments=1, state_dtype="int32",
+    tail_acc=True, rows=1, score_width=None, emit_regular=None,
 ):
     """sw_scores_stream on the 2-bit wire format (pack_stream_wire): the
     stream crosses to the device at 2.5 bits/char and expands there."""
     stream = unpack_stream_wire(codes, flags)
     return sw_scores_stream(
         q, stream, emit_stream, emit_step, penalties=penalties,
-        segments=segments, tail_acc=tail_acc, rows=rows,
-        emit_regular=emit_regular,
+        segments=segments, state_dtype=state_dtype, tail_acc=tail_acc,
+        rows=rows, score_width=score_width, emit_regular=emit_regular,
     )
 
 
-def _shift_steps(x, k):
-    """x[t] <- x[t + k], zero-filled at the tail (a left shift on the step
-    axis of a [T, N] strip)."""
+def _shift_steps(x, k, fill=0):
+    """x[t] <- x[t + k], `fill`-padded at the tail (a left shift on the
+    step axis of a [T, N] strip).  `fill` is the boundary zero: 0 exact,
+    the bias 2^(W-1) in wrap-parity."""
     T = x.shape[0]
     k = min(k, T)
     out = torch.empty_like(x)
     out[: T - k] = x[k:]
-    out[T - k :] = 0
+    out[T - k :] = fill
     return out
 
 
-def _validate_long(q, T, rows):
+def _validate_long(q, T, rows, state_dtype="int32", score_width=None,
+                   penalties=DEFAULT_PENALTIES):
     """Contract checks of the long-query entries; swtpu's TPU-only rules
     (the 128-lane stream count, the grid chunk) are left out, as in
     :func:`_validate_config`."""
-    _validate_config(1, rows)
+    _validate_config(1, rows, state_dtype, score_width, penalties)
     if q.shape[1] % LANES:
         raise ValueError(f"q width {q.shape[1]} must be a multiple of {LANES}")
     if T % STEP_CHUNK:
         raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
 
 
-def _unported_long(state_dtype, score_width):
-    if state_dtype != "int32":
-        raise NotImplementedError(
-            f"state_dtype={state_dtype!r} is not ported yet (ROADMAP: float32 "
-            "state on CUDA); the port carries int32 state"
-        )
-    if score_width is not None:
-        raise NotImplementedError(
-            "score_width is not ported yet (ROADMAP: score_width through the "
-            "CUDA kernel)"
-        )
-
-
-def _long_strip(q, sk, penalties, rows, tile=_strip_call_chained):
+def _long_strip(q, sk, penalties, rows, tile=_strip_call_chained, score_width=None,
+                state_dtype="int32"):
     """The K-tile chain on q [N, K*128] and the kernel-layout stream sk
-    [T, N] int8 -> the last tile's accumulator strip [T, N] int32.
+    [T, N] int8 -> the last tile's accumulator strip [T, N] int32 (biased
+    with score_width).
 
     Tile p+1's row 0 computes column j at step j and needs tile p's row 127
     at column j (G, H: its step j + SL - 1) and column j - 1 (D: step
     j + SL - 2), SL = 128//rows, so the boundary strips are tile p's
-    outputs shifted left by those steps.  Only the previous tile's strips
-    stay alive.  `tile` runs one tile (``_strip_call_chained``'s contract)."""
+    outputs shifted left by those steps.  The first tile's boundaries and
+    the shifts' fill are the boundary zero: 0, or the bias 2^(W-1) in
+    wrap-parity (a plain 0 there would make row 0's M wrap to 2^W - 4 at
+    the first mismatch).  Only the previous tile's strips stay alive.
+    `tile` runs one tile (``_strip_call_chained``'s contract, the mode as
+    keywords)."""
     K = q.shape[1] // LANES
     SL = LANES // rows
-    acc = bD = bG = bH = torch.zeros(tuple(sk.shape), dtype=torch.int32, device=sk.device)
+    zero = _bias(score_width)
+    acc = bD = bG = bH = torch.full(tuple(sk.shape), zero, dtype=torch.int32, device=sk.device)
     for p in range(K):
         qk = _q_kernel_layout(q[:, p * LANES : (p + 1) * LANES], 1, rows)
-        acc, oD, oG, oH = tile(qk.to(torch.int8).contiguous(), sk, bD, bG, bH, penalties, rows)
+        acc, oD, oG, oH = tile(qk.to(torch.int8).contiguous(), sk, bD, bG, bH, penalties,
+                               rows, score_width=score_width, state_dtype=state_dtype)
         if p + 1 < K:
-            bD = _shift_steps(oD, SL - 2)
-            bG = _shift_steps(oG, SL - 1)
-            bH = _shift_steps(oH, SL - 1)
+            bD = _shift_steps(oD, SL - 2, zero)
+            bG = _shift_steps(oG, SL - 1, zero)
+            bH = _shift_steps(oH, SL - 1, zero)
         del oD, oG, oH
     return acc
 
 
-def _long_impl(q, sk, emit_stream, emit_step, penalties, rows, emit_regular):
+def _long_impl(q, sk, emit_stream, emit_step, penalties, rows, emit_regular,
+               score_width=None, state_dtype="int32"):
     """Chain the tiles over the kernel-layout stream sk [T, N] and gather
-    the emissions from the last tile's accumulator strip."""
-    acc = _long_strip(q, sk.to(torch.int8).contiguous(), penalties, rows)
-    return _gather_emissions(acc, emit_stream, emit_step, regular=emit_regular)
+    the emissions from the last tile's accumulator strip, unbiased there."""
+    acc = _long_strip(q, sk.to(torch.int8).contiguous(), penalties, rows,
+                      score_width=score_width, state_dtype=state_dtype)
+    return _gather_emissions(acc, emit_stream, emit_step, bias=_bias(score_width),
+                             regular=emit_regular)
 
 
 def sw_scores_stream_long(
@@ -616,14 +731,15 @@ def sw_scores_stream_long(
         (128//rows - 1)*(K - 1) extra drain steps).
       emit_stream/emit_step: emission coordinates (drain = 128//rows - 1,
         as for one tile at segments 1).
-      state_dtype, score_width: only int32 state without wrap-parity is
-        ported; other values raise NotImplementedError.
+      state_dtype: "int32" or "float32" state (the same scores).
+      score_width: W-bit biased wrap-parity along the whole chain: the
+        boundary strips carry biased values, and the gather unbiases.
 
     Returns [n_reads] int32 scores.
     """
-    _unported_long(state_dtype, score_width)
-    _validate_long(q, stream.shape[1], rows)
-    return _long_impl(q, stream.t(), emit_stream, emit_step, penalties, rows, emit_regular)
+    _validate_long(q, stream.shape[1], rows, state_dtype, score_width, penalties)
+    return _long_impl(q, stream.t(), emit_stream, emit_step, penalties, rows, emit_regular,
+                      score_width, state_dtype)
 
 
 def sw_scores_stream_long_kernel_layout(
@@ -633,9 +749,9 @@ def sw_scores_stream_long_kernel_layout(
 ):
     """sw_scores_stream_long on a pre-transposed [T, N] stream (the query
     register is laid out per tile inside, as usual)."""
-    _unported_long(state_dtype, score_width)
-    _validate_long(q, streamT.shape[0], rows)
-    return _long_impl(q, streamT, emit_stream, emit_step, penalties, rows, emit_regular)
+    _validate_long(q, streamT.shape[0], rows, state_dtype, score_width, penalties)
+    return _long_impl(q, streamT, emit_stream, emit_step, penalties, rows, emit_regular,
+                      score_width, state_dtype)
 
 
 def sw_scores_stream_long_packed(

@@ -100,12 +100,36 @@ def test_bucketed_score_lines_equal_swtpu_cli(tmp_path, flags):
     assert (got["dbself"] == 600) == (flags[0] == "--backend")
 
 
+@pytest.mark.parametrize("qlen", [120, 450])
+def test_stream_score_width_lines_equal_swtpu_cli(tmp_path, qlen):
+    """--backend stream --score-width 12 against swtpu's CLI with the same
+    flags: a short query (one tile) and a 450-base one (chained tiles); a
+    read equal to the 450-base query scores 2,250 exactly, past the 12-bit
+    ceiling, so that its line wraps."""
+    fa = _fasta(tmp_path / "gen.fa", seed=8, n=30, qlen=qlen)
+    recs = read_fasta(fa)
+    write_fasta(fa, [*recs, FastaRecord("dbself", recs[0].seq)])
+    flags = ["--backend", "stream", "--score-width", "12"]
+    port_out, ref_out = tmp_path / "port.txt", tmp_path / "ref.txt"
+    events = tmp_path / "events.jsonl"
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa),
+                 "-o", str(port_out), "--events", str(events), *flags]) == 0
+    kind = json.loads(events.read_text())["kind"]
+    assert kind == ("stream" if qlen <= 128 else "stream_long")
+    assert ref_main(["--platform", "cpu", "score", "-q", str(fa), "-l", str(fa),
+                     "-o", str(ref_out), *flags]) == 0
+    got = parse_rtl_out_file(port_out)
+    assert len(got) == 31 and got == parse_rtl_out_file(ref_out)
+    assert ref_main(["diff", str(port_out), str(ref_out)]) == 0
+    assert (got["dbself"] == 5 * qlen) == (qlen == 120)
+
+
 @pytest.mark.parametrize(
     "flags,match",
     [
         (["--backend", "scan"], "ROADMAP item 10"),
         (["--backend", "scan", "--score-width", "12"], "requires the stream or column"),
-        (["--backend", "stream", "--score-width", "12"], "ROADMAP item 6"),
+        (["--backend", "stream", "--score-width", "40"], "out of range \\(need 2..30\\)"),
         (["--backend", "pallas", "--buckets", "32,64"], "exceeds bucket capacity 64"),
         (["--buckets", "32,x"], "comma-separated ints"),
     ],

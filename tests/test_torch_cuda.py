@@ -9,6 +9,8 @@ imports no JAX, so it runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -553,3 +555,166 @@ def test_new_launch_failures_raise(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="stream_ablate launch failed"):
         microbench.stream_ablate_cuda(t.t().contiguous(), t.t()[:32].contiguous(), "full")
     assert [w.launches for w in wrappers] == launches
+
+
+# the state modes beside exact int32: (score_width, state_dtype)
+MODES = {"biased W=8": (8, "int32"), "biased W=12": (12, "int32"), "float32": (None, "float32")}
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_case(segments, rows, tail_acc, mode):
+    """(qk, sk, plain strip) of a mode's case, computed once for all the
+    slice counts."""
+    width, dtype = MODES[mode]
+    qk, sk = _mode_batch(segments, rows)
+    want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, segments, rows, tail_acc,
+                                       score_width=width, state_dtype=dtype)
+    return qk, sk, want
+
+
+def _mode_batch(segments, rows):
+    """A packed batch in the kernel layout on the CPU: 40 physical streams
+    of ragged reads, the first read equal to the query so that at W = 8 it
+    wraps (its exact score is 5 x the query's length, past 127)."""
+    rng = np.random.default_rng(segments * 7 + rows + 300)
+    db = _db(rng, 400, 200)
+    query = rng.integers(0, 4, size=128 // segments - 1).astype(np.int8)
+    db.mat[0, : len(query)] = query
+    db.mat[0, len(query):] = 4
+    db.lens[0] = len(query)
+    b = pack_streams(query, db.mat, n_streams=40 * segments, segments=segments,
+                     lens=db.lens, rows=rows)
+    return port._to_kernel_layout(torch.from_numpy(b.q), torch.from_numpy(b.stream),
+                                  segments, rows)
+
+
+@pytest.mark.parametrize("slices", SLICES)
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("segments,rows,tail_acc", [
+    (1, 1, True), (1, 16, True), (2, 8, True), (4, 4, True), (1, 1, False), (4, 1, False),
+])
+def test_mode_strip_equals_plain_version(cuda_device, segments, rows, tail_acc, mode, slices):
+    """The biased and float32 kernels, both forms, against their plain
+    versions; the float32 strip also equals the exact int32 one."""
+    width, dtype = MODES[mode]
+    qk, sk, want = _mode_case(segments, rows, tail_acc, mode)
+    kw = dict(score_width=width, state_dtype=dtype)
+    launches = port.stream_strip_cuda.launches
+    got = port.stream_strip_cuda(qk.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES,
+                                 segments, rows, tail_acc, slices=slices, **kw)
+    torch.cuda.synchronize()
+    assert port.stream_strip_cuda.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if dtype == "float32":
+        exact = port.stream_strip_cuda(qk.to(cuda_device), sk.to(cuda_device),
+                                       DEFAULT_PENALTIES, segments, rows, tail_acc)
+        np.testing.assert_array_equal(got.cpu().numpy(), exact.cpu().numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_chained_case(rows, mode):
+    """(qk, sk, bounds, plain outputs) of one chained tile in a mode, on
+    random boundary strips (around 2^(W-1) in the biased mode)."""
+    width, dtype = MODES[mode]
+    rng = np.random.default_rng(rows + 400)
+    db = _db(rng, 400, 200)
+    b = pack_streams(rng.integers(0, 4, size=1).astype(np.int8), db.mat,
+                     n_streams=40, lens=db.lens, rows=rows)
+    sk = torch.from_numpy(b.stream.T.copy())
+    qk = torch.from_numpy(rng.integers(0, 4, size=(128, 40)).astype(np.int8))
+    bias = 0 if width is None else 1 << (width - 1)
+    bounds = [torch.from_numpy(bias + rng.integers(-20, 60, size=sk.shape).astype(np.int32))
+              for _ in range(3)]
+    want = port.stream_chained_reference(qk, sk, *bounds, DEFAULT_PENALTIES, rows,
+                                         score_width=width, state_dtype=dtype)
+    return qk, sk, bounds, want
+
+
+@pytest.mark.parametrize("slices", SLICES)
+@pytest.mark.parametrize("mode", ["biased W=12", "float32"])
+@pytest.mark.parametrize("rows", [1, 16])
+def test_mode_chained_kernel_equals_plain_version(cuda_device, rows, mode, slices):
+    """All four strips of one tile in each mode against the plain
+    version."""
+    width, dtype = MODES[mode]
+    qk, sk, bounds, want = _mode_chained_case(rows, mode)
+    kw = dict(score_width=width, state_dtype=dtype)
+    got = port.stream_chained_cuda(
+        qk.to(cuda_device), sk.to(cuda_device), *(x.to(cuda_device) for x in bounds),
+        DEFAULT_PENALTIES, rows, slices=slices, **kw,
+    )
+    for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("rows,form", [(r, "tail_acc") for r in port.ROWS] + [(1, "ripple_h")]
+                         + [(r, "chained") for r in port.ROWS])
+def test_mode_kernels_hold_the_slices_occupancy(cuda_device, rows, form, mode):
+    width, dtype = MODES[mode]
+    regs, local, blocks = port.stream_kernel_info(
+        rows, tail_acc=form != "ripple_h", chained=form == "chained",
+        score_width=width, state_dtype=dtype)
+    assert 0 < regs <= 65536 // (port.RESIDENT_WARPS_PER_SM * 32)
+    assert local == 0
+    assert blocks * port.KERNEL_BLOCK >= port.RESIDENT_WARPS_PER_SM * 32
+
+
+def _pairs(rng, n, lo, hi, n_queries):
+    """n pairs over n_queries distinct queries of lo..hi bases, targets of
+    0..hi bases; every 8th target is its query."""
+    qs = [rng.integers(0, 4, size=k).astype(np.int8) for k in rng.integers(lo, hi + 1, n_queries)]
+    queries = [qs[i] for i in rng.integers(0, n_queries, size=n)]
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in rng.integers(0, hi + 1, n)]
+    for i in range(0, n, 8):
+        targets[i] = queries[i].copy()
+    return queries, targets
+
+
+def test_score_pairs_default_backend_equals_oracle(cuda_device):
+    """ScoreBank(device="cuda") takes the pair streams: more distinct
+    queries than one call's streams, so several B1 launches."""
+    rng = np.random.default_rng(21)
+    queries, targets = _pairs(rng, 3000, 40, 128, 700)
+    bank = ScoreBank(SWConfig(stream_phys=256), device=cuda_device)
+    assert bank.backend == "stream"
+    launches = port.stream_strip_cuda.launches
+    res = bank.score_pairs(queries, targets)
+    assert port.stream_strip_cuda.launches - launches == 3  # 700 queries / 256 streams
+    want = [score_many_vs_one(q, [t])[0] for q, t in zip(queries, targets)]
+    np.testing.assert_array_equal(res.scores, want)
+
+
+def test_stream_score_width_equals_biased_oracle(cuda_device):
+    """score_width on the stream backend: score_database short and long,
+    and score_pairs with short and long queries, identical pairs past the
+    12-bit ceiling wrapping."""
+    rng = np.random.default_rng(22)
+    bank = ScoreBank(SWConfig(score_width=12), backend="stream", device=cuda_device)
+    queries, targets = _pairs(rng, 200, 24, 128, 30)
+    longs, ltargets = _pairs(rng, 40, 420, 500, 2)
+    queries, targets = queries + longs, targets + ltargets
+    launches = port.stream_strip_cuda.launches, port.stream_chained_cuda.launches
+    res = bank.score_pairs(queries, targets)
+    assert port.stream_strip_cuda.launches > launches[0]
+    assert port.stream_chained_cuda.launches - launches[1] == 2 * 4  # 2 queries of 4 tiles
+    want = [sw_score_single_biased(q, t, DEFAULT_PENALTIES, 12) for q, t in zip(queries, targets)]
+    np.testing.assert_array_equal(res.scores, want)
+    assert res.scores[200] < 5 * len(queries[200])  # wrapped
+    db = _db(rng, 300, 200)
+    for qlen in (60, 450):
+        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+        got = bank.score_database(query, db).scores
+        want = [sw_score_single_biased(query, t, DEFAULT_PENALTIES, 12) for t in db.as_list()]
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("qlen", [60, 128, 300])
+@pytest.mark.parametrize("wire", [True, False])
+def test_float32_state_equals_oracle(cuda_device, qlen, wire):
+    rng = np.random.default_rng(qlen + wire + 500)
+    db = _db(rng, 2000, 200)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    cfg = SWConfig(stream_state_dtype="float32", wire_2bit=wire)
+    res = ScoreBank(cfg, device=cuda_device).score_database(query, db)
+    np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))

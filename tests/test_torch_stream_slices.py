@@ -6,7 +6,8 @@ column at the step its tail sees a read's first char.  A plain model of
 that rule lives here: it runs the plain recurrence slice by slice and
 stitches the columns as the kernel does.  Its strips must equal the
 unsliced plain version's and swtpu's interpret-mode strips bit for bit, on
-every stream case and on whole long-query chains.  The kernels themselves
+every stream case and on whole long-query chains, exact and in the W-bit
+wrap-parity mode.  The kernels themselves
 are held against the plain versions on the card (test_torch_cuda.py,
 chip_smoke.py)."""
 
@@ -44,14 +45,17 @@ def handover_steps(sk, SLg, b):
     return torch.where(flags.any(0), first, T).clamp(max=T)
 
 
-def sliced_outputs(qk, sk, penalties, segments, rows, starts, tail_acc=True, bounds=None):
+def sliced_outputs(qk, sk, penalties, segments, rows, starts, tail_acc=True, bounds=None,
+                   **mode):
     """The kernel's slicing rule on the plain recurrence: slice k starts
     at starts[k] with zero state (and the boundary strips from there),
     and each column takes slice k's output from the step its tail sees
     the first read start at or after starts[k] (slice 0: step 0) up to the
     step it sees the first one at or after starts[k+1].  Returns the strip
     [T, segments*S] (with `bounds`, also oD, oG, oH [T, S]); fails if any
-    element is written by no slice or by two."""
+    element is written by no slice or by two.  `mode` (score_width,
+    state_dtype) goes to the recurrence: in wrap-parity the zero state a
+    slice starts from is the bias 2^(W-1)."""
     T, N = sk.shape
     SLg = port.LANES // rows // segments
     n_out = 1 if bounds is None else 4
@@ -65,7 +69,7 @@ def sliced_outputs(qk, sk, penalties, segments, rows, starts, tail_acc=True, bou
             continue
         cut = None if bounds is None else [x[b0:end] for x in bounds]
         res = port._wavefront_reference(qk, sk[b0:end], penalties, segments, rows,
-                                        tail_acc, bounds=cut)
+                                        tail_acc, bounds=cut, **mode)
         res = [res] if bounds is None else list(res)
         t = torch.arange(b0, end)[:, None]
         mine = (t >= lo) & (t < hi)
@@ -76,16 +80,19 @@ def sliced_outputs(qk, sk, penalties, segments, rows, starts, tail_acc=True, bou
     return outs[0] if bounds is None else tuple(outs)
 
 
-def _batch(seed, segments, rows, phys=4, reads_per_stream=4, hi=60):
+def _batch(seed, segments, rows, phys=4, reads_per_stream=4, hi=60, wrap=False):
     """A packed batch in the kernel layout: ragged reads of 0..hi-1 bases
     (read 3 zero-length), so streams end in pad runs of different
-    lengths."""
+    lengths; with `wrap`, reads 6 and 9 equal the query (their scores pass
+    the 8-bit ceiling)."""
     rng = np.random.default_rng(seed)
     n = phys * segments * reads_per_stream
     lens = rng.integers(1, hi, size=n)
     lens[3] = 0
     targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in lens]
     query = rng.integers(0, 4, size=128 // segments - 3).astype(np.int8)
+    if wrap:
+        targets[6] = targets[9] = query.copy()
     b = streams.pack_streams(query, targets, n_streams=phys * segments,
                              segments=segments, rows=rows)
     qk, sk = port._to_kernel_layout(_t(b.q), _t(b.stream), segments, rows)
@@ -133,6 +140,26 @@ def test_sliced_strip_equals_plain_strip(rows, segments, tail_acc):
     for label, starts in _boundaries(sk).items():
         got = sliced_outputs(qk, sk, pen, segments, rows, starts, tail_acc)
         np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=label)
+
+
+@pytest.mark.parametrize("rows,segments,tail_acc", [
+    (1, 1, True), (2, 2, True), (4, 4, True), (16, 1, True), (1, 1, False), (1, 4, False),
+])
+def test_sliced_biased_strip_equals_plain_strip(rows, segments, tail_acc):
+    """The slicing rule in W-bit wrap-parity (W = 8): a slice starts from
+    the bias, the same value a read's first char resets the state to, so
+    the handover rule holds unchanged, on read starts, inside reads and in
+    pad runs, with reads equal to the query that wrap."""
+    b, qk, sk = _batch(rows * 10 + segments + 7 * tail_acc + 500, segments, rows, wrap=True)
+    mode = dict(score_width=8)
+    want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, segments, rows, tail_acc,
+                                       **mode)
+    for label, starts in _boundaries(sk).items():
+        got = sliced_outputs(qk, sk, DEFAULT_PENALTIES, segments, rows, starts, tail_acc,
+                             **mode)
+        np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=label)
+    scores = streams.gather_stream_scores(want.t().numpy(), b)
+    assert scores[6] == scores[9] < 5 * (128 // segments - 3)  # wrapped
 
 
 @pytest.mark.parametrize(
@@ -190,10 +217,11 @@ def test_sliced_chain_equals_plain_chain(K, rows, penalties):
     T = sk.shape[0]
     tiles = []
 
-    def tile(qk, sk, bD, bG, bH, pen, r):
-        want = port.stream_chained_reference(qk, sk, bD, bG, bH, pen, r)
+    def tile(qk, sk, bD, bG, bH, pen, r, **mode):
+        want = port.stream_chained_reference(qk, sk, bD, bG, bH, pen, r, **mode)
         for slices in (3, T // port.STEP_CHUNK):
-            got = sliced_outputs(qk, sk, pen, 1, r, kernel_starts(T, slices), bounds=(bD, bG, bH))
+            got = sliced_outputs(qk, sk, pen, 1, r, kernel_starts(T, slices),
+                                 bounds=(bD, bG, bH), **mode)
             for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
                 np.testing.assert_array_equal(
                     g.numpy(), w.numpy(), err_msg=f"tile {len(tiles)} {name} {slices} slices")
@@ -204,6 +232,40 @@ def test_sliced_chain_equals_plain_chain(K, rows, penalties):
     assert len(tiles) == K
     np.testing.assert_array_equal(
         acc.numpy(), port._long_strip(_t(b.q), sk, penalties, rows).numpy())
+
+
+def test_sliced_biased_chain_equals_plain_chain():
+    """The slicing rule on a 4-tile chain at W = 12: every tile's four
+    biased strips, sliced, equal the unsliced plain tile's, and two reads
+    equal to the 450-base query wrap."""
+    rng = np.random.default_rng(600)
+    lens = rng.integers(1, 70, size=20)
+    lens[2] = 0
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in lens]
+    query = rng.integers(0, 4, size=450).astype(np.int8)
+    targets[1] = targets[6] = query.copy()
+    rows = 8
+    b = streams.pack_streams_long(query, targets, n_streams=4, rows=rows)
+    sk = _t(b.stream.T)
+    T = sk.shape[0]
+    tiles = []
+
+    def tile(qk, sk, bD, bG, bH, pen, r, **mode):
+        want = port.stream_chained_reference(qk, sk, bD, bG, bH, pen, r, **mode)
+        for slices in (3, T // port.STEP_CHUNK):
+            got = sliced_outputs(qk, sk, pen, 1, r, kernel_starts(T, slices),
+                                 bounds=(bD, bG, bH), **mode)
+            for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
+                np.testing.assert_array_equal(
+                    g.numpy(), w.numpy(), err_msg=f"tile {len(tiles)} {name} {slices} slices")
+        tiles.append(want)
+        return got
+
+    acc = port._long_strip(_t(b.q), sk, DEFAULT_PENALTIES, rows, tile=tile, score_width=12)
+    assert len(tiles) == 4
+    scores = port._gather_emissions(acc, _t(b.emit_stream), _t(b.emit_step), bias=1 << 11)
+    assert scores[1] == scores[6] < 5 * 450  # wrapped
+    assert scores[2] == 0
 
 
 def test_sliced_chain_tile_equals_swtpu_interpret():
