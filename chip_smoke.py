@@ -122,12 +122,13 @@ COLUMN_OPS = 9  # diag: max; s: 2; max(diag + s, 0); I: 2 max, + extend, add-max
 FUSED_ADD_MAX = ("int32", "int16")
 # the wavefront's state modes beside exact int32: (label, score width,
 # state dtype); the operations a cell they add to WAVEFRONT_OPS, counted
-# from stream_wavefront.cu: the biased M update is an add, an and, a
-# sign-bit test and a select where the exact one is one fused add-max (3
-# more); float32 unfuses M's and G's add-max (2 more), on the fp32 lanes
+# from stream_wavefront.cu: the biased M update is an add, an and and a
+# max (max(x & mask, zbit), the wrap and its sign-bit clamp) where the
+# exact one is one fused add-max (2 more); float32 unfuses M's and G's
+# add-max (2 more), on the fp32 lanes
 STATE_MODES = (("biased W=8", 8, "int32"), ("biased W=12", 12, "int32"),
                ("biased W=16", 16, "int32"), ("float32", None, "float32"))
-MODE_EXTRA_OPS = {"int32": 3, "float32": 2}  # biased int32; float32
+MODE_EXTRA_OPS = {"int32": 2, "float32": 2}  # biased int32; float32
 MAIN_MODES = (("biased W=12", 12, "int32"), ("float32", None, "float32"))
 MODE_DTYPES = {label: dtype for label, _, dtype in STATE_MODES}
 # E1 per element and op (fused, not fused; select is a compare and a

@@ -160,7 +160,10 @@ PAIR_STAGES = ("dedupe", "pack", "h2d", "layout", "kernel", "gather", "d2h", "to
 def pair_stages_ms(bank, queries, targets, reps):
     """Median ms of each stage of the CUDA pair-stream path over `reps`
     warm runs, each stage summed over the call's wavefront calls; and the
-    number of those calls."""
+    number of those calls.  The stages are a copy of
+    ScoreBank._score_pairs_stream's pipeline taken apart (exact int32 state,
+    no verify_integrity checks), so it must follow that method when it
+    changes."""
     import numpy as np
     import torch
     from swtpu_torch.bank.scorebank import stream_geometry

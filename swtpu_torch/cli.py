@@ -73,10 +73,6 @@ def cmd_score(args) -> int:
             f"--score-width requires the stream or column kernel: use "
             f"--backend stream/pallas (or auto), not {args.backend!r}"
         )
-    if args.score_width and not 2 <= args.score_width <= 30:
-        raise SystemExit(
-            f"--score-width {args.score_width} out of range (need 2..30)"
-        )
     if args.backend == "scan":
         raise SystemExit(
             "--backend scan is not ported yet (ROADMAP item 10: scan "
@@ -110,7 +106,10 @@ def cmd_score(args) -> int:
     t0 = time.perf_counter()
 
     def _run():
-        return bank.score_database(query, targets, event_log=event_log)
+        try:
+            return bank.score_database(query, targets, event_log=event_log)
+        except ValueError as e:  # a width or state the kernels refuse
+            return e
 
     if args.timeout > 0:
         # hard job deadline: report and exit non-zero instead of hanging
@@ -137,6 +136,8 @@ def cmd_score(args) -> int:
         res = _run()
     if event_log is not None:
         event_log.close()
+    if isinstance(res, ValueError):
+        raise SystemExit(str(res))
     out = open(args.output, "w") if args.output else sys.stdout
     try:
         _emit(out, names, res.scores, t0)

@@ -82,7 +82,8 @@
 //     (pallas_stream.py's biased_width): every value is biased by
 //     zbit = 2^(W-1), which is the boundary zero (initial state, segment
 //     heads, read starts), and only M wraps: M = (diag + s) & (2^W - 1),
-//     or zbit where that has its sign bit zbit clear.  I, G, D, H and the
+//     or zbit where that has its sign bit zbit clear, which is
+//     max((diag + s) & (2^W - 1), zbit).  I, G, D, H and the
 //     accumulator need no mask (the I/G chain cannot wrap: each cell's I
 //     has an M + open + extend candidate with M >= zbit).  B1 and B2 store
 //     acc - zbit (or H - zbit); B3 reads biased boundary strips and stores
@@ -144,10 +145,9 @@ struct Arith<kBiased> {
   __device__ explicit Arith(int width)
       : zbit(1 << (width - 1)), mask((1 << width) - 1) {}
   __device__ int zero() const { return zbit; }
-  __device__ int m(int x) const {
-    const int ms = x & mask;       // the W-bit adder's wrap
-    return (ms & zbit) ? ms : zbit;  // the sign-bit clamp
-  }
+  // the W-bit adder's wrap, then the sign-bit clamp: x & mask lies in
+  // [0, 2^W), so "ms if its sign bit zbit is set, else zbit" is max(ms, zbit)
+  __device__ int m(int x) const { return max(x & mask, zbit); }
   __device__ int emit(int x) const { return x - zbit; }
   __device__ int store(int x) const { return x; }
   __device__ int load(int x) const { return x; }

@@ -203,8 +203,9 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
         mask = (1 << score_width) - 1
 
         def m_update(x):
-            ms = x & mask  # the W-bit adder's wrap
-            return torch.where((ms & zbit) != 0, ms, zero)  # sign-bit clamp
+            # the W-bit adder's wrap, then the sign-bit clamp: x & mask lies
+            # in [0, 2^W), so "itself if bit zbit is set, else zbit" is a max
+            return torch.maximum(x & mask, zero)
 
     # B1/B2 write their strips unbiased; a chained tile (B3) writes biased
     # strips, and the chain unbiases at its gather
