@@ -20,11 +20,15 @@ Phases, each reported on its own line; any failure exits non-zero:
      wrap-parity at W = 8, 12 and 16 on reads that pass the ceiling and
      float32 state (whose strip must also equal int32's), and whole chains
      of K=2 and K=4 at W = 12 (the 512-base query's own reads wrap) and in
-     float32; on
+     float32; the 16-bit states (int16, uint16 at +5/0 and at +5/-4 with
+     no gap cost, bfloat16) in both forms at rows 1, 4 and 8 and over
+     whole K=2 chains at rows 8 (int16 and exact uint16 also equal to
+     int32; bfloat16 and wrapping uint16 must differ from it); on
      4,096 ragged pairs, the column kernel (B4) at query widths 8, 32, 136
-     and 256, exact and at score widths 12 and 10, and the chained column
-     tile (B5) over whole chains of K=2 and K=3, every tile's h/ms/is,
-     exact and at width 10; the lane-major kernel (B6) at 1 and 1,001
+     and 256, exact, at score widths 12 and 10 and in float32 and int16
+     state (those two also equal to int32), and the chained column tile
+     (B5) over whole chains of K=2 and K=3, every tile's h/ms/is, exact,
+     at width 10 and in float32 and int16; the lane-major kernel (B6) at 1 and 1,001
      pairs, query widths 1/40/128 and target widths 1/150/300; E1 for all
      16 (dtype, pattern) cases on its script's input at 2,000 steps (the
      table's shorter run); E2 for all 5 variants x 4 dtypes at 128
@@ -58,8 +62,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      sampled and 16 wrapping pairs to sw_score_single_biased; and
      score_database in the new modes: case (e) at width 12 equal to (e)'s
      exact scores, cases (a) and (d) with float32 state equal to their
-     int32 scores.  Each path's kernels' launch counters are set to 0
-     just before it and must have risen just after;
+     int32 scores; and at stream_rows=8 in int16 state on (c) and (e)
+     (the sample and top-10 against the oracle) and in bfloat16 (256
+     sampled reads against the plain path on the CPU).  Each path's
+     kernels' launch counters are set to 0 just before it and must have
+     risen just after;
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
@@ -77,7 +84,14 @@ Phases, each reported on its own line; any failure exits non-zero:
      in float32 against the int32 chain (every tile's four strips in full:
      float32 equal, W = 12 equal plus the bias, since no (d) score nears
      2^11), and each W = 12 tile against the plain version on its first
-     4096 steps; every mode timed beside int32;
+     4096 steps; every mode timed beside int32.  The 16-bit states at
+     rows 8 on (a)'s database and (d)'s chain: int16 and exact uint16
+     equal to int32 in full, each state's strip (tile 0) against the plain
+     version on the first 4096 steps (full run's and in 8 slices), timed
+     beside int32 at rows 8.  B4/B5 in float32 and int16 through
+     sw_scores_column on every (f) bucket and (g)'s chain (launch counters
+     set to 0 before each), equal to int32, timed beside it, and against
+     the plain version at the largest bucket and on tile 0;
   6. the shootout (experiments/torch_shootout.py's own functions) on
      65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
      its sizes, B4 == B6 on every pair and the wavefront == B4 on
@@ -91,7 +105,8 @@ Phases, each reported on its own line; any failure exits non-zero:
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, error, times and bound (the
 wavefront and the chained tile also with their slices and registers, and
-each state mode's time, bound, slices and registers at the main shape).
+each state mode's time, bound, slices and registers at the main shape,
+the 16-bit ones at rows 8).
 """
 
 from __future__ import annotations
@@ -131,6 +146,22 @@ STATE_MODES = (("biased W=8", 8, "int32"), ("biased W=12", 12, "int32"),
 MODE_EXTRA_OPS = {"int32": 2, "float32": 2}  # biased int32; float32
 MAIN_MODES = (("biased W=12", 12, "int32"), ("float32", None, "float32"))
 MODE_DTYPES = {label: dtype for label, _, dtype in STATE_MODES}
+# the wavefront's 16-bit states: (label, state dtype, penalties).  uint16
+# cannot hold a negative open or extend penalty (swtpu's OverflowError), so
+# it runs at mismatch 0 (exact) and at -4, which wraps every mismatch to
+# 65,532.  Their work a cell beside WAVEFRONT_OPS: none more for the
+# integer ones (a 16-bit add wraps by itself, and the packed 16x2 DPX
+# add-max fuses as int32's does); bfloat16 unfuses M's and G's add-max (2
+# more), as float32 does
+SIXTEEN_BIT = (("int16", "int16", (5, -4, -12, -4)), ("uint16", "uint16", (5, 0, 0, 0)),
+               ("uint16 wrap", "uint16", (5, -4, 0, 0)),
+               ("bfloat16", "bfloat16", (5, -4, -12, -4)))
+SIXTEEN_EXTRA_OPS = {"int16": 0, "uint16": 0, "bfloat16": 2}
+MODE_DTYPES_16 = {label: dtype for label, dtype, _ in SIXTEEN_BIT}
+SIXTEEN_ROWS = 8  # the 16-bit states' main-shape rows: swtpu refuses rows 16 with them
+# (segments, rows, tail accumulator) of their checks at phase 3's shapes
+SIXTEEN_CHECKS = ((1, 8, True), (2, 8, True), (4, 4, True), (1, 1, True), (1, 1, False),
+                  (4, 1, False))
 # E1 per element and op (fused, not fused; select is a compare and a
 # predicated add); the step's floor modulo adds 3 per element
 E1_OPS = {"addmax": (1, 2), "select": (2, 2), "roll_lane": (1, 2), "roll_sub": (1, 2)}
@@ -159,7 +190,7 @@ def e2_ops(variant, dtype):
 # the card's elementwise results per clock per SM: 64 int32 lanes; 128
 # fp32 lanes; two 16-bit results per 32-bit lane (int16 on the integer
 # lanes, bfloat16 on the fp32 lanes), whatever layout a kernel chose
-LANES_PER_SM = {"int32": 64, "int16": 128, "float32": 128, "bfloat16": 256}
+LANES_PER_SM = {"int32": 64, "int16": 128, "uint16": 128, "float32": 128, "bfloat16": 256}
 
 
 class Peaks:
@@ -241,11 +272,12 @@ def long_batch(query, db, rows, phys):
     return torch.from_numpy(b.q).cuda(), torch.from_numpy(b.stream.T.copy()).cuda()
 
 
-def run_chain(q, sk, rows, tile, **mode):
-    """The long-query chain (``_long_strip``) in the state `mode`
-    (score_width, state_dtype) with `tile` running each tile; returns its
-    last accumulator strip and every tile's (inputs, outputs); a tile's
-    inputs are the positional arguments of `tile`, which runs in `mode`."""
+def run_chain(q, sk, rows, tile, penalties=None, **mode):
+    """The long-query chain (``_long_strip``) at `penalties` (None: the
+    default ones) in the state `mode` (score_width, state_dtype) with
+    `tile` running each tile; returns its last accumulator strip and every
+    tile's (inputs, outputs); a tile's inputs are the positional arguments
+    of `tile`, which runs in `mode`."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.stream import _long_strip
 
@@ -256,7 +288,8 @@ def run_chain(q, sk, rows, tile, **mode):
         tiles.append((args, outs))
         return outs
 
-    return _long_strip(q, sk, DEFAULT_PENALTIES, rows, tile=record, **mode), tiles
+    return _long_strip(q, sk, penalties or DEFAULT_PENALTIES, rows, tile=record,
+                       **mode), tiles
 
 
 def make_db(rng, n, lo, hi):
@@ -1071,6 +1104,254 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
     return a, d
 
 
+def phase_16bit_vs_plain(rng):
+    """The wavefront in each 16-bit state (SIXTEEN_BIT) against its plain
+    version, bit for bit, at 512 physical streams on reads of which every
+    COPY_EVERY-th is the query (bfloat16 rounds those below their exact
+    score; uint16 wrap sends every read with a mismatch past 65,531): both
+    forms at rows 1, and rows 4 and 8 (the 16-bit states refuse 16); then
+    whole K = 2 chains at rows 8, every tile's four strips and the last
+    accumulator.  int16 and exact uint16 must also equal the int32 kernel
+    at the same penalties, and bfloat16 too where no score can pass 256;
+    otherwise bfloat16 and wrapping uint16 must differ from it."""
+    import numpy as np
+    from swtpu_torch import Penalties
+    from swtpu_torch.ops.stream import (
+        _long_strip, stream_chained_cuda, stream_chained_reference, stream_strip_cuda,
+        stream_strip_reference,
+    )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    def exact_or_not(name, label, got, exact, qlen):
+        """int16 and exact uint16 equal int32; so does bfloat16 while no
+        score passes 256 (a query of 32 bases tops out at 160); past it
+        bfloat16 rounds, and wrapping uint16 always wraps."""
+        if label in ("int16", "uint16") or (label == "bfloat16" and 5 * qlen <= 256):
+            return strip_error(name, got, exact, (label, "int32"))
+        if not (got != exact).any():
+            fail(f"{name}: equal to the int32 strip, so nothing rounded or wrapped")
+        return 0
+
+    strips, chains = [], []
+    S = MODE_STREAMS
+    for seg, rows, tail_acc in SIXTEEN_CHECKS:
+        query = rng.integers(0, 4, size=128 // seg).astype(np.int8)
+        db = with_copies(make_db(rng, S * seg * 4, 24, 256), query, COPY_EVERY)
+        qk, sk = laid_out_batch(query, db, seg, rows, S)
+        form = "tail-acc" if tail_acc else "ripple-H"
+        for label, dtype, pen in SIXTEEN_BIT:
+            args = (qk, sk, Penalties(*pen), seg, rows, tail_acc)
+            got = stream_strip_cuda(*args, state_dtype=dtype)
+            want, plain_ms = cuda_once(lambda: stream_strip_reference(*args, state_dtype=dtype))
+            name = f"{label} {form} seg={seg} rows={rows}"
+            exact = stream_strip_cuda(*args)
+            err = max(strip_error(name, got, want),
+                      exact_or_not(name, label, got, exact, len(query)))
+            ms = cuda_ms(lambda: stream_strip_cuda(*args, state_dtype=dtype), 10)
+            int32_ms = cuda_ms(lambda: stream_strip_cuda(*args), 10)
+            T, N = sk.shape
+            strips.append(dict(mode=label, form=form, segments=seg, rows=rows, T=T, N=N,
+                               differ_from_int32=int((got != exact).sum()), max_abs_err=err,
+                               ms=ms, int32_ms=int32_ms, plain_ms=plain_ms))
+        print(f"phase kernel_vs_plain: ok 16-bit {form} seg={seg} rows={rows} strip "
+              f"[{T}, {N}] bit-equal in " + ", ".join(
+                  f"{r['mode']} ({r['differ_from_int32']} cells off int32; kernel "
+                  f"{r['ms']:.4f} ms, int32 {r['int32_ms']:.4f}, plain {r['plain_ms']:.1f})"
+                  for r in strips[-len(SIXTEEN_BIT):]), flush=True)
+    rows = SIXTEEN_ROWS
+    query = rng.integers(0, 4, size=256).astype(np.int8)
+    db = with_copies(make_db(rng, S * 4, 24, 256), query, COPY_EVERY)
+    q, sk = long_batch(query, db, rows, S)
+    for label, dtype, pen in SIXTEEN_BIT:
+        pen = Penalties(*pen)
+        exact, _ = run_chain(q, sk, rows, stream_chained_cuda, pen)
+        acc, tiles = run_chain(q, sk, rows, stream_chained_cuda, pen, state_dtype=dtype)
+        (want, want_tiles), plain_ms = cuda_once(
+            lambda: run_chain(q, sk, rows, stream_chained_reference, pen, state_dtype=dtype))
+        name = f"{label} chain K=2 rows={rows}"
+        err = max(strip_error(f"{name} last acc", acc, want),
+                  exact_or_not(name, label, acc, exact, len(query)))
+        for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
+            for strip, g, w in zip(STRIPS, outs, wouts):
+                err = max(err, strip_error(f"{name} tile {p} {strip}", g, w))
+        ms = cuda_ms(lambda: _long_strip(q, sk, pen, rows, state_dtype=dtype), 5)
+        int32_ms = cuda_ms(lambda: _long_strip(q, sk, pen, rows), 5)
+        T, N = sk.shape
+        chains.append(dict(mode=label, tiles=2, rows=rows, T=T, N=N,
+                           differ_from_int32=int((acc != exact).sum()), max_abs_err=err,
+                           ms=ms, int32_ms=int32_ms, plain_ms=plain_ms))
+    print(f"phase kernel_vs_plain: ok 16-bit chain K=2 rows={rows} strips [{T}, {N}] "
+          f"bit-equal (last acc + 4 per tile) in " + ", ".join(
+              f"{r['mode']} ({r['differ_from_int32']} cells off int32; chain {r['ms']:.4f} "
+              f"ms, int32 {r['int32_ms']:.4f}, plain {r['plain_ms']:.1f})" for r in chains),
+          flush=True)
+    return strips, chains
+
+
+def phase_16bit_at_main_shape(case_a, case_d):
+    """The 16-bit states at the main shapes, at rows SIXTEEN_ROWS: (a)'s
+    database laid out at segments 1, and (d)'s chain.  Each state's kernel
+    over the full strip (every tile of (d), four strips), int16 and exact
+    uint16 equal to the int32 kernel at rows 8 and the same penalties; then
+    the first CHECK_STEPS steps against the plain version, the full run's
+    and a run of the cut in CUT_SLICES slices ((d): tile 0, on its own
+    chain's inputs).  Each timed beside int32 at rows 8, in turns."""
+    from swtpu_torch import DEFAULT_PENALTIES, Penalties
+    from swtpu_torch.ops.stream import (
+        stream_chained_cuda, stream_chained_reference, stream_kernel_info,
+        stream_strip_cuda, stream_strip_reference,
+    )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    n, rows = CHECK_STEPS, SIXTEEN_ROWS
+    qk, sk = laid_out_batch(case_a["query"], case_a["db"], 1, rows, MODE_STREAMS)
+    a = dict(name=case_a["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={})
+    cut = sk[:n].contiguous()
+    err = 0
+    for label, dtype, pen in SIXTEEN_BIT:
+        pen = Penalties(*pen)
+        got = stream_strip_cuda(qk, sk, pen, 1, rows, state_dtype=dtype)
+        slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
+        if label in ("int16", "uint16"):
+            err = max(err, strip_error(f"(a) rows {rows} {label} full strip", got,
+                                       stream_strip_cuda(qk, sk, pen, 1, rows),
+                                       (label, "int32")))
+        want, plain_ms = cuda_once(
+            lambda: stream_strip_reference(qk, cut, pen, 1, rows, state_dtype=dtype))
+        got_cut = stream_strip_cuda(qk, cut, pen, 1, rows, slices=CUT_SLICES, state_dtype=dtype)
+        err = max(err, strip_error(f"(a) rows {rows} {label} first {n} steps", got[:n], want),
+                  strip_error(f"(a) rows {rows} {label} first {n} steps in {CUT_SLICES} "
+                              "slices", got_cut, want))
+        regs, _, blocks = stream_kernel_info(rows, state_dtype=dtype)
+        a["modes"][label] = dict(
+            state_dtype=dtype, penalties=list(pen.astuple()), slices=slices,
+            slice_steps=steps, registers=regs, resident_blocks_per_sm=blocks,
+            plain_ms=plain_ms, differ_from_int32=int((got != stream_strip_cuda(
+                qk, sk, pen, 1, rows)).sum()))
+        del got, want, got_cut
+    int32_first = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, rows), 3)
+    for label, dtype, pen in SIXTEEN_BIT:
+        a["modes"][label]["ms"] = cuda_ms(
+            lambda: stream_strip_cuda(qk, sk, Penalties(*pen), 1, rows, state_dtype=dtype), 3)
+    a["int32_ms"] = (int32_first + cuda_ms(
+        lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, rows), 3)) / 2
+    regs, _, _ = stream_kernel_info(rows)
+    a.update(int32_registers=regs, max_abs_err=err, check_steps=n)
+    print(f"phase 16bit_main_shape: ok {a['name']} seg=1 rows={rows} strip [{a['T']}, "
+          f"{a['N']}]: int16 and uint16 = the int32 kernel (full strip), every state = the "
+          f"plain version on the first {n} steps (full run's and in {CUT_SLICES} slices) | "
+          f"kernel int32 {a['int32_ms']:.3f} ms, " + ", ".join(
+              f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
+              f"plain {v['plain_ms']:.1f} ms)" for k, v in a["modes"].items()), flush=True)
+    del qk, sk, cut
+
+    q, sk = long_batch(case_d["query"], case_d["db"], rows, MODE_STREAMS)
+    d = dict(name=case_d["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={})
+    err = 0
+    inputs = {}
+    for label, dtype, pen in SIXTEEN_BIT:
+        pen = Penalties(*pen)
+        _, tiles = run_chain(q, sk, rows, stream_chained_cuda, pen, state_dtype=dtype)
+        slices, steps = stream_chained_cuda.slices, stream_chained_cuda.slice_steps
+        if label in ("int16", "uint16"):
+            _, exact = run_chain(q, sk, rows, stream_chained_cuda, pen)
+            for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, exact)):
+                for strip, g, w in zip(STRIPS, outs, wouts):
+                    err = max(err, strip_error(f"(d) rows {rows} {label} tile {p} {strip}",
+                                               g, w, (label, "int32")))
+            del exact
+        args, outs = tiles[0]
+        qk0, _, bD, bG, bH, _, r = args
+        cutin = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
+        want, plain_ms = cuda_once(lambda: stream_chained_reference(
+            qk0, *cutin, pen, r, state_dtype=dtype))
+        got_cut = stream_chained_cuda(qk0, *cutin, pen, r, slices=CUT_SLICES, state_dtype=dtype)
+        for strip, g, gc, w in zip(STRIPS, outs, got_cut, want):
+            label_n = f"(d) rows {rows} {label} tile 0 {strip} first {n} steps"
+            err = max(err, strip_error(label_n, g[:n], w),
+                      strip_error(f"{label_n} in {CUT_SLICES} slices", gc, w))
+        regs, _, blocks = stream_kernel_info(rows, chained=True, state_dtype=dtype)
+        d["modes"][label] = dict(state_dtype=dtype, penalties=list(pen.astuple()),
+                                 slices=slices, slice_steps=steps, registers=regs,
+                                 resident_blocks_per_sm=blocks, plain_ms=plain_ms)
+        inputs[label] = (args, dtype)
+        del tiles, outs, want, got_cut
+    _, tiles = run_chain(q, sk, rows, stream_chained_cuda)
+    int32_args = tiles[0][0]
+    del tiles
+    int32_first = cuda_ms(lambda: stream_chained_cuda(*int32_args), 3)
+    for label, (args, dtype) in inputs.items():
+        d["modes"][label]["ms"] = cuda_ms(
+            lambda: stream_chained_cuda(*args, state_dtype=dtype), 3)
+    d["int32_ms"] = (int32_first + cuda_ms(lambda: stream_chained_cuda(*int32_args), 3)) / 2
+    regs, _, _ = stream_kernel_info(rows, chained=True)
+    d.update(int32_registers=regs, max_abs_err=err, check_steps=n)
+    print(f"phase 16bit_main_shape: ok {d['name']} rows={rows} strips [{d['T']}, {d['N']}]: "
+          f"int16 and uint16 = the int32 chain (4 strips of every tile, full length), every "
+          f"state's tile 0 = the plain version on the first {n} steps (full run's and in "
+          f"{CUT_SLICES} slices) | tile 0 kernel int32 {d['int32_ms']:.3f} ms, " + ", ".join(
+              f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
+              f"plain {v['plain_ms']:.1f} ms)" for k, v in d["modes"].items()), flush=True)
+    return a, d
+
+
+BF16_SAMPLE = 256  # reads of a bfloat16 bank run held against the plain path
+
+
+def phase_16bit_databases(card, case_c, case_e):
+    """ScoreBank(stream_state_dtype=..., stream_rows=SIXTEEN_ROWS,
+    device="cuda").score_database on case (c)'s database and (e)'s long
+    query, each path's launch counters set to 0 just before it: int16's
+    seeded sample of 2048 reads and top-10 against the oracle; bfloat16's
+    first BF16_SAMPLE sampled reads against the port's plain path on the
+    CPU on those reads (a bfloat16 score does not depend on rows or on the
+    stream a read rides)."""
+    import numpy as np
+    from swtpu_torch import SWConfig, ScoreBank
+
+    out = []
+    for dtype in ("int16", "bfloat16"):
+        cfg = SWConfig(stream_state_dtype=dtype, stream_rows=SIXTEEN_ROWS)
+        for c, want_launches in ((case_c, (4, 0)), (case_e, (0, 16))):
+            name = f"{c['name'][0]}_{dtype}_rows{SIXTEEN_ROWS}"
+            bank = ScoreBank(cfg, device="cuda")
+            (res, wall, walls, peak), launched = launches_of(
+                lambda: timed_runs(name, lambda: bank.score_database(c["query"], c["db"])))
+            if launched != want_launches:
+                fail(f"{name}: (wavefront, chained) launched {launched} times in 4 calls, "
+                     f"want {want_launches}")
+            if dtype == "int16":
+                check_oracle(name, res, c["query"], c["db"], c["sample"], c["oracle"])
+                held = f"sample {len(c['sample'])} + top-10 = oracle"
+            else:
+                sample = c["sample"][:BF16_SAMPLE]
+                t0 = time.perf_counter()
+                want = ScoreBank(cfg, device="cpu").score_database(
+                    c["query"], [c["db"].read(i) for i in sample]).scores
+                plain_s = time.perf_counter() - t0
+                if not np.array_equal(res.scores[sample], want):
+                    k = int(np.flatnonzero(res.scores[sample] != want)[0])
+                    fail(f"{name}: read {sample[k]} scored {res.scores[sample[k]]}, the "
+                         f"plain path on the CPU {want[k]}")
+                held = (f"{BF16_SAMPLE} sampled = the plain path on the CPU "
+                        f"({plain_s:.1f} s)")
+            below = int((res.scores < c["scores"]).sum())
+            if dtype == "int16" and below:
+                fail(f"{name}: {below} reads below the int32 scores")
+            gcups = res.cells / wall / 1e9
+            print(f"phase main_path: ok {name} reads={len(c['db'].lens)} launches "
+                  f"wavefront={launched[0]} chained={launched[1]} peak device memory "
+                  f"{peak:.2f} GB | {held}; {below} reads below the exact scores | wall "
+                  f"median of 3 {wall*1e3:.2f} ms (runs "
+                  f"{', '.join(f'{w*1e3:.2f}' for w in walls)}; int32 rows 16 "
+                  f"{c['wall_s']*1e3:.2f}) -> {gcups:.2f} GCUPS on {card}", flush=True)
+            out.append(dict(name=name, case=c["name"], state_dtype=dtype, rows=SIXTEEN_ROWS,
+                            cells=res.cells, wall_s=wall, int32_wall_s=c["wall_s"],
+                            gcups=gcups, launches=list(launched), peak_gb=peak,
+                            below_exact=below))
+    return out
+
+
 COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
 # the bucketed column path's cases beside (g), which reuses case (e):
 # (name, reads or pairs, length range, query length or score width)
@@ -1100,9 +1381,10 @@ def column_batch(rng, B, m, n):
     return torch.from_numpy(q).cuda(), torch.from_numpy(t).cuda()
 
 
-def run_column_chain(q, t, width, tile):
-    """The chained column path (``_chained_call``) with `tile` running
-    each tile; returns its scores and every tile's (inputs, outputs)."""
+def run_column_chain(q, t, width, tile, state_dtype="int32"):
+    """The chained column path (``_chained_call``) in `state_dtype` with
+    `tile` running each tile; returns its scores and every tile's (inputs,
+    outputs)."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.column import _chained_call
 
@@ -1113,7 +1395,8 @@ def run_column_chain(q, t, width, tile):
         tiles.append((args, outs))
         return outs
 
-    return _chained_call(q, t, DEFAULT_PENALTIES, width, tile=record), tiles
+    return _chained_call(q, t, DEFAULT_PENALTIES, width, tile=record,
+                         state_dtype=state_dtype), tiles
 
 
 def check_column_tiles(label, tiles, want_tiles) -> int:
@@ -1124,9 +1407,20 @@ def check_column_tiles(label, tiles, want_tiles) -> int:
     return err
 
 
+# the column kernels' state modes: (score width, state dtype); float32 and
+# int16 carry the exact state, so their scores must also equal int32's
+COLUMN_MODES = ((None, "int32"), (12, "int32"), (10, "int32"), (None, "float32"),
+                (None, "int16"))
+COLUMN_EXACT_STATES = ("float32", "int16")
+# their operations a cell beside COLUMN_OPS: float32 unfuses the M update's
+# and the I chain's add-max (2 more); int16 none (its add wraps by itself)
+COLUMN_EXTRA_OPS = {"float32": 2, "int16": 0}
+
+
 def phase_column_vs_plain(rng, B=4096, n=256):
     """B4 at each rows-per-lane and B5 over whole chains against their
-    plain versions on B ragged pairs of n target columns."""
+    plain versions on B ragged pairs of n target columns, in each state
+    mode; float32 and int16 also against the int32 kernel."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.column import (
         QUERY_TILE, column_chained_cuda, column_chained_reference,
@@ -1136,35 +1430,46 @@ def phase_column_vs_plain(rng, B=4096, n=256):
 
     scores, chains = [], []
     for m in (8, 32, 136, 256):
-        for width in (None, 12, 10):
-            q, t = column_batch(rng, B, m, n)
-            args = (q, t, DEFAULT_PENALTIES, width)
+        for width, dtype in COLUMN_MODES:
+            if dtype == "int32":  # an exact state runs on the pairs of the mode before
+                q, t = column_batch(rng, B, m, n)
+            args = (q, t, DEFAULT_PENALTIES, width, dtype)
             got = column_scores_cuda(*args)
             want, plain_ms = cuda_once(lambda: column_scores_reference(*args))
-            err = strip_error(f"column m={m} width={width}", got, want)
+            label = f"column m={m} width={width}" + (f" {dtype}" if dtype != "int32" else "")
+            err = strip_error(label, got, want)
+            if dtype in COLUMN_EXACT_STATES:
+                err = max(err, strip_error(label, got, column_scores_cuda(q, t),
+                                           (dtype, "int32")))
             ms = cuda_ms(lambda: column_scores_cuda(*args), 10)
-            print(f"phase kernel_vs_plain: ok column m={m} width={width} [{B} pairs, "
-                  f"{n} columns] bit-equal | kernel {ms:.4f} ms, plain "
+            print(f"phase kernel_vs_plain: ok {label} [{B} pairs, {n} columns] bit-equal"
+                  f"{' (= int32)' if dtype != 'int32' else ''} | kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.1f} ms")
-            scores.append(dict(m=m, n=n, B=B, score_width=width, max_abs_err=err,
-                               ms=ms, plain_ms=plain_ms))
+            scores.append(dict(m=m, n=n, B=B, score_width=width, state_dtype=dtype,
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms))
     for K in (2, 3):
-        for width in (None, 10):
-            q, t = column_batch(rng, B, K * QUERY_TILE, n)
-            got, tiles = run_column_chain(q, t, width, column_chained_cuda)
+        for width, dtype in ((None, "int32"), (10, "int32"), (None, "float32"),
+                             (None, "int16")):
+            if dtype == "int32":
+                q, t = column_batch(rng, B, K * QUERY_TILE, n)
+            got, tiles = run_column_chain(q, t, width, column_chained_cuda, dtype)
             (want, want_tiles), plain_ms = cuda_once(
-                lambda: run_column_chain(q, t, width, column_chained_reference)
+                lambda: run_column_chain(q, t, width, column_chained_reference, dtype)
             )
-            label = f"column chain K={K} width={width}"
+            label = f"column chain K={K} width={width}" + (
+                f" {dtype}" if dtype != "int32" else "")
             err = max(strip_error(f"{label} scores", got, want),
                       check_column_tiles(label, tiles, want_tiles))
-            ms = cuda_ms(lambda: run_column_chain(q, t, width, column_chained_cuda), 5)
+            if dtype in COLUMN_EXACT_STATES:
+                exact, _ = run_column_chain(q, t, None, column_chained_cuda)
+                err = max(err, strip_error(f"{label} scores", got, exact, (dtype, "int32")))
+            ms = cuda_ms(lambda: run_column_chain(q, t, width, column_chained_cuda, dtype), 5)
             tile_ms = cuda_ms(lambda: column_chained_cuda(*tiles[0][0]), 10)
             print(f"phase kernel_vs_plain: ok {label} [{B} pairs, {n} columns] "
                   f"scores + h/ms/is of every tile bit-equal | chain {ms:.4f} ms "
                   f"(kernel {tile_ms:.4f} ms per tile), plain chain {plain_ms:.1f} ms")
-            chains.append(dict(tiles=K, n=n, B=B, score_width=width, max_abs_err=err,
-                               ms=ms, tile_ms=tile_ms, plain_ms=plain_ms))
+            chains.append(dict(tiles=K, n=n, B=B, score_width=width, state_dtype=dtype,
+                               max_abs_err=err, ms=ms, tile_ms=tile_ms, plain_ms=plain_ms))
     return scores, chains
 
 
@@ -1357,6 +1662,79 @@ def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
                 chain_ms=chain_ms, stream_chain_ms_e=e_chain_ms, ms=ms,
                 plain_ms=plain_ms)
     return batches, tile
+
+
+def phase_column_states(bank, f_case, g_case):
+    """The column kernels' exact float32 and int16 states at the main
+    shapes, through sw_scores_column(state_dtype=...), the entry that takes
+    them (ScoreBank keeps int32, as swtpu's does): every bucket batch of
+    (f) and (g)'s chain, each path's launch counters set to 0 just before
+    it and read just after; every score equal to the int32 kernel's, every
+    (g) tile's h/ms/is too.  B4 at each bucket and B5 at each tile timed
+    beside int32; the plain version in each state at (f)'s largest bucket
+    and on (g)'s tile 0, bit-equal to the kernel."""
+    from swtpu_torch.ops.column import (
+        column_chained_cuda, column_chained_reference, column_scores_cuda,
+        column_scores_reference, sw_scores_column,
+    )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    batches = list(column_batches(bank, f_case["query"], f_case["db"]))
+    exact = [column_scores_cuda(q, t) for q, t in batches]
+    f = dict(name=f_case["name"], buckets=[t.shape[1] for _, t in batches], modes={})
+    (gq, gt), = column_batches(bank, g_case["query"], g_case["db"])
+    g_exact, g_tiles = run_column_chain(gq, gt, None, column_chained_cuda)
+    g = dict(name=g_case["name"], tiles=len(g_tiles), modes={})
+    err = 0
+    for dtype in COLUMN_EXACT_STATES:
+        column_scores_cuda.launches = column_chained_cuda.launches = 0
+        got = [sw_scores_column(q, t, state_dtype=dtype) for q, t in batches]
+        launched = column_scores_cuda.launches, column_chained_cuda.launches
+        if launched != (len(batches), 0):
+            fail(f"{f['name']} {dtype}: (B4, B5) launched {launched} times, want "
+                 f"({len(batches)}, 0)")
+        for (q, t), x, w in zip(batches, got, exact):
+            err = max(err, strip_error(f"{f['name']} {dtype} bucket {t.shape[1]}", x, w,
+                                       (dtype, "int32")))
+        q, t = batches[-1]
+        want, plain_ms = cuda_once(lambda: column_scores_reference(q, t, state_dtype=dtype))
+        err = max(err, strip_error(f"{f['name']} {dtype} bucket {t.shape[1]}", got[-1], want))
+        f["modes"][dtype] = dict(launches=launched[0], plain_ms=plain_ms, ms=[
+            cuda_ms(lambda: column_scores_cuda(q, t, state_dtype=dtype), 5) for q, t in batches])
+        del got
+
+        column_scores_cuda.launches = column_chained_cuda.launches = 0
+        scores = sw_scores_column(gq, gt, state_dtype=dtype)
+        launched = column_scores_cuda.launches, column_chained_cuda.launches
+        if launched != (0, len(g_tiles)):
+            fail(f"{g['name']} {dtype}: (B4, B5) launched {launched} times, want "
+                 f"(0, {len(g_tiles)})")
+        err = max(err, strip_error(f"{g['name']} {dtype} scores", scores, g_exact,
+                                   (dtype, "int32")))
+        _, tiles = run_column_chain(gq, gt, None, column_chained_cuda, dtype)
+        for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, g_tiles)):
+            for name, x, w in zip(COLUMN_OUTS, outs, wouts):
+                err = max(err, strip_error(f"{g['name']} {dtype} tile {p} {name}", x, w,
+                                           (dtype, "int32")))
+        args, outs = tiles[0]
+        want, plain_ms = cuda_once(lambda: column_chained_reference(*args))
+        err = max(err, check_column_tiles(f"{g['name']} {dtype}", [(args, outs)],
+                                          [(args, want)]))
+        g["modes"][dtype] = dict(launches=launched[1], plain_ms=plain_ms, ms=[
+            cuda_ms(lambda: column_chained_cuda(*a), 5) for a, _ in tiles])
+        del tiles, outs, want
+    f["int32_ms"] = [cuda_ms(lambda: column_scores_cuda(q, t), 5) for q, t in batches]
+    g["int32_ms"] = [cuda_ms(lambda: column_chained_cuda(*a), 5) for a, _ in g_tiles]
+    f["max_abs_err"] = g["max_abs_err"] = err
+    for c, what in ((f, "bucket"), (g, "tile")):
+        print(f"phase column_states: ok {c['name']} float32 and int16 = int32 (every score"
+              f"{', and h/ms/is of every tile' if c is g else ''}), = the plain version at "
+              f"{'the largest bucket' if c is f else 'tile 0'} | kernel per {what} int32 "
+              f"{', '.join(f'{x:.3f}' for x in c['int32_ms'])} ms; " + "; ".join(
+                  f"{k} {', '.join(f'{x:.3f}' for x in v['ms'])} ms (plain "
+                  f"{v['plain_ms']:.1f} ms, launches {v['launches']})"
+                  for k, v in c["modes"].items()), flush=True)
+    return f, g
 
 
 LANE_CHECKS = ((1, 1001), (1, 40, 128), (1, 150, 300))  # pairs, query and target widths
@@ -1576,6 +1954,8 @@ def main() -> int:
     chains = phase_chained_vs_plain(rng_long)
     mode_checks = phase_modes_vs_plain(rng_modes)
     chain_mode_checks = phase_chain_modes_vs_plain(rng_modes)
+    rng_16 = np.random.default_rng([args.seed, 6])  # the 16-bit states' own
+    checks_16, chains_16 = phase_16bit_vs_plain(rng_16)
     col_checks, col_chains = phase_column_vs_plain(rng_col)
     lane_checks = phase_lane_vs_plain(rng_lane)
     e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
@@ -1595,6 +1975,7 @@ def main() -> int:
         fail("the long-query path never launched the chained kernel")
     pair_cases = phase_pairs_path(rng_modes, card)
     mode_dbs = phase_mode_databases(card, cases, long_cases)
+    dbs_16 = phase_16bit_databases(card, cases[2], long_cases[1])
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
 
     column_scores_cuda.launches = column_chained_cuda.launches = 0
@@ -1607,8 +1988,10 @@ def main() -> int:
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
+    a_16, d_16 = phase_16bit_at_main_shape(cases[0], long_cases[0])
     col_batches, col_tile = phase_column_at_main_shape(
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
+    f_states, g_states = phase_column_states(col_bank, col_cases[0], col_cases[1])
     lane, b2, e2_full = phase_shootout(card, args.seed)
     e1_table, e2_table, (e1_launches, e2_launches) = phase_microbench(card)
     head = mains[0]  # case (a): the headline shape, segments 1, rows 16
@@ -1648,6 +2031,17 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S3 + T3 * row["N"] * 5,
             128 * T3 * S3 * (WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]), LANES_PER_SM[dtype])
+    for row in checks_16:  # the same, with the 16-bit state's operations and lanes
+        S3, T3, dtype = row["N"] // row["segments"], row["T"], MODE_DTYPES_16[row["mode"]]
+        row["bound_ms"], row["bound_by"] = peaks.bound(
+            128 * S3 + T3 * row["N"] * 5,
+            128 * T3 * S3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]), LANES_PER_SM[dtype])
+    for row in chains_16:  # every tile of the chain: a chained tile's bytes
+        T3, N3, K3, dtype = row["T"], row["N"], row["tiles"], MODE_DTYPES_16[row["mode"]]
+        row["bound_ms"], row["bound_by"] = peaks.bound(
+            K3 * (128 * N3 + T3 * N3 * (1 + 12 + 16)),
+            K3 * 128 * T3 * N3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]),
+            LANES_PER_SM[dtype])
     b_e1 = e1_head["bound_ms"], e1_head["bound_by"]
     b_e2 = e2_head["bound_ms"], e2_head["bound_by"]
     for row in e1_table:  # the least time of one op over the array: card, its SMs
@@ -1681,10 +2075,46 @@ def main() -> int:
                                plain_ms=plain[label], plain_note=plain_note)
         return rows
 
+    def rows_16bit(at, bound_of):
+        """Each 16-bit state at a main shape (rows 8): its time beside
+        int32's at rows 8 in the same call, its bound with the state's
+        operations on its lanes, its share of the bound, slices, registers
+        and the plain version's time on the first CHECK_STEPS steps."""
+        rows = {}
+        for label, dtype, _ in SIXTEEN_BIT:
+            b = bound_of(WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
+            m = at["modes"][label]
+            rows[label] = dict(m, int32_ms=at["int32_ms"], bound_ms=b[0], bound_by=b[1],
+                               bound_share=b[0] / m["ms"], rows=at["rows"],
+                               plain_note=f"the first {at['check_steps']} steps")
+        return rows
+
+    def column_states(at, bound_of):
+        """The column kernels' float32 and int16 states at a main shape:
+        time per batch beside int32's, the bound at the plain version's
+        shape ((f)'s largest bucket, (g)'s tile 0) with the state's
+        operations on its lanes, and the plain version's time there."""
+        rows = {}
+        for dtype in COLUMN_EXACT_STATES:
+            b = bound_of(COLUMN_OPS + COLUMN_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
+            rows[dtype] = dict(at["modes"][dtype], int32_ms=at["int32_ms"], bound_ms=b[0],
+                               bound_by=b[1])
+        return rows
+
+    T8, N8 = a_16["T"], a_16["N"]
+    modes_a16 = rows_16bit(a_16, lambda ops, lanes: peaks.bound(
+        128 * N8 + T8 * N8 * 5, 128 * T8 * N8 * ops, lanes))
+    Td, Nd = d_16["T"], d_16["N"]
+    modes_d16 = rows_16bit(d_16, lambda ops, lanes: peaks.bound(
+        128 * Nd + Td * Nd * (1 + 12 + 16), 128 * Td * Nd * ops, lanes))
+    modes_f = column_states(f_states, lambda ops, lanes: peaks.bound(
+        B * (m + n + 4), B * m * n * ops, lanes))
+    modes_g = column_states(g_states, lambda ops, lanes: peaks.bound(
+        Bt * (256 + nt + 8 + 16 * nt), Bt * 256 * nt * ops, lanes))
     # per path, (wavefront, chained) launches on the main path: the exact
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
-               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs}}
+               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16}}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -1706,10 +2136,12 @@ def main() -> int:
     kernels = [
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches_total[0],
-              max(c["max_abs_err"] for c in checks + mains + [b2] + mode_checks + [mode_a]),
+              max(c["max_abs_err"] for c in checks + mains + [b2] + mode_checks + [mode_a]
+                  + checks_16 + [a_16]),
               head["ms"], head["plain_ms"], b_wave,
               launches_by_path={k: v[0] for k, v in by_path.items()},
-              modes=modes_a, mode_configs=mode_checks,
+              modes=modes_a, mode_configs=mode_checks, modes_16bit=modes_a16,
+              configs_16bit=checks_16,
               also_replaces="swtpu/ops/pallas_stream.py:57 (tail-accumulator and "
                             "ripple-H forms)",
               shape=[head["T"], head["N"]], slices=head["slices"],
@@ -1719,10 +2151,11 @@ def main() -> int:
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:314", launches_total[1],
               max(c["max_abs_err"] for c in chains + long_mains + chain_mode_checks
-                  + [mode_d]),
+                  + [mode_d] + chains_16 + [d_16]),
               lhead["tile_ms"][0], lhead["plain_ms"][0], b_chain,
               launches_by_path={k: v[1] for k, v in by_path.items()},
               modes=modes_d, mode_tile_ms=mode_d["tile_ms"], mode_configs=chain_mode_checks,
+              modes_16bit=modes_d16, configs_16bit=chains_16,
               shape=[Tl, Nl], plain_shape=[Tc, Nl],
               slices=lhead["slices"], slice_steps=lhead["slice_steps"],
               registers=regs_chain, resident_blocks_per_sm=blocks_sm_chain,
@@ -1732,15 +2165,23 @@ def main() -> int:
                              bound_ms=b_cut[0], bound_by=b_cut[1]),
               main_shapes=long_mains, configs=chains),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
-              column_launches, max(c["max_abs_err"] for c in col_checks + col_batches),
+              column_launches,
+              max(c["max_abs_err"] for c in col_checks + col_batches + [f_states]),
               chead["ms"], chead["plain_ms"], b_col,
               shape=[chead["B"], chead["m"], chead["n"]], main_shapes=col_batches,
-              configs=col_checks),
+              configs=col_checks, modes=modes_f,
+              launches_by_path={"f-h int32": column_launches,
+                                **{f"f {k}": v["launches"]
+                                   for k, v in f_states["modes"].items()}}),
         entry("column_chained", "swtpu_torch/ops/csrc/column.cu",
               "swtpu/ops/pallas_kernel.py:137", column_chained_launches,
-              max(c["max_abs_err"] for c in col_chains + [col_tile]), col_tile["ms"][0],
-              col_tile["plain_ms"][0], b_tile, shape=[col_tile["B"], 256, col_tile["n"]],
-              main_shapes=[col_tile], configs=col_chains),
+              max(c["max_abs_err"] for c in col_chains + [col_tile, g_states]),
+              col_tile["ms"][0], col_tile["plain_ms"][0], b_tile,
+              shape=[col_tile["B"], 256, col_tile["n"]], main_shapes=[col_tile],
+              configs=col_chains, modes=modes_g,
+              launches_by_path={"f-h int32": column_chained_launches,
+                                **{f"g {k}": v["launches"]
+                                   for k, v in g_states["modes"].items()}}),
         entry("lane", "swtpu_torch/ops/csrc/lane.cu", "swtpu/ops/pallas_lane.py:37",
               lane["launches"], max(c["max_abs_err"] for c in lane_checks + [lane]),
               lane["ms"], lane["plain_ms"], b_lane, shape=[lane["B"], 128, lane["n"]],
@@ -1765,7 +2206,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "bucketed_cases": [
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
-    ], "pair_cases": pair_cases, "mode_databases": mode_dbs,
+    ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16,
         "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ geometry.  --root runs the package of another checkout of the repo (a
 parent commit's tree, say) so that two trees are compared within one
 call; a tree whose wrappers take no `slices` is timed at its default only.
 Where the wrappers take `score_width` and `state_dtype`, (a) and (d)'s tile
-are timed again in the W = 12 wrap-parity and float32 state modes.
+are timed again in the W = 12 wrap-parity and float32 state modes; where
+they take the 16-bit states, (a) and (d)'s tile at rows 8 in int32, int16,
+uint16 (at penalties it can hold: +5/-4, no gap cost) and bfloat16.
 Each line ends with a digest of the outputs: equal digests across trees
 and counts mean bit-equal strips.  Prints the card's name and power limit
 first; every number is this run's.
@@ -60,6 +62,12 @@ def main() -> int:
     # (label, wrapper keywords, boundary zero of a chained tile)
     mode_runs = [("W=12", dict(score_width=12), 1 << 11),
                  ("float32", dict(state_dtype="float32"), 0)] if modes else []
+    # rows 8 in int32 and the 16-bit states (which refuse rows 16)
+    P16 = type(P)(5, -4, 0, 0)  # uint16 holds no negative gap penalty
+    runs_16 = [("int32", P, {}), ("int16", P, dict(state_dtype="int16")),
+               ("uint16", P16, dict(state_dtype="uint16")),
+               ("bfloat16", P, dict(state_dtype="bfloat16"))
+               ] if "int16" in getattr(st, "STATE_DTYPES", {}) else []
 
     def digest(outs):
         h = 0
@@ -124,15 +132,25 @@ def main() -> int:
                reps=5)
     rng = np.random.default_rng(7)
     query = rng.integers(0, 4, size=128).astype(np.int8)
-    qk, sk = laid_out_batch(query, make_db(rng, 262144, 128, 128), 1, 16, 512)
+    db_a = make_db(rng, 262144, 128, 128)
+    qk, sk = laid_out_batch(query, db_a, 1, 16, 512)
     report(f"(a) rows=16 [{sk.shape[0]}, 512]",
            lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **kw), [1], reps=5)
     for label, mode, _ in mode_runs:
         report(f"(a) rows=16 {label} [{sk.shape[0]}, 512]",
                lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **mode, **kw), [1], reps=5)
     del qk, sk
-    qk, sk, z = tile0(rng.integers(0, 4, size=256).astype(np.int8),
-                      make_db(rng, 262144, 24, 256), 16)
+    if runs_16:
+        qk, sk = laid_out_batch(query, db_a, 1, 8, 512)
+        for label, pen, mode in runs_16:
+            report(f"(a) rows=8 {label} [{sk.shape[0]}, 512]",
+                   lambda **kw: st.stream_strip_cuda(qk, sk, pen, 1, 8, **mode, **kw), [1],
+                   reps=5)
+        del qk, sk
+    del db_a
+    query_d = rng.integers(0, 4, size=256).astype(np.int8)
+    db_d = make_db(rng, 262144, 24, 256)
+    qk, sk, z = tile0(query_d, db_d, 16)
     report(f"(d) tile 0 rows=16 [{sk.shape[0]}, 512]",
            lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, P, 16, **kw), [1], reps=5)
     for label, mode, zero in mode_runs:
@@ -140,6 +158,13 @@ def main() -> int:
         report(f"(d) tile 0 rows=16 {label} [{sk.shape[0]}, 512]",
                lambda **kw: st.stream_chained_cuda(qk, sk, b, b, b, P, 16, **mode, **kw), [1],
                reps=5)
+    del qk, sk, z
+    if runs_16:
+        qk, sk, z = tile0(query_d, db_d, 8)
+        for label, pen, mode in runs_16:
+            report(f"(d) tile 0 rows=8 {label} [{sk.shape[0]}, 512]",
+                   lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, pen, 8, **mode, **kw),
+                   [1], reps=5)
     return 0
 
 

@@ -10,8 +10,10 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   chains K tiles of 128 query rows over the same streams.  ``score_pairs``
   packs pair streams (one query register per stream) for the queries of
   up to 128 bases, and runs each distinct longer query's pairs as a
-  chained many-vs-one job.  It carries ``SWConfig.score_width`` and
-  float32 state.
+  chained many-vs-one job.  It carries ``SWConfig.score_width`` and every
+  ``stream_state_dtype`` of swtpu's (int32, float32, int16, uint16,
+  bfloat16; the 16-bit ones at rows of at most 8, so ``stream_rows`` must
+  be set for a segments-1 query on CUDA, where the geometry picks 16).
 - ``pallas`` (the bucketed column path; swtpu's name for it is kept): the
   host packs the reads into dense length buckets
   (``swtpu_torch.bank.packer``) and each bucket batch is scored by the
@@ -157,7 +159,9 @@ class ScoreBank:
         float32 on the TPU, where it measured faster; the scores are
         identical, and which is faster on this card is measured in
         PERF.md), and int32 whenever score_width is set (the wrap is
-        integer bit arithmetic; float lanes cannot wrap)."""
+        integer bit arithmetic; float lanes cannot wrap); any other
+        ``stream_state_dtype`` as it is, which the wavefront's checks
+        accept or refuse with swtpu's errors."""
         if self.config.score_width is not None:
             return "int32"
         sdt = self.config.stream_state_dtype

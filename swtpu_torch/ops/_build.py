@@ -123,11 +123,11 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.swtpu_column_scores.restype = ctypes.c_int
             lib.swtpu_column_scores.argtypes = [
-                *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 8, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9, ctypes.c_void_p,
             ]
             lib.swtpu_column_chained.restype = ctypes.c_int
             lib.swtpu_column_chained.argtypes = [
-                *[ctypes.c_void_p] * 8, *[ctypes.c_int] * 7, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 8, *[ctypes.c_int] * 8, ctypes.c_void_p,
             ]
             lib.swtpu_lane_scores.restype = ctypes.c_int
             lib.swtpu_lane_scores.argtypes = [

@@ -31,6 +31,15 @@ modulo 2^W and clamps on the sign bit; the I chain is never masked (see
 ``swtpu/ops/pallas_kernel.py:70-80`` for why masking inside the prefix
 would be wrong).  A tile's strips and high score stay biased between
 tiles; ``_chained_call`` subtracts the bias once at the end.
+
+``state_dtype`` "float32" or "int16" carries the exact state in that type,
+as swtpu's kernels do, with swtpu's prefix-scan floors (``STATE_FLOORS``).
+The plain versions run swtpu's log2(m) prefix scan in that type; the CUDA
+kernels run their ripple-and-shuffle scan, which has no floor.  Both give
+the exact DP's integers, since every I candidate from the rows above
+exceeds the floor (base >= open + extend) and no value nears 2^15 (a
+score is at most match x 4,095 = 20,475 at +5): float32 and int16 scores
+equal int32's.  Inter-tile strips stay int32.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ import torch
 
 from swtpu_torch.config import DEFAULT_PENALTIES, Penalties
 from swtpu_torch.ops.common import Q_PAD, T_PAD
-from swtpu_torch.ops.stream import _check_kernel_tensors, _raise_on_error
+from swtpu_torch.ops.stream import (
+    _check_kernel_tensors, _raise_on_error, check_state_constants, state_value,
+)
 
 # Queries longer than this chain tiles of this many rows, carrying last-row
 # M/I strips between tiles (the reference's reserved module-chaining ports).
@@ -49,6 +60,13 @@ T_CHUNK = 32
 # the plain version's target padding, swtpu's interpret-mode chunk
 CPU_CHUNK = 8
 NEG = -(2**30)  # the prefix scan's fill: never wins, since base >= open+extend
+# the fill in each state type (swtpu's: pallas_kernel.py:62-67)
+STATE_FLOORS = {"int32": NEG, "float32": -(2**23), "int16": -(2**13)}
+STATE_TYPES = {"int32": torch.int32, "float32": torch.float32, "int16": torch.int16}
+# the CUDA entry points' state codes (ColumnState in csrc/column.cu); a
+# score width takes code 1, the biased int32 mode
+STATE_CODES = {"int32": 0, "float32": 2, "int16": 3}
+BIASED_CODE = 1
 
 
 def _check_width(score_width, penalties) -> None:
@@ -66,18 +84,20 @@ def _check_width(score_width, penalties) -> None:
         )
 
 
-def _column_reference(q, t, penalties, score_width, strips=None):
+def _column_reference(q, t, penalties, score_width, strips=None, state_dtype="int32"):
     """The recurrence behind both plain versions, on [m, B] planes (query
     rows on the first axis, pairs on the second, as the TPU kernel lays
-    them out).  Returns (max of H over rows and columns [B], and with
-    `strips` = (ms, is_), each [n, B], this tile's last-row M and I [n, B]
-    each); all in the state's representation (biased under
-    `score_width`)."""
+    them out), in `state_dtype`.  Returns (max of H over rows and columns
+    [B], and with `strips` = (ms, is_), each [n, B], this tile's last-row M
+    and I [n, B] each); all in the state's type and representation (biased
+    under `score_width`)."""
     ma, mi, go, ge = penalties.astuple()
     m, B = q.shape
     n = t.shape[0]
     dev = q.device
     i32 = torch.int32
+    dt = STATE_TYPES[state_dtype]
+    neg = STATE_FLOORS[state_dtype]
     zero = 0
     if score_width is not None:
         mask = (1 << score_width) - 1
@@ -86,23 +106,23 @@ def _column_reference(q, t, penalties, score_width, strips=None):
     row_iota = torch.arange(m, device=dev)[:, None]
     row0 = row_iota == 0
     qs = q.to(i32)
-    ma_t = torch.tensor(ma, dtype=i32, device=dev)
-    mi_t = torch.tensor(mi, dtype=i32, device=dev)
+    ma_t = torch.tensor(state_value(ma, state_dtype), dtype=dt, device=dev)
+    mi_t = torch.tensor(state_value(mi, state_dtype), dtype=dt, device=dev)
     oe = go + ge
 
     def shift_down(x, k, fill):
         """out[i] = x[i-k] along the query rows; rows < k get `fill`."""
         return torch.where(row_iota < k, fill, torch.roll(x, k, 0))
 
-    M = torch.full((m, B), zero, dtype=i32, device=dev)
-    I = torch.full((m, B), zero, dtype=i32, device=dev)  # boundary column I = 0
-    H = torch.full((m, B), zero, dtype=i32, device=dev)
+    M = torch.full((m, B), zero, dtype=dt, device=dev)
+    I = torch.full((m, B), zero, dtype=dt, device=dev)  # boundary column I = 0
+    H = torch.full((m, B), zero, dtype=dt, device=dev)
     if strips is None:
         # row 0's seed from the boundary I[-1][j] = 0 (RTL ZERO ties)
-        i0_bias = torch.where(row0, torch.tensor(zero + ge, dtype=i32, device=dev), NEG)
+        i0_bias = torch.where(row0, torch.tensor(zero + ge, dtype=dt, device=dev), neg)
     else:
-        ms_in, is_in = (s.to(i32) for s in strips)
-        dprev = torch.full((B,), zero, dtype=i32, device=dev)  # diag at column -1
+        ms_in, is_in = (s.to(dt) for s in strips)
+        dprev = torch.full((B,), zero, dtype=dt, device=dev)  # diag at column -1
         ms_out = torch.empty((n, B), dtype=i32, device=dev)
         is_out = torch.empty((n, B), dtype=i32, device=dev)
     for j in range(n):
@@ -123,7 +143,7 @@ def _column_reference(q, t, penalties, score_width, strips=None):
         else:
             # row 0's up-neighbour M, and its I seed, come from the strips
             M_up = torch.where(row0, ms_in[j], torch.roll(M_new, 1, 0))
-            i0_bias = torch.where(row0, is_in[j] + ge, NEG)
+            i0_bias = torch.where(row0, is_in[j] + ge, neg)
         base = torch.maximum(
             torch.maximum(M_up, M) + oe, torch.maximum(I + ge, i0_bias)
         )
@@ -131,7 +151,7 @@ def _column_reference(q, t, penalties, score_width, strips=None):
         x = base
         k = 1
         while k < m:
-            x = torch.maximum(x, shift_down(x, k, NEG) + k * ge)
+            x = torch.maximum(x, shift_down(x, k, neg) + k * ge)
             k *= 2
         H = torch.maximum(H, M_new)
         M, I = M_new, x
@@ -139,15 +159,18 @@ def _column_reference(q, t, penalties, score_width, strips=None):
             dprev = torch.maximum(ms_in[j], is_in[j])
             ms_out[j] = M_new[m - 1]
             is_out[j] = x[m - 1]
-    h = H.amax(0) if m else torch.full((B,), zero, dtype=i32, device=dev)
+    h = H.amax(0) if m else torch.full((B,), zero, dtype=dt, device=dev)
     if strips is None:
         return h
     return h, ms_out, is_out
 
 
-def column_scores_reference(q, t, penalties=DEFAULT_PENALTIES, score_width=None):
+def column_scores_reference(q, t, penalties=DEFAULT_PENALTIES, score_width=None,
+                            state_dtype="int32"):
     """Plain PyTorch column kernel (B4): q [B, m] int8, t [B, n] int8 ->
-    [B] int32 scores.
+    [B] int32 scores, the state in `state_dtype` ("int32", or "float32" or
+    "int16" with swtpu's floors, ``STATE_FLOORS``; score_width on int32
+    only).
 
     Mirrors ``swtpu/ops/pallas_kernel.py:_sw_kernel`` one eager op per
     plane update on [m, B] planes.  Per target column j:
@@ -160,12 +183,12 @@ def column_scores_reference(q, t, penalties=DEFAULT_PENALTIES, score_width=None)
       - H = max(H, M).
     The score is max(H) less the bias."""
     zero = 0 if score_width is None else 1 << (score_width - 1)
-    h = _column_reference(q.t(), t.t(), penalties, score_width)
+    h = _column_reference(q.t(), t.t(), penalties, score_width, state_dtype=state_dtype)
     return (h - zero).to(torch.int32)
 
 
 def column_chained_reference(
-    q, t, ms, is_, h, penalties=DEFAULT_PENALTIES, score_width=None,
+    q, t, ms, is_, h, penalties=DEFAULT_PENALTIES, score_width=None, state_dtype="int32",
 ):
     """Plain PyTorch version of one 256-row query tile of the chained DP
     (B5): q [B, 256] int8, t [B, n] int8, the tile above's last-row strips
@@ -177,11 +200,13 @@ def column_chained_reference(
     diagonal is max(ms, is_) of column j-1 (zero at j = 0), whose M_up is
     ms[j] and whose I seed is is_[j] + extend.  The first tile gets strips
     of zero (biased zero under `score_width`) and reproduces the unchained
-    kernel.  The outputs stay biased under `score_width`."""
+    kernel.  The outputs stay biased under `score_width`.  In `state_dtype`
+    the strips are cast to it as they are read, and the outputs are int32."""
     hmax, ms_out, is_out = _column_reference(
-        q.t(), t.t(), penalties, score_width, strips=(ms.t(), is_.t())
+        q.t(), t.t(), penalties, score_width, strips=(ms.t(), is_.t()),
+        state_dtype=state_dtype,
     )
-    return torch.maximum(h.to(torch.int32), hmax), ms_out.t(), is_out.t()
+    return torch.maximum(h.to(torch.int32), hmax.to(torch.int32)), ms_out.t(), is_out.t()
 
 
 def _validate_column(q, t, tile):
@@ -206,14 +231,21 @@ def _check_aligned(**tensors):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def column_scores_cuda(q, t, penalties=DEFAULT_PENALTIES, score_width=None):
+def _kernel_state(score_width, state_dtype, penalties, m):
+    """(W or 0, the state code) as the CUDA entry points take them, after
+    the checks swtpu makes for the mode."""
+    _check_state(score_width, state_dtype, penalties, m)
+    return score_width or 0, BIASED_CODE if score_width else STATE_CODES[state_dtype]
+
+
+def column_scores_cuda(q, t, penalties=DEFAULT_PENALTIES, score_width=None,
+                       state_dtype="int32"):
     """The CUDA column kernel on the contract of
     :func:`column_scores_reference`; CUDA tensors only.  Launches on the
     current stream and counts each launch in ``column_scores_cuda.launches``."""
     from swtpu_torch.ops._build import load_library
 
-    if score_width is not None:
-        _check_width(score_width, penalties)
+    state = _kernel_state(score_width, state_dtype, penalties, q.shape[1])
     _check_kernel_tensors(q=(q, torch.int8), t=(t, torch.int8))
     _validate_column(q, t, tile=False)
     _check_aligned(t=t)
@@ -227,7 +259,7 @@ def column_scores_cuda(q, t, penalties=DEFAULT_PENALTIES, score_width=None):
     with torch.cuda.device(q.device):
         err = lib.swtpu_column_scores(
             q.data_ptr(), t.data_ptr(), out.data_ptr(), B, m, n, ma, mi, go, ge,
-            score_width or 0, torch.cuda.current_stream().cuda_stream,
+            *state, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, "column_scores")
     column_scores_cuda.launches += 1
@@ -238,15 +270,14 @@ column_scores_cuda.launches = 0
 
 
 def column_chained_cuda(
-    q, t, ms, is_, h, penalties=DEFAULT_PENALTIES, score_width=None,
+    q, t, ms, is_, h, penalties=DEFAULT_PENALTIES, score_width=None, state_dtype="int32",
 ):
     """The CUDA chained-tile kernel on the contract of
     :func:`column_chained_reference`; CUDA tensors only.  Launches on the
     current stream and counts each launch in ``column_chained_cuda.launches``."""
     from swtpu_torch.ops._build import load_library
 
-    if score_width is not None:
-        _check_width(score_width, penalties)
+    state = _kernel_state(score_width, state_dtype, penalties, None)
     _check_kernel_tensors(
         q=(q, torch.int8), t=(t, torch.int8), ms=(ms, torch.int32),
         is_=(is_, torch.int32), h=(h, torch.int32),
@@ -274,7 +305,7 @@ def column_chained_cuda(
         err = lib.swtpu_column_chained(
             q.data_ptr(), t.data_ptr(), ms.data_ptr(), is_.data_ptr(),
             h.data_ptr(), *(o.data_ptr() for o in outs), B, n, ma, mi, go, ge,
-            score_width or 0, torch.cuda.current_stream().cuda_stream,
+            *state, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, "column_chained")
     column_chained_cuda.launches += 1
@@ -284,31 +315,32 @@ def column_chained_cuda(
 column_chained_cuda.launches = 0
 
 
-def _scores_call(q, t, penalties, score_width):
+def _scores_call(q, t, penalties, score_width, state_dtype="int32"):
     """q [B, m] int8, t [B, n] int8 -> [B] int32: the plain version on the
     CPU, the kernel on CUDA."""
     if q.device.type == "cpu":
-        return column_scores_reference(q, t, penalties, score_width)
+        return column_scores_reference(q, t, penalties, score_width, state_dtype)
     if q.device.type == "cuda":
-        return column_scores_cuda(q, t, penalties, score_width)
+        return column_scores_cuda(q, t, penalties, score_width, state_dtype)
     raise ValueError(f"no column kernel for device {q.device}")
 
 
-def _tile_call(q, t, ms, is_, h, penalties, score_width):
+def _tile_call(q, t, ms, is_, h, penalties, score_width, state_dtype="int32"):
     """One chained tile -> (h, ms, is_): the plain version on the CPU, the
     kernel on CUDA."""
     if q.device.type == "cpu":
-        return column_chained_reference(q, t, ms, is_, h, penalties, score_width)
+        return column_chained_reference(q, t, ms, is_, h, penalties, score_width, state_dtype)
     if q.device.type == "cuda":
-        return column_chained_cuda(q, t, ms, is_, h, penalties, score_width)
+        return column_chained_cuda(q, t, ms, is_, h, penalties, score_width, state_dtype)
     raise ValueError(f"no chained column kernel for device {q.device}")
 
 
-def _chained_call(q, t, penalties, score_width, tile=_tile_call):
+def _chained_call(q, t, penalties, score_width, tile=_tile_call, state_dtype="int32"):
     """Chain QUERY_TILE-row tiles over the query: a Python loop of K launches
     that threads the last-row M/I strips and the running high score through
     device memory, only the previous tile's alive.  q [B, K*256], t [B, n]
-    -> [B] int32 scores.  `tile` runs one tile (``_tile_call``'s contract)."""
+    -> [B] int32 scores.  `tile` runs one tile (``_tile_call``'s contract,
+    the state type as its last argument)."""
     B, m = q.shape
     n = t.shape[1]
     # boundary strips and high score: biased zero under wrap-parity
@@ -318,25 +350,39 @@ def _chained_call(q, t, penalties, score_width, tile=_tile_call):
     is_ = torch.full((B, n), z0, dtype=torch.int32, device=q.device)
     for k in range(m // QUERY_TILE):
         qtile = q[:, k * QUERY_TILE : (k + 1) * QUERY_TILE].contiguous()
-        h, ms, is_ = tile(qtile, t, ms, is_, h, penalties, score_width)
+        h, ms, is_ = tile(qtile, t, ms, is_, h, penalties, score_width, state_dtype)
     return h - z0
 
 
-def _resolve_state(state_dtype, score_width, penalties):
-    """The register width of the wrap-parity mode, or None for exact int32
-    state; raises for the states the port does not carry."""
-    if state_dtype == "int16_biased":
+def _check_state(score_width, state_dtype, penalties, m):
+    """swtpu's checks of a kernel's state: the width's range and no-wrap
+    rule under wrap-parity (int32 state only), and the OverflowError of
+    the first constant that an int16 state cannot hold, in swtpu's order
+    (pallas_kernel.py:93-95 and 116, or 171-172 and 196 for a tile: the
+    extend penalty, open + extend, the extend penalty, then k x extend for
+    k = 1, 2, 4, ... < m; a tile has m = 256 and no first one).  m None:
+    a chained tile."""
+    if score_width is not None:
+        if state_dtype != "int32":
+            raise ValueError(f"score_width needs int32 state, got {state_dtype!r}")
         _check_width(score_width, penalties)
-        return score_width
-    if state_dtype in ("float32", "int16"):
-        raise NotImplementedError(
-            f"state_dtype={state_dtype!r} is not ported yet (ROADMAP item 16: "
-            "the column kernel's float32/int16 states); the port carries "
-            "int32 and int16_biased"
-        )
-    if state_dtype != "int32":
+        return
+    if state_dtype not in STATE_TYPES:
         raise ValueError(f"unknown state_dtype {state_dtype!r}")
-    return None
+    _, _, go, ge = penalties.astuple()
+    first = [ge] if m is not None else []
+    rows = QUERY_TILE if m is None else m
+    scan = [k * ge for k in (1 << i for i in range(rows.bit_length())) if k < rows]
+    check_state_constants(state_dtype, first + [go + ge, ge] + scan)
+
+
+def _resolve_state(state_dtype, score_width):
+    """(the register width of the wrap-parity mode or None, the state
+    type) of swtpu's state_dtype: "int16_biased" is int32 state at
+    `score_width`; "int32", "float32" and "int16" are exact."""
+    if state_dtype == "int16_biased":
+        return score_width, "int32"
+    return None, state_dtype
 
 
 def pad_column_batch(q, t, chunk):
@@ -369,18 +415,20 @@ def sw_scores_column(
       q: [B, m] int8 base codes, sentinel-padded (Q_PAD).
       t: [B, n] int8 base codes, sentinel-padded (T_PAD), on q's device.
       penalties: scoring penalties.
-      state_dtype: "int32" (exact) or "int16_biased" — the RTL's
+      state_dtype: "int32" (exact), "float32" or "int16" (exact state in
+        that type, the same scores) or "int16_biased" — the RTL's
         `score_width`-bit biased register arithmetic, overflow wrap and
         sign-bit clamp included (oracle: ``sw_score_single_biased``).
-        "float32" and "int16" are not ported and raise NotImplementedError.
       score_width: register width for "int16_biased" (RTL default 12).
 
     Returns: [B] int32 scores.  A query over QUERY_TILE bases chains
     ceil(m/256) tiles.  On CUDA the kernels run; on the CPU their plain
     versions (targets padded as swtpu pads them in interpret mode)."""
-    width = _resolve_state(state_dtype, score_width, penalties)
+    width, dtype = _resolve_state(state_dtype, score_width)
     chunk = T_CHUNK if t.device.type == "cuda" else CPU_CHUNK
     q, t = pad_column_batch(q, t, chunk)
-    if q.shape[1] > QUERY_TILE:
-        return _chained_call(q, t, penalties, width)
-    return _scores_call(q, t, penalties, width)
+    chained = q.shape[1] > QUERY_TILE
+    _check_state(width, dtype, penalties, None if chained else q.shape[1])
+    if chained:
+        return _chained_call(q, t, penalties, width, state_dtype=dtype)
+    return _scores_call(q, t, penalties, width, dtype)

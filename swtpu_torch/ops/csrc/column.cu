@@ -22,6 +22,17 @@
 // would be wrong).  The scores kernel subtracts the bias from its result;
 // a tile keeps h and its strips biased and the host subtracts once.
 //
+// State modes (kState, the host's state codes), each its own
+// instantiation: kExact int32; kBiased the W-bit wrap-parity above;
+// kFloat float32 state (fmaxf, the strips converted at the load and the
+// store); kInt16 int16 state held sign-extended in int32 registers, every
+// add cut back to 16 bits.  swtpu's float32 and int16 kernels fill their
+// prefix scan with floors of -2^23 and -2^13; this scan has no fill (lane
+// 0 takes no candidate from above), and a floor never wins there (every
+// candidate from above is at least open + extend), so all three exact
+// modes give the same integers while no value nears 2^15 (scores are at
+// most match x 4,095).
+//
 // The recurrence (pallas_kernel.py:97-119), per target column j:
 //   M[i]  = max(max(M, I)[i-1, j-1] + s(i, j), 0)
 //   base  = max(max(M_up, M[i, j-1]) + open + extend, I[i, j-1] + extend)
@@ -79,21 +90,78 @@ struct ColumnArgs {
   int B, m, n, ma, mi, go, ge, width;  // width: 0 = exact int32
 };
 
-template <int RPL, bool kBiased, bool kTile>
+// the state modes; the values are the host's state codes (ops/column.py)
+enum ColumnState { kExact, kBiased, kFloat, kInt16 };
+
+__device__ __forceinline__ int mx(int a, int b) { return max(a, b); }
+__device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
+
+// The arithmetic of each state mode: the state type T, a constant as T
+// (cst), the boundary zero, an add, the M update, a strip value read (load)
+// and written (store).
+template <int kState>
+struct ColumnArith {  // kExact, kBiased
+  using T = int;
+  int mask, zbit;  // kBiased: 2^W - 1 and 2^(W-1), the biased score 0
+  __device__ explicit ColumnArith(int width)
+      : mask(kState == kBiased ? (1 << width) - 1 : 0),
+        zbit(kState == kBiased ? 1 << (width - 1) : 0) {}
+  __device__ int cst(int x) const { return x; }
+  __device__ int zero() const { return zbit; }
+  __device__ int add(int x, int y) const { return x + y; }
+  __device__ int m(int x) const {
+    if (kState != kBiased) return max(x, 0);
+    const int w = x & mask;
+    return (w & zbit) ? w : zbit;  // sign-bit clamp
+  }
+  __device__ int load(int x) const { return x; }
+  __device__ int store(int x) const { return x; }
+};
+
+template <>
+struct ColumnArith<kFloat> {
+  using T = float;
+  __device__ explicit ColumnArith(int) {}
+  __device__ float cst(int x) const { return static_cast<float>(x); }
+  __device__ float zero() const { return 0.f; }
+  __device__ float add(float x, float y) const { return x + y; }
+  __device__ float m(float x) const { return fmaxf(x, 0.f); }
+  __device__ float load(int x) const { return static_cast<float>(x); }
+  __device__ int store(float x) const { return static_cast<int>(x); }
+};
+
+// int16: an int32 register holds the sign-extended 16-bit value
+template <>
+struct ColumnArith<kInt16> {
+  using T = int;
+  __device__ explicit ColumnArith(int) {}
+  __device__ int cst(int x) const { return static_cast<int16_t>(x); }
+  __device__ int zero() const { return 0; }
+  __device__ int add(int x, int y) const { return static_cast<int16_t>(x + y); }
+  __device__ int m(int x) const { return max(x, 0); }
+  __device__ int load(int x) const { return static_cast<int16_t>(x); }
+  __device__ int store(int x) const { return x; }
+};
+
+template <int RPL, int kState, bool kTile>
 __global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
+  using A = ColumnArith<kState>;
+  using T = typename A::T;
   const int lane = threadIdx.x % kWarp;
   const long long b =
       (long long)blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp;
   if (b >= a.B) return;  // b is the same for the whole warp
-  const int mask = kBiased ? (1 << a.width) - 1 : 0;
-  const int zero = kBiased ? 1 << (a.width - 1) : 0;  // biased score 0
-  const int oe = a.go + a.ge;
-  const int ge = a.ge;
+  const A ar(a.width);
+  const T zero = ar.zero();
+  const T oe = ar.cst(a.go + a.ge);
+  const T ge = ar.cst(a.ge);
+  const T ma = ar.cst(a.ma), mi = ar.cst(a.mi);
   const int n = a.n;
   const int8_t* qb = a.q + b * a.m;
   const int8_t* tb = a.t + b * n;
 
-  int q[RPL], M[RPL], I[RPL];
+  int q[RPL];
+  T M[RPL], I[RPL];
 #pragma unroll
   for (int r = 0; r < RPL; ++r) {
     const int i = lane * RPL + r;
@@ -101,71 +169,65 @@ __global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
     M[r] = zero;
     I[r] = zero;  // boundary column I = 0 (RTL ZERO tie)
   }
-  int h = zero;
-  int dprev = zero;  // tile: max(ms, is) of column j-1; zero at column -1
+  T h = zero;
+  T dprev = zero;  // tile: max(ms, is) of column j-1; zero at column -1
 
   for (int j0 = 0; j0 < n; j0 += kRun) {
     const int4* tp = reinterpret_cast<const int4*>(tb + j0);
     const int4 lo = tp[0];
     const int4 hi = tp[1];
     const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    int ms_run = zero, is_run = zero, ms_keep = 0, is_keep = 0;
+    T ms_run = zero, is_run = zero, ms_keep = zero, is_keep = zero;
     if (kTile) {
-      ms_run = a.ms[b * n + j0 + lane];
-      is_run = a.is[b * n + j0 + lane];
+      ms_run = ar.load(a.ms[b * n + j0 + lane]);
+      is_run = ar.load(a.is[b * n + j0 + lane]);
     }
 #pragma unroll
     for (int c = 0; c < kRun; ++c) {
       const int tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
-      int msj = zero, isj = zero;
+      T msj = zero, isj = zero;
       if (kTile) {
         msj = __shfl_sync(kFull, ms_run, c);
         isj = __shfl_sync(kFull, is_run, c);
       }
       // the diagonal of row 0 of this lane: the lane above's last row at j-1
-      int dup = __shfl_up_sync(kFull, max(M[RPL - 1], I[RPL - 1]), 1);
+      T dup = __shfl_up_sync(kFull, mx(M[RPL - 1], I[RPL - 1]), 1);
       if (lane == 0) dup = dprev;
-      int Mn[RPL];
+      T Mn[RPL];
 #pragma unroll
       for (int r = 0; r < RPL; ++r) {
-        const int d = r == 0 ? dup : max(M[r - 1], I[r - 1]);
-        const int x = d + (q[r] == tj ? a.ma : a.mi);
-        if (kBiased) {
-          const int w = x & mask;
-          Mn[r] = (w & zero) ? w : zero;  // sign-bit clamp
-        } else {
-          Mn[r] = max(x, 0);
-        }
+        const T d = r == 0 ? dup : mx(M[r - 1], I[r - 1]);
+        Mn[r] = ar.m(ar.add(d, q[r] == tj ? ma : mi));
       }
-      int mup = __shfl_up_sync(kFull, Mn[RPL - 1], 1);
+      T mup = __shfl_up_sync(kFull, Mn[RPL - 1], 1);
       if (lane == 0) mup = msj;
       // the I chain inside the lane, from its own rows only
-      int acc[RPL];
+      T acc[RPL];
 #pragma unroll
       for (int r = 0; r < RPL; ++r) {
-        const int up = r == 0 ? mup : Mn[r - 1];
-        int base = max(max(up, M[r]) + oe, I[r] + ge);
-        if (r == 0 && lane == 0) base = max(base, isj + ge);  // row 0's seed
-        acc[r] = r == 0 ? base : max(base, acc[r - 1] + ge);
+        const T up = r == 0 ? mup : Mn[r - 1];
+        T base = mx(ar.add(mx(up, M[r]), oe), ar.add(I[r], ge));
+        if (r == 0 && lane == 0) base = mx(base, ar.add(isj, ge));  // row 0's seed
+        acc[r] = r == 0 ? base : mx(base, ar.add(acc[r - 1], ge));
       }
       // max-plus inclusive scan of the lanes' last rows across the warp
-      int v = acc[RPL - 1];
+      T v = acc[RPL - 1];
 #pragma unroll
       for (int k = 1; k < kWarp; k <<= 1) {
-        const int u = __shfl_up_sync(kFull, v, k);
-        if (lane >= k) v = max(v, u + k * RPL * ge);
+        const T u = __shfl_up_sync(kFull, v, k);
+        if (lane >= k) v = mx(v, ar.add(u, ar.cst(k * RPL * a.ge)));
       }
-      const int carry = __shfl_up_sync(kFull, v, 1);  // I of the row above
+      const T carry = __shfl_up_sync(kFull, v, 1);  // I of the row above
 #pragma unroll
       for (int r = 0; r < RPL; ++r) {
-        I[r] = lane == 0 ? acc[r] : max(acc[r], carry + (r + 1) * ge);
+        I[r] = lane == 0 ? acc[r] : mx(acc[r], ar.add(carry, ar.cst((r + 1) * a.ge)));
         M[r] = Mn[r];
-        h = max(h, Mn[r]);
+        h = mx(h, Mn[r]);
       }
       if (kTile) {
-        dprev = max(msj, isj);
-        const int om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
-        const int oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
+        dprev = mx(msj, isj);
+        const T om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
+        const T oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
         if (lane == c) {
           ms_keep = om;
           is_keep = oi;
@@ -173,35 +235,51 @@ __global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
       }
     }
     if (kTile) {
-      a.ms_out[b * n + j0 + lane] = ms_keep;
-      a.is_out[b * n + j0 + lane] = is_keep;
+      a.ms_out[b * n + j0 + lane] = ar.store(ms_keep);
+      a.is_out[b * n + j0 + lane] = ar.store(is_keep);
     }
   }
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
-    h = max(h, __shfl_xor_sync(kFull, h, off));
-  if (lane == 0) a.h_out[b] = kTile ? max(a.h[b], h) : h - zero;
+    h = mx(h, __shfl_xor_sync(kFull, h, off));
+  if (lane == 0) {
+    a.h_out[b] = kTile ? max(a.h[b], ar.store(h)) : ar.store(h) - ar.store(zero);
+  }
 }
 
 template <int RPL, bool kTile>
-cudaError_t launch(const ColumnArgs& a, cudaStream_t stream) {
+cudaError_t launch(const ColumnArgs& a, int state, cudaStream_t stream) {
   const long long pairs_per_block = kBlock / kWarp;
-  const long long blocks = (a.B + pairs_per_block - 1) / pairs_per_block;
-  if (a.width)
-    column_kernel<RPL, true, kTile><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
-  else
-    column_kernel<RPL, false, kTile><<<(unsigned)blocks, kBlock, 0, stream>>>(a);
+  const unsigned blocks = (unsigned)((a.B + pairs_per_block - 1) / pairs_per_block);
+  if ((state == kBiased) != (a.width != 0)) return cudaErrorInvalidValue;
+  switch (state) {
+    case kExact:
+      column_kernel<RPL, kExact, kTile><<<blocks, kBlock, 0, stream>>>(a);
+      break;
+    case kBiased:
+      column_kernel<RPL, kBiased, kTile><<<blocks, kBlock, 0, stream>>>(a);
+      break;
+    case kFloat:
+      column_kernel<RPL, kFloat, kTile><<<blocks, kBlock, 0, stream>>>(a);
+      break;
+    case kInt16:
+      column_kernel<RPL, kInt16, kTile><<<blocks, kBlock, 0, stream>>>(a);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // B4: q [B, m] int8, t [B, n] int8 -> out [B] int32 scores.  m % 8 == 0,
-// m <= 256, n % 32 == 0, t 16-byte aligned; score_width 0 = exact, else
-// 2..30.  The caller checks these.  Returns the launch's CUDA error.
+// m <= 256, n % 32 == 0, t 16-byte aligned; state a ColumnState code,
+// score_width 2..30 with kBiased and 0 with the others.  The caller checks
+// these.  Returns the launch's CUDA error.
 extern "C" int swtpu_column_scores(const void* q, const void* t, void* out,
                                    int B, int m, int n, int ma, int mi,
-                                   int go, int ge, int score_width,
+                                   int go, int ge, int score_width, int state,
                                    void* stream) {
   const ColumnArgs a{static_cast<const int8_t*>(q),
                      static_cast<const int8_t*>(t),
@@ -209,23 +287,24 @@ extern "C" int swtpu_column_scores(const void* q, const void* t, void* out,
                      static_cast<int32_t*>(out), nullptr, nullptr,
                      B, m, n, ma, mi, go, ge, score_width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 32) return launch<1, false>(a, st);
-  if (m <= 64) return launch<2, false>(a, st);
-  if (m <= 128) return launch<4, false>(a, st);
-  if (m <= kTileRows) return launch<8, false>(a, st);
+  if (m <= 32) return launch<1, false>(a, state, st);
+  if (m <= 64) return launch<2, false>(a, state, st);
+  if (m <= 128) return launch<4, false>(a, state, st);
+  if (m <= kTileRows) return launch<8, false>(a, state, st);
   return cudaErrorInvalidValue;
 }
 
 // B5, one tile: q [B, 256] int8, t [B, n] int8, ms/is [B, n] int32, h [B]
 // int32 -> h_out [B], ms_out/is_out [B, n] int32, all biased when
-// score_width > 0.  n % 32 == 0, t 16-byte aligned.  The caller checks
-// these.  Returns the launch's CUDA error.
+// score_width > 0.  n % 32 == 0, t 16-byte aligned; state and score_width
+// as for swtpu_column_scores.  The caller checks these.  Returns the
+// launch's CUDA error.
 extern "C" int swtpu_column_chained(const void* q, const void* t,
                                     const void* ms, const void* is,
                                     const void* h, void* h_out, void* ms_out,
                                     void* is_out, int B, int n, int ma,
                                     int mi, int go, int ge, int score_width,
-                                    void* stream) {
+                                    int state, void* stream) {
   const ColumnArgs a{static_cast<const int8_t*>(q),
                      static_cast<const int8_t*>(t),
                      static_cast<const int32_t*>(ms),
@@ -235,5 +314,5 @@ extern "C" int swtpu_column_chained(const void* q, const void* t,
                      static_cast<int32_t*>(ms_out),
                      static_cast<int32_t*>(is_out),
                      B, kTileRows, n, ma, mi, go, ge, score_width};
-  return launch<8, true>(a, static_cast<cudaStream_t>(stream));
+  return launch<8, true>(a, state, static_cast<cudaStream_t>(stream));
 }

@@ -92,10 +92,25 @@
 //     to, so the slicing rule above holds unchanged;
 //   - kFloat: float32 state (fmaxf, no fused add-max), the same integer
 //     values as kExact (all far below 2^24), stored as int32; a chained
-//     tile's boundary strips stay int32 in memory.
+//     tile's boundary strips stay int32 in memory;
+//   - kInt16, kUint16: 16-bit integer state held in int32 registers, every
+//     add cut back to 16 bits (sign-extended for int16, masked for uint16),
+//     so a register always holds what a 16-bit lane would; the match and
+//     mismatch scores are cut the same way (uint16's -4 is 65532), and the
+//     uint16 M update max(x, 0) is x.  The host refuses an open or extend
+//     penalty the type cannot hold (swtpu's OverflowError);
+//   - kBf16: bfloat16 state in __nv_bfloat16 registers, __hadd and __hmax
+//     (one rounding to nearest even per add, as the plain version's and
+//     XLA's bfloat16 adds round); the strips store its integer values as
+//     int32, and a chained tile rounds its int32 boundary values in.
+// The 16-bit modes run at rows <= 8 (swtpu refuses rows 16 with them), and
+// every mode's zero is 0 but kBiased's, so the slicing rule holds as it is.
 // Each mode is its own instantiation, so the exact kernel's code is what
-// it was before the other modes existed.
+// it was before the other modes existed; a mode adds its own arithmetic
+// through Arith's add() and cst(), which are plain + and the identity for
+// the first three.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,14 +131,18 @@ constexpr int kMinBlocks = 3;
 constexpr int kSliceQuantum = 32;  // slice starts are multiples of this
 constexpr unsigned kFull = 0xffffffffu;
 
-enum StateMode { kExact, kBiased, kFloat };
+// the state modes; the values are the host's state codes (ops/stream.py)
+enum StateMode { kExact, kBiased, kFloat, kInt16, kUint16, kBf16 };
 
 __device__ __forceinline__ int mx(int a, int b) { return max(a, b); }
 __device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ __nv_bfloat16 mx(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __hmax(a, b);
+}
 
-// The arithmetic of each state mode: the state type T, the boundary zero,
-// the M update, what a one-tile form stores (emit) and what a chained tile
-// stores (store) and reads (load).
+// The arithmetic of each state mode: the state type T, a penalty as T
+// (cst), the boundary zero, an add, the M update, what a one-tile form
+// stores (emit) and what a chained tile stores (store) and reads (load).
 template <int kState>
 struct Arith;
 
@@ -131,7 +150,9 @@ template <>
 struct Arith<kExact> {
   using T = int;
   __device__ explicit Arith(int) {}
+  __device__ int cst(int x) const { return x; }
   __device__ int zero() const { return 0; }
+  __device__ int add(int x, int y) const { return x + y; }
   __device__ int m(int x) const { return max(x, 0); }
   __device__ int emit(int x) const { return x; }
   __device__ int store(int x) const { return x; }
@@ -144,7 +165,9 @@ struct Arith<kBiased> {
   int zbit, mask;
   __device__ explicit Arith(int width)
       : zbit(1 << (width - 1)), mask((1 << width) - 1) {}
+  __device__ int cst(int x) const { return x; }
   __device__ int zero() const { return zbit; }
+  __device__ int add(int x, int y) const { return x + y; }
   // the W-bit adder's wrap, then the sign-bit clamp: x & mask lies in
   // [0, 2^W), so "ms if its sign bit zbit is set, else zbit" is max(ms, zbit)
   __device__ int m(int x) const { return max(x & mask, zbit); }
@@ -157,11 +180,55 @@ template <>
 struct Arith<kFloat> {
   using T = float;
   __device__ explicit Arith(int) {}
+  __device__ float cst(int x) const { return static_cast<float>(x); }
   __device__ float zero() const { return 0.f; }
+  __device__ float add(float x, float y) const { return x + y; }
   __device__ float m(float x) const { return fmaxf(x, 0.f); }
   __device__ int emit(float x) const { return static_cast<int>(x); }
   __device__ int store(float x) const { return static_cast<int>(x); }
   __device__ float load(int x) const { return static_cast<float>(x); }
+};
+
+// int16: an int32 register holds the sign-extended 16-bit value
+template <>
+struct Arith<kInt16> {
+  using T = int;
+  __device__ explicit Arith(int) {}
+  __device__ int cst(int x) const { return static_cast<int16_t>(x); }
+  __device__ int zero() const { return 0; }
+  __device__ int add(int x, int y) const { return static_cast<int16_t>(x + y); }
+  __device__ int m(int x) const { return max(x, 0); }
+  __device__ int emit(int x) const { return x; }
+  __device__ int store(int x) const { return x; }
+  __device__ int load(int x) const { return static_cast<int16_t>(x); }
+};
+
+// uint16: an int32 register holds the 16-bit value in [0, 2^16)
+template <>
+struct Arith<kUint16> {
+  using T = int;
+  __device__ explicit Arith(int) {}
+  __device__ int cst(int x) const { return x & 0xFFFF; }
+  __device__ int zero() const { return 0; }
+  __device__ int add(int x, int y) const { return (x + y) & 0xFFFF; }
+  __device__ int m(int x) const { return x; }  // max(x, 0) of an unsigned x
+  __device__ int emit(int x) const { return x; }
+  __device__ int store(int x) const { return x; }
+  __device__ int load(int x) const { return x & 0xFFFF; }
+};
+
+template <>
+struct Arith<kBf16> {
+  using T = __nv_bfloat16;
+  __device__ explicit Arith(int) {}
+  __device__ T cst(int x) const { return __int2bfloat16_rn(x); }
+  __device__ T zero() const { return __ushort_as_bfloat16(0); }
+  __device__ T add(T x, T y) const { return __hadd(x, y); }
+  __device__ T m(T x) const { return __hmax(x, zero()); }
+  // every value is an integer: the conversion is exact
+  __device__ int emit(T x) const { return __bfloat162int_rz(x); }
+  __device__ int store(T x) const { return __bfloat162int_rz(x); }
+  __device__ T load(int x) const { return __int2bfloat16_rn(x); }
 };
 
 // One step of one sublane: R query rows, one char.  g_up, h_up and d_diag
@@ -179,24 +246,24 @@ __device__ __forceinline__ bool sublane_step(
   const int cv = c & 7;
   const T z = ar.zero();
   const T diag = (seghead || f0) ? z : d_diag;
-  T M = ar.m(diag + (cv == q[0] ? ma : mi));
-  T I = mx(seghead ? z : g_up, f0 ? z : G[0]) + ge;
+  T M = ar.m(ar.add(diag, cv == q[0] ? ma : mi));
+  T I = ar.add(mx(seghead ? z : g_up, f0 ? z : G[0]), ge);
   T hc = mx(seghead ? z : h_up, M);
   if (kRipple) hc = mx(hc, f0 ? z : h);
   T dprev = D[0];
   d2l = D[R - 1];
   D[0] = mx(M, I);
-  T g = mx(M + go, I);
+  T g = mx(ar.add(M, go), I);
   G[0] = g;
 #pragma unroll
   for (int r = 1; r < R; ++r) {
     const T dr = f0 ? z : dprev;
     dprev = D[r];
-    M = ar.m(dr + (cv == q[r] ? ma : mi));
-    I = mx(g, f0 ? z : G[r]) + ge;
+    M = ar.m(ar.add(dr, cv == q[r] ? ma : mi));
+    I = ar.add(mx(g, f0 ? z : G[r]), ge);
     hc = mx(hc, M);
     D[r] = mx(M, I);
-    g = mx(M + go, I);
+    g = mx(ar.add(M, go), I);
     G[r] = g;
   }
   h = hc;
@@ -244,7 +311,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   using A = Arith<kState>;
   using T = typename A::T;
   const A ar(a.width);
-  const T ma = a.ma, mi = a.mi, go = a.go, ge = a.ge, z = ar.zero();
+  const T ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
+          ge = ar.cst(a.ge), z = ar.zero();
   constexpr int SL = kLanes / R;        // wavefront sublanes per stream
   constexpr int W = SL < 32 ? SL : 32;  // threads per stream
   constexpr int V = SL / W;             // sublanes per thread
@@ -390,28 +458,41 @@ cudaError_t with_rows(int rows, F f) {
   }
 }
 
-// f(std::integral_constant<int, kState>{}) for the state mode of a score
-// width (0: none) and a float32 flag; float32 with a width is refused.
+// f(std::integral_constant<int, kState>{}) for a state code (StateMode)
+// and a score width, which kBiased alone takes (2..30).
 template <typename F>
-cudaError_t with_state(int width, int fp32, F f) {
-  if (fp32) {
-    return width ? cudaErrorInvalidValue
-                 : f(std::integral_constant<int, kFloat>{});
+cudaError_t with_state(int width, int state, F f) {
+  if ((state == kBiased) != (width != 0)) return cudaErrorInvalidValue;
+  switch (state) {
+    case kExact: return f(std::integral_constant<int, kExact>{});
+    case kBiased:
+      return width < 2 || width > 30 ? cudaErrorInvalidValue
+                                     : f(std::integral_constant<int, kBiased>{});
+    case kFloat: return f(std::integral_constant<int, kFloat>{});
+    case kInt16: return f(std::integral_constant<int, kInt16>{});
+    case kUint16: return f(std::integral_constant<int, kUint16>{});
+    case kBf16: return f(std::integral_constant<int, kBf16>{});
+    default: return cudaErrorInvalidValue;
   }
-  if (width) {
-    return width < 2 || width > 30 ? cudaErrorInvalidValue
-                                   : f(std::integral_constant<int, kBiased>{});
-  }
-  return f(std::integral_constant<int, kExact>{});
 }
 
+// The 32-bit states take every row count, the 16-bit ones rows <= 8 (no
+// rows-16 instantiation of them exists).
+template <int kState, int R>
+constexpr bool kInstantiated = R < 16 || kState == kExact ||
+                               kState == kBiased || kState == kFloat;
+
 template <int kMode>
-cudaError_t launch_rows(int rows, int width, int fp32, const Args& a,
+cudaError_t launch_rows(int rows, int width, int state, const Args& a,
                         int slices, cudaStream_t stream) {
-  return with_state(width, fp32, [&](auto st) {
+  return with_state(width, state, [&](auto st) {
     return with_rows(rows, [&](auto r) {
-      return launch<decltype(r)::value, kMode, decltype(st)::value>(a, slices,
-                                                                    stream);
+      constexpr int K = decltype(st)::value, R = decltype(r)::value;
+      if constexpr (kInstantiated<K, R>) {
+        return launch<R, kMode, K>(a, slices, stream);
+      } else {
+        return cudaErrorInvalidValue;
+      }
     });
   });
 }
@@ -432,34 +513,35 @@ cudaError_t kernel_info(int* out) {
 
 }  // namespace
 
-// rows in {1, 2, 4, 8, 16}; seg in {1, 2, 4, 8} with (128/rows) % seg == 0;
-// T % 8 == 0; 1 <= slices, and slices * 32 <= T when slices > 1 (slice k
-// owns steps from 32 * floor(k * floor(T/32) / slices)).  tail_acc = 0
-// takes the ripple-H form at rows = 1 and is ignored otherwise.  width
-// = W in 2..30 takes the W-bit biased mode (0: exact), fp32 = 1 float32
-// state (not with a width).  The caller checks these.  Returns the
-// launch's CUDA error.
+// rows in {1, 2, 4, 8, 16} (at most 8 in a 16-bit state); seg in
+// {1, 2, 4, 8} with (128/rows) % seg == 0; T % 8 == 0; 1 <= slices, and
+// slices * 32 <= T when slices > 1 (slice k owns steps from
+// 32 * floor(k * floor(T/32) / slices)).  tail_acc = 0 takes the ripple-H
+// form at rows = 1 and is ignored otherwise.  state is a StateMode code;
+// width = W in 2..30 goes with kBiased and 0 with the others.  The caller
+// checks these (an instantiation that does not exist returns
+// cudaErrorInvalidValue).  Returns the launch's CUDA error.
 extern "C" int swtpu_stream_wavefront(const void* qk, const void* sk,
                                       void* strip, int S, int T, int seg,
                                       int rows, int tail_acc, int ma, int mi,
                                       int go, int ge, void* stream,
-                                      int slices, int width, int fp32) {
+                                      int slices, int width, int state) {
   const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
                nullptr, nullptr, nullptr, static_cast<int32_t*>(strip),
                nullptr, nullptr, nullptr, S, T, seg, ma, mi, go, ge, width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!tail_acc && rows == 1) {
-    return with_state(width, fp32, [&](auto m) {
+    return with_state(width, state, [&](auto m) {
       return launch<1, kRippleH, decltype(m)::value>(a, slices, st);
     });
   }
-  return launch_rows<kTailAcc>(rows, width, fp32, a, slices, st);
+  return launch_rows<kTailAcc>(rows, width, state, a, slices, st);
 }
 
 // One chained tile at segments 1: qk [128, S] int8, sk [T, S] int8,
 // bD/bG/bH [T, S] int32 -> acc, oD, oG, oH [T, S] int32 (biased in the
 // biased mode).  rows in {1, 2, 4, 8, 16}; T % 8 == 0; slices, width and
-// fp32 as for swtpu_stream_wavefront.  The caller checks these.  Returns
+// state as for swtpu_stream_wavefront.  The caller checks these.  Returns
 // the launch's CUDA error.
 extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
                                     const void* bD, const void* bG,
@@ -467,23 +549,23 @@ extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
                                     void* oG, void* oH, int S, int T,
                                     int rows, int ma, int mi, int go, int ge,
                                     void* stream, int slices, int width,
-                                    int fp32) {
+                                    int state) {
   const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
                static_cast<const int32_t*>(bD), static_cast<const int32_t*>(bG),
                static_cast<const int32_t*>(bH), static_cast<int32_t*>(acc),
                static_cast<int32_t*>(oD), static_cast<int32_t*>(oG),
                static_cast<int32_t*>(oH), S, T, 1, ma, mi, go, ge, width};
-  return launch_rows<kChained>(rows, width, fp32, a, slices,
+  return launch_rows<kChained>(rows, width, state, a, slices,
                                static_cast<cudaStream_t>(stream));
 }
 
 // out[3] = registers a thread, local bytes a thread, resident blocks an SM
 // of the instantiation for `rows` in `mode` (0 tail accumulator, 1 ripple-H
-// at rows 1, 2 chained tile) and the state mode of width and fp32.
+// at rows 1, 2 chained tile) and the state mode of width and state.
 // Returns the CUDA error.
 extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
-                                        int fp32, int* out) {
-  return with_state(width, fp32, [&](auto m) {
+                                        int state, int* out) {
+  return with_state(width, state, [&](auto m) {
     constexpr int K = decltype(m)::value;
     if (mode == kRippleH) {
       return rows == 1 ? kernel_info<1, kRippleH, K>(out)
@@ -491,8 +573,12 @@ extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
     }
     return with_rows(rows, [&](auto r) {
       constexpr int R = decltype(r)::value;
-      return mode == kChained ? kernel_info<R, kChained, K>(out)
-                              : kernel_info<R, kTailAcc, K>(out);
+      if constexpr (kInstantiated<K, R>) {
+        return mode == kChained ? kernel_info<R, kChained, K>(out)
+                                : kernel_info<R, kTailAcc, K>(out);
+      } else {
+        return cudaErrorInvalidValue;
+      }
     });
   });
 }

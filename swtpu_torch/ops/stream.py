@@ -14,12 +14,17 @@ rows (``sw_scores_stream_long``): each tile's row 0 reads the tile above's
 row-127 D/G/H from boundary strips, and each tile emits its own row 127
 for the tile below.
 
-Every form runs in three state modes, as swtpu's kernels do: exact int32
-state; float32 state (the same values, exact below 2^24); and the RTL's
-W-bit biased wrap-parity (``score_width``) on int32 state, where zero is
-2^(W-1) and only the M update wraps.  The one-tile forms write their
-strips unbiased; a chained tile writes biased strips and the chain
-unbiases at its gather.
+Every form runs in swtpu's six state modes: exact int32 state; float32
+state (the same values, exact below 2^24); the RTL's W-bit biased
+wrap-parity (``score_width``) on int32 state, where zero is 2^(W-1) and
+only the M update wraps; int16 and uint16 state, whose adds wrap modulo
+2^16 (uint16 wraps a mismatch of -4 to 2^16 - 4, and a negative open or
+extend penalty raises swtpu's OverflowError); and
+bfloat16 state, rounded to nearest even after every add, so that a score
+above 256 can come out below the exact one.  The 16-bit states take rows
+of at most 8, as swtpu's do.  The one-tile forms write their strips
+unbiased; a chained tile writes biased strips and the chain unbiases at
+its gather.
 
 ``stream_strip_reference`` and ``stream_chained_reference`` are the plain
 PyTorch versions of the two kernels; ``stream_strip_cuda`` and
@@ -62,10 +67,22 @@ MIN_SLICE_STEPS = 1024
 PIPE_FILLS_PER_SLICE = 16
 
 
-# the wavefront's state types: the kernels compute in one of these and
-# write int32 strips
-STATE_DTYPES = {"int32": torch.int32, "float32": torch.float32}
-UNPORTED_STATE_DTYPES = ("int16", "uint16", "bfloat16")
+# the wavefront's state types, as the plain version holds them: the
+# kernels compute in one of these and write int32 strips.  uint16 lives in
+# int32 lanes masked to 16 bits after every add (torch's CPU uint16 lacks
+# most ops): the same modular arithmetic, and a max of values in [0, 2^16)
+# is the unsigned max.
+STATE_DTYPES = {"int32": torch.int32, "float32": torch.float32, "int16": torch.int16,
+                "uint16": torch.int32, "bfloat16": torch.bfloat16}
+SIXTEEN_BIT_STATES = ("int16", "uint16", "bfloat16")
+# what an integer state type holds: swtpu converts the open, then the extend
+# penalty to it with jnp.array, which refuses a value outside
+INT_STATE_RANGES = {"int32": (-(1 << 31), (1 << 31) - 1),
+                    "int16": (-(1 << 15), (1 << 15) - 1), "uint16": (0, (1 << 16) - 1)}
+# the CUDA entry points' state codes (StateMode in csrc/stream_wavefront.cu);
+# a score width takes code 1, the biased int32 mode
+STATE_CODES = {"int32": 0, "float32": 2, "int16": 3, "uint16": 4, "bfloat16": 5}
+BIASED_CODE = 1
 
 
 def _validate_config(
@@ -73,10 +90,13 @@ def _validate_config(
     penalties=DEFAULT_PENALTIES,
 ):
     """Shape-independent contract checks shared by every entry, with
-    swtpu's messages.  swtpu's TPU-only rules are left out: physical
+    swtpu's errors.  swtpu's TPU-only rules are left out: physical
     streams need not be a multiple of the 128-lane vreg width, and rows=16
     composes with segments > 1 (it hit a Mosaic layout limit, not a
-    semantic one).  int16, uint16 and bfloat16 state are not ported."""
+    semantic one).  rows=16 with a 16-bit state stays refused: swtpu
+    refuses it in interpret mode too.  A penalty that the state type
+    cannot hold raises swtpu's OverflowError (uint16 at the default
+    penalties)."""
     if score_width is not None:
         if state_dtype != "int32":
             # & and sign-bit tests are integer ops; float lanes cannot wrap
@@ -99,18 +119,35 @@ def _validate_config(
         raise ValueError(f"segments {segments} must divide {LANES} and be <= 8")
     if rows not in ROWS:
         raise ValueError(f"rows {rows} must be one of 1/2/4/8/16")
+    if rows == 16 and state_dtype in SIXTEEN_BIT_STATES:
+        raise ValueError("rows=16 requires a 32-bit state dtype")
     if (LANES // rows) % segments:
         raise ValueError(
             f"sublane rows {LANES//rows} must divide by segments {segments}"
         )
-    if state_dtype in UNPORTED_STATE_DTYPES:
-        raise NotImplementedError(
-            f"state_dtype={state_dtype!r} is not ported yet (ROADMAP item 20: "
-            "16-bit and bfloat16 wavefront state); the port's wavefront "
-            "carries int32 or float32 state"
-        )
     if state_dtype not in STATE_DTYPES:
         raise ValueError(f"unknown state_dtype {state_dtype!r}")
+    check_state_constants(state_dtype, penalties.astuple()[2:])
+
+
+def check_state_constants(state_dtype, values):
+    """numpy's OverflowError for the first of `values` (Python ints that
+    swtpu converts to the state type with jnp.array, in its order) that an
+    integer state type cannot hold; the float types take any."""
+    lo, hi = INT_STATE_RANGES.get(state_dtype, (None, None))
+    for v in values:
+        if lo is not None and not lo <= v <= hi:
+            raise OverflowError(f"Python integer {v} out of bounds for {state_dtype}")
+
+
+def state_value(x, state_dtype):
+    """The Python int x as swtpu's astype leaves it in the state type: a
+    16-bit integer type keeps its low 16 bits (signed for int16)."""
+    if state_dtype == "int16":
+        return (x + (1 << 15)) % (1 << 16) - (1 << 15)
+    if state_dtype == "uint16":
+        return x % (1 << 16)
+    return x
 
 
 def _validate_kernel_layout(qk, streamT, segments, rows=1, state_dtype="int32",
@@ -179,6 +216,12 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
     i32 = torch.int32
     dt = STATE_DTYPES[state_dtype]
     ripple = not tail_acc and rows == 1
+    if state_dtype == "uint16":
+        # the 16-bit adder's wrap on int32 lanes
+        def add(x, y):
+            return (x + y) & 0xFFFF
+    else:
+        add = operator.add
     qs = qk.to(i32).reshape(rows, SL, S)
     sc = sk.to(i32).reshape(T, segments, S)
     seghead = (torch.arange(SL, device=dev) % SLg == 0)[:, None]
@@ -187,8 +230,8 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
     # the boundary zero: 0, or in W-bit wrap-parity the bias 2^(W-1)
     zbit = _bias(score_width)
     zero = torch.tensor(zbit, dtype=dt, device=dev)
-    ma_t = torch.tensor(ma, dtype=dt, device=dev)
-    mi_t = torch.tensor(mi, dtype=dt, device=dev)
+    ma_t = torch.tensor(state_value(ma, state_dtype), dtype=dt, device=dev)
+    mi_t = torch.tensor(state_value(mi, state_dtype), dtype=dt, device=dev)
     if score_width is None:
         def m_update(x):
             return torch.clamp_min(x, 0)
@@ -222,7 +265,11 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
     acc = torch.full((segments, S), zbit, dtype=dt, device=dev)
     strip = torch.empty((T, segments, S), dtype=i32, device=dev)
     if bounds is not None:
-        bD, bG, bH = (b.to(dt) for b in bounds)
+        # swtpu casts the int32 boundary strips to the state type at the load
+        if state_dtype == "uint16":
+            bD, bG, bH = (b & 0xFFFF for b in bounds)
+        else:
+            bD, bG, bH = (b.to(dt) for b in bounds)
         outs = [torch.empty((T, S), dtype=i32, device=dev) for _ in range(3)]
     for t in range(T):
         C = torch.roll(C, 1, 0)
@@ -238,23 +285,23 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
             # the tile's row 0 reads the tile above's row 127: the same
             # column of the same read, so no zero but the read-start one
             upD[0], upG[0], upH[0] = bD[t], bG[t], bH[t]
-        Mc = m_update(torch.where(f0, zero, upD) + s0)
+        Mc = m_update(add(torch.where(f0, zero, upD), s0))
         G_left = torch.where(f0, zero, G[0])
-        Ic = torch.maximum(upG, G_left) + ge
+        Ic = add(torch.maximum(upG, G_left), ge)
         Hcur = torch.maximum(upH, Mc)
         if ripple:
             # H ripples with the data; its own register resets at a read start
             Hcur = torch.maximum(Hcur, torch.where(f0, zero, Hl))
         newD = [torch.maximum(Mc, Ic)]
-        newG = [torch.maximum(Mc + go, Ic)]
+        newG = [torch.maximum(add(Mc, go), Ic)]
         for r in range(1, rows):
             sr = torch.where(cval == qs[r], ma_t, mi_t)
-            Mc = m_update(torch.where(f0, zero, D[r - 1]) + sr)
+            Mc = m_update(add(torch.where(f0, zero, D[r - 1]), sr))
             G_left = torch.where(f0, zero, G[r])
-            Ic = torch.maximum(newG[r - 1], G_left) + ge
+            Ic = add(torch.maximum(newG[r - 1], G_left), ge)
             Hcur = torch.maximum(Hcur, Mc)
             newD.append(torch.maximum(Mc, Ic))
-            newG.append(torch.maximum(Mc + go, Ic))
+            newG.append(torch.maximum(add(Mc, go), Ic))
         D2L = D[rows - 1]
         D = newD
         G = newG
@@ -303,7 +350,12 @@ def stream_strip_reference(
     boundaries; M = (diag + s) & (2^W - 1), or the bias where that has its
     sign bit 2^(W-1) clear; nothing else is masked; the strip rows are the
     accumulators (or H) less the bias.  state_dtype="float32" carries the
-    state as float32 (exact: every value is an integer far below 2^24)."""
+    state as float32 (exact: every value is an integer far below 2^24);
+    "int16" as int16, whose adds wrap at 2^15 as JAX's do; "uint16" as
+    16-bit unsigned values, every add modulo 2^16 (the match and mismatch
+    scores too: -4 is 65532), so max(x, 0) is x; "bfloat16" as bfloat16,
+    every add rounded to nearest even (a value above 256 keeps 8
+    significant bits).  The strips are int32 in every mode."""
     T = sk.shape[0]
     strip = _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc,
                                  score_width=score_width, state_dtype=state_dtype)
@@ -323,7 +375,9 @@ def stream_chained_reference(qk, sk, bD, bG, bH, penalties=DEFAULT_PENALTIES, ro
     are the tile's own row 127 (D, G and H of the last sublane's row R-1)
     after each step; acc is the tail accumulator.  With zero boundaries it
     is stream_strip_reference at segments 1.  With score_width the
-    boundaries are read, and all four outputs written, biased."""
+    boundaries are read, and all four outputs written, biased.  In a
+    16-bit state the boundaries are cast to the state type as they are
+    read, and the outputs written back as int32."""
     acc, *outs = _wavefront_reference(qk, sk, penalties, 1, rows, bounds=(bD, bG, bH),
                                       score_width=score_width, state_dtype=state_dtype)
     return (acc.reshape(sk.shape), *outs)
@@ -396,8 +450,8 @@ def _record_slices(wrapper, slices, T):
 
 
 def _kernel_state(score_width, state_dtype):
-    """(W or 0, 1 for float32 state) as the CUDA entry points take them."""
-    return score_width or 0, int(state_dtype == "float32")
+    """(W or 0, the state code) as the CUDA entry points take them."""
+    return score_width or 0, BIASED_CODE if score_width else STATE_CODES[state_dtype]
 
 
 def stream_strip_cuda(
@@ -494,7 +548,8 @@ def stream_kernel_info(rows, tail_acc=True, chained=False, score_width=None,
 
     from swtpu_torch.ops._build import load_library
 
-    _validate_config(1, rows, state_dtype, score_width)
+    # the instantiation does not depend on the penalties: none refused here
+    _validate_config(1, rows, state_dtype, score_width, Penalties(0, 0, 0, 0))
     lib = load_library()
     mode = 2 if chained else (1 if not tail_acc and rows == 1 else 0)
     out = (ctypes.c_int * 3)()
@@ -546,8 +601,9 @@ def sw_scores_stream_strip(
       stream: [N, T] int8 concatenated target chars (codes 0..3, +8 flag on
         each target's first char, 4 = drain/pad), T % STEP_CHUNK == 0.
       segments: queries packed per lane column (1, 2, 4 or 8).
-      state_dtype: the state the kernel carries, "int32" or "float32"
-        (the same strip).
+      state_dtype: the state the kernel carries: "int32" or "float32"
+        (the same strip), "int16", "uint16" or "bfloat16" (rows <= 8; see
+        stream_strip_reference).
       tail_acc: the strip is the segment tails' running-best accumulators;
         False takes the ripple-H form (rows = 1 only; ignored otherwise).
       rows: query rows folded per sublane; the emission drain is
@@ -732,7 +788,9 @@ def sw_scores_stream_long(
         (128//rows - 1)*(K - 1) extra drain steps).
       emit_stream/emit_step: emission coordinates (drain = 128//rows - 1,
         as for one tile at segments 1).
-      state_dtype: "int32" or "float32" state (the same scores).
+      state_dtype: "int32" or "float32" state (the same scores), or
+        "int16", "uint16" or "bfloat16" (rows <= 8) with their own
+        arithmetic (stream_strip_reference).
       score_width: W-bit biased wrap-parity along the whole chain: the
         boundary strips carry biased values, and the gather unbiases.
 

@@ -122,7 +122,7 @@ def test_chained_scores_equal_swtpu():
     np.testing.assert_array_equal(got, _swtpu(qp, tp))
 
 
-def _swtpu_tile(q, t, ms, is_, h, pen, width):
+def _swtpu_tile(q, t, ms, is_, h, pen, width, dt=jnp.int32):
     """One interpret-mode launch of swtpu's _sw_kernel_chained on [B, ...]
     inputs (pairs padded to a 128-lane block, as sw_scores_pallas does);
     returns (h [B], ms [B, n], is_ [B, n])."""
@@ -135,7 +135,7 @@ def _swtpu_tile(q, t, ms, is_, h, pen, width):
     msT, isT = (np.pad(s, pad).T for s in (ms, is_))
     kernel = functools.partial(
         _sw_kernel_chained, ma=ma, mi=mi, go=go, ge=ge, unroll=1, chunk=8,
-        dt=jnp.int32, biased_width=width,
+        dt=dt, biased_width=width,
     )
     strip = pl.BlockSpec((n, bt), lambda b: (0, b), memory_space=pltpu.VMEM)
     hspec = pl.BlockSpec((1, bt), lambda b: (0, b), memory_space=pltpu.VMEM)
@@ -158,8 +158,9 @@ def _swtpu_tile(q, t, ms, is_, h, pen, width):
     return oh[0, :B], oms[:, :B].T, ois[:, :B].T
 
 
-@pytest.mark.parametrize("width", [None, 10])
-def test_chained_tile_strips_equal_swtpu(width):
+@pytest.mark.parametrize("width,state_dtype", [(None, "int32"), (10, "int32"),
+                                               (None, "float32"), (None, "int16")])
+def test_chained_tile_strips_equal_swtpu(width, state_dtype):
     """One tile with non-zero incoming strips: the port's plain tile on
     the 13 real columns, swtpu's on them padded to 16 (its chunk), the
     strips with (biased) zero.  A tile is causal in j, so the first 13
@@ -175,13 +176,13 @@ def test_chained_tile_strips_equal_swtpu(width):
     is_ = rng.integers(z - 10, z + 50, size=(B, n)).astype(np.int32)
     h = (max(ms.max(), is_.max()) + rng.integers(0, 5, size=B)).astype(np.int32)
     got = column.column_chained_reference(
-        _t(q), _t(t), _t(ms), _t(is_), _t(h), DEFAULT_PENALTIES, width
+        _t(q), _t(t), _t(ms), _t(is_), _t(h), DEFAULT_PENALTIES, width, state_dtype
     )
     padc = ((0, 0), (0, npad - n))
     want = _swtpu_tile(
         q, np.pad(t, padc, constant_values=common.T_PAD),
         np.pad(ms, padc, constant_values=z), np.pad(is_, padc, constant_values=z),
-        h, DEFAULT_PENALTIES, width,
+        h, DEFAULT_PENALTIES, width, getattr(jnp, state_dtype),
     )
     for name, g, w in zip(("h", "ms", "is_"), got, want):
         assert g.dtype == torch.int32 and g.shape == (B, n)[: g.dim()]
@@ -244,10 +245,59 @@ def test_width_checks_match_swtpu(width, pen):
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "int16"])
-def test_unported_states_raise(state_dtype):
-    q = _t(np.zeros((2, 8), np.int8))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        column.sw_scores_column(q, q, state_dtype=state_dtype)
+def test_exact_states_equal_swtpu_on_a_256_row_bucket(state_dtype):
+    """B4 in float32 and int16 state (swtpu's floors -2^23 and -2^13 in its
+    prefix scan) at the 256-row shape against a 32-column target bucket:
+    swtpu's scores, the oracle's, and int32's."""
+    rng = np.random.default_rng(31)
+    q, q_lens, t, t_lens = _ragged(rng, 6, 256, 32)
+    q_lens[0] = 256
+    qp, tp = common.sentinel_pad_batch(q, q_lens, t, t_lens)
+    got = _port(qp, tp, state_dtype=state_dtype)
+    np.testing.assert_array_equal(got, _swtpu(qp, tp, state_dtype=state_dtype))
+    np.testing.assert_array_equal(got, sw_score_batch(q, t, q_lens, t_lens))
+    np.testing.assert_array_equal(got, _port(qp, tp))
+
+
+def test_int16_chain_past_8191():
+    """A two-tile chain (B5) in int16 state whose self-matching 300-base
+    pair scores 12,000 at +40 a match: past the 8,191 that swtpu's int16
+    floor of -2^13 leaves room for, yet exact in both packages, so no floor
+    wins; every pair equals swtpu, the oracle and int32.  (float32's tile
+    is held in test_chained_tile_strips_equal_swtpu.)"""
+    state_dtype = "int16"
+    rng = np.random.default_rng(32)
+    pen = Penalties(match=40, mismatch=-4, gap_open=-12, gap_extend=-4)
+    q, q_lens, t, t_lens = _ragged(rng, 3, 300, 300)
+    t[0] = q[0]
+    q_lens[0] = t_lens[0] = 300
+    qp, tp = common.sentinel_pad_batch(q, q_lens, t, t_lens)
+    got = _port(qp, tp, pen, state_dtype=state_dtype)
+    want = sw_score_batch(q, t, q_lens, t_lens, pen)
+    assert want[0] == 12000
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _swtpu(qp, tp, pen, state_dtype=state_dtype))
+    np.testing.assert_array_equal(got, _port(qp, tp, pen))
+
+
+@pytest.mark.parametrize("m", [8, 256, 300])
+@pytest.mark.parametrize("pen", [Penalties(5, -4, -12, -300), Penalties(5, -4, -40000, -4)])
+def test_int16_overflow_equals_swtpu(pen, m):
+    """A penalty that int16 state cannot hold raises swtpu's OverflowError,
+    found in swtpu's order (open + extend; k x extend of the prefix scan,
+    which reaches 128 x extend only at 256 rows)."""
+    q = np.zeros((2, m), np.int8)
+    outcomes = []
+    for run in (_port, _swtpu):
+        try:
+            run(q, q, pen, state_dtype="int16")
+            outcomes.append("ok")
+        except OverflowError as e:
+            outcomes.append(str(e))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0] == ("ok" if m == 8 and pen.gap_extend == -300
+                           else f"Python integer {-38400 if pen.gap_extend == -300 else -40004} "
+                           "out of bounds for int16")
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from swtpu_torch import DEFAULT_PENALTIES, SWConfig, ScoreBank, score_many_vs_one
+from swtpu_torch import DEFAULT_PENALTIES, Penalties, SWConfig, ScoreBank, score_many_vs_one
 from swtpu_torch.bank.scorebank import EncodedDB
 from swtpu_torch.bank.streams import pack_streams, pack_streams_long
 from swtpu_torch.ops import column, lane, microbench
@@ -300,24 +300,34 @@ def _column_batch(rng, B, m, n):
     return torch.from_numpy(q), torch.from_numpy(t)
 
 
-@pytest.mark.parametrize("width", [None, 12, 10])
+# the column kernels' state modes: (score width, state type)
+COLUMN_MODES = [(None, "int32"), (12, "int32"), (10, "int32"), (None, "float32"),
+                (None, "int16")]
+
+
+@pytest.mark.parametrize("width,state_dtype", COLUMN_MODES)
 @pytest.mark.parametrize("m", [8, 32, 136, 256])
-def test_column_kernel_equals_plain_version(cuda_device, m, width):
-    """B4 at each rows-per-lane, 1001 pairs (a ragged last block)."""
+def test_column_kernel_equals_plain_version(cuda_device, m, width, state_dtype):
+    """B4 at each rows-per-lane, 1001 pairs (a ragged last block), in each
+    state mode; float32 and int16 also equal int32."""
     rng = np.random.default_rng(m + (width or 0))
     q, t = _column_batch(rng, 1001, m, 160)
-    want = column.column_scores_reference(q, t, DEFAULT_PENALTIES, width)
+    want = column.column_scores_reference(q, t, DEFAULT_PENALTIES, width, state_dtype)
     launches = column.column_scores_cuda.launches
     got = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device),
-                                    DEFAULT_PENALTIES, width)
+                                    DEFAULT_PENALTIES, width, state_dtype)
     torch.cuda.synchronize()
     assert column.column_scores_cuda.launches == launches + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if state_dtype != "int32":
+        exact = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device))
+        np.testing.assert_array_equal(got.cpu().numpy(), exact.cpu().numpy())
 
 
-@pytest.mark.parametrize("width", [None, 10])
+@pytest.mark.parametrize("width,state_dtype", [(None, "int32"), (10, "int32"),
+                                               (None, "float32"), (None, "int16")])
 @pytest.mark.parametrize("K", [2, 3])
-def test_column_chain_equals_plain_version(cuda_device, K, width):
+def test_column_chain_equals_plain_version(cuda_device, K, width, state_dtype):
     """Whole K-tile chains through B5 and its plain version: every tile's
     h, ms and is, and the scores."""
     rng = np.random.default_rng(K * 7 + (width or 0))
@@ -330,7 +340,8 @@ def test_column_chain_equals_plain_version(cuda_device, K, width):
             outs.append(tile(*args))
             return outs[-1]
 
-        return column._chained_call(q, t, DEFAULT_PENALTIES, width, tile=record), outs
+        return column._chained_call(q, t, DEFAULT_PENALTIES, width, tile=record,
+                                    state_dtype=state_dtype), outs
 
     launches = column.column_chained_cuda.launches
     got, got_tiles = run(q.to(cuda_device), t.to(cuda_device), column.column_chained_cuda)
@@ -363,6 +374,9 @@ def test_column_kernels_reject_bad_tensors(cuda_device):
         column.column_chained_cuda(q, t, s, s, h[:2])
     with pytest.raises(ValueError, match="score_width=5 too narrow"):
         column.column_scores_cuda(q, t, DEFAULT_PENALTIES, 5)
+    with pytest.raises(OverflowError, match="-38400 out of bounds for int16"):
+        column.column_chained_cuda(q, t, s, s, h, Penalties(5, -4, -12, -300),
+                                   state_dtype="int16")
     assert (column.column_scores_cuda.launches,
             column.column_chained_cuda.launches) == launches
 
@@ -647,11 +661,107 @@ def test_mode_chained_kernel_equals_plain_version(cuda_device, rows, mode, slice
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("rows,form", [(r, "tail_acc") for r in port.ROWS] + [(1, "ripple_h")]
-                         + [(r, "chained") for r in port.ROWS])
+# the 16-bit states: (state type, penalties it takes); uint16 refuses the
+# default open penalty and wraps a mismatch of -4 to 65532
+SIXTEEN_BIT = {
+    "int16": ("int16", DEFAULT_PENALTIES),
+    "uint16": ("uint16", Penalties(5, 0, 0, 0)),
+    "uint16 wrap": ("uint16", Penalties(5, -4, 0, 0)),
+    "bfloat16": ("bfloat16", DEFAULT_PENALTIES),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _16bit_case(segments, rows, tail_acc, mode):
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk = _mode_batch(segments, rows)
+    want = port.stream_strip_reference(qk, sk, pen, segments, rows, tail_acc,
+                                       state_dtype=dtype)
+    return qk, sk, want
+
+
+@pytest.mark.parametrize("slices", SLICES)
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("segments,rows,tail_acc", [
+    (1, 1, True), (1, 8, True), (2, 8, True), (4, 4, True), (1, 1, False), (4, 1, False),
+])
+def test_16bit_strip_equals_plain_version(cuda_device, segments, rows, tail_acc, mode, slices):
+    """The int16, uint16 and bfloat16 kernels, both forms, against their
+    plain versions; int16 and exact uint16 also equal int32."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk, want = _16bit_case(segments, rows, tail_acc, mode)
+    args = (qk.to(cuda_device), sk.to(cuda_device), pen, segments, rows, tail_acc)
+    launches = port.stream_strip_cuda.launches
+    got = port.stream_strip_cuda(*args, slices=slices, state_dtype=dtype)
+    torch.cuda.synchronize()
+    assert port.stream_strip_cuda.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if mode in ("int16", "uint16"):
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      port.stream_strip_cuda(*args).cpu().numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _16bit_chained_case(rows, mode):
+    """One chained tile in a 16-bit state on random boundary strips in the
+    state's range."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    rng = np.random.default_rng(rows + 410)
+    db = _db(rng, 400, 200)
+    b = pack_streams(rng.integers(0, 4, size=1).astype(np.int8), db.mat,
+                     n_streams=40, lens=db.lens, rows=rows)
+    sk = torch.from_numpy(b.stream.T.copy())
+    qk = torch.from_numpy(rng.integers(0, 4, size=(128, 40)).astype(np.int8))
+    lo = 0 if dtype == "uint16" else -20
+    bounds = [torch.from_numpy(rng.integers(lo, 300, size=sk.shape).astype(np.int32))
+              for _ in range(3)]
+    if dtype == "bfloat16":  # what a bfloat16 tile writes: bfloat16 values
+        bounds = [x.to(torch.bfloat16).to(torch.int32) for x in bounds]
+    want = port.stream_chained_reference(qk, sk, *bounds, pen, rows, state_dtype=dtype)
+    return qk, sk, bounds, want
+
+
+@pytest.mark.parametrize("slices", SLICES)
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("rows", [1, 8])
+def test_16bit_chained_kernel_equals_plain_version(cuda_device, rows, mode, slices):
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk, bounds, want = _16bit_chained_case(rows, mode)
+    got = port.stream_chained_cuda(
+        qk.to(cuda_device), sk.to(cuda_device), *(x.to(cuda_device) for x in bounds),
+        pen, rows, slices=slices, state_dtype=dtype,
+    )
+    for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "uint16", "bfloat16"])
+def test_16bit_rows_16_is_refused(cuda_device, dtype):
+    """No rows-16 16-bit instantiation exists: the wrappers raise swtpu's
+    ValueError, and the library refuses the launch and the query."""
+    import ctypes
+
+    from swtpu_torch.ops import _build
+
+    qk = torch.zeros((128, 8), dtype=torch.int8, device=cuda_device)
+    sk = torch.zeros((32, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="rows=16 requires a 32-bit state dtype"):
+        port.stream_strip_cuda(qk, sk, Penalties(5, 0, 0, 0), 1, 16, state_dtype=dtype)
+    out = (ctypes.c_int * 3)()
+    code = port.STATE_CODES[dtype]
+    assert _build.load_library().swtpu_stream_kernel_info(16, 0, 0, code, out) == 1
+
+
+# every instantiation: rows 16 only in the 32-bit states
+@pytest.mark.parametrize("rows,form,mode", [
+    (r, form, mode)
+    for mode in [*MODES, *port.SIXTEEN_BIT_STATES]
+    for r, form in [(r, "tail_acc") for r in port.ROWS] + [(1, "ripple_h")]
+    + [(r, "chained") for r in port.ROWS]
+    if r < 16 or mode in MODES
+])
 def test_mode_kernels_hold_the_slices_occupancy(cuda_device, rows, form, mode):
-    width, dtype = MODES[mode]
+    width, dtype = MODES.get(mode, (None, mode))
     regs, local, blocks = port.stream_kernel_info(
         rows, tail_acc=form != "ripple_h", chained=form == "chained",
         score_width=width, state_dtype=dtype)
@@ -718,3 +828,38 @@ def test_float32_state_equals_oracle(cuda_device, qlen, wire):
     cfg = SWConfig(stream_state_dtype="float32", wire_2bit=wire)
     res = ScoreBank(cfg, device=cuda_device).score_database(query, db)
     np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
+
+
+@pytest.mark.parametrize("qlen", [60, 300])
+def test_16bit_bank_equals_oracle_and_plain_path(cuda_device, qlen):
+    """ScoreBank(stream_state_dtype=..., stream_rows=8) on the card: int16
+    and exact uint16 equal the oracle, bfloat16 and wrapping uint16 the
+    port's plain path on the CPU, short and long queries; without
+    stream_rows a segments-1 query takes rows 16 there and raises swtpu's
+    ValueError."""
+    rng = np.random.default_rng(qlen + 600)
+    db = _db(rng, 300, 200)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    for mode, (dtype, pen) in SIXTEEN_BIT.items():
+        cfg = SWConfig(stream_state_dtype=dtype, stream_rows=8, penalties=pen)
+        got = ScoreBank(cfg, device=cuda_device).score_database(query, db).scores
+        if mode in ("int16", "uint16"):
+            want = score_many_vs_one(query, db.as_list(), pen)
+        else:
+            want = ScoreBank(cfg, device="cpu").score_database(query, db).scores
+        np.testing.assert_array_equal(got, want, err_msg=mode)
+    with pytest.raises(ValueError, match="rows=16 requires a 32-bit state dtype"):
+        ScoreBank(SWConfig(stream_state_dtype="int16"), device=cuda_device).score_database(
+            rng.integers(0, 4, size=128).astype(np.int8), db)
+
+
+def test_16bit_score_pairs_equals_oracle(cuda_device):
+    """score_pairs in int16 on the pair streams and the chained tiles."""
+    rng = np.random.default_rng(23)
+    queries, targets = _pairs(rng, 300, 24, 128, 40)
+    longs, ltargets = _pairs(rng, 30, 300, 400, 2)
+    queries, targets = queries + longs, targets + ltargets
+    bank = ScoreBank(SWConfig(stream_state_dtype="int16", stream_rows=8), device=cuda_device)
+    res = bank.score_pairs(queries, targets)
+    want = [score_many_vs_one(q, [t])[0] for q, t in zip(queries, targets)]
+    np.testing.assert_array_equal(res.scores, want)

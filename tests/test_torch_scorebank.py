@@ -7,7 +7,11 @@ import torch
 
 from swtpu.bank import ScoreBank as RefBank
 from swtpu.bank import ScoreResult as RefResult
+from swtpu.bank import streams as ref_streams
+from swtpu.config import Penalties as RefPenalties
+from swtpu.config import SWConfig as RefConfig
 from swtpu.io.loader import EncodedDB as RefEncodedDB
+from swtpu.ops.pallas_stream import sw_scores_stream_long as ref_stream_long
 from swtpu.oracle import score_many_vs_one
 from swtpu.utils.guards import IntegrityError as RefIntegrityError
 from swtpu.utils.guards import check_stream_batch as ref_check_stream_batch
@@ -125,25 +129,110 @@ def test_event_log_record(tmp_path):
 @pytest.mark.parametrize(
     "make,match",
     [
-        (lambda: ScoreBank(SWConfig(stream_state_dtype="bfloat16"), backend="stream",
-                           device="cpu").score_database(np.zeros(9, np.int8),
-                                                        [np.zeros(9, np.int8)]),
-         "'bfloat16' is not ported yet \\(ROADMAP item 20"),
         (lambda: ScoreBank(backend="scan", device="cpu"), "scan"),
         (lambda: ScoreBank(SWConfig(stream_chunk_reads=2), device="cpu").score_database(
             np.zeros(9, np.int8), [np.zeros(9, np.int8)] * 3), "chunked"),
-        (lambda: ScoreBank(SWConfig(stream_state_dtype="int16"), device="cpu").score_database(
-            np.zeros(200, np.int8), [np.zeros(9, np.int8)]), "'int16' is not ported yet"),
-        (lambda: ScoreBank(SWConfig(stream_state_dtype="uint16"), device="cpu").score_pairs(
-            [np.zeros(9, np.int8)], [np.zeros(9, np.int8)]), "ROADMAP item 20"),
-        (lambda: sw_scores_column(torch.zeros((2, 8), dtype=torch.int8),
-                                  torch.zeros((2, 8), dtype=torch.int8),
-                                  state_dtype="float32"), "float32"),
     ],
 )
 def test_unported_settings_raise(make, match):
     with pytest.raises(NotImplementedError, match=match):
         make()
+
+
+# the wavefront's 16-bit states on the stream backend, each at penalties it
+# takes (uint16 refuses the default open penalty; at mismatch -4 it wraps)
+BANK_STATES = {
+    "int16": ("int16", Penalties()),
+    "uint16": ("uint16", Penalties(5, 0, 0, 0)),
+    "uint16 wrap": ("uint16", Penalties(5, -4, 0, 0)),
+    "bfloat16": ("bfloat16", Penalties()),
+}
+
+
+@pytest.mark.parametrize("qlen", [60, 200])
+@pytest.mark.parametrize("mode", list(BANK_STATES))
+def test_score_database_16bit_states_equal_swtpu(mode, qlen):
+    """score_database in each 16-bit state on the CPU (rows 1, swtpu's
+    interpret geometry) against swtpu: the stream backend in interpret mode
+    for a short query; for a long one swtpu's chain on the same packed
+    batch at a 2-step chunk (its bank's 8-step bfloat16 tile takes XLA
+    minutes to compile; the packing is held field for field in
+    test_torch_stream_long.py).  Reads 4 and 9 are the query itself, so
+    bfloat16 rounds them."""
+    dtype, pen = BANK_STATES[mode]
+    rng = np.random.default_rng(qlen + 40)
+    db = _db(rng, 30)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    reads = db.as_list()
+    reads[4] = reads[9] = query.copy()
+    got = ScoreBank(SWConfig(stream_state_dtype=dtype, penalties=pen), device="cpu")
+    got = got.score_database(query, reads).scores
+    ref_cfg = RefConfig(stream_state_dtype=dtype, penalties=RefPenalties(*pen.astuple()))
+    if qlen <= 128:
+        want = RefBank(ref_cfg, backend="stream", interpret=True).score_database(query, reads)
+        want = want.scores
+    else:
+        b = ref_streams.pack_streams_long(query, reads, n_streams=8, rows=1)
+        want = ref_stream_long(b.q, b.stream, b.emit_stream,
+                               b.emit_step.astype(np.int32), ref_cfg.penalties,
+                               interpret=True, state_dtype=dtype, rows=1, chunk=2)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    exact = score_many_vs_one(query, reads, pen)
+    if mode in ("int16", "uint16"):
+        np.testing.assert_array_equal(got, exact)
+    elif mode == "bfloat16":
+        assert got[4] == got[9] < exact[4] == 5 * qlen
+    else:  # every read that has a mismatch wraps; an empty one scores 0
+        assert all(s >= 65532 if len(r) else s == 0 for s, r in zip(got, reads))
+
+
+@pytest.mark.parametrize("mode", list(BANK_STATES))
+def test_score_pairs_16bit_states_equal_swtpu(mode):
+    """score_pairs in each 16-bit state: short queries on the pair streams
+    against swtpu's stream backend in interpret mode; with a long query
+    added, its pairs equal the port's own score_database on them (held
+    against swtpu above)."""
+    dtype, pen = BANK_STATES[mode]
+    rng = np.random.default_rng(41)
+    qs = [rng.integers(0, 4, size=k).astype(np.int8) for k in (40, 90, 128)]
+    queries = [qs[i] for i in rng.integers(0, 3, size=24)]
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in rng.integers(0, 100, 24)]
+    targets[0] = queries[0].copy()
+    bank = ScoreBank(SWConfig(stream_state_dtype=dtype, penalties=pen), device="cpu")
+    got = bank.score_pairs(queries, targets)
+    ref_cfg = RefConfig(stream_state_dtype=dtype, penalties=RefPenalties(*pen.astuple()))
+    want = RefBank(ref_cfg, backend="stream", interpret=True).score_pairs(queries, targets)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    long_q = rng.integers(0, 4, size=150).astype(np.int8)
+    mixed = bank.score_pairs(queries + [long_q] * 3, targets + targets[:2] + [long_q])
+    np.testing.assert_array_equal(mixed.scores[:24], got.scores)
+    np.testing.assert_array_equal(
+        mixed.scores[24:], bank.score_database(long_q, targets[:2] + [long_q]).scores)
+
+
+def test_uint16_at_default_penalties_raises_as_swtpu():
+    """uint16 state cannot hold the default open penalty: score_pairs and
+    score_database raise swtpu's OverflowError."""
+    cfg = dict(stream_state_dtype="uint16")
+    q, t = [np.zeros(9, np.int8)], [np.zeros(9, np.int8)]
+    with pytest.raises(OverflowError) as got:
+        ScoreBank(SWConfig(**cfg), device="cpu").score_pairs(q, t)
+    with pytest.raises(OverflowError) as want:
+        RefBank(RefConfig(**cfg), backend="stream", interpret=True).score_pairs(q, t)
+    assert str(got.value) == str(want.value) == "Python integer -12 out of bounds for uint16"
+    with pytest.raises(OverflowError, match="-12 out of bounds for uint16"):
+        ScoreBank(SWConfig(**cfg), device="cpu").score_database(np.zeros(200, np.int8), t)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "int16"])
+def test_column_exact_states_equal_int32(state_dtype):
+    """sw_scores_column in float32 and int16 state gives int32's scores
+    (swtpu's kernels in these states: test_torch_column_ops.py)."""
+    rng = np.random.default_rng(42)
+    q = torch.from_numpy(rng.integers(0, 4, size=(5, 40)).astype(np.int8))
+    t = torch.from_numpy(rng.integers(0, 4, size=(5, 70)).astype(np.int8))
+    np.testing.assert_array_equal(sw_scores_column(q, t, state_dtype=state_dtype).numpy(),
+                                  sw_scores_column(q, t).numpy())
 
 
 @pytest.mark.parametrize(

@@ -205,19 +205,36 @@ def test_validate_long_errors_match(q_width, T, rows):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize(
-    "kw,match", [({"state_dtype": "bfloat16"}, "'bfloat16' is not ported yet \\(ROADMAP item 20"),
-                 ({"state_dtype": "int16"}, "'int16' is not ported yet \\(ROADMAP item 20")],
-)
-def test_unported_long_settings_raise(kw, match):
-    """16-bit and bfloat16 state are not ported; float32 and score_width
-    are (test_torch_stream_modes.py)."""
-    q, stream = torch.zeros((8, 256), dtype=torch.int8), torch.zeros((8, 32), dtype=torch.int8)
-    e = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=match):
-        port.sw_scores_stream_long(q, stream, e, e, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        port.sw_scores_stream_long_kernel_layout(q, stream.t(), e, e, **kw)
+@pytest.mark.parametrize("dtype", ["bfloat16", "int16"])
+def test_long_16bit_states_equal_swtpu(dtype):
+    """The long-query entries in bfloat16 and int16 state: at their default
+    rows (16) swtpu's ValueError; at rows 8 swtpu's scores, on a 300-base
+    query whose own read (1,500 exactly) bfloat16 rounds down.  swtpu runs
+    at a 2-step chunk (its default 8-step bfloat16 tile takes XLA minutes
+    to compile)."""
+    rng = np.random.default_rng(23)
+    query = rng.integers(0, 4, size=300).astype(np.int8)
+    targets = _reads(rng, 30, 80)
+    targets[4] = query.copy()
+    b = streams.pack_streams_long(query, targets, n_streams=4, rows=8)
+    args = (b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32))
+    kw = dict(state_dtype=dtype)
+    with pytest.raises(ValueError) as got:
+        port.sw_scores_stream_long(*map(_t, args), **kw)
+    with pytest.raises(ValueError) as want:
+        ref.sw_scores_stream_long(*args, interpret=True, **kw)
+    assert str(got.value) == str(want.value) == "rows=16 requires a 32-bit state dtype"
+    got = port.sw_scores_stream_long(*map(_t, args), rows=8, **kw)
+    np.testing.assert_array_equal(
+        got.numpy(), port.sw_scores_stream_long_kernel_layout(
+            _t(b.q), _t(b.stream.T), *map(_t, args[2:]), rows=8, **kw).numpy())
+    want = ref.sw_scores_stream_long(*args, interpret=True, rows=8, chunk=2, **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    exact = score_many_vs_one(query, targets)
+    if dtype == "int16":
+        np.testing.assert_array_equal(got.numpy(), exact)
+    else:
+        assert got[4] < exact[4] == 1500
 
 
 def test_chained_wrapper_takes_cuda_tensors_only():

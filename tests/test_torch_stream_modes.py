@@ -1,9 +1,9 @@
 """The wavefront's state modes beside exact int32 state: the RTL's W-bit
-biased wrap-parity (score_width) and float32 state, in the plain versions
-of B1/B2 (one tile) and B3 (chained tiles), the entry points and
-ScoreBank's stream backend, against swtpu's kernels in interpret mode and
-the oracles, at tolerance 0.  The CUDA kernels' own tests are in
-test_torch_cuda.py."""
+biased wrap-parity (score_width), float32 state, and int16, uint16 and
+bfloat16 state, in the plain versions of B1/B2 (one tile) and B3 (chained
+tiles), the entry points and ScoreBank's stream backend, against swtpu's
+kernels in interpret mode and the oracles, at tolerance 0.  The CUDA
+kernels' own tests are in test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -68,6 +68,32 @@ def _biased_oracle(query, targets, penalties, width):
     return [sw_score_single_biased(query, t, penalties, width) for t in targets]
 
 
+# the 16-bit states, each at penalties it takes: uint16 refuses a negative
+# open or extend penalty (swtpu's OverflowError), and wraps a mismatch of -4
+# to 65532 ("uint16 wrap"); at mismatch 0 it is exact
+SIXTEEN_BIT = {
+    "int16": ("int16", DEFAULT_PENALTIES),
+    "uint16 wrap": ("uint16", Penalties(5, -4, 0, 0)),
+    "uint16": ("uint16", Penalties(5, 0, 0, 0)),
+    "bfloat16": ("bfloat16", DEFAULT_PENALTIES),
+}
+
+
+def _check_16bit_strip(mode, got, exact, b):
+    """What each 16-bit state's strip must show beside the exact one:
+    int16 and exact uint16 equal it; uint16 wrap sits at 2^16 - 4 and
+    above; bfloat16 rounds a read equal to the query (5 x 126 bases, past
+    256) below its exact score."""
+    if mode in ("int16", "uint16"):
+        np.testing.assert_array_equal(got, exact)
+    elif mode == "uint16 wrap":
+        assert got.max() >= 65532 and (got != exact).any()
+    else:
+        scores = streams.gather_stream_scores(got, b)
+        exact_scores = streams.gather_stream_scores(exact, b)
+        assert scores[0] < exact_scores[0] and (scores <= exact_scores).all()
+
+
 @pytest.mark.parametrize("width", [8, 12, 16])
 @pytest.mark.parametrize("segments,rows", [(1, 1), (1, 4), (2, 8), (4, 4), (1, 16)])
 def test_biased_strip_equals_swtpu_interpret_strip(segments, rows, width):
@@ -107,6 +133,73 @@ def test_float32_strip_equals_swtpu_and_int32_strips(segments, rows):
         got.numpy(), port.sw_scores_stream_strip(*args, segments=segments, rows=rows).numpy())
     np.testing.assert_array_equal(streams.gather_stream_scores(got.numpy(), b),
                                   score_many_vs_one(query, targets))
+
+
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("segments,rows", [(1, 1), (1, 4), (1, 8), (2, 1), (2, 4), (2, 8)])
+def test_16bit_strip_equals_swtpu_interpret_strip(segments, rows, mode):
+    dtype, pen = SIXTEEN_BIT[mode]
+    query, targets, b = _batch(segments * 31 + rows + 200, segments, rows)
+    args = (_t(b.q), _t(b.stream), pen)
+    got = port.sw_scores_stream_strip(*args, segments=segments, rows=rows, state_dtype=dtype)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), _ref_strip(b, pen, segments, rows, state_dtype=dtype))
+    exact = port.sw_scores_stream_strip(*args, segments=segments, rows=rows)
+    _check_16bit_strip(mode, got.numpy(), exact.numpy(), b)
+
+
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+def test_16bit_ripple_h_strip_equals_swtpu_interpret_strip(mode):
+    dtype, pen = SIXTEEN_BIT[mode]
+    query, targets, b = _batch(210, 1, 1)
+    args = (_t(b.q), _t(b.stream), pen)
+    got = port.sw_scores_stream_strip(*args, tail_acc=False, state_dtype=dtype)
+    np.testing.assert_array_equal(
+        got.numpy(), _ref_strip(b, pen, 1, 1, False, state_dtype=dtype))
+    exact = port.sw_scores_stream_strip(*args, tail_acc=False)
+    _check_16bit_strip(mode, got.numpy(), exact.numpy(), b)
+
+
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+def test_16bit_chain_tiles_equal_swtpu_interpret(mode):
+    """Both tiles of a K = 2 chain at rows 4 in each 16-bit state, all four
+    strips, against swtpu's interpret-mode tile on the port's own inputs
+    (the int32 boundary strips cast to the state at the load), and the
+    chain's scores against swtpu's long-query entry (both at REF_CHUNK: at
+    its default 8-step body XLA takes ~5 min to compile swtpu's bfloat16
+    tile)."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    rng = np.random.default_rng(220)
+    rows = 4
+    query = rng.integers(0, 4, size=200).astype(np.int8)
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in rng.integers(1, 60, size=12)]
+    targets[2] = query.copy()  # 1,000 exactly: bfloat16 rounds it
+    b = streams.pack_streams_long(query, targets, n_streams=4, rows=rows)
+    tiles = []
+
+    def tile(qk, sk, bD, bG, bH, p, r, **mode_kw):
+        got = port.stream_chained_reference(qk, sk, bD, bG, bH, p, r, **mode_kw)
+        want = ref._strip_call_chained(qk.numpy(), sk.numpy(), bD.numpy(), bG.numpy(),
+                                       bH.numpy(), *p.astuple(), True, rows=r,
+                                       chunk=REF_CHUNK, **mode_kw)
+        for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"tile {len(tiles)} {name}")
+        tiles.append(got)
+        return got
+
+    port._long_strip(_t(b.q), _t(b.stream.T), pen, rows, tile=tile, state_dtype=dtype)
+    assert len(tiles) == 2
+    emit = (_t(b.emit_stream), _t(b.emit_step.astype(np.int32)))
+    got = port.sw_scores_stream_long(_t(b.q), _t(b.stream), *emit, pen, rows=rows,
+                                     state_dtype=dtype)
+    want = ref.sw_scores_stream_long(b.q, b.stream, b.emit_stream,
+                                     b.emit_step.astype(np.int32), pen, interpret=True,
+                                     rows=rows, state_dtype=dtype, chunk=REF_CHUNK)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if mode == "bfloat16":
+        assert got[2] < 1000
 
 
 @pytest.mark.parametrize("K", [2, 3])
@@ -211,6 +304,10 @@ BAD_CONFIGS = [
     (16, 1, "float32", None, DEFAULT_PENALTIES),
     (1, 3, "float32", None, DEFAULT_PENALTIES),
     (4, 64, "int32", 12, DEFAULT_PENALTIES),
+    (1, 16, "int16", None, DEFAULT_PENALTIES),  # rows 16 needs a 32-bit state
+    (1, 16, "uint16", None, Penalties(5, 0, 0, 0)),
+    (1, 16, "bfloat16", None, DEFAULT_PENALTIES),
+    (1, 1, "bfloat16", 12, DEFAULT_PENALTIES),
 ]
 
 
@@ -225,14 +322,30 @@ def test_validation_errors_equal_swtpu(config):
 
 
 @pytest.mark.parametrize("dtype", ["int16", "uint16", "bfloat16"])
-def test_unported_states_raise_naming_their_item(dtype):
-    q = torch.zeros((8, 128), dtype=torch.int8)
-    stream = torch.zeros((8, 32), dtype=torch.int8)
-    e = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        port.sw_scores_stream(q, stream, e, e, state_dtype=dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        port.stream_strip_cuda(q.t().contiguous(), stream.t().contiguous(), state_dtype=dtype)
+def test_16bit_scores_at_default_penalties_equal_swtpu(dtype):
+    """sw_scores_stream in each 16-bit state at the default penalties, as
+    swtpu's in interpret mode: the same scores, or for uint16 (open -12)
+    the same OverflowError, also from the CUDA wrapper before it looks at
+    its tensors."""
+    query, targets, b = _batch(230, 1, 1)
+    args = (b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32))
+    if dtype == "uint16":
+        with pytest.raises(OverflowError) as got:
+            port.sw_scores_stream(*map(_t, args), state_dtype=dtype)
+        with pytest.raises(OverflowError) as want:
+            ref.sw_scores_stream(*args, interpret=True, state_dtype=dtype)
+        assert str(got.value) == str(want.value) == "Python integer -12 out of bounds for uint16"
+        with pytest.raises(OverflowError):
+            port.stream_strip_cuda(_t(b.q), _t(b.stream), state_dtype=dtype)
+        return
+    got = port.sw_scores_stream(*map(_t, args), state_dtype=dtype)
+    want = ref.sw_scores_stream(*args, interpret=True, state_dtype=dtype)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    exact = score_many_vs_one(query, targets)
+    if dtype == "int16":
+        np.testing.assert_array_equal(got.numpy(), exact)
+    else:
+        assert got[0] < exact[0]  # the query's own read, 630 exactly, rounds down
 
 
 @pytest.mark.parametrize("qlen", [20, 128, 450])
