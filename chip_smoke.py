@@ -21,14 +21,18 @@ Phases, each reported on its own line; any failure exits non-zero:
      float32 state (whose strip must also equal int32's), and whole chains
      of K=2 and K=4 at W = 12 (the 512-base query's own reads wrap) and in
      float32; the 16-bit states (int16, uint16 at +5/0 and at +5/-4 with
-     no gap cost, bfloat16) in both forms at rows 1, 4 and 8 and over
-     whole K=2 chains at rows 8 (int16 and exact uint16 also equal to
-     int32; bfloat16 and wrapping uint16 must differ from it); on
-     4,096 ragged pairs, the column kernel (B4) at query widths 8, 32, 136
-     and 256, exact, at score widths 12 and 10 and in float32 and int16
-     state (those two also equal to int32), and the chained column tile
-     (B5) over whole chains of K=2 and K=3, every tile's h/ms/is, exact,
-     at width 10 and in float32 and int16; the lane-major kernel (B6) at 1 and 1,001
+     no gap cost, bfloat16), two streams a thread, in both forms at rows
+     1, 2, 4 and 8, at 512 physical streams and at 511 (the last pair's
+     high half dead), and over whole K=2 chains at rows 8 on 512 and 511
+     streams (int16 and exact uint16 also equal to int32; bfloat16 and
+     wrapping uint16 must differ from it); on 4,096 ragged pairs, the
+     column kernel (B4) at query widths 8, 32, 136 and 256, exact, at
+     score widths 12 and 10 and in float32 and int16 state (those two also
+     equal to int32), and the chained column tile (B5) over whole chains
+     of K=2 and K=3, every tile's h/ms/is, exact, at width 10 and in
+     float32 and int16; int16 (two pairs a warp) also at 4,095 pairs (the
+     last warp's high half dead), B4 at widths 64 and 256 and a K=2
+     chain; the lane-major kernel (B6) at 1 and 1,001
      pairs, query widths 1/40/128 and target widths 1/150/300; E1 for all
      16 (dtype, pattern) cases on its script's input at 2,000 steps (the
      table's shorter run); E2 for all 5 variants x 4 dtypes at 128
@@ -106,7 +110,8 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, error, times and bound (the
 wavefront and the chained tile also with their slices and registers, and
 each state mode's time, bound, slices and registers at the main shape,
-the 16-bit ones at rows 8).
+the 16-bit ones at rows 8 with their share of the bound and the streams a
+thread holds; the column states with their share and registers).
 """
 
 from __future__ import annotations
@@ -159,9 +164,13 @@ SIXTEEN_BIT = (("int16", "int16", (5, -4, -12, -4)), ("uint16", "uint16", (5, 0,
 SIXTEEN_EXTRA_OPS = {"int16": 0, "uint16": 0, "bfloat16": 2}
 MODE_DTYPES_16 = {label: dtype for label, dtype, _ in SIXTEEN_BIT}
 SIXTEEN_ROWS = 8  # the 16-bit states' main-shape rows: swtpu refuses rows 16 with them
-# (segments, rows, tail accumulator) of their checks at phase 3's shapes
-SIXTEEN_CHECKS = ((1, 8, True), (2, 8, True), (4, 4, True), (1, 1, True), (1, 1, False),
-                  (4, 1, False))
+# (segments, rows, tail accumulator, physical streams) of their checks at
+# phase 3's shapes.  A thread holds two streams in a 16-bit state, so an odd
+# count leaves the last pair a dead high half (511)
+SIXTEEN_CHECKS = ((1, 8, True, 512), (2, 8, True, 512), (4, 4, True, 512),
+                  (1, 1, True, 512), (1, 1, False, 512), (4, 1, False, 512),
+                  (1, 8, True, 511), (1, 1, False, 511), (2, 2, True, 511))
+SIXTEEN_CHAIN_STREAMS = (512, 511)  # the K = 2 chains' physical streams
 # E1 per element and op (fused, not fused; select is a compare and a
 # predicated add); the step's floor modulo adds 3 per element
 E1_OPS = {"addmax": (1, 2), "select": (2, 2), "roll_lane": (1, 2), "roll_sub": (1, 2)}
@@ -1104,37 +1113,37 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
     return a, d
 
 
+def exact_or_not(name, label, got, exact, qlen):
+    """A 16-bit state's strip against the int32 kernel's: int16 and exact
+    uint16 equal it; so does bfloat16 while no score passes 256 (a query of
+    32 bases tops out at 160); past it bfloat16 rounds, and wrapping uint16
+    always wraps, so they must differ from it."""
+    if label in ("int16", "uint16") or (label == "bfloat16" and 5 * qlen <= 256):
+        return strip_error(name, got, exact, (label, "int32"))
+    if not (got != exact).any():
+        fail(f"{name}: equal to the int32 strip, so nothing rounded or wrapped")
+    return 0
+
+
 def phase_16bit_vs_plain(rng):
-    """The wavefront in each 16-bit state (SIXTEEN_BIT) against its plain
-    version, bit for bit, at 512 physical streams on reads of which every
-    COPY_EVERY-th is the query (bfloat16 rounds those below their exact
-    score; uint16 wrap sends every read with a mismatch past 65,531): both
-    forms at rows 1, and rows 4 and 8 (the 16-bit states refuse 16); then
-    whole K = 2 chains at rows 8, every tile's four strips and the last
-    accumulator.  int16 and exact uint16 must also equal the int32 kernel
-    at the same penalties, and bfloat16 too where no score can pass 256;
-    otherwise bfloat16 and wrapping uint16 must differ from it."""
+    """The wavefront in each 16-bit state (SIXTEEN_BIT), two streams a
+    thread, against its plain version, bit for bit, at 512 physical streams
+    and at 511 (a dead high half) on reads of which every COPY_EVERY-th is
+    the query (bfloat16 rounds those below their exact score; uint16 wrap
+    sends every read with a mismatch past 65,531): both forms at rows 1,
+    and rows 2, 4 and 8 (the 16-bit states refuse 16); then whole K = 2
+    chains at rows 8 on 512 and 511 streams, every tile's four strips and
+    the last accumulator.  Each also against the int32 kernel at the same
+    penalties (exact_or_not)."""
     import numpy as np
     from swtpu_torch import Penalties
     from swtpu_torch.ops.stream import (
-        _long_strip, stream_chained_cuda, stream_chained_reference, stream_strip_cuda,
-        stream_strip_reference,
+        stream_kernel_info, stream_strip_cuda, stream_strip_reference,
     )
     from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
-    def exact_or_not(name, label, got, exact, qlen):
-        """int16 and exact uint16 equal int32; so does bfloat16 while no
-        score passes 256 (a query of 32 bases tops out at 160); past it
-        bfloat16 rounds, and wrapping uint16 always wraps."""
-        if label in ("int16", "uint16") or (label == "bfloat16" and 5 * qlen <= 256):
-            return strip_error(name, got, exact, (label, "int32"))
-        if not (got != exact).any():
-            fail(f"{name}: equal to the int32 strip, so nothing rounded or wrapped")
-        return 0
-
     strips, chains = [], []
-    S = MODE_STREAMS
-    for seg, rows, tail_acc in SIXTEEN_CHECKS:
+    for seg, rows, tail_acc, S in SIXTEEN_CHECKS:
         query = rng.integers(0, 4, size=128 // seg).astype(np.int8)
         db = with_copies(make_db(rng, S * seg * 4, 24, 256), query, COPY_EVERY)
         qk, sk = laid_out_batch(query, db, seg, rows, S)
@@ -1143,7 +1152,7 @@ def phase_16bit_vs_plain(rng):
             args = (qk, sk, Penalties(*pen), seg, rows, tail_acc)
             got = stream_strip_cuda(*args, state_dtype=dtype)
             want, plain_ms = cuda_once(lambda: stream_strip_reference(*args, state_dtype=dtype))
-            name = f"{label} {form} seg={seg} rows={rows}"
+            name = f"{label} {form} seg={seg} rows={rows} S={S}"
             exact = stream_strip_cuda(*args)
             err = max(strip_error(name, got, want),
                       exact_or_not(name, label, got, exact, len(query)))
@@ -1152,13 +1161,31 @@ def phase_16bit_vs_plain(rng):
             T, N = sk.shape
             strips.append(dict(mode=label, form=form, segments=seg, rows=rows, T=T, N=N,
                                differ_from_int32=int((got != exact).sum()), max_abs_err=err,
-                               ms=ms, int32_ms=int32_ms, plain_ms=plain_ms))
-        print(f"phase kernel_vs_plain: ok 16-bit {form} seg={seg} rows={rows} strip "
+                               ms=ms, int32_ms=int32_ms, plain_ms=plain_ms,
+                               registers=stream_kernel_info(rows, tail_acc,
+                                                            state_dtype=dtype)[0]))
+        print(f"phase kernel_vs_plain: ok 16-bit {form} seg={seg} rows={rows} S={S} strip "
               f"[{T}, {N}] bit-equal in " + ", ".join(
                   f"{r['mode']} ({r['differ_from_int32']} cells off int32; kernel "
                   f"{r['ms']:.4f} ms, int32 {r['int32_ms']:.4f}, plain {r['plain_ms']:.1f})"
                   for r in strips[-len(SIXTEEN_BIT):]), flush=True)
     rows = SIXTEEN_ROWS
+    for S in SIXTEEN_CHAIN_STREAMS:
+        chains += chains_16bit(rng, S, rows)
+    return strips, chains
+
+
+def chains_16bit(rng, S, rows):
+    """Whole K = 2 chains on S physical streams in each 16-bit state
+    against the plain version (phase_16bit_vs_plain)."""
+    import numpy as np
+    from swtpu_torch import Penalties
+    from swtpu_torch.ops.stream import (
+        _long_strip, stream_chained_cuda, stream_chained_reference, stream_kernel_info,
+    )
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    chains = []
     query = rng.integers(0, 4, size=256).astype(np.int8)
     db = with_copies(make_db(rng, S * 4, 24, 256), query, COPY_EVERY)
     q, sk = long_batch(query, db, rows, S)
@@ -1168,7 +1195,7 @@ def phase_16bit_vs_plain(rng):
         acc, tiles = run_chain(q, sk, rows, stream_chained_cuda, pen, state_dtype=dtype)
         (want, want_tiles), plain_ms = cuda_once(
             lambda: run_chain(q, sk, rows, stream_chained_reference, pen, state_dtype=dtype))
-        name = f"{label} chain K=2 rows={rows}"
+        name = f"{label} chain K=2 rows={rows} S={S}"
         err = max(strip_error(f"{name} last acc", acc, want),
                   exact_or_not(name, label, acc, exact, len(query)))
         for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
@@ -1179,13 +1206,15 @@ def phase_16bit_vs_plain(rng):
         T, N = sk.shape
         chains.append(dict(mode=label, tiles=2, rows=rows, T=T, N=N,
                            differ_from_int32=int((acc != exact).sum()), max_abs_err=err,
-                           ms=ms, int32_ms=int32_ms, plain_ms=plain_ms))
-    print(f"phase kernel_vs_plain: ok 16-bit chain K=2 rows={rows} strips [{T}, {N}] "
+                           ms=ms, int32_ms=int32_ms, plain_ms=plain_ms,
+                           registers=stream_kernel_info(rows, chained=True,
+                                                        state_dtype=dtype)[0]))
+    print(f"phase kernel_vs_plain: ok 16-bit chain K=2 rows={rows} S={S} strips [{T}, {N}] "
           f"bit-equal (last acc + 4 per tile) in " + ", ".join(
               f"{r['mode']} ({r['differ_from_int32']} cells off int32; chain {r['ms']:.4f} "
               f"ms, int32 {r['int32_ms']:.4f}, plain {r['plain_ms']:.1f})" for r in chains),
           flush=True)
-    return strips, chains
+    return chains
 
 
 def phase_16bit_at_main_shape(case_a, case_d):
@@ -1417,10 +1446,12 @@ COLUMN_EXACT_STATES = ("float32", "int16")
 COLUMN_EXTRA_OPS = {"float32": 2, "int16": 0}
 
 
-def phase_column_vs_plain(rng, B=4096, n=256):
+def phase_column_vs_plain(rng, rng_odd, B=4096, n=256):
     """B4 at each rows-per-lane and B5 over whole chains against their
     plain versions on B ragged pairs of n target columns, in each state
-    mode; float32 and int16 also against the int32 kernel."""
+    mode; float32 and int16 also against the int32 kernel.  Then int16,
+    two pairs a warp, at an odd B - 1 pairs from `rng_odd` (the last warp's
+    high half dead): B4 at 2 and 8 rows a lane and a K = 2 chain."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.column import (
         QUERY_TILE, column_chained_cuda, column_chained_reference,
@@ -1470,6 +1501,33 @@ def phase_column_vs_plain(rng, B=4096, n=256):
                   f"(kernel {tile_ms:.4f} ms per tile), plain chain {plain_ms:.1f} ms")
             chains.append(dict(tiles=K, n=n, B=B, score_width=width, state_dtype=dtype,
                                max_abs_err=err, ms=ms, tile_ms=tile_ms, plain_ms=plain_ms))
+    Bo = B - 1
+    for m in (64, 256):
+        q, t = column_batch(rng_odd, Bo, m, n)
+        got = column_scores_cuda(q, t, state_dtype="int16")
+        want, plain_ms = cuda_once(lambda: column_scores_reference(q, t, state_dtype="int16"))
+        label = f"column m={m} int16 odd B"
+        err = max(strip_error(label, got, want),
+                  strip_error(label, got, column_scores_cuda(q, t), ("int16", "int32")))
+        ms = cuda_ms(lambda: column_scores_cuda(q, t, state_dtype="int16"), 10)
+        print(f"phase kernel_vs_plain: ok {label} [{Bo} pairs, {n} columns] bit-equal "
+              f"(= int32) | kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+        scores.append(dict(m=m, n=n, B=Bo, score_width=None, state_dtype="int16",
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    q, t = column_batch(rng_odd, Bo, 2 * QUERY_TILE, n)
+    got, tiles = run_column_chain(q, t, None, column_chained_cuda, "int16")
+    (want, want_tiles), plain_ms = cuda_once(
+        lambda: run_column_chain(q, t, None, column_chained_reference, "int16"))
+    label = "column chain K=2 int16 odd B"
+    exact, _ = run_column_chain(q, t, None, column_chained_cuda)
+    err = max(strip_error(f"{label} scores", got, want),
+              check_column_tiles(label, tiles, want_tiles),
+              strip_error(f"{label} scores", got, exact, ("int16", "int32")))
+    ms = cuda_ms(lambda: run_column_chain(q, t, None, column_chained_cuda, "int16"), 5)
+    print(f"phase kernel_vs_plain: ok {label} [{Bo} pairs, {n} columns] scores + h/ms/is of "
+          f"every tile bit-equal (= int32) | chain {ms:.4f} ms, plain chain {plain_ms:.1f} ms")
+    chains.append(dict(tiles=2, n=n, B=Bo, score_width=None, state_dtype="int16",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms))
     return scores, chains
 
 
@@ -1674,8 +1732,8 @@ def phase_column_states(bank, f_case, g_case):
     beside int32; the plain version in each state at (f)'s largest bucket
     and on (g)'s tile 0, bit-equal to the kernel."""
     from swtpu_torch.ops.column import (
-        column_chained_cuda, column_chained_reference, column_scores_cuda,
-        column_scores_reference, sw_scores_column,
+        column_chained_cuda, column_chained_reference, column_kernel_info,
+        column_scores_cuda, column_scores_reference, sw_scores_column,
     )
     from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
@@ -1699,8 +1757,11 @@ def phase_column_states(bank, f_case, g_case):
         q, t = batches[-1]
         want, plain_ms = cuda_once(lambda: column_scores_reference(q, t, state_dtype=dtype))
         err = max(err, strip_error(f"{f['name']} {dtype} bucket {t.shape[1]}", got[-1], want))
-        f["modes"][dtype] = dict(launches=launched[0], plain_ms=plain_ms, ms=[
-            cuda_ms(lambda: column_scores_cuda(q, t, state_dtype=dtype), 5) for q, t in batches])
+        f["modes"][dtype] = dict(
+            launches=launched[0], plain_ms=plain_ms,
+            registers=column_kernel_info(q.shape[1], dtype)[0], ms=[
+                cuda_ms(lambda: column_scores_cuda(q, t, state_dtype=dtype), 5)
+                for q, t in batches])
         del got
 
         column_scores_cuda.launches = column_chained_cuda.launches = 0
@@ -1720,11 +1781,15 @@ def phase_column_states(bank, f_case, g_case):
         want, plain_ms = cuda_once(lambda: column_chained_reference(*args))
         err = max(err, check_column_tiles(f"{g['name']} {dtype}", [(args, outs)],
                                           [(args, want)]))
-        g["modes"][dtype] = dict(launches=launched[1], plain_ms=plain_ms, ms=[
-            cuda_ms(lambda: column_chained_cuda(*a), 5) for a, _ in tiles])
+        g["modes"][dtype] = dict(
+            launches=launched[1], plain_ms=plain_ms,
+            registers=column_kernel_info(state_dtype=dtype, tile=True)[0],
+            ms=[cuda_ms(lambda: column_chained_cuda(*a), 5) for a, _ in tiles])
         del tiles, outs, want
     f["int32_ms"] = [cuda_ms(lambda: column_scores_cuda(q, t), 5) for q, t in batches]
     g["int32_ms"] = [cuda_ms(lambda: column_chained_cuda(*a), 5) for a, _ in g_tiles]
+    f["int32_registers"] = column_kernel_info(batches[-1][0].shape[1])[0]
+    g["int32_registers"] = column_kernel_info(tile=True)[0]
     f["max_abs_err"] = g["max_abs_err"] = err
     for c, what in ((f, "bucket"), (g, "tile")):
         print(f"phase column_states: ok {c['name']} float32 and int16 = int32 (every score"
@@ -1956,11 +2021,12 @@ def main() -> int:
     chain_mode_checks = phase_chain_modes_vs_plain(rng_modes)
     rng_16 = np.random.default_rng([args.seed, 6])  # the 16-bit states' own
     checks_16, chains_16 = phase_16bit_vs_plain(rng_16)
-    col_checks, col_chains = phase_column_vs_plain(rng_col)
+    col_checks, col_chains = phase_column_vs_plain(
+        rng_col, np.random.default_rng([args.seed, 7]))  # odd B: its own
     lane_checks = phase_lane_vs_plain(rng_lane)
     e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
     from swtpu_torch.ops.stream import (
-        stream_chained_cuda, stream_kernel_info, stream_strip_cuda,
+        stream_chained_cuda, stream_kernel_info, stream_strip_cuda, streams_per_thread,
     )
 
     stream_strip_cuda.launches = 0
@@ -2036,12 +2102,14 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S3 + T3 * row["N"] * 5,
             128 * T3 * S3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]), LANES_PER_SM[dtype])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
     for row in chains_16:  # every tile of the chain: a chained tile's bytes
         T3, N3, K3, dtype = row["T"], row["N"], row["tiles"], MODE_DTYPES_16[row["mode"]]
         row["bound_ms"], row["bound_by"] = peaks.bound(
             K3 * (128 * N3 + T3 * N3 * (1 + 12 + 16)),
             K3 * 128 * T3 * N3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]),
             LANES_PER_SM[dtype])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
     b_e1 = e1_head["bound_ms"], e1_head["bound_by"]
     b_e2 = e2_head["bound_ms"], e2_head["bound_by"]
     for row in e1_table:  # the least time of one op over the array: card, its SMs
@@ -2086,19 +2154,25 @@ def main() -> int:
             m = at["modes"][label]
             rows[label] = dict(m, int32_ms=at["int32_ms"], bound_ms=b[0], bound_by=b[1],
                                bound_share=b[0] / m["ms"], rows=at["rows"],
+                               streams_per_thread=streams_per_thread(dtype),
+                               int32_registers=at["int32_registers"],
                                plain_note=f"the first {at['check_steps']} steps")
         return rows
 
-    def column_states(at, bound_of):
+    def column_states(at, bound_of, k):
         """The column kernels' float32 and int16 states at a main shape:
         time per batch beside int32's, the bound at the plain version's
-        shape ((f)'s largest bucket, (g)'s tile 0) with the state's
-        operations on its lanes, and the plain version's time there."""
+        shape (batch k: (f)'s largest bucket, (g)'s tile 0) with the
+        state's operations on its lanes and its share there, registers, the
+        pairs a warp holds, and the plain version's time there."""
         rows = {}
         for dtype in COLUMN_EXACT_STATES:
             b = bound_of(COLUMN_OPS + COLUMN_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
-            rows[dtype] = dict(at["modes"][dtype], int32_ms=at["int32_ms"], bound_ms=b[0],
-                               bound_by=b[1])
+            m = at["modes"][dtype]
+            rows[dtype] = dict(m, int32_ms=at["int32_ms"],
+                               int32_registers=at["int32_registers"], bound_ms=b[0],
+                               bound_by=b[1], bound_share=b[0] / m["ms"][k],
+                               pairs_per_warp=2 if dtype == "int16" else 1)
         return rows
 
     T8, N8 = a_16["T"], a_16["N"]
@@ -2108,9 +2182,9 @@ def main() -> int:
     modes_d16 = rows_16bit(d_16, lambda ops, lanes: peaks.bound(
         128 * Nd + Td * Nd * (1 + 12 + 16), 128 * Td * Nd * ops, lanes))
     modes_f = column_states(f_states, lambda ops, lanes: peaks.bound(
-        B * (m + n + 4), B * m * n * ops, lanes))
+        B * (m + n + 4), B * m * n * ops, lanes), -1)
     modes_g = column_states(g_states, lambda ops, lanes: peaks.bound(
-        Bt * (256 + nt + 8 + 16 * nt), Bt * 256 * nt * ops, lanes))
+        Bt * (256 + nt + 8 + 16 * nt), Bt * 256 * nt * ops, lanes), 0)
     # per path, (wavefront, chained) launches on the main path: the exact
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],

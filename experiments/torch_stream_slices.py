@@ -15,7 +15,12 @@ call; a tree whose wrappers take no `slices` is timed at its default only.
 Where the wrappers take `score_width` and `state_dtype`, (a) and (d)'s tile
 are timed again in the W = 12 wrap-parity and float32 state modes; where
 they take the 16-bit states, (a) and (d)'s tile at rows 8 in int32, int16,
-uint16 (at penalties it can hold: +5/-4, no gap cost) and bfloat16.
+uint16 (at penalties it can hold: +5/-4, no gap cost) and bfloat16, the
+16-bit states over slice counts around the wrapper's; and where the column
+wrappers take `state_dtype`, the column kernels at chip_smoke.py's (f)
+buckets (B4) and (g) tiles (B5) in int32, float32 and int16.  --only
+states times just those state-mode lines and (a)/(d) at rows 16 (the
+comparison of two trees' state modes, P E E P in one call).
 Each line ends with a digest of the outputs: equal digests across trees
 and counts mean bit-equal strips.  Prints the card's name and power limit
 first; every number is this run's.
@@ -36,6 +41,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose swtpu_torch and chip_smoke.py to run")
     ap.add_argument("--tag", default="this", help="label of every line")
+    ap.add_argument("--only", choices=("all", "states"), default="all",
+                    help="states: only (a)/(d) at rows 16 and the state-mode lines")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -48,7 +55,6 @@ def main() -> int:
         print("no CUDA device: torch.cuda.is_available() is false")
         return 1
     from chip_smoke import laid_out_batch, long_batch, make_db
-    from experiments import torch_shootout as so
     from swtpu_torch import DEFAULT_PENALTIES as P
     from swtpu_torch.ops import stream as st
     from swtpu_torch.utils.timing import cuda_ms
@@ -95,7 +101,8 @@ def main() -> int:
         return qk, sk, z
 
     rng = np.random.default_rng(1)
-    for seg, rows in ((1, 16), (4, 4), (1, 1)):
+    short = args.only == "all"
+    for seg, rows in ((1, 16), (4, 4), (1, 1)) if short else ():
         db = make_db(rng, 512 * seg * 10, 24, 256)
         query = rng.integers(0, 4, size=128 // seg).astype(np.int8)
         qk, sk = laid_out_batch(query, db, seg, rows, 512)
@@ -104,6 +111,102 @@ def main() -> int:
         if rows == 1:
             report(f"short ripple-H seg={seg} [{sk.shape[0]}, {sk.shape[1]}]",
                    lambda **kw: st.stream_strip_cuda(qk, sk, P, seg, 1, False, **kw), [1, 2])
+    if short:
+        short_cases(rng, report, tile0, P)
+    rng = np.random.default_rng(7)
+    query = rng.integers(0, 4, size=128).astype(np.int8)
+    db_a = make_db(rng, 262144, 128, 128)
+    qk, sk = laid_out_batch(query, db_a, 1, 16, 512)
+    report(f"(a) rows=16 [{sk.shape[0]}, 512]",
+           lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **kw), [1], reps=5)
+    for label, mode, _ in mode_runs:
+        report(f"(a) rows=16 {label} [{sk.shape[0]}, 512]",
+               lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **mode, **kw), [1], reps=5)
+    del qk, sk
+    # the 16-bit states around the wrapper's slice count: its choice for one
+    # stream a thread (16 here) and for two (33), and multiples between
+    counts_16 = [1, 8, 16, 24, 33, 48, 66]
+    if runs_16:
+        qk, sk = laid_out_batch(query, db_a, 1, 8, 512)
+        for label, pen, mode in runs_16:
+            report(f"(a) rows=8 {label} [{sk.shape[0]}, 512]",
+                   lambda **kw: st.stream_strip_cuda(qk, sk, pen, 1, 8, **mode, **kw),
+                   counts_16 if mode else [1], reps=5)
+        del qk, sk
+    del db_a
+    query_d = rng.integers(0, 4, size=256).astype(np.int8)
+    db_d = make_db(rng, 262144, 24, 256)
+    qk, sk, z = tile0(query_d, db_d, 16)
+    report(f"(d) tile 0 rows=16 [{sk.shape[0]}, 512]",
+           lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, P, 16, **kw), [1], reps=5)
+    for label, mode, zero in mode_runs:
+        b = torch.full_like(z, zero)
+        report(f"(d) tile 0 rows=16 {label} [{sk.shape[0]}, 512]",
+               lambda **kw: st.stream_chained_cuda(qk, sk, b, b, b, P, 16, **mode, **kw), [1],
+               reps=5)
+    del qk, sk, z
+    if runs_16:
+        qk, sk, z = tile0(query_d, db_d, 8)
+        for label, pen, mode in runs_16:
+            report(f"(d) tile 0 rows=8 {label} [{sk.shape[0]}, 512]",
+                   lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, pen, 8, **mode, **kw),
+                   counts_16 if mode else [1], reps=5)
+        del qk, sk, z
+    del db_d
+    column_states(args.tag, digest)
+    return 0
+
+
+def column_states(tag, digest):
+    """B4 at chip_smoke.py's (f) buckets and B5 at (g)'s tiles in each
+    column state the tree's wrappers take, as ScoreBank packs them."""
+    import numpy as np
+    from chip_smoke import F_CASE, LONG_CASES, column_batches, make_db, run_column_chain
+    from swtpu_torch import SWConfig, ScoreBank
+    from swtpu_torch.ops import column as col
+    from swtpu_torch.utils.timing import cuda_ms
+
+    if "state_dtype" not in inspect.signature(col.column_scores_cuda).parameters:
+        return
+    states = [s for s in ("int32", "float32", "int16") if s in col.STATE_CODES]
+    bank = ScoreBank(SWConfig(), backend="pallas", device="cuda")
+    name, n, (lo, hi), qlen = F_CASE
+    rng = np.random.default_rng(11)
+    db = make_db(rng, n, lo, hi)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    for q, t in column_batches(bank, query, db):
+        parts, digests = [], set()
+        for dtype in states:
+            digests.add(digest((col.column_scores_cuda(q, t, state_dtype=dtype),)))
+            ms = cuda_ms(lambda: col.column_scores_cuda(q, t, state_dtype=dtype), 5)
+            parts.append(f"{dtype}:{ms:.4f}")
+        print(f"{tag} (f) B4 bucket {t.shape[1]} [{q.shape[0]} pairs, query {q.shape[1]}] | "
+              f"ms {' '.join(parts)} | digest "
+              f"{'/'.join(f'{d:012x}' for d in sorted(digests))}", flush=True)
+    name, n, (lo, hi), qlen = LONG_CASES[1]  # (g) takes (e)'s reads and query
+    db = make_db(rng, n, lo, hi)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    (q, t), = column_batches(bank, query, db)
+    parts, digests = [], set()
+    for dtype in states:
+        _, tiles = run_column_chain(q, t, None, col.column_chained_cuda, dtype)
+        digests.add(digest(tiles[-1][1]))
+        ms = [cuda_ms(lambda: col.column_chained_cuda(*a), 5) for a, _ in tiles]
+        parts.append(f"{dtype}:{'/'.join(f'{x:.4f}' for x in ms)}")
+    print(f"{tag} (g) B5 tiles [{q.shape[0]} pairs, {t.shape[1]} columns] | ms a tile "
+          f"{' '.join(parts)} | digest {'/'.join(f'{d:012x}' for d in sorted(digests))}",
+          flush=True)
+
+
+def short_cases(rng, report, tile0, P):
+    """The short streams, E2's comparison strip, the shootout's rows-1
+    strip and cases (b) and (c) over slice counts."""
+    import numpy as np
+    import torch
+    from chip_smoke import laid_out_batch, make_db
+    from experiments import torch_shootout as so
+    from swtpu_torch.ops import stream as st
+
     qk, sk, z = tile0(rng.integers(0, 4, size=256).astype(np.int8),
                       make_db(rng, 5120, 24, 256), 16)
     report(f"short chained tile rows=16 [{sk.shape[0]}, 512]",
@@ -130,42 +233,6 @@ def main() -> int:
         report(f"{name} seg={seg} rows={rows} [{sk.shape[0]}, {sk.shape[1]}]",
                lambda **kw: st.stream_strip_cuda(qk, sk, P, seg, rows, **kw), [1, 4, 8, 16],
                reps=5)
-    rng = np.random.default_rng(7)
-    query = rng.integers(0, 4, size=128).astype(np.int8)
-    db_a = make_db(rng, 262144, 128, 128)
-    qk, sk = laid_out_batch(query, db_a, 1, 16, 512)
-    report(f"(a) rows=16 [{sk.shape[0]}, 512]",
-           lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **kw), [1], reps=5)
-    for label, mode, _ in mode_runs:
-        report(f"(a) rows=16 {label} [{sk.shape[0]}, 512]",
-               lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 16, **mode, **kw), [1], reps=5)
-    del qk, sk
-    if runs_16:
-        qk, sk = laid_out_batch(query, db_a, 1, 8, 512)
-        for label, pen, mode in runs_16:
-            report(f"(a) rows=8 {label} [{sk.shape[0]}, 512]",
-                   lambda **kw: st.stream_strip_cuda(qk, sk, pen, 1, 8, **mode, **kw), [1],
-                   reps=5)
-        del qk, sk
-    del db_a
-    query_d = rng.integers(0, 4, size=256).astype(np.int8)
-    db_d = make_db(rng, 262144, 24, 256)
-    qk, sk, z = tile0(query_d, db_d, 16)
-    report(f"(d) tile 0 rows=16 [{sk.shape[0]}, 512]",
-           lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, P, 16, **kw), [1], reps=5)
-    for label, mode, zero in mode_runs:
-        b = torch.full_like(z, zero)
-        report(f"(d) tile 0 rows=16 {label} [{sk.shape[0]}, 512]",
-               lambda **kw: st.stream_chained_cuda(qk, sk, b, b, b, P, 16, **mode, **kw), [1],
-               reps=5)
-    del qk, sk, z
-    if runs_16:
-        qk, sk, z = tile0(query_d, db_d, 8)
-        for label, pen, mode in runs_16:
-            report(f"(d) tile 0 rows=8 {label} [{sk.shape[0]}, 512]",
-                   lambda **kw: st.stream_chained_cuda(qk, sk, z, z, z, pen, 8, **mode, **kw),
-                   [1], reps=5)
-    return 0
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = ("stream_wavefront.cu", "column.cu", "lane.cu", "microbench.cu")
+HEADERS = ("packed16.cuh",)  # included by the sources: part of the hash
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,7 +57,7 @@ def build_dir() -> Path:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return build_dir() / f"libswtpu_torch_{h.hexdigest()[:16]}.so"
 
@@ -124,6 +125,10 @@ def load_library() -> ctypes.CDLL:
             lib.swtpu_column_scores.restype = ctypes.c_int
             lib.swtpu_column_scores.argtypes = [
                 *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 9, ctypes.c_void_p,
+            ]
+            lib.swtpu_column_kernel_info.restype = ctypes.c_int
+            lib.swtpu_column_kernel_info.argtypes = [
+                *[ctypes.c_int] * 3, ctypes.POINTER(ctypes.c_int),
             ]
             lib.swtpu_column_chained.restype = ctypes.c_int
             lib.swtpu_column_chained.argtypes = [

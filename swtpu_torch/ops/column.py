@@ -315,6 +315,35 @@ def column_chained_cuda(
 column_chained_cuda.launches = 0
 
 
+def rows_per_lane(m):
+    """Query rows a lane of the CUDA column kernel holds for a query of m
+    rows (at most QUERY_TILE): 1, 2, 4 or 8, so that 32 lanes cover m."""
+    return next(r for r in (1, 2, 4, 8) if 32 * r >= m)
+
+
+def column_kernel_info(m=QUERY_TILE, state_dtype="int32", score_width=None, tile=False):
+    """(registers a thread, local spill bytes a thread, resident blocks an
+    SM) of the CUDA column kernel's instantiation for a query of m rows (a
+    chained tile with tile=True) in the state that `state_dtype` and
+    `score_width` pick, from the CUDA runtime on the current device."""
+    import ctypes
+
+    from swtpu_torch.ops._build import load_library
+
+    if not tile and not 0 < m <= QUERY_TILE:
+        raise ValueError(f"query width {m} must be in 1..{QUERY_TILE}")
+    if score_width is not None:
+        _check_width(score_width, Penalties(0, 0, 0, 0))
+    elif state_dtype not in STATE_CODES:
+        raise ValueError(f"unknown state_dtype {state_dtype!r}")
+    lib = load_library()
+    out = (ctypes.c_int * 3)()
+    code = BIASED_CODE if score_width else STATE_CODES[state_dtype]
+    err = lib.swtpu_column_kernel_info(8 if tile else rows_per_lane(m), code, int(tile), out)
+    _raise_on_error(lib, err, "column_kernel_info")
+    return tuple(out)
+
+
 def _scores_call(q, t, penalties, score_width, state_dtype="int32"):
     """q [B, m] int8, t [B, n] int8 -> [B] int32: the plain version on the
     CPU, the kernel on CUDA."""

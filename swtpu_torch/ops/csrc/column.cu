@@ -25,8 +25,8 @@
 // State modes (kState, the host's state codes), each its own
 // instantiation: kExact int32; kBiased the W-bit wrap-parity above;
 // kFloat float32 state (fmaxf, the strips converted at the load and the
-// store); kInt16 int16 state held sign-extended in int32 registers, every
-// add cut back to 16 bits.  swtpu's float32 and int16 kernels fill their
+// store); kInt16 int16 state, two pairs a warp (column_x2_kernel, below),
+// every add wrapping at 16 bits.  swtpu's float32 and int16 kernels fill their
 // prefix scan with floors of -2^23 and -2^13; this scan has no fill (lane
 // 0 takes no candidate from above), and a floor never wins there (every
 // candidate from above is at least open + extend), so all three exact
@@ -65,9 +65,25 @@
 // the eight shuffles that carry it across lanes.  All state stays in
 // registers for the whole target; a warp loops over all n columns itself,
 // so no state crosses blocks (the TPU's sequential grid becomes this loop).
+//
+// Two pairs a warp (kInt16, column_x2_kernel).  The warp holds pairs 2w
+// and 2w + 1 in the low and high halves of each 32-bit register and runs the
+// column on both with Hopper's 16x2 instructions (packed16.cuh), so each
+// shuffle and each instruction serves two pairs.  A bucketed batch pads
+// every pair to one m and n, so the column loop, each lane's rows and the
+// selects on the lane stay the same for both; only the codes, the target
+// bytes (two 32-byte runs, one PRMT a column puts byte c of each in its
+// half) and the match decision differ.  The score is each half's high
+// score, written as two int32.  An odd B leaves the last warp a dead high
+// half: it reads query and target pads, never loads a strip and writes
+// nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "packed16.cuh"
 
 namespace {
 
@@ -130,17 +146,16 @@ struct ColumnArith<kFloat> {
   __device__ int store(float x) const { return static_cast<int>(x); }
 };
 
-// int16: an int32 register holds the sign-extended 16-bit value
+// int16: two pairs' values a register; a strip value is cut to 16 bits
+// as it is read, as the plain version's cast does
 template <>
-struct ColumnArith<kInt16> {
-  using T = int;
+struct ColumnArith<kInt16> : Int16x2 {
+  using T = unsigned;
   __device__ explicit ColumnArith(int) {}
-  __device__ int cst(int x) const { return static_cast<int16_t>(x); }
-  __device__ int zero() const { return 0; }
-  __device__ int add(int x, int y) const { return static_cast<int16_t>(x + y); }
-  __device__ int m(int x) const { return max(x, 0); }
-  __device__ int load(int x) const { return static_cast<int16_t>(x); }
-  __device__ int store(int x) const { return x; }
+  __device__ T cst(int x) const { return splat16(x); }
+  __device__ T zero() const { return 0u; }
+  __device__ T load(int lo, int hi) const { return pack16(lo, hi); }
+  __device__ int store(T x, int h) const { return widen(x, h); }
 };
 
 template <int RPL, int kState, bool kTile>
@@ -247,28 +262,177 @@ __global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
   }
 }
 
+// column_kernel in int16, two pairs a warp: pairs 2w and 2w + 1 in the
+// halves of each register.  Both share m and n, so the loop and the lane
+// selects are column_kernel's; the codes, the target bytes, the match and
+// the strips are per half.
+template <int RPL, bool kTile>
+__global__ void __launch_bounds__(kBlock) column_x2_kernel(const ColumnArgs a) {
+  using A = ColumnArith<kInt16>;
+  const int lane = threadIdx.x % kWarp;
+  const long long b =
+      2 * ((long long)blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp);
+  if (b >= a.B) return;  // b is the same for the whole warp
+  const bool b1 = b + 1 < a.B;  // the high half holds pair b + 1, or is dead
+  const A ar(a.width);
+  const unsigned zero = 0u;
+  const unsigned oe = ar.cst(a.go + a.ge);
+  const unsigned ge = ar.cst(a.ge);
+  const unsigned ma = ar.cst(a.ma), mi = ar.cst(a.mi);
+  const int n = a.n;
+  const int8_t* qb = a.q + b * a.m;
+  const int8_t* tb = a.t + b * n;
+
+  unsigned q[RPL], M[RPL], I[RPL];
+#pragma unroll
+  for (int r = 0; r < RPL; ++r) {
+    const int i = lane * RPL + r;
+    q[r] = pack16(i < a.m ? qb[i] : kQueryPad, b1 && i < a.m ? qb[a.m + i] : kQueryPad);
+    M[r] = zero;
+    I[r] = zero;  // boundary column I = 0 (RTL ZERO tie)
+  }
+  unsigned h = zero;
+  unsigned dprev = zero;  // tile: max(ms, is) of column j-1; zero at column -1
+
+  for (int j0 = 0; j0 < n; j0 += kRun) {
+    // both pairs' 32 target bytes (target pads for a dead high half)
+    const int4* tp = reinterpret_cast<const int4*>(tb + j0);
+    const int4* tp1 = reinterpret_cast<const int4*>(tb + n + j0);
+    const int4 pad = {0x04040404, 0x04040404, 0x04040404, 0x04040404};
+    const int4 lo = tp[0], hi = tp[1];
+    const int4 lo1 = b1 ? tp1[0] : pad, hi1 = b1 ? tp1[1] : pad;
+    const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const int tw1[8] = {lo1.x, lo1.y, lo1.z, lo1.w, hi1.x, hi1.y, hi1.z, hi1.w};
+    unsigned ms_run = zero, is_run = zero, ms_keep = zero, is_keep = zero;
+    if (kTile) {
+      const long long o = b * n + j0 + lane;
+      ms_run = ar.load(a.ms[o], b1 ? a.ms[o + n] : 0);
+      is_run = ar.load(a.is[o], b1 ? a.is[o + n] : 0);
+    }
+#pragma unroll
+    for (int c = 0; c < kRun; ++c) {
+      // byte c of each pair's run in its half (score16x2 reads 3 bits)
+      const unsigned tj = __byte_perm(tw[c / 4], tw1[c / 4], (c % 4) | (4 + c % 4) << 8);
+      unsigned msj = zero, isj = zero;
+      if (kTile) {
+        msj = __shfl_sync(kFull, ms_run, c);
+        isj = __shfl_sync(kFull, is_run, c);
+      }
+      // the diagonal of row 0 of this lane: the lane above's last row at j-1
+      unsigned dup = __shfl_up_sync(kFull, ar.max(M[RPL - 1], I[RPL - 1]), 1);
+      if (lane == 0) dup = dprev;
+      unsigned Mn[RPL];
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        const unsigned d = r == 0 ? dup : ar.max(M[r - 1], I[r - 1]);
+        Mn[r] = ar.m(d, score16x2(tj, q[r], ma, mi));
+      }
+      unsigned mup = __shfl_up_sync(kFull, Mn[RPL - 1], 1);
+      if (lane == 0) mup = msj;
+      // the I chain inside the lane, from its own rows only
+      unsigned acc[RPL];
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        const unsigned up = r == 0 ? mup : Mn[r - 1];
+        unsigned base = ar.addmax(ar.max(up, M[r]), oe, ar.add(I[r], ge));
+        if (r == 0 && lane == 0) base = ar.addmax(isj, ge, base);  // row 0's seed
+        acc[r] = r == 0 ? base : ar.addmax(acc[r - 1], ge, base);
+      }
+      // max-plus inclusive scan of the lanes' last rows across the warp
+      unsigned v = acc[RPL - 1];
+#pragma unroll
+      for (int k = 1; k < kWarp; k <<= 1) {
+        const unsigned u = __shfl_up_sync(kFull, v, k);
+        if (lane >= k) v = ar.addmax(u, ar.cst(k * RPL * a.ge), v);
+      }
+      const unsigned carry = __shfl_up_sync(kFull, v, 1);  // I of the row above
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        I[r] = lane == 0 ? acc[r] : ar.addmax(carry, ar.cst((r + 1) * a.ge), acc[r]);
+        M[r] = Mn[r];
+        h = ar.max(h, Mn[r]);
+      }
+      if (kTile) {
+        dprev = ar.max(msj, isj);
+        const unsigned om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
+        const unsigned oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
+        if (lane == c) {
+          ms_keep = om;
+          is_keep = oi;
+        }
+      }
+    }
+    if (kTile) {
+      const long long o = b * n + j0 + lane;
+      a.ms_out[o] = ar.store(ms_keep, 0);
+      a.is_out[o] = ar.store(is_keep, 0);
+      if (b1) {
+        a.ms_out[o + n] = ar.store(ms_keep, 1);
+        a.is_out[o + n] = ar.store(is_keep, 1);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    h = ar.max(h, __shfl_xor_sync(kFull, h, off));
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k == 0 || b1) {
+        a.h_out[b + k] = kTile ? max(a.h[b + k], ar.store(h, k)) : ar.store(h, k);
+      }
+    }
+  }
+}
+
+// The kernel of a state mode, and the pairs a warp of it holds: two in
+// int16.
+template <int RPL, int kState, bool kTile>
+constexpr auto kernel_of() {
+  if constexpr (kState == kInt16) {
+    return column_x2_kernel<RPL, kTile>;
+  } else {
+    return column_kernel<RPL, kState, kTile>;
+  }
+}
+template <int kState>
+constexpr long long kPairsPerWarp = kState == kInt16 ? 2 : 1;
+
+// f(std::integral_constant<int, kState>{}) for a state code (ColumnState).
+template <typename F>
+cudaError_t with_state(int state, F f) {
+  switch (state) {
+    case kExact: return f(std::integral_constant<int, kExact>{});
+    case kBiased: return f(std::integral_constant<int, kBiased>{});
+    case kFloat: return f(std::integral_constant<int, kFloat>{});
+    case kInt16: return f(std::integral_constant<int, kInt16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int RPL, bool kTile>
 cudaError_t launch(const ColumnArgs& a, int state, cudaStream_t stream) {
-  const long long pairs_per_block = kBlock / kWarp;
-  const unsigned blocks = (unsigned)((a.B + pairs_per_block - 1) / pairs_per_block);
   if ((state == kBiased) != (a.width != 0)) return cudaErrorInvalidValue;
-  switch (state) {
-    case kExact:
-      column_kernel<RPL, kExact, kTile><<<blocks, kBlock, 0, stream>>>(a);
-      break;
-    case kBiased:
-      column_kernel<RPL, kBiased, kTile><<<blocks, kBlock, 0, stream>>>(a);
-      break;
-    case kFloat:
-      column_kernel<RPL, kFloat, kTile><<<blocks, kBlock, 0, stream>>>(a);
-      break;
-    case kInt16:
-      column_kernel<RPL, kInt16, kTile><<<blocks, kBlock, 0, stream>>>(a);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return with_state(state, [&](auto st) {
+    constexpr int K = decltype(st)::value;
+    constexpr long long P = kPairsPerWarp<K>, kWarps = kBlock / kWarp;
+    const unsigned blocks = (unsigned)(((a.B + P - 1) / P + kWarps - 1) / kWarps);
+    kernel_of<RPL, K, kTile>()<<<blocks, kBlock, 0, stream>>>(a);
+    return cudaGetLastError();
+  });
+}
+
+// Registers a thread, local (spill) bytes a thread and resident blocks an
+// SM of one instantiation.
+template <int RPL, int kState, bool kTile>
+cudaError_t kernel_info(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel_of<RPL, kState, kTile>());
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], kernel_of<RPL, kState, kTile>(), kBlock, 0);
 }
 
 }  // namespace
@@ -315,4 +479,21 @@ extern "C" int swtpu_column_chained(const void* q, const void* t,
                      static_cast<int32_t*>(is_out),
                      B, kTileRows, n, ma, mi, go, ge, score_width};
   return launch<8, true>(a, state, static_cast<cudaStream_t>(stream));
+}
+
+// out[3] = registers a thread, local bytes a thread, resident blocks an SM
+// of the instantiation for `rpl` rows a lane (1, 2, 4 or 8; a tile: 8) in
+// state code `state`, the chained tile if `tile`.  Returns the CUDA error.
+extern "C" int swtpu_column_kernel_info(int rpl, int state, int tile, int* out) {
+  return with_state(state, [&](auto st) {
+    constexpr int K = decltype(st)::value;
+    if (tile) return rpl == 8 ? kernel_info<8, K, true>(out) : cudaErrorInvalidValue;
+    switch (rpl) {
+      case 1: return kernel_info<1, K, false>(out);
+      case 2: return kernel_info<2, K, false>(out);
+      case 4: return kernel_info<4, K, false>(out);
+      case 8: return kernel_info<8, K, false>(out);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }

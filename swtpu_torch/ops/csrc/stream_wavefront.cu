@@ -93,28 +93,46 @@
 //   - kFloat: float32 state (fmaxf, no fused add-max), the same integer
 //     values as kExact (all far below 2^24), stored as int32; a chained
 //     tile's boundary strips stay int32 in memory;
-//   - kInt16, kUint16: 16-bit integer state held in int32 registers, every
-//     add cut back to 16 bits (sign-extended for int16, masked for uint16),
-//     so a register always holds what a 16-bit lane would; the match and
-//     mismatch scores are cut the same way (uint16's -4 is 65532), and the
-//     uint16 M update max(x, 0) is x.  The host refuses an open or extend
-//     penalty the type cannot hold (swtpu's OverflowError);
-//   - kBf16: bfloat16 state in __nv_bfloat16 registers, __hadd and __hmax
-//     (one rounding to nearest even per add, as the plain version's and
-//     XLA's bfloat16 adds round); the strips store its integer values as
-//     int32, and a chained tile rounds its int32 boundary values in.
+//   - kInt16, kUint16, kBf16: 16-bit state, two streams a thread (below);
+//     int16 and uint16 adds wrap modulo 2^16, so the match and mismatch
+//     scores are cut the same way (uint16's -4 is 65532), and the uint16 M
+//     update max(x, 0) is x; the host refuses an open or extend penalty the
+//     type cannot hold (swtpu's OverflowError).  bfloat16 adds round once to
+//     nearest even (as the plain version's and XLA's bfloat16 adds round);
+//     the strips store its integer values as int32, and a chained tile
+//     rounds its int32 boundary values in.
 // The 16-bit modes run at rows <= 8 (swtpu refuses rows 16 with them), and
 // every mode's zero is 0 but kBiased's, so the slicing rule holds as it is.
 // Each mode is its own instantiation, so the exact kernel's code is what
-// it was before the other modes existed; a mode adds its own arithmetic
-// through Arith's add() and cst(), which are plain + and the identity for
-// the first three.
+// it was before the other modes existed; a 32-bit mode adds its own
+// arithmetic through Arith's add() and cst(), which are plain + and the
+// identity for the first three, and the 16-bit modes have a kernel of
+// their own (stream_wavefront_x2_kernel).
+//
+// Two streams a register (the 16-bit modes, stream_wavefront_x2_kernel).
+// A thread holds the same sublanes of two adjacent streams, 2p in the low
+// half of each 32-bit register and 2p + 1 in the high half, and runs the
+// step on both at once with Hopper's 16x2 instructions (packed16.cuh): the
+// grid is ceil(S/2) stream pairs x W threads x C slices, a shuffle carries
+// two streams' state, and one instruction does two cells.  The selects of
+// the step become masks (sublane_step_x2): a read start is 0xFFFF in its
+// half, and zeroing is an AND.  Both halves share the geometry (segment
+// heads and tails, the slice), so only the chars, the query codes and what
+// the chars decide differ: a tail's accumulator reset, whether it writes
+// and whether it is done are per half, and a slice stops when both halves
+// of every lane are done.  A dead high half (S odd) reads pads and query
+// pads, is done from the start and never writes.  The chars and boundary
+// values of the two streams are adjacent in memory, and so are their
+// strip values; each is loaded and stored on its own (S odd puts a pair at
+// any alignment), once a step and stream, beside the step's 2 x R x V
+// cells.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "packed16.cuh"
 
 namespace {
 
@@ -136,9 +154,6 @@ enum StateMode { kExact, kBiased, kFloat, kInt16, kUint16, kBf16 };
 
 __device__ __forceinline__ int mx(int a, int b) { return max(a, b); }
 __device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ __nv_bfloat16 mx(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return __hmax(a, b);
-}
 
 // The arithmetic of each state mode: the state type T, a penalty as T
 // (cst), the boundary zero, an add, the M update, what a one-tile form
@@ -189,47 +204,45 @@ struct Arith<kFloat> {
   __device__ float load(int x) const { return static_cast<float>(x); }
 };
 
-// int16: an int32 register holds the sign-extended 16-bit value
-template <>
-struct Arith<kInt16> {
-  using T = int;
-  __device__ explicit Arith(int) {}
-  __device__ int cst(int x) const { return static_cast<int16_t>(x); }
-  __device__ int zero() const { return 0; }
-  __device__ int add(int x, int y) const { return static_cast<int16_t>(x + y); }
-  __device__ int m(int x) const { return max(x, 0); }
-  __device__ int emit(int x) const { return x; }
-  __device__ int store(int x) const { return x; }
-  __device__ int load(int x) const { return static_cast<int16_t>(x); }
-};
-
-// uint16: an int32 register holds the 16-bit value in [0, 2^16)
-template <>
-struct Arith<kUint16> {
-  using T = int;
-  __device__ explicit Arith(int) {}
-  __device__ int cst(int x) const { return x & 0xFFFF; }
-  __device__ int zero() const { return 0; }
-  __device__ int add(int x, int y) const { return (x + y) & 0xFFFF; }
-  __device__ int m(int x) const { return x; }  // max(x, 0) of an unsigned x
-  __device__ int emit(int x) const { return x; }
-  __device__ int store(int x) const { return x; }
-  __device__ int load(int x) const { return x & 0xFFFF; }
+// The 16-bit states hold two streams a thread: T is a 32-bit register of
+// two 16-bit values (packed16.cuh), the arithmetic is X's, a chained tile
+// reads two int32 boundary values into one register (load) and emit and
+// store give half h as an int32.  int16 and uint16 cut a penalty and a
+// boundary value to 16 bits, as the plain version's casts do.
+template <class X>
+struct Packed : X {
+  using T = unsigned;
+  __device__ T zero() const { return 0u; }
+  __device__ int emit(T x, int h) const { return this->widen(x, h); }
+  __device__ int store(T x, int h) const { return this->widen(x, h); }
 };
 
 template <>
-struct Arith<kBf16> {
-  using T = __nv_bfloat16;
+struct Arith<kInt16> : Packed<Int16x2> {
   __device__ explicit Arith(int) {}
-  __device__ T cst(int x) const { return __int2bfloat16_rn(x); }
-  __device__ T zero() const { return __ushort_as_bfloat16(0); }
-  __device__ T add(T x, T y) const { return __hadd(x, y); }
-  __device__ T m(T x) const { return __hmax(x, zero()); }
-  // every value is an integer: the conversion is exact
-  __device__ int emit(T x) const { return __bfloat162int_rz(x); }
-  __device__ int store(T x) const { return __bfloat162int_rz(x); }
-  __device__ T load(int x) const { return __int2bfloat16_rn(x); }
+  __device__ T cst(int x) const { return splat16(x); }
+  __device__ T load(int lo, int hi) const { return pack16(lo, hi); }
 };
+
+template <>
+struct Arith<kUint16> : Packed<Uint16x2> {
+  __device__ explicit Arith(int) {}
+  __device__ T cst(int x) const { return splat16(x); }
+  __device__ T load(int lo, int hi) const { return pack16(lo, hi); }
+};
+
+template <>
+struct Arith<kBf16> : Packed<Bf16x2> {
+  __device__ explicit Arith(int) {}
+  __device__ T cst(int x) const { return bf16_bits(x) * 0x10001u; }
+  __device__ T load(int lo, int hi) const {
+    return bf16_bits(lo) | static_cast<unsigned>(bf16_bits(hi)) << 16;
+  }
+};
+
+// whether a state mode holds two streams a thread
+template <int kState>
+constexpr bool kPacked = kState == kInt16 || kState == kUint16 || kState == kBf16;
 
 // One step of one sublane: R query rows, one char.  g_up, h_up and d_diag
 // are the sublane above's G[R-1] and H from the previous step and its
@@ -264,6 +277,43 @@ __device__ __forceinline__ bool sublane_step(
     hc = mx(hc, M);
     D[r] = mx(M, I);
     g = mx(ar.add(M, go), I);
+    G[r] = g;
+  }
+  h = hc;
+  return f0;
+}
+
+// The same step on two streams at once (a packed 16-bit state): c and q
+// hold each stream's char and query codes in their halves.  Returns the
+// read starts, 0xFFFF in each half whose char starts a read: its bit 3,
+// moved to the half's top bit.  seghead is the same for both halves.
+template <int R, bool kRipple, class A>
+__device__ __forceinline__ unsigned sublane_step_x2(
+    const A& ar, unsigned c, bool seghead, unsigned g_up, unsigned h_up,
+    unsigned d_diag, const unsigned (&q)[R], unsigned (&D)[R], unsigned (&G)[R],
+    unsigned& d2l, unsigned& h, unsigned ma, unsigned mi, unsigned go,
+    unsigned ge) {
+  const unsigned f0 = sign_halves(c << 12);
+  const unsigned keep = ~f0;
+  const unsigned diag = seghead ? 0u : d_diag & keep;
+  unsigned M = ar.m(diag, score16x2(c, q[0], ma, mi));
+  unsigned I = ar.add(ar.max(seghead ? 0u : g_up, G[0] & keep), ge);
+  unsigned hc = ar.max(seghead ? 0u : h_up, M);
+  if (kRipple) hc = ar.max(hc, h & keep);
+  unsigned dprev = D[0];
+  d2l = D[R - 1];
+  D[0] = ar.max(M, I);
+  unsigned g = ar.addmax(M, go, I);
+  G[0] = g;
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+    const unsigned dr = dprev & keep;
+    dprev = D[r];
+    M = ar.m(dr, score16x2(c, q[r], ma, mi));
+    I = ar.add(ar.max(g, G[r] & keep), ge);
+    hc = ar.max(hc, M);
+    D[r] = ar.max(M, I);
+    g = ar.addmax(M, go, I);
     G[r] = g;
   }
   h = hc;
@@ -434,14 +484,194 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
 }
 
+// What a thread of two streams, s and s + 1, loads for one step: the
+// chars and, in a chained tile, the boundary values of both, as loaded;
+// pads, query pads and zeros in a dead high half.
+struct Loads {
+  int c[2], d[2], g[2], h[2];
+};
+
+template <bool kChain>
+__device__ __forceinline__ void fetch_x2(const Args& a, const int8_t* src, size_t ld,
+                                         int s, bool in, int t, Loads& l) {
+  const bool in_hi = in && s + 1 < a.S;
+  const int8_t* p = src + (size_t)t * ld;
+  l.c[0] = in ? p[0] : kPad;
+  l.c[1] = in_hi ? p[1] : kPad;
+  if (kChain) {
+    const size_t o = (size_t)t * a.S + s;
+    l.d[0] = in ? a.bD[o] : 0;
+    l.d[1] = in_hi ? a.bD[o + 1] : 0;
+    l.g[0] = in ? a.bG[o] : 0;
+    l.g[1] = in_hi ? a.bG[o + 1] : 0;
+    l.h[0] = in ? a.bH[o] : 0;
+    l.h[1] = in_hi ? a.bH[o + 1] : 0;
+  }
+}
+
+// One step's loads packed two a register (every 16-bit state's zero is 0).
+template <bool kChain, class A>
+__device__ __forceinline__ void pack_x2(const A& ar, const Loads& l, unsigned& c,
+                                        unsigned& d, unsigned& g, unsigned& h) {
+  c = pack16(l.c[0], l.c[1]);
+  if (kChain) {
+    d = ar.load(l.d[0], l.d[1]);
+    g = ar.load(l.g[0], l.g[1]);
+    h = ar.load(l.h[0], l.h[1]);
+  }
+}
+
+// stream_wavefront_kernel in a 16-bit state, two streams a thread: the
+// same geometry and slices, the state of streams 2p and 2p + 1 in the
+// halves of each register, and per stream the tail's accumulator reset,
+// whether it writes and whether it is done.
+template <int R, int kMode, int kState>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    stream_wavefront_x2_kernel(const Args a) {
+  using A = Arith<kState>;
+  const A ar(a.width);
+  const unsigned ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
+                 ge = ar.cst(a.ge), z = 0u;
+  constexpr int SL = kLanes / R;        // wavefront sublanes per stream
+  constexpr int W = SL < 32 ? SL : 32;  // threads per stream pair
+  constexpr int V = SL / W;             // sublanes per thread
+  constexpr bool kRipple = kMode == kRippleH;
+  constexpr bool kChain = kMode == kChained;
+  const int S = a.S;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = tid / W * 2;  // the pair's first stream
+  const int lane = tid % W;
+  // threads past the last pair run the loop (the shuffles need the whole
+  // warp) but read and write nothing; a high half past S is dead
+  const bool live = s < S;
+  const bool live_hi = s + 1 < S;
+  const int SLg = SL / a.seg;  // sublanes per segment; a multiple of V
+  const int p0 = lane * V;     // this thread's first sublane
+  const int pt = p0 + V - 1;   // and last
+  const bool head = live && p0 % SLg == 0;
+  const bool tail = live && pt % SLg == SLg - 1;
+  // a segment head sees zero boundaries, a chained tile's row 0 the strips
+  const bool seghead = head && !kChain;
+  const size_t ld = (size_t)a.seg * S;
+  const int8_t* src = a.sk + (size_t)(p0 / SLg) * S + s;
+  int32_t* dst = a.strip + (size_t)(pt / SLg) * S + s;
+
+  // this block's slice: nominal steps [b0, b1)
+  const int slice = blockIdx.y;
+  const int quanta = a.T / kSliceQuantum;
+  const int b0 = kSliceQuantum * (int)((long long)slice * quanta / gridDim.y);
+  const int b1 = slice + 1 == (int)gridDim.y
+                     ? a.T
+                     : kSliceQuantum * (int)((long long)(slice + 1) * quanta / gridDim.y);
+  // a tail flag at this step or later entered at or after b1: the next
+  // slice's to write
+  const int handover = b1 + SLg - 1;
+  // per stream, as in stream_wavefront_kernel; a dead high half is done
+  bool writing[2] = {tail && slice == 0, tail && live_hi && slice == 0};
+  bool done[2] = {!tail, !(tail && live_hi)};
+
+  unsigned q[V][R], C[V];
+  unsigned D[V][R], G[V][R], D2L[V], H[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    C[v] = splat16(kPad);
+    D2L[v] = z;
+    H[v] = z;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      D[v][r] = z;
+      G[v][r] = z;
+      const int8_t* qp = a.qk + (size_t)(r * SL + p0 + v) * S + s;
+      q[v][r] = pack16(live ? qp[0] : kQueryPad, live_hi ? qp[1] : kQueryPad);
+    }
+  }
+  unsigned acc = z;
+
+  // slot k holds the inputs of step t0 + k, loaded a chunk ahead as in
+  // stream_wavefront_kernel; packing two values a register takes an
+  // instruction on the loaded values, so a step's loads are packed into
+  // their slot one step later, when they have arrived (packing them at once
+  // made every step wait for its loads: the one-slice tile ran 3x slower)
+  unsigned cin[kChunk], bd[kChunk], bg[kChunk], bh[kChunk];
+  Loads pending;  // the last step's loads, for slot kChunk - 1 at first
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k) {
+    fetch_x2<kChain>(a, src, ld, s, head, b0 + k, pending);
+    if (k + 1 < kChunk) pack_x2<kChain>(ar, pending, cin[k], bd[k], bg[k], bh[k]);
+  }
+  for (int t0 = b0; t0 < a.T; t0 += kChunk) {
+    if (t0 >= b1 && __all_sync(kFull, done[0] && done[1])) break;
+    const bool next = head && t0 + kChunk < a.T;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const unsigned c_in = cin[k];
+      const unsigned d_in = kChain ? bd[k] : z;
+      const unsigned g_in = kChain ? bg[k] : z;
+      const unsigned h_in = kChain ? bh[k] : z;
+      const int prev = (k + kChunk - 1) % kChunk;  // the pending loads' slot
+      pack_x2<kChain>(ar, pending, cin[prev], bd[prev], bg[prev], bh[prev]);
+      fetch_x2<kChain>(a, src, ld, s, next, t0 + kChunk + k, pending);
+      // the sublane above this thread's first one lives in lane - 1
+      const unsigned nC = __shfl_up_sync(kFull, C[V - 1], 1, W);
+      const unsigned nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
+      const unsigned nH = __shfl_up_sync(kFull, H[V - 1], 1, W);
+      const unsigned nD = __shfl_up_sync(kFull, D2L[V - 1], 1, W);
+      unsigned f0_tail = 0u;  // 0xFFFF in each half whose tail char starts a read
+#pragma unroll
+      for (int v = V - 1; v >= 1; --v) {
+        C[v] = C[v - 1];
+        const unsigned f0 = sublane_step_x2<R, kRipple>(
+            ar, C[v], false, G[v - 1][R - 1], H[v - 1], D2L[v - 1], q[v],
+            D[v], G[v], D2L[v], H[v], ma, mi, go, ge);
+        if (v == V - 1) f0_tail = f0;
+      }
+      C[0] = head ? c_in : nC;
+      const bool row0 = kChain && head;
+      const unsigned f0 = sublane_step_x2<R, kRipple>(
+          ar, C[0], seghead, row0 ? g_in : nG, row0 ? h_in : nH,
+          row0 ? d_in : nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
+      if (V == 1) f0_tail = f0;
+      const int t = t0 + k;
+      if (!kRipple) acc = ar.max(acc & ~f0_tail, H[V - 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool f0h = (f0_tail >> (16 * h)) & 1;
+        writing[h] = f0h ? tail && t < handover : writing[h];
+        done[h] = f0h ? !writing[h] : done[h];
+        if (writing[h]) {
+          const size_t o = (size_t)t * ld + h;
+          if (kChain) {  // seg = 1: o is (t, s + h)
+            dst[o] = ar.store(acc, h);
+            a.oD[o + s] = ar.store(D[V - 1][R - 1], h);
+            a.oG[o + s] = ar.store(G[V - 1][R - 1], h);
+            a.oH[o + s] = ar.store(H[V - 1], h);
+          } else {
+            dst[o] = ar.emit(kRipple ? H[V - 1] : acc, h);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The kernel of a state mode: two streams a thread in a 16-bit state.
+template <int R, int kMode, int kState>
+constexpr auto kernel_of() {
+  if constexpr (kPacked<kState>) {
+    return stream_wavefront_x2_kernel<R, kMode, kState>;
+  } else {
+    return stream_wavefront_kernel<R, kMode, kState>;
+  }
+}
+
 template <int R, int kMode, int kState>
 cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
   constexpr int SL = kLanes / R;
   constexpr int W = SL < 32 ? SL : 32;
-  const long long threads = (long long)a.S * W;
+  constexpr int P = kPacked<kState> ? 2 : 1;  // streams a thread holds
+  const long long threads = ((long long)a.S + P - 1) / P * W;
   const int blocks = (int)((threads + kBlock - 1) / kBlock);
-  stream_wavefront_kernel<R, kMode, kState>
-      <<<dim3(blocks, slices), kBlock, 0, stream>>>(a);
+  kernel_of<R, kMode, kState>()<<<dim3(blocks, slices), kBlock, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -502,13 +732,12 @@ cudaError_t launch_rows(int rows, int width, int state, const Args& a,
 template <int R, int kMode, int kState>
 cudaError_t kernel_info(int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err =
-      cudaFuncGetAttributes(&fa, stream_wavefront_kernel<R, kMode, kState>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel_of<R, kMode, kState>());
   if (err != cudaSuccess) return err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], stream_wavefront_kernel<R, kMode, kState>, kBlock, 0);
+      &out[2], kernel_of<R, kMode, kState>(), kBlock, 0);
 }
 
 }  // namespace

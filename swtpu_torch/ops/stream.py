@@ -31,7 +31,8 @@ PyTorch versions of the two kernels; ``stream_strip_cuda`` and
 ``stream_chained_cuda`` launch the hand-written CUDA kernels
 (``csrc/stream_wavefront.cu``), which cut each stream's steps into time
 slices that restart at read starts (``choose_slices``) and give the same
-strips bit for bit.  ``_strip_call`` and ``_strip_call_chained`` take the
+strips bit for bit; in a 16-bit state a thread holds two streams, one in
+each half of its 32-bit registers.  ``_strip_call`` and ``_strip_call_chained`` take the
 plain version for a tensor on the CPU and the kernel for a CUDA tensor;
 there is no fallback from one to the other.
 """
@@ -406,14 +407,22 @@ def _raise_on_error(lib, err, kernel):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
-def choose_slices(S, rows, T, sms, segments=1):
+def streams_per_thread(state_dtype):
+    """Streams a thread of the CUDA wavefront holds: two in a 16-bit
+    state (one in each half of a 32-bit register), else one."""
+    return 2 if state_dtype in SIXTEEN_BIT_STATES else 1
+
+
+def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32"):
     """The wrapper's slice count for S physical streams at `rows` and
-    `segments` over T steps on a card of `sms` SMs: a grid of about
-    SLICE_WARPS_PER_SM warps for every SM, with no slice under
-    MIN_SLICE_STEPS steps nor under PIPE_FILLS_PER_SLICE times the steps
-    a slice takes to fill a segment's pipe; 2 slices where that leaves
-    fewer and T >= MIN_SLICE_STEPS; at least 1."""
-    blocks = -(-S * min(LANES // rows, 32) // KERNEL_BLOCK)
+    `segments` over T steps in `state_dtype` on a card of `sms` SMs: a
+    grid of about SLICE_WARPS_PER_SM warps for every SM (a slice has
+    ceil(S / streams_per_thread) x min(128 / rows, 32) threads), with no
+    slice under MIN_SLICE_STEPS steps nor under PIPE_FILLS_PER_SLICE times
+    the steps a slice takes to fill a segment's pipe; 2 slices where that
+    leaves fewer and T >= MIN_SLICE_STEPS; at least 1."""
+    threads = -(-S // streams_per_thread(state_dtype)) * min(LANES // rows, 32)
+    blocks = -(-threads // KERNEL_BLOCK)
     want = round(sms * SLICE_WARPS_PER_SM * 32 / KERNEL_BLOCK / blocks)
     shortest = max(MIN_SLICE_STEPS, PIPE_FILLS_PER_SLICE * (LANES // rows // segments))
     fit = max(T // shortest, 2 if T >= MIN_SLICE_STEPS else 1)
@@ -431,10 +440,10 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _slice_count(slices, S, rows, T, device, segments=1):
+def _slice_count(slices, S, rows, T, device, segments=1, state_dtype="int32"):
     """`slices` checked, or the wrapper's choice for None."""
     if slices is None:
-        return choose_slices(S, rows, T, _sm_count(device), segments)
+        return choose_slices(S, rows, T, _sm_count(device), segments, state_dtype)
     slices = operator.index(slices)
     if slices < 1 or (slices > 1 and slices * STEP_CHUNK > T):
         raise ValueError(
@@ -470,7 +479,7 @@ def stream_strip_cuda(
     _check_kernel_tensors(qk=(qk, torch.int8), sk=(sk, torch.int8))
     S = qk.shape[1]
     T = sk.shape[0]
-    slices = _slice_count(slices, S, rows, T, qk.device, segments)
+    slices = _slice_count(slices, S, rows, T, qk.device, segments, state_dtype)
     out = torch.empty((T, segments * S), dtype=torch.int32, device=qk.device)
     if T == 0 or S == 0:
         return out
@@ -515,7 +524,7 @@ def stream_chained_cuda(
             )
     S = qk.shape[1]
     T = sk.shape[0]
-    slices = _slice_count(slices, S, rows, T, qk.device)
+    slices = _slice_count(slices, S, rows, T, qk.device, state_dtype=state_dtype)
     outs = [torch.empty((T, S), dtype=torch.int32, device=qk.device) for _ in range(4)]
     if T == 0 or S == 0:
         return tuple(outs)

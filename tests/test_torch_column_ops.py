@@ -329,3 +329,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="q must be a CUDA int8 tensor"):
         column.column_chained_cuda(q, t, s, s, h)
     assert (column.column_scores_cuda.launches, column.column_chained_cuda.launches) == launches
+
+
+@pytest.mark.parametrize("m,rpl", [(1, 1), (8, 1), (32, 1), (40, 2), (64, 2), (65, 4),
+                                   (128, 4), (136, 8), (256, 8)])
+def test_rows_per_lane_covers_the_query(m, rpl):
+    """The CUDA kernel's instantiation for a query of m rows: 32 lanes of
+    rpl rows, the fewest that cover m (swtpu_column_scores' choice)."""
+    assert column.rows_per_lane(m) == rpl
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(m=300), "query width 300"), (dict(m=0), "query width 0"),
+    (dict(state_dtype="uint16"), "unknown state_dtype"),
+    (dict(score_width=40), "score_width=40 out of range"),
+])
+def test_column_kernel_info_checks_before_the_library(kw, match):
+    """column_kernel_info refuses an instantiation that does not exist
+    before it loads the kernel library."""
+    with pytest.raises(ValueError, match=match):
+        column.column_kernel_info(**kw)

@@ -863,3 +863,209 @@ def test_16bit_score_pairs_equals_oracle(cuda_device):
     res = bank.score_pairs(queries, targets)
     want = [score_many_vs_one(q, [t])[0] for q, t in zip(queries, targets)]
     np.testing.assert_array_equal(res.scores, want)
+
+
+# The packed 16-bit forms: a thread holds two streams, one in each half of
+# its registers (and a warp of the int16 column kernel two pairs).  Odd
+# stream counts leave the last pair a dead high half; reads of 1-300 bases,
+# one in 7 the query itself, start at other steps in the two halves of a
+# pair, and slices of 32 steps (FINE) hold many a slice in which only one
+# half of a pair starts a read.
+PACKED_S = [1, 3, 511, 64]
+PACKED_FORMS = [(1, 1, True), (1, 1, False), (1, 2, True), (1, 4, True), (1, 8, True),
+                (2, 8, True)]
+FINE = "32-step"
+PACKED_SLICES = [1, 2, 7, None, FINE]
+
+
+def _packed_reads(rng, n, query):
+    """[n, 300] int8 reads of 1-300 bases and their lengths, every 7th the
+    query."""
+    lens = rng.integers(1, 301, size=n).astype(np.int32)
+    mat = rng.integers(0, 4, size=(n, 300)).astype(np.int8)
+    mat[::7, : len(query)] = query
+    lens[::7] = len(query)
+    mat[np.arange(300)[None, :] >= lens[:, None]] = 4
+    return mat, lens
+
+
+def _packed_batch(S, segments, rows):
+    """(qk, sk) on the CPU: S physical streams at `segments` of packed reads
+    (_packed_reads), in the kernel layout."""
+    rng = np.random.default_rng(S * 17 + segments * 5 + rows)
+    query = rng.integers(0, 4, size=128 // segments - 1).astype(np.int8)
+    mat, lens = _packed_reads(rng, max(8, 4 * S * segments), query)
+    b = pack_streams(query, mat, n_streams=S * segments, segments=segments, lens=lens,
+                     rows=rows)
+    return port._to_kernel_layout(torch.from_numpy(b.q), torch.from_numpy(b.stream),
+                                  segments, rows)
+
+
+def _one_half_only(sk, S, segments):
+    """(32-step slice, segment, pair) cells in which exactly one of the
+    pair's two streams starts a read."""
+    T = sk.shape[0]
+    starts = (sk.reshape(T // 32, 32, segments, S) >= 8).any(1)
+    pairs = starts[..., : S - S % 2].reshape(T // 32, segments, S // 2, 2)
+    return int((pairs[..., 0] != pairs[..., 1]).sum())
+
+
+def _slices(slices, T):
+    return T // port.STEP_CHUNK if slices == FINE else slices
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_case(S, segments, rows, tail_acc, mode):
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk = _packed_batch(S, segments, rows)
+    want = port.stream_strip_reference(qk, sk, pen, segments, rows, tail_acc,
+                                       state_dtype=dtype)
+    return qk, sk, want
+
+
+@pytest.mark.parametrize("slices", PACKED_SLICES)
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("segments,rows,tail_acc", PACKED_FORMS)
+@pytest.mark.parametrize("S", PACKED_S)
+def test_packed_strip_equals_plain_version(cuda_device, S, segments, rows, tail_acc, mode,
+                                           slices):
+    """B1/B2 with two streams a thread, both forms, at odd and even stream
+    counts and read starts that differ between the halves of a pair."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk, want = _packed_case(S, segments, rows, tail_acc, mode)
+    T = sk.shape[0]
+    assert S == 1 or _one_half_only(sk, S, segments) > 0
+    n = _slices(slices, T)
+    got = port.stream_strip_cuda(qk.to(cuda_device), sk.to(cuda_device), pen, segments,
+                                 rows, tail_acc, slices=n, state_dtype=dtype)
+    torch.cuda.synchronize()
+    assert port.stream_strip_cuda.slices == (n or port.choose_slices(
+        S, rows, T, port._sm_count(cuda_device), segments, dtype))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_chained_case(S, rows, mode):
+    """One chained tile on _packed_batch's streams and random boundary
+    strips in the state's range."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk = _packed_batch(S, 1, rows)
+    rng = np.random.default_rng(S + rows + 700)
+    lo = 0 if dtype == "uint16" else -20
+    bounds = [torch.from_numpy(rng.integers(lo, 300, size=sk.shape).astype(np.int32))
+              for _ in range(3)]
+    if dtype == "bfloat16":  # what a bfloat16 tile writes: bfloat16 values
+        bounds = [x.to(torch.bfloat16).to(torch.int32) for x in bounds]
+    want = port.stream_chained_reference(qk, sk, *bounds, pen, rows, state_dtype=dtype)
+    return qk, sk, bounds, want
+
+
+@pytest.mark.parametrize("slices", PACKED_SLICES)
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", PACKED_S)
+def test_packed_chained_kernel_equals_plain_version(cuda_device, S, rows, mode, slices):
+    """B3 with two streams a thread: all four strips of one tile."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk, bounds, want = _packed_chained_case(S, rows, mode)
+    n = _slices(slices, sk.shape[0])
+    got = port.stream_chained_cuda(
+        qk.to(cuda_device), sk.to(cuda_device), *(x.to(cuda_device) for x in bounds),
+        pen, rows, slices=n, state_dtype=dtype,
+    )
+    for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("S", [3, 511])
+def test_packed_chain_equals_plain_version(cuda_device, S, rows, mode):
+    """Whole K = 2 chains of a 256-base query with two streams a thread:
+    every tile's four strips and the last accumulator."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    rng = np.random.default_rng(S + rows + 800)
+    query = rng.integers(0, 4, size=256).astype(np.int8)
+    mat, lens = _packed_reads(rng, max(8, 4 * S), query[:200])
+    b = pack_streams_long(query, mat, n_streams=S, rows=rows, lens=lens)
+    q, sk = torch.from_numpy(b.q), torch.from_numpy(b.stream.T.copy())
+
+    def run(q, sk, tile):
+        outs = []
+
+        def record(*args, **kw):
+            outs.append(tile(*args, **kw))
+            return outs[-1]
+
+        return port._long_strip(q, sk, pen, rows, tile=record, state_dtype=dtype), outs
+
+    launches = port.stream_chained_cuda.launches
+    got, got_tiles = run(q.to(cuda_device), sk.to(cuda_device), port.stream_chained_cuda)
+    want, want_tiles = run(q, sk, port.stream_chained_reference)
+    assert port.stream_chained_cuda.launches == launches + 2
+    for k, (g, w) in enumerate(zip(got_tiles, want_tiles)):
+        for name, a, b in zip(("acc", "oD", "oG", "oH"), g, w):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                          err_msg=f"tile {k} {name}")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("pen", [DEFAULT_PENALTIES, Penalties(40, -4, -12, -4)])
+@pytest.mark.parametrize("m", [8, 64, 128, 256])  # 1, 2, 4 and 8 rows a lane
+@pytest.mark.parametrize("B", [1, 2, 1001])
+def test_packed_column_kernel_equals_plain_version(cuda_device, B, m, pen):
+    """B4 in int16, two pairs a warp: odd B leaves the last warp a dead
+    high half; the scores also equal the int32 kernel's (at +40 pair 0's
+    passes 8,191 from m = 256)."""
+    rng = np.random.default_rng(B + m + pen.match)
+    q, t = _column_batch(rng, B, m, 320)
+    want = column.column_scores_reference(q, t, pen, None, "int16")
+    got = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device), pen,
+                                    state_dtype="int16")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    exact = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device), pen)
+    np.testing.assert_array_equal(got.cpu().numpy(), exact.cpu().numpy())
+
+
+@pytest.mark.parametrize("B", [1, 1001])
+def test_packed_column_chain_equals_plain_version(cuda_device, B):
+    """A two-tile B5 chain in int16 at +40 a match, two pairs a warp: every
+    tile's h, ms and is, and the scores (pair 0 scores 40 x 320), also
+    equal to the int32 chain's."""
+    pen = Penalties(40, -4, -12, -4)
+    rng = np.random.default_rng(B + 900)
+    q, t = _column_batch(rng, B, 2 * column.QUERY_TILE, 320)
+
+    def run(q, t, tile, state_dtype):
+        outs = []
+
+        def record(*args):
+            outs.append(tile(*args))
+            return outs[-1]
+
+        return column._chained_call(q, t, pen, None, tile=record,
+                                    state_dtype=state_dtype), outs
+
+    got, got_tiles = run(q.to(cuda_device), t.to(cuda_device), column.column_chained_cuda,
+                         "int16")
+    want, want_tiles = run(q, t, column.column_chained_reference, "int16")
+    exact, _ = run(q.to(cuda_device), t.to(cuda_device), column.column_chained_cuda, "int32")
+    for k, (g, w) in enumerate(zip(got_tiles, want_tiles)):
+        for name, a, b in zip(("h", "ms", "is_"), g, w):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                          err_msg=f"tile {k} {name}")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), exact.cpu().numpy())
+    assert got[0] == 40 * 320
+
+
+@pytest.mark.parametrize("m,tile", [(8, False), (64, False), (128, False), (256, False),
+                                    (256, True)])
+@pytest.mark.parametrize("width,state_dtype", COLUMN_MODES)
+def test_column_kernels_do_not_spill(cuda_device, m, tile, width, state_dtype):
+    """Every column instantiation (each rows-per-lane, the tile, each state)
+    runs from registers alone and fits a block on an SM."""
+    regs, local, blocks = column.column_kernel_info(m, state_dtype, width, tile)
+    assert 0 < regs <= 255
+    assert local == 0
+    assert blocks >= 1

@@ -312,6 +312,33 @@ def test_choose_slices_at_the_main_shapes(shape, want):
     assert steps >= port.PIPE_FILLS_PER_SLICE * (port.LANES // rows // segments)
 
 
+# the 16-bit states' launches hold two streams a thread, so the same
+# streams make half the threads, and the wrapper gives twice the slices
+# where the steps allow them: (a) and (d) at rows 8 (511 streams: the last
+# pair's high half dead), (c), where the slice length caps them, and the
+# 32-bit states beside them
+PACKED_SHAPES = [
+    ((512, 8, 65568, 1), {"int32": 16, "float32": 16, "int16": 33, "uint16": 33,
+                          "bfloat16": 33}),
+    ((511, 8, 65568, 1), {"int32": 16, "int16": 33}),
+    ((512, 8, 72064, 1), {"int32": 16, "int16": 33, "bfloat16": 33}),
+    ((512, 8, 9152, 2), {"int32": 8, "int16": 8, "uint16": 8}),
+]
+
+
+@pytest.mark.parametrize("shape,want", PACKED_SHAPES)
+def test_choose_slices_counts_the_threads_of_a_packed_launch(shape, want):
+    S, rows, T, segments = shape
+    for dtype, slices in want.items():
+        assert port.choose_slices(S, rows, T, 132, segments, dtype) == slices, dtype
+
+
+@pytest.mark.parametrize("dtype,streams", [("int32", 1), ("float32", 1), ("int16", 2),
+                                           ("uint16", 2), ("bfloat16", 2)])
+def test_streams_per_thread(dtype, streams):
+    assert port.streams_per_thread(dtype) == streams
+
+
 @pytest.mark.parametrize("S,rows,T", [(40, 16, 992), (8, 1, 32), (512, 16, 1000), (0, 16, 0)])
 def test_choose_slices_keeps_short_streams_whole(S, rows, T):
     assert port.choose_slices(max(S, 1), rows, T, 132) == 1
