@@ -68,9 +68,25 @@ Phases, each reported on its own line; any failure exits non-zero:
      exact scores, cases (a) and (d) with float32 state equal to their
      int32 scores; and at stream_rows=8 in int16 state on (c) and (e)
      (the sample and top-10 against the oracle) and in bfloat16 (256
-     sampled reads against the plain path on the CPU).  Each path's
-     kernels' launch counters are set to 0 just before it and must have
-     risen just after;
+     sampled reads against the plain path on the CPU).  Then resident
+     serving (phase "serving"): (k) load_database on (a)'s reads, every
+     8,192nd replaced by one 128-base query (32 reads tied at the top),
+     for 256 bases (segments 1, rows 16, K <= 2), score_loaded_many
+     waves of 16 queries of 16-256 bases (warm, median of 3),
+     score_loaded on each (warm,
+     median of 3, beside score_database's on the same query) and
+     topk_loaded(10) on three; the daemon: ServeEngine over (k)'s resident
+     database and serve_socket on a UNIX socket in a thread, two client
+     threads at once each sending SEQ (262,144 lines back), TOP 10 and
+     QUIT, then a shutdown that must leave no thread or process; (l)
+     load_database on (b)'s reads for 32 bases (segments 4, rows 4) and
+     waves of 8 queries of 8-32 bases.  Every wave vector must equal
+     score_database's on all reads, three queries a case the oracle's
+     sample of 2,048 and top-10, every topk_loaded the full vector's
+     top_k(10), and the daemon's lines score_loaded's and topk_loaded's.
+     Each path's kernels' launch counters are set to 0 just before it
+     and must have risen just after (serving: exactly one B1 a dispatch
+     of a query of up to 128 bases, one B3 a tile of a longer one);
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
@@ -1381,6 +1397,276 @@ def phase_16bit_databases(card, case_c, case_e):
     return out
 
 
+# resident serving: (name, the main case whose reads load, max_query_len,
+# query lengths).  (k) loads (a)'s reads for 256 bases (segments 1, rows
+# 16, K <= 2: B1 for the queries of up to 128 bases, two B3 tiles for the
+# longer ones); (l) loads (b)'s reads for 32 (segments 4, rows 4)
+K_SERVING = ("k serving", 0, 256, (16, 32, 64, 100, 128, 200, 256, 24, 48, 80,
+                                   112, 128, 160, 192, 224, 240))
+L_SERVING = ("l serving", 1, 32, (8, 12, 16, 20, 24, 28, 30, 32))
+SERVE_TIED = 4  # (k)'s 128-base query: every SERVE_EVERY-th read is it
+SERVE_EVERY = 8192  # 32 reads tie at the top score, so a top-10 cuts the group
+SERVE_HELD = {"k serving": (3, 4, 6), "l serving": (0, 4, 7)}  # against the oracle
+SERVE_SAMPLE = 2048  # reads of each held query's oracle sample
+SERVE_TOPK = (3, 4, 6)  # (k)'s queries whose topk_loaded(10) is timed
+DAEMON_QUERIES = (4, 5)  # (k)'s queries the two daemon clients send
+TOPK = 10
+
+
+def walls_of(run, reps=3):
+    """run() once warm, then `reps` times on the host clock (run returns
+    host values, so each call has waited for the card); (the results,
+    the timed walls)."""
+    results = [run()]
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        results.append(run())
+        walls.append(time.perf_counter() - t0)
+    return results, walls
+
+
+def ms_list(walls):
+    return ", ".join(f"{w*1e3:.3f}" for w in walls)
+
+
+def dispatch_launches(queries):
+    """(wavefront, chained) launches of one dispatch of each query on a
+    resident database: one B1 for a query of up to 128 bases, else one B3
+    a 128-base tile."""
+    import numpy as np
+
+    return np.array([sum(len(q) <= 128 for q in queries),
+                     sum(-(-len(q) // 128) for q in queries if len(q) > 128)])
+
+
+def serve_resident(bank, name, db, queries, max_query_len, topk_idx):
+    """A case's serving path through the user's entry points: load_database,
+    score_loaded_many waves of all the queries (warm, median of 3), then
+    score_loaded (warm, median of 3) on every query and topk_loaded(TOPK)
+    on the `topk_idx` ones.  Every wave, score_loaded and topk_loaded
+    result must repeat the first wave's."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded = bank.load_database(db, max_query_len=max_query_len)
+    load_s = time.perf_counter() - t0
+    waves, wave_walls = walls_of(lambda: bank.score_loaded_many(queries, loaded))
+    wave = waves[0]
+    for again in waves[1:]:
+        if any(not np.array_equal(a.scores, w.scores) for a, w in zip(again, wave)):
+            fail(f"{name}: the waves' scores differ between waves")
+    loaded_walls = []
+    for i, q in enumerate(queries):
+        results, walls = walls_of(lambda: bank.score_loaded(q, loaded))
+        if any(not np.array_equal(r.scores, wave[i].scores) for r in results):
+            fail(f"{name}: score_loaded of query {i} differs from the wave's")
+        loaded_walls.append(walls)
+    topk = {}
+    for i in topk_idx:
+        results, walls = walls_of(lambda: bank.topk_loaded(queries[i], loaded, k=TOPK))
+        if any(r != results[0] for r in results):
+            fail(f"{name}: topk_loaded of query {i} differs between calls")
+        topk[i] = (results[0], walls)
+    return dict(loaded=loaded, load_s=load_s, wave=wave, wave_walls=wave_walls,
+                loaded_walls=loaded_walls, topk=topk)
+
+
+def serve_daemon(bank, db, loaded, queries):
+    """ServeEngine over a loaded database, serve_socket on a UNIX socket in
+    a thread, and one client thread per query, all at once: each sends SEQ,
+    then TOP TOPK, then QUIT.  The server is shut down after; (each
+    client's {"SEQ": (lines, wall s), "TOP": ...}, requests served)."""
+    import socket
+    import tempfile
+    import threading
+
+    from swtpu_torch.io.encode import decode_seq
+    from swtpu_torch.server import ServeEngine, client_request, serve_socket
+
+    engine = ServeEngine(bank, db.names, db, db=loaded)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve.sock")
+        ready = threading.Event()
+        server = threading.Thread(target=serve_socket, daemon=True, kwargs=dict(
+            engine=engine, unix_path=path, ready_event=ready))
+        server.start()
+        if not ready.wait(30):
+            fail("daemon: the server never bound its socket")
+
+        def client(cid, seq):
+            got = {}
+            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            s.connect(path)
+            try:
+                for cmd, line in (("SEQ", f"SEQ {seq}"), ("TOP", f"TOP {TOPK} {seq}")):
+                    t0 = time.perf_counter()
+                    lines = client_request(s, line)
+                    got[cmd] = (lines, time.perf_counter() - t0)
+                s.sendall(b"QUIT\n")
+            finally:
+                s.close()
+            results[cid] = got
+
+        clients = [threading.Thread(target=client, args=(i, decode_seq(q)))
+                   for i, q in enumerate(queries)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(300)
+        ready.server.shutdown()
+        server.join(30)
+        if server.is_alive() or any(t.is_alive() for t in clients):
+            fail("daemon: a server or client thread is still running")
+    if sorted(results) != list(range(len(queries))):
+        fail(f"daemon: clients {sorted(results)} of {len(queries)} finished")
+    return results, engine.served
+
+
+def phase_serving(rng, card, main_cases):
+    """(k), (l) and the daemon: resident serving through the user's entry
+    points, each path's launch counters set to 0 just before it and read
+    just after ((k)'s window holds the daemon too).  Then, outside those
+    windows: every wave score vector against score_database on the same
+    query and database (all reads; timed beside score_loaded), three
+    queries of each case against the oracle (sample + top-10), every
+    topk_loaded against ScoreResult.top_k of the full vector (ties at
+    (k)'s top), and the daemon's lines against score_loaded and
+    topk_loaded."""
+    import numpy as np
+    import torch
+    from swtpu_torch import ScoreBank, score_many_vs_one
+
+    bank = ScoreBank(device="cuda")
+    out = []
+    for name, case, cap, lengths in (K_SERVING, L_SERVING):
+        queries = [rng.integers(0, 4, size=k).astype(np.int8) for k in lengths]
+        db = main_cases[case]["db"]
+        topk_idx = ()
+        if name == K_SERVING[0]:
+            db = with_copies(db, queries[SERVE_TIED], SERVE_EVERY)
+            topk_idx = SERVE_TOPK
+
+        def path():
+            r = serve_resident(bank, name, db, queries, cap, topk_idx)
+            if name == K_SERVING[0]:
+                r["daemon"] = serve_daemon(bank, db, r["loaded"],
+                                           [queries[i] for i in DAEMON_QUERIES])
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            return r
+
+        r, launched = launches_of(path)
+        left = live_children()
+        if left:
+            fail(f"{name}: processes still running after the daemon's shutdown: {left}")
+        loaded, wave = r["loaded"], r["wave"]
+        # 4 waves and 4 score_loaded a query, 4 topk_loaded a topk query,
+        # and a SEQ and a TOP a daemon client
+        want = 8 * dispatch_launches(queries)
+        want += 4 * dispatch_launches([queries[i] for i in topk_idx])
+        if "daemon" in r:
+            want += 2 * dispatch_launches([queries[i] for i in DAEMON_QUERIES])
+        if list(launched) != want.tolist() or sum(launched) == 0:
+            fail(f"{name}: (wavefront, chained) launched {launched} times, want "
+                 f"{want.tolist()}")
+        n = loaded.n_reads
+        T, N = loaded.stream.shape
+        wave_s = statistics.median(r["wave_walls"])
+        ls = loaded.load_s
+        print(f"phase serving: {name} loaded {n} reads of {main_cases[case]['name']}"
+              f"{' (copies of query %d every %d reads)' % (SERVE_TIED, SERVE_EVERY) if topk_idx else ''} "
+              f"for {cap} bases: stream [{T}, {N}] segments={loaded.segments} rows={loaded.rows} "
+              f"k_max={loaded.k_max} in {r['load_s']*1e3:.2f} ms (pack {ls['pack']*1e3:.2f}, "
+              f"wire {ls['wire']*1e3:.2f}, H2D + unpack + transpose {ls['device']*1e3:.2f}) | "
+              f"wave of {len(queries)} queries median of 3 {wave_s*1e3:.2f} ms (runs "
+              f"{ms_list(r['wave_walls'])}) -> {wave_s/len(queries)*1e3:.3f} ms a query | "
+              f"launches wavefront="
+              f"{launched[0]} chained={launched[1]} | peak device memory "
+              f"{r['peak_gb']:.2f} GB on {card}", flush=True)
+        rows = []
+        for i, q in enumerate(queries):
+            results, walls = walls_of(lambda: bank.score_database(q, db))
+            for res in results:
+                if not np.array_equal(res.scores, wave[i].scores):
+                    k = int(np.flatnonzero(res.scores != wave[i].scores)[0])
+                    fail(f"{name}: query {i} read {k}: the wave {wave[i].scores[k]}, "
+                         f"score_database {res.scores[k]}")
+            lw = r["loaded_walls"][i]
+            rows.append(dict(qlen=len(q), tiles=-(-len(q) // 128),
+                             loaded_ms=statistics.median(lw) * 1e3,
+                             loaded_runs_ms=[w * 1e3 for w in lw],
+                             database_ms=statistics.median(walls) * 1e3,
+                             database_runs_ms=[w * 1e3 for w in walls]))
+            print(f"phase serving: {name} query {i} of {len(q)} bases: score_loaded median "
+                  f"of 3 {rows[-1]['loaded_ms']:.3f} ms (runs {ms_list(lw)}), "
+                  f"score_database {rows[-1]['database_ms']:.2f} ms (runs {ms_list(walls)}) | "
+                  f"the wave's scores = score_database's on all {n} reads", flush=True)
+        t0 = time.perf_counter()
+        for i in SERVE_HELD[name]:
+            sample = np.sort(rng.choice(n, size=SERVE_SAMPLE, replace=False))
+            want = score_many_vs_one(queries[i], [db.read(j) for j in sample])
+            check_oracle(f"{name} query {i}", wave[i], queries[i], db, sample, want)
+        oracle_s = time.perf_counter() - t0
+        topk_rows = {}
+        for i, (top, walls) in r["topk"].items():
+            if top != wave[i].top_k(TOPK):
+                fail(f"{name}: topk_loaded of query {i} {top}, top_k of the full vector "
+                     f"{wave[i].top_k(TOPK)}")
+            topk_rows[i] = dict(qlen=len(queries[i]), ms=statistics.median(walls) * 1e3,
+                                runs_ms=[w * 1e3 for w in walls])
+        if topk_idx:
+            tied = r["topk"][SERVE_TIED][0]
+            best = 5 * len(queries[SERVE_TIED])
+            if tied != [(best, j * SERVE_EVERY) for j in range(TOPK)]:
+                fail(f"{name}: the tied query's top-{TOPK} {tied}, want the first {TOPK} "
+                     f"copies at {best}")
+            print(f"phase serving: {name} topk_loaded(k={TOPK}) = ScoreResult.top_k({TOPK}) "
+                  f"of the full vector for queries {list(topk_idx)} (query {SERVE_TIED}: "
+                  f"{TOPK} of {-(-n // SERVE_EVERY)} reads tied at {best}) | median of 3 "
+                  + ", ".join(f"query {i} {t['ms']:.3f} ms (runs {', '.join(f'{x:.3f}' for x in t['runs_ms'])})"
+                              for i, t in topk_rows.items()), flush=True)
+        print(f"phase serving: ok {name} | all {len(queries)} wave vectors = score_database, "
+              f"queries {list(SERVE_HELD[name])} sample {SERVE_SAMPLE} + top-10 = oracle "
+              f"({oracle_s:.1f} s)", flush=True)
+        entry = dict(name=name, case=main_cases[case]["name"], max_query_len=cap,
+                     reads=n, shape=[int(T), int(N)], segments=loaded.segments,
+                     rows=loaded.rows, k_max=loaded.k_max, load_s=r["load_s"],
+                     load_stages_s=ls, wave_queries=len(queries), wave_s=wave_s,
+                     wave_runs_s=r["wave_walls"], wave_ms_a_query=wave_s / len(queries) * 1e3,
+                     queries=rows, topk=topk_rows, launches=[int(x) for x in launched],
+                     peak_gb=r["peak_gb"])
+        if "daemon" in r:
+            clients, n_served = r["daemon"]
+            client_walls = {}
+            for cid, qi in enumerate(DAEMON_QUERIES):
+                (seq_lines, seq_s), (top_lines, top_s) = (clients[cid]["SEQ"],
+                                                           clients[cid]["TOP"])
+                got = np.array([int(l.rsplit("\t", 1)[1]) for l in seq_lines], np.int32)
+                if len(seq_lines) != n or not np.array_equal(got, wave[qi].scores):
+                    fail(f"daemon: client {cid}'s SEQ gave {len(seq_lines)} lines, not "
+                         f"score_loaded's {n} scores")
+                want_top = [f"# top: >{db.names[j]} score: {s}"
+                            for s, j in bank.topk_loaded(queries[qi], loaded, k=TOPK)]
+                if top_lines != want_top:
+                    fail(f"daemon: client {cid}'s TOP {top_lines} vs topk_loaded {want_top}")
+                client_walls[cid] = dict(query=qi, qlen=len(queries[qi]),
+                                         seq_ms=seq_s * 1e3, top_ms=top_s * 1e3)
+            if n_served != 2 * len(DAEMON_QUERIES):
+                fail(f"daemon: served {n_served} requests, want {2 * len(DAEMON_QUERIES)}")
+            print(f"phase serving: ok daemon over {name}'s database: {len(DAEMON_QUERIES)} "
+                  f"concurrent UNIX-socket clients, SEQ ({n} lines) = score_loaded, TOP "
+                  f"{TOPK} = topk_loaded; walls at the client: " + "; ".join(
+                      f"client {c} ({w['qlen']} bases) SEQ {w['seq_ms']:.2f} ms, TOP "
+                      f"{w['top_ms']:.2f} ms" for c, w in client_walls.items())
+                  + "; server shut down, no process left", flush=True)
+            entry["daemon"] = dict(clients=client_walls, served=n_served)
+        out.append(entry)
+    return out
+
+
 COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
 # the bucketed column path's cases beside (g), which reuses case (e):
 # (name, reads or pairs, length range, query length or score width)
@@ -2042,6 +2328,7 @@ def main() -> int:
     pair_cases = phase_pairs_path(rng_modes, card)
     mode_dbs = phase_mode_databases(card, cases, long_cases)
     dbs_16 = phase_16bit_databases(card, cases[2], long_cases[1])
+    serving = phase_serving(np.random.default_rng([args.seed, 8]), card, cases)
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
 
     column_scores_cuda.launches = column_chained_cuda.launches = 0
@@ -2188,7 +2475,7 @@ def main() -> int:
     # per path, (wavefront, chained) launches on the main path: the exact
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
-               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16}}
+               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving}}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -2280,7 +2567,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "bucketed_cases": [
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
-    ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16,
+    ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16, "serving": serving,
         "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,3 @@
-from swtpu_torch.bank.scorebank import ScoreBank, ScoreResult
+from swtpu_torch.bank.scorebank import LoadedDatabase, ScoreBank, ScoreResult
 
-__all__ = ["ScoreBank", "ScoreResult"]
+__all__ = ["LoadedDatabase", "ScoreBank", "ScoreResult"]

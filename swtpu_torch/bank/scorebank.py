@@ -14,6 +14,10 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   ``stream_state_dtype`` of swtpu's (int32, float32, int16, uint16,
   bfloat16; the 16-bit ones at rows of at most 8, so ``stream_rows`` must
   be set for a segments-1 query on CUDA, where the geometry picks 16).
+  ``load_database`` packs a database once and leaves its stream resident
+  on the device (``LoadedDatabase``); ``score_loaded``,
+  ``score_loaded_many`` and ``topk_loaded`` then ship only each query's
+  register and run the same wavefront entries on the resident stream.
 - ``pallas`` (the bucketed column path; swtpu's name for it is kept): the
   host packs the reads into dense length buckets
   (``swtpu_torch.bank.packer``) and each bucket batch is scored by the
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -44,10 +48,14 @@ from swtpu_torch.bank.streams import (
 from swtpu_torch.config import SWConfig
 from swtpu_torch.io.loader import EncodedDB
 from swtpu_torch.ops.column import sw_scores_column
+from swtpu_torch.ops.common import Q_PAD
 from swtpu_torch.ops.stream import (
-    _validate_config, sw_scores_stream, sw_scores_stream_long,
-    sw_scores_stream_long_packed, sw_scores_stream_packed,
+    _q_kernel_layout, _validate_config, sw_scores_stream,
+    sw_scores_stream_kernel_layout, sw_scores_stream_long,
+    sw_scores_stream_long_kernel_layout, sw_scores_stream_long_packed,
+    sw_scores_stream_packed, unpack_stream_wire,
 )
+from swtpu_torch.parallel.topk import _local_topk
 from swtpu_torch.utils.metrics import BatchEvent
 
 
@@ -68,6 +76,16 @@ def _dense_form(targets):
 def _put(a: np.ndarray, device) -> torch.Tensor:
     """A numpy array as a torch tensor on `device`."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _put_query(query: np.ndarray, device) -> torch.Tensor:
+    """A query's codes on `device` without waiting for the device: from
+    pinned memory on CUDA, so a dispatch enqueues behind earlier work
+    instead of synchronising with it."""
+    t = torch.from_numpy(np.ascontiguousarray(query, np.int8))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def stream_geometry(query_len: int, config: SWConfig, device) -> tuple:
@@ -108,6 +126,29 @@ class ScoreResult:
         """(score, read_index) best hits; ties keep read order."""
         idx = np.argsort(-self.scores, kind="stable")[:k]
         return [(int(self.scores[i]), int(i)) for i in idx]
+
+
+@dataclasses.dataclass
+class LoadedDatabase:
+    """A packed database resident on the device across queries.
+
+    Built once by :meth:`ScoreBank.load_database`; each
+    :meth:`ScoreBank.score_loaded` then ships only the query register, and
+    the stream stays in device memory in the kernel's layout."""
+
+    stream: torch.Tensor  # [T, N] int8, contiguous: the kernel's layout
+    emit_stream_dev: torch.Tensor  # [n_reads] int32 on the device
+    emit_step_dev: torch.Tensor  # [n_reads] int32 on the device
+    t_lens: np.ndarray  # per-read true lengths (cells + guard bounds)
+    total_chars: int
+    n_reads: int
+    rows: int
+    k_max: int  # query tiles the stream was drain-padded for
+    segments: int = 1  # queries per lane column (short-query occupancy)
+    emit_regular: object = None  # strided-extract pattern (streams.py)
+    # host seconds of the load's stages: "pack", "wire" (0 without the
+    # wire) and "device" (the copies, the unpack and the relayout, waited for)
+    load_s: dict = dataclasses.field(default_factory=dict)
 
 
 class ScoreBank:
@@ -558,3 +599,206 @@ class ScoreBank:
                     )
                 )
         return ScoreResult(scores, cells, padded, time.perf_counter() - t0)
+
+    def load_database(self, targets, max_query_len: int = 128) -> LoadedDatabase:
+        """Pack `targets` once and leave the stream resident on the device.
+
+        The stream crosses to the device once (the 2.5-bit wire on CUDA
+        with ``wire_2bit``) and is laid out there as the kernel reads it,
+        [T, N]; every later :meth:`score_loaded` ships only the query
+        register and reads back n_reads int32 scores.  `max_query_len`
+        sets the query capacity: past 128 bases the stream gains the
+        chained tiles' extra drain steps (pack once, serve any length up
+        to it); at 32 or fewer bases the database packs segments=4 (64:
+        segments=2), as score_database does for such a query.
+
+        Requires the stream backend."""
+        if self.backend != "stream":
+            raise ValueError(
+                f"load_database requires the stream backend (got {self.backend!r})"
+            )
+        segments, rows, phys = stream_geometry(max_query_len, self.config, self.device)
+        tmat, tlens = _dense_form(targets)
+        k_max = max(1, -(-int(max_query_len) // LANES))
+        src = targets if tlens is None else tmat
+        t0 = time.perf_counter()
+        # a probe query: the stream layout and the emission coordinates do
+        # not depend on the query (drain = 128//(rows*segments) - 1); for a
+        # multi-tile capacity pack_streams_long adds the extra drain
+        if k_max > 1:
+            batch = pack_streams_long(np.zeros(k_max * LANES, np.int8), src,
+                                      n_streams=phys, rows=rows, lens=tlens)
+        else:
+            batch = pack_streams(np.zeros(1, np.int8), src, n_streams=phys * segments,
+                                 segments=segments, lens=tlens, rows=rows)
+        t_lens = (np.asarray(tlens, np.int64) if tlens is not None
+                  else np.fromiter((len(t) for t in targets), np.int64, len(targets)))
+        # the probe's cell count means nothing: _finish_loaded counts the
+        # served query's cells
+        batch.cells = 0
+        if self.verify_integrity:
+            from swtpu_torch.utils.guards import check_stream_batch
+
+            check_stream_batch(batch)
+        t1 = t2 = time.perf_counter()
+        on_cuda = self.device.type == "cuda"
+        if self.config.wire_2bit and on_cuda:
+            codes, flags = pack_stream_wire(batch.stream)
+            t2 = time.perf_counter()
+            stream = unpack_stream_wire(
+                _put(codes, self.device), _put(flags, self.device)
+            ).t().contiguous()
+        else:
+            stream = _put(batch.stream.T, self.device)
+        emit = [_put(a.astype(np.int32), self.device)
+                for a in (batch.emit_stream, batch.emit_step)]
+        if on_cuda:
+            torch.cuda.synchronize(self.device)
+        t3 = time.perf_counter()
+        return LoadedDatabase(
+            stream=stream,
+            emit_stream_dev=emit[0],
+            emit_step_dev=emit[1],
+            t_lens=t_lens,
+            total_chars=int(t_lens.sum()),
+            n_reads=len(t_lens),
+            rows=rows,
+            k_max=k_max,
+            segments=segments,
+            emit_regular=batch.emit_regular,
+            load_s={"pack": t1 - t0, "wire": t2 - t1, "device": t3 - t2},
+        )
+
+    def _dispatch_loaded(self, query: np.ndarray, db: LoadedDatabase) -> torch.Tensor:
+        """Enqueue one query against a loaded database; returns the scores
+        [n_reads] int32 on the device, without waiting for them."""
+        query = np.asarray(query, np.int8)
+        N = db.stream.shape[1]
+        qcap = LANES // db.segments
+        kw = dict(penalties=self.config.penalties, rows=db.rows,
+                  emit_regular=db.emit_regular, **self._stream_modes())
+        short = len(query) <= qcap
+        if short:
+            width = qcap
+        elif db.segments > 1:
+            raise ValueError(
+                f"query of {len(query)} bases exceeds the segmented "
+                f"capacity {qcap} this database was loaded for — reload "
+                "with a larger max_query_len"
+            )
+        else:
+            K = -(-len(query) // LANES)
+            if K > db.k_max:
+                raise ValueError(
+                    f"query of {len(query)} bases needs {K} tiles; database "
+                    f"was loaded with max_query_len for {db.k_max} — reload "
+                    "with a larger max_query_len"
+                )
+            width = K * LANES
+        # the register: the query in every stream, sentinel-padded
+        q = torch.full((N, width), Q_PAD, dtype=torch.int8, device=self.device)
+        q[:, : len(query)] = _put_query(query, self.device)
+        if short:
+            return sw_scores_stream_kernel_layout(
+                _q_kernel_layout(q, db.segments, db.rows), db.stream,
+                db.emit_stream_dev, db.emit_step_dev, segments=db.segments, **kw,
+            )
+        # the chained tiles read the resident [T, N] stream as it is
+        return sw_scores_stream_long_kernel_layout(
+            q, db.stream, db.emit_stream_dev, db.emit_step_dev, **kw,
+        )
+
+    def _finish_loaded(self, dev_scores, query, db: LoadedDatabase, t0,
+                       elapsed_override=None, event_log=None, kind="loaded") -> ScoreResult:
+        """Copy a dispatched query's scores to the host (waiting for
+        them) and account for them."""
+        scores = dev_scores.cpu().numpy()
+        if self.verify_integrity:
+            from swtpu_torch.utils.guards import check_scores
+
+            check_scores(
+                scores, np.full(db.n_reads, len(query)), db.t_lens,
+                self.config.penalties.match,
+            )
+        cells = int(len(query)) * db.total_chars
+        # K query tiles each sweep the wavefront's capacity (128//segments
+        # rows a logical stream position), as on the database paths
+        K = max(1, -(-len(query) // LANES))
+        T, N = db.stream.shape
+        padded = int(T) * int(N) * (LANES // db.segments) * K
+        elapsed = (
+            elapsed_override if elapsed_override is not None
+            else time.perf_counter() - t0
+        )
+        if event_log is not None:
+            event_log.emit(
+                BatchEvent(
+                    kind, t_wall=time.time(), elapsed_s=elapsed,
+                    reads=db.n_reads, cells=cells, padded_cells=padded,
+                    note=f"qlen={len(query)} resident_reads={db.n_reads}",
+                )
+            )
+        return ScoreResult(scores, cells, padded, elapsed)
+
+    def score_loaded(self, query: np.ndarray, db: LoadedDatabase,
+                     event_log=None) -> ScoreResult:
+        """Score `query` against a device-resident database: only the
+        query register crosses to the device; the stream stays there.
+        event_log receives one "loaded" record."""
+        t0 = time.perf_counter()
+        return self._finish_loaded(
+            self._dispatch_loaded(query, db), query, db, t0, event_log=event_log,
+        )
+
+    def score_loaded_many(self, queries: Sequence[np.ndarray], db: LoadedDatabase,
+                          event_log=None) -> List[ScoreResult]:
+        """Score a batch of queries against one loaded database: every
+        query is enqueued before any result is copied back, so the host's
+        work on one query overlaps the device's on the ones before.
+
+        Each result's `elapsed_s` is the batch's wall time divided evenly
+        (a single query's time is not observable here); their sum is the
+        batch's time.  event_log receives one "loaded_many" record a
+        query."""
+        t0 = time.perf_counter()
+        devs = [self._dispatch_loaded(q, db) for q in queries]
+        devs = [d.cpu() for d in devs]  # copied back in dispatch order
+        share = (time.perf_counter() - t0) / max(len(queries), 1)
+        return [
+            self._finish_loaded(d, q, db, t0, elapsed_override=share,
+                                event_log=event_log, kind="loaded_many")
+            for d, q in zip(devs, queries)
+        ]
+
+    def _dispatch_topk_loaded(self, query, db: LoadedDatabase, k: int):
+        """Enqueue a query and its top-k cut on the device; returns the
+        (scores [k], ids [k]) device tensors without waiting for them."""
+        dev = self._dispatch_loaded(query, db)
+        ids = torch.arange(db.n_reads, dtype=torch.int32, device=self.device)
+        return _local_topk(dev, ids, min(k, db.n_reads))
+
+    def _finish_topk_loaded(self, devs, query, db: LoadedDatabase, t0,
+                            event_log=None) -> List[tuple]:
+        """Copy a dispatched top-k to the host; event_log receives one
+        "loaded_topk" record."""
+        fs, fids = devs[0].cpu().numpy(), devs[1].cpu().numpy()
+        if event_log is not None:
+            event_log.emit(
+                BatchEvent(
+                    "loaded_topk", t_wall=time.time(),
+                    elapsed_s=time.perf_counter() - t0, reads=db.n_reads,
+                    cells=int(len(query)) * db.total_chars, padded_cells=0,
+                    note=f"qlen={len(query)} k={len(fs)}",
+                )
+            )
+        return [(int(s), int(i)) for s, i in zip(fs, fids)]
+
+    def topk_loaded(self, query: np.ndarray, db: LoadedDatabase, k: int = 10,
+                    event_log=None) -> List[tuple]:
+        """The best k (score, read index) hits of `query` against a loaded
+        database, cut on the device: only 2k values are copied back.  The
+        order is ScoreResult.top_k's: score descending, then read index
+        ascending."""
+        t0 = time.perf_counter()
+        devs = self._dispatch_topk_loaded(query, db, k)
+        return self._finish_topk_loaded(devs, query, db, t0, event_log=event_log)

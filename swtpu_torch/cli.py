@@ -1,9 +1,17 @@
-"""swtpu_torch command-line scorer: the `score` subcommand of swtpu's CLI
-on a torch device.
+"""swtpu_torch command-line scorer: swtpu's `score` and `serve`
+subcommands on a torch device.
 
     python -m swtpu_torch.cli [--device cuda|cpu] score -q query.fa \\
         -l library.fa [-o out.txt] [--topk K] [--events log.jsonl] \\
-        [--backend auto|stream|pallas] [--score-width W] [--buckets 32,128,...]
+        [--backend auto|stream|pallas] [--score-width W] [--buckets 32,128,...] \\
+        [--all-queries]
+    python -m swtpu_torch.cli [--device cuda|cpu] serve -l library.fa \\
+        [--input commands.txt | --socket PATH | --port N] [--max-query-len 512]
+
+`score --all-queries` scores every record of the query file; on the stream
+backend the library loads onto the device once.  `serve` loads the library
+once and answers SEQ / TOP / QUIT lines from stdin, a file or concurrent
+socket clients (``swtpu_torch.server``).
 
 Output lines are swtpu's (``@<time>ns: >dbK score: S``, the reference RTL
 testbench's golden format), so ``python -m swtpu.cli diff`` compares the
@@ -19,6 +27,8 @@ import time
 from typing import List, Optional
 
 import numpy as np
+
+from swtpu_torch.server import format_score_line
 
 
 def _load(query_path: str, library_path: str):
@@ -49,17 +59,83 @@ def _split_lib(lib):
     return db.names, db
 
 
-def format_score_line(name: str, score: int, ns: int) -> str:
-    """The RTL testbench's golden line format (`@<time>ns: >dbK score: S`,
-    ScoreBank/ScoreBank_v1_tb.sv:280-282): the port's copy of
-    ``swtpu.server.format_score_line``, byte for byte."""
-    return f"@{ns:>9}ns: \t{'>' + name:>10} score: \t{int(score):>10}"
+def _load_all_queries(query_path: str):
+    """Every record of the query FASTA as (name, codes) pairs."""
+    from swtpu_torch.io.loader import load_encoded
+
+    qdb = load_encoded(query_path)
+    if not qdb.names:
+        raise SystemExit(f"query file has no records: {query_path}")
+    return [(qdb.names[i], qdb.read(i).copy()) for i in range(len(qdb.names))]
 
 
 def _emit(out, names, scores, t_start):
     for name, s in zip(names, scores):
         ns = int((time.perf_counter() - t_start) * 1e9)
         out.write(format_score_line(name, s, ns) + "\n")
+
+
+def _refuse_scan(backend: str) -> None:
+    if backend == "scan":
+        raise SystemExit(
+            "--backend scan is not ported yet (ROADMAP item 10: scan "
+            "backend); use --backend stream or pallas"
+        )
+
+
+def _score_all_queries(args, bank, names, targets, pairs, event_log=None) -> int:
+    """Score every query record against the library.  On the stream
+    backend the library loads onto the device once
+    (``ScoreBank.load_database``) and each query ships only its register;
+    the bucketed backend loops ``score_database``."""
+    t0 = time.perf_counter()
+    if bank.backend == "stream":
+        db = bank.load_database(targets, max_query_len=max(len(q) for _, q in pairs))
+        # waves: every query of a wave is enqueued before any result is
+        # copied back (score_loaded_many); a wave bounds host memory to
+        # WAVE * n_reads * 4 bytes of scores
+        WAVE = 32
+
+        def run_all():
+            for lo in range(0, len(pairs), WAVE):
+                chunk = pairs[lo : lo + WAVE]
+                yield from bank.score_loaded_many([q for _, q in chunk], db)
+    else:
+        def run_all():
+            for _, q in pairs:
+                yield bank.score_database(q, targets)
+    out = open(args.output, "w") if args.output else sys.stdout
+    tot_cells = 0
+    tot_s = 0.0
+    try:
+        for (name, _), res in zip(pairs, run_all()):
+            out.write(f"# query: {name}\n")
+            _emit(out, names, res.scores, t0)
+            tot_cells += res.cells
+            tot_s += res.elapsed_s
+            if event_log is not None:
+                from swtpu_torch.utils.metrics import BatchEvent
+
+                event_log.emit(
+                    BatchEvent(
+                        "query", t_wall=time.time(), elapsed_s=res.elapsed_s,
+                        reads=len(targets), cells=res.cells,
+                        padded_cells=res.padded_cells, note=f"query={name}",
+                    )
+                )
+            if args.topk:
+                for s, i in res.top_k(args.topk):
+                    print(f"# top[{name}]: >{names[i]} score: {s}", file=sys.stderr)
+    finally:
+        if args.output:
+            out.close()
+    print(
+        f"# {len(pairs)} queries x {len(targets)} reads, {tot_cells} cells "
+        f"in {tot_s*1e3:.1f} ms -> {tot_cells/max(tot_s,1e-9)/1e9:.2f} GCUPS "
+        f"on {bank.device}",
+        file=sys.stderr,
+    )
+    return 0
 
 
 def cmd_score(args) -> int:
@@ -73,10 +149,11 @@ def cmd_score(args) -> int:
             f"--score-width requires the stream or column kernel: use "
             f"--backend stream/pallas (or auto), not {args.backend!r}"
         )
-    if args.backend == "scan":
+    _refuse_scan(args.backend)
+    if args.all_queries and args.timeout:
         raise SystemExit(
-            "--backend scan is not ported yet (ROADMAP item 10: scan "
-            "backend); use --backend stream or pallas"
+            "--all-queries does not compose with --timeout (each query is "
+            "one short job; rerun is the restart unit)"
         )
     pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
     query, names, targets = _load(args.query, args.library)
@@ -103,6 +180,15 @@ def cmd_score(args) -> int:
         from swtpu_torch.utils.metrics import EventLog
 
         event_log = EventLog(args.events)
+    if args.all_queries:
+        try:
+            return _score_all_queries(args, bank, names, targets,
+                                      _load_all_queries(args.query), event_log)
+        except ValueError as e:  # a width or state the kernels refuse
+            raise SystemExit(str(e))
+        finally:
+            if event_log is not None:
+                event_log.close()
     t0 = time.perf_counter()
 
     def _run():
@@ -156,6 +242,85 @@ def cmd_score(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Load the library once (resident on the device on the stream
+    backend), then answer SEQ / TOP / QUIT lines from stdin, `--input`, or
+    concurrent clients on `--socket` / `--port` (``swtpu_torch.server``).
+    Responses: one `@..ns: >name score: S` block per SEQ (as `score`
+    writes), `# top: >name score: S` lines per TOP; an error prints
+    `# error: ...` and the loop goes on."""
+    from swtpu_torch.bank import ScoreBank
+    from swtpu_torch.config import Penalties, SWConfig
+    from swtpu_torch.io.loader import load_encoded
+    from swtpu_torch.server import ServeEngine, serve_socket
+
+    _refuse_scan(args.backend)
+    if args.sharded:
+        raise SystemExit(
+            "--sharded is not ported yet (ROADMAP item 12: multiple GPUs); "
+            "serve without it holds the library on one device"
+        )
+    if args.socket and args.port is not None:
+        raise SystemExit("--socket and --port are mutually exclusive")
+    pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
+    names, targets = _split_lib(load_encoded(args.library))
+    bank = ScoreBank(SWConfig(penalties=pen), backend=args.backend, device=args.device)
+    event_log = None
+    if args.events:
+        from swtpu_torch.utils.metrics import EventLog
+
+        event_log = EventLog(args.events)
+    db = None
+    if bank.backend == "stream":
+        t0 = time.perf_counter()
+        db = bank.load_database(targets, max_query_len=args.max_query_len)
+        print(f"# loaded {len(targets)} reads in {time.perf_counter()-t0:.2f}s "
+              f"(resident on {bank.device})", file=sys.stderr)
+    else:
+        print(f"# serving {len(targets)} reads ({bank.backend})", file=sys.stderr)
+    engine = ServeEngine(bank, names, targets, db=db, event_log=event_log)
+    try:
+        if args.socket or args.port is not None:
+            where = args.socket or f"127.0.0.1:{args.port}"
+            print(f"# serving on {where} (concurrent clients; SEQ/TOP/QUIT, "
+                  "responses end with '.')", file=sys.stderr)
+            try:
+                serve_socket(engine, unix_path=args.socket or None, port=args.port)
+            except KeyboardInterrupt:
+                pass
+        else:
+            inp = open(args.input) if args.input else sys.stdin
+            try:
+                for line in inp:
+                    resp = engine.handle(line)
+                    if resp is None:  # QUIT
+                        break
+                    for out_line in resp:
+                        print(out_line)
+                    if resp:
+                        sys.stdout.flush()
+            finally:
+                if args.input:
+                    inp.close()
+    finally:
+        if event_log is not None:
+            event_log.close()
+    print(f"# served {engine.served} queries", file=sys.stderr)
+    return 0
+
+
+def _add_pen_args(p):
+    p.add_argument("--match", type=int, default=5)
+    p.add_argument("--mismatch", type=int, default=-4)
+    p.add_argument("--gap-open", dest="gap_open", type=int, default=-12)
+    p.add_argument("--gap-extend", dest="gap_extend", type=int, default=-4)
+
+
+BACKEND_HELP = ("stream: the streamed wavefront; pallas: the bucketed column "
+                "kernels; auto: stream, or pallas with --score-width (scan is "
+                "not ported)")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="swtpu_torch", description=__doc__)
     ap.add_argument(
@@ -176,9 +341,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ps.add_argument("--topk", type=int, default=0)
     ps.add_argument(
         "--backend", default="auto", choices=["auto", "scan", "pallas", "stream"],
-        help="stream: the streamed wavefront; pallas: the bucketed column "
-        "kernels; auto: stream, or pallas with --score-width (scan is not "
-        "ported)",
+        help=BACKEND_HELP,
     )
     ps.add_argument(
         "--score-width", dest="score_width", type=int, default=0,
@@ -191,12 +354,45 @@ def main(argv: Optional[List[str]] = None) -> int:
         "(SWConfig.target_buckets); the stream backend ignores it — its "
         "target axis is unbounded",
     )
+    ps.add_argument(
+        "--all-queries", dest="all_queries", action="store_true",
+        help="score every query-file record against the library (stream "
+        "backend: the library loads onto the device once and each query "
+        "ships only its register)",
+    )
     ps.add_argument("--events", help="write per-batch JSONL event log here")
-    ps.add_argument("--match", type=int, default=5)
-    ps.add_argument("--mismatch", type=int, default=-4)
-    ps.add_argument("--gap-open", dest="gap_open", type=int, default=-12)
-    ps.add_argument("--gap-extend", dest="gap_extend", type=int, default=-4)
+    _add_pen_args(ps)
     ps.set_defaults(fn=cmd_score)
+
+    pv = sub.add_parser(
+        "serve",
+        help="load a library once (resident on the device) and score "
+        "queries from stdin (SEQ/TOP/QUIT protocol)",
+    )
+    pv.add_argument("-l", "--library", required=True)
+    pv.add_argument("--input", help="read commands from a file instead of stdin")
+    pv.add_argument("--backend", default="auto",
+                    choices=["auto", "scan", "pallas", "stream"], help=BACKEND_HELP)
+    pv.add_argument(
+        "--max-query-len", dest="max_query_len", type=int, default=512,
+        help="query capacity the resident database is packed for",
+    )
+    pv.add_argument("--events", help="write per-query JSONL event log here")
+    pv.add_argument(
+        "--sharded", action="store_true",
+        help="hold the library across all visible devices (not ported yet: "
+        "ROADMAP item 12)",
+    )
+    pv.add_argument(
+        "--socket", help="serve concurrent clients on this UNIX socket "
+        "path instead of stdin",
+    )
+    pv.add_argument(
+        "--port", type=int, help="serve concurrent clients on this "
+        "localhost TCP port instead of stdin",
+    )
+    _add_pen_args(pv)
+    pv.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     return args.fn(args)

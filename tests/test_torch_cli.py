@@ -161,6 +161,13 @@ def test_port_never_imports_jax(tmp_path):
         bank = swtpu_torch.ScoreBank(swtpu_torch.SWConfig(score_width=12), device="cpu")
         res = bank.score_database(long_query, reads)
         assert (res.scores == swtpu_torch.score_many_vs_one(long_query, reads)).all()
+        bank = swtpu_torch.ScoreBank(device="cpu")
+        db = bank.load_database(reads, max_query_len=256)
+        res = bank.score_loaded(long_query, db)
+        assert (res.scores == swtpu_torch.score_many_vs_one(long_query, reads)).all()
+        assert bank.topk_loaded(long_query, db, k=2) == res.top_k(2)
+        from swtpu_torch.server import ServeEngine
+        assert len(ServeEngine(bank, list("abcd"), reads, db=db).handle("SEQ ACGT")) == 4
         assert main(["--device", "cpu", "score", "-q", {str(fa)!r}, "-l", {str(fa)!r},
                      "-o", {str(tmp_path / "out.txt")!r}]) == 0
         heavy = [m for m in sys.modules

@@ -1069,3 +1069,89 @@ def test_column_kernels_do_not_spill(cuda_device, m, tile, width, state_dtype):
     assert 0 < regs <= 255
     assert local == 0
     assert blocks >= 1
+
+
+# resident serving: (max_query_len, query lengths it serves, config)
+SERVING = {
+    "seg4": (32, (8, 32), SWConfig()),
+    "seg2": (64, (40, 64), SWConfig()),
+    "long": (256, (20, 128, 129, 256), SWConfig()),
+    "long_w12": (512, (100, 450), SWConfig(score_width=12)),
+    "int16_rows8": (128, (60, 128), SWConfig(stream_state_dtype="int16", stream_rows=8)),
+}
+
+
+@pytest.mark.parametrize("wire", [True, False])
+@pytest.mark.parametrize("case", list(SERVING))
+def test_loaded_database_equals_score_database(cuda_device, case, wire):
+    """load_database on the card, both crossings, at the CUDA geometry:
+    score_loaded (with the kernels on the resident stream itself),
+    score_loaded_many and topk_loaded against score_database and the
+    oracle; reads 3 and 400 are the longest query (tied at the top)."""
+    import dataclasses
+
+    cap, qlens, cfg = SERVING[case]
+    cfg = dataclasses.replace(cfg, wire_2bit=wire)
+    rng = np.random.default_rng(cap + len(qlens))
+    db = _db(rng, 700, 300)
+    queries = [rng.integers(0, 4, size=k).astype(np.int8) for k in qlens]
+    reads = db.as_list()
+    reads[3] = reads[400] = queries[-1].copy()
+    bank = ScoreBank(cfg, backend="stream", device=cuda_device)
+    loaded = bank.load_database(reads, max_query_len=cap)
+    assert loaded.stream.is_cuda and loaded.stream.is_contiguous()
+    port.stream_strip_cuda.launches = port.stream_chained_cuda.launches = 0
+    wave = bank.score_loaded_many(queries, loaded)
+    short = sum(len(q) <= 128 for q in queries)
+    assert port.stream_strip_cuda.launches == short
+    assert port.stream_chained_cuda.launches == sum(-(-len(q) // 128)
+                                                    for q in queries if len(q) > 128)
+    for q, res in zip(queries, wave):
+        want = bank.score_database(q, reads)
+        np.testing.assert_array_equal(res.scores, want.scores)
+        np.testing.assert_array_equal(bank.score_loaded(q, loaded).scores, res.scores)
+        if cfg.score_width is None:
+            np.testing.assert_array_equal(res.scores, score_many_vs_one(q, reads))
+        else:  # the biased oracle is a Python loop: reads 0-63 and 400
+            held = [*range(64), 400]
+            assert res.scores[held].tolist() == [
+                sw_score_single_biased(q, reads[i], score_width=12) for i in held]
+        assert bank.topk_loaded(q, loaded, k=5) == res.top_k(5)
+    if cfg.score_width is None:  # at 12 bits the 450-base copies wrap
+        assert bank.topk_loaded(queries[-1], loaded, k=2) == [(5 * len(queries[-1]), 3),
+                                                              (5 * len(queries[-1]), 400)]
+
+
+def test_serve_engine_threads_on_the_card(cuda_device):
+    """Four threads dispatch through one engine on the card at once, each
+    a different query; every answer equals score_loaded's."""
+    import threading
+
+    from swtpu_torch.server import ServeEngine
+
+    rng = np.random.default_rng(77)
+    db = _db(rng, 3000, 200)
+    bank = ScoreBank(device=cuda_device)
+    loaded = bank.load_database(db, max_query_len=256)
+    engine = ServeEngine(bank, db.names, db, db=loaded)
+    seqs = ["".join("ACGT"[int(c)] for c in rng.integers(0, 4, size=k))
+            for k in (30, 128, 200, 256)]
+    got = {}
+
+    def client(i):
+        for _ in range(3):
+            got.setdefault(i, []).append(engine.handle(f"SEQ {seqs[i]}"))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    from swtpu_torch.io.encode import encode_seq
+
+    for i, seq in enumerate(seqs):
+        want = bank.score_loaded(encode_seq(seq), loaded).scores.tolist()
+        for lines in got[i]:
+            assert [int(l.rsplit("\t", 1)[1]) for l in lines] == want
+    assert engine.served == 12

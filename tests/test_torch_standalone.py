@@ -19,7 +19,7 @@ from swtpu.server import format_score_line as ref_format_score_line
 from swtpu.utils.metrics import BatchEvent as RefBatchEvent
 from swtpu.utils.metrics import EventLog as RefEventLog
 from swtpu_torch import config, oracle
-from swtpu_torch.cli import format_score_line
+from swtpu_torch.server import format_score_line
 from swtpu_torch.io import encode, fasta, loader
 from swtpu_torch.runtime import native
 from swtpu_torch.utils.metrics import BatchEvent, EventLog
