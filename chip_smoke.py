@@ -86,7 +86,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      top_k(10), and the daemon's lines score_loaded's and topk_loaded's.
      Each path's kernels' launch counters are set to 0 just before it
      and must have risen just after (serving: exactly one B1 a dispatch
-     of a query of up to 128 bases, one B3 a tile of a longer one);
+     of a query of up to 128 bases, one B3 a tile of a longer one).
+     Then the job layer (phase "jobs"), after the bucketed cases: (a) with
+     stream_chunk_reads=65536 (4 chunks) and (b) with 100,000 (the last
+     chunk 62,144 reads), every score equal to the one-shot call's and the
+     oracle's sample and top-10, three warm walls of each in turns, one
+     B1 launch a chunk, and one profiled call of each (device busy share,
+     kernel launches, how much of each chunk's B1 ran while the host packed
+     the next chunk, the largest packed stream); score_streams on (b)'s
+     first 8,192 reads (B2's form, rows 1); a resumable job at (a) in
+     chunks of 65,536 killed after its second chunk and rerun (two chunks
+     scored, every score = the one-shot call's, the rerun's wall); seeded
+     faults on (f)'s reads on the column path (every score = its
+     score_database's; corrupted codes and scores caught by the guards);
+     and the CLI on the card: score --resume twice (the rerun adopts the
+     state and launches nothing) and --profile (a Chrome trace holding the
+     wavefront kernel), each equal to the CLI's oracle by its diff;
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
@@ -1667,6 +1682,351 @@ def phase_serving(rng, card, main_cases):
     return out
 
 
+# the job layer (phase "jobs"): (a)'s reads in chunks of JOBS_CHUNK_A (4
+# chunks), (b)'s in chunks of JOBS_CHUNK_B (the last of 62,144 reads), a
+# resumable job at (a) killed after JOBS_KILL_AFTER chunks, faults on (f)'s
+# reads on the column path, and the CLI's --resume and --profile
+JOBS_CHUNK_A = 65536
+JOBS_CHUNK_B = 100000
+JOBS_KILL_AFTER = 2
+# seeded faults on the column path: with 3 batches, the first reorders
+# them and drops none; the second (swtpu's own test's) also drops 3
+JOBS_FAULTS = (dict(seed=7, reorder_percent=100, drop_percent=40),
+               dict(seed=7, reorder_percent=100, drop_percent=40, delay_ms_max=1))
+JOBS_CLI_READS = (2000, 128)  # the CLI's library: reads and their length
+JOBS_STREAMS_READS = 8192  # (b)'s first reads through score_streams
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device events
+
+
+def union_us(spans):
+    """[(start, end)] -> [(start, end)] merged, sorted."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(spans, other):
+    """µs of `spans` (merged) that `other` (merged) also covers."""
+    return sum(max(0.0, min(b, d) - max(a, c)) for a, b in union_us(spans)
+               for c, d in union_us(other))
+
+
+HOST_STAGES = (("pack_streams", "jobs:pack"), ("pack_stream_wire", "jobs:wire"),
+               ("sw_scores_stream_packed", "jobs:dispatch"),
+               ("sw_scores_stream", "jobs:dispatch"))  # scorebank's names, marked
+
+
+def profiled_call(run, tmp):
+    """One call of run() under torch.profiler, with the stream path's host
+    stages (pack_streams, pack_stream_wire, the pinned staging and the
+    dispatch of each chunk's ops) marked as ranges: (device busy share of
+    the wall, kernel launches, each wavefront kernel's span and how much of
+    it ran while the host worked on a stage, the host stages' ms, wall ms,
+    largest packed stream's bytes), from the exported Chrome trace, where
+    host and device share one clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from swtpu_torch.bank import scorebank as bank_mod
+
+    stream_bytes = []
+
+    def marked(fn, label):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                out = fn(*a, **kw)
+            if label == "jobs:pack":
+                stream_bytes.append(out.stream.nbytes)
+            return out
+        return wrapped
+
+    real = {name: getattr(bank_mod, name) for name, _ in HOST_STAGES}
+    real_put = bank_mod._PinnedStager.put
+    for name, label in HOST_STAGES:
+        setattr(bank_mod, name, marked(real[name], label))
+    bank_mod._PinnedStager.put = marked(real_put, "jobs:stage")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in real.items():
+            setattr(bank_mod, name, fn)
+        bank_mod._PinnedStager.put = real_put
+    path = Path(tmp) / f"trace{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    path.unlink()
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        fail("jobs: the profiler recorded no kernel on the card")
+    wave = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                  if "stream_wavefront" in e["name"])
+    host = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("jobs:"):
+            host.setdefault(e["name"][5:], []).append((e["ts"], e["ts"] + e["dur"]))
+    every = [s for spans in host.values() for s in spans]
+    busy = sum(b - a for a, b in union_us(device)) / 1e3
+    return dict(busy_ms=busy, wall_ms=wall_ms, busy_share=busy / wall_ms,
+                kernels=len(kernels), max_stream_bytes=max(stream_bytes),
+                host_ms={k: sum(b - a for a, b in union_us(v)) / 1e3
+                         for k, v in sorted(host.items())},
+                wavefront_ms=[(b - a) / 1e3 for a, b in wave],
+                wavefront_under_host_ms=[overlap_us([w], every) / 1e3 for w in wave])
+
+
+def phase_jobs(card, main_cases, f_case):
+    """The job layer through the user's entry points, each path's launch
+    counters set to 0 just before it and read just after: the chunked
+    dispatch at (a) and (b) (every score = the one-shot call's on all reads,
+    the oracle's sample and top-10; three warm walls of each, interleaved;
+    one profiled chunked and one-shot call: busy share, launches, and how
+    much of each chunk's wavefront ran under the next chunk's packing),
+    score_streams on (b)'s first reads, a resumable job at (a) killed after
+    JOBS_KILL_AFTER chunks and rerun (only the rest scored, = the one-shot
+    scores), seeded faults on (f)'s reads on the column path (= its
+    score_database; both corruptions caught by the guards), and the CLI's
+    score --resume (rerun: nothing scored again) and --profile (a trace with
+    the wavefront in it), each = the CLI's oracle by its diff."""
+    import tempfile
+
+    import numpy as np
+    from swtpu_torch import SWConfig, ScoreBank
+    from swtpu_torch.bank import resume
+    from swtpu_torch.bank import scorebank as bank_mod
+    from swtpu_torch.bank.streams import score_streams
+    from swtpu_torch.cli import main as cli
+    from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
+    from swtpu_torch.testing.faults import FaultConfig, score_database_with_faults
+    from swtpu_torch.utils.guards import IntegrityError
+
+    t_phase = time.perf_counter()
+    one = ScoreBank(device="cuda")
+    out = dict(chunked=[])
+    launches = {}
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = Path(tmpdir.name)
+    try:
+        for case, chunk in ((main_cases[0], JOBS_CHUNK_A), (main_cases[1], JOBS_CHUNK_B)):
+            name = f"{case['name'][0]} jobs chunked"
+            query, db = case["query"], case["db"]
+            n = len(db.lens)
+            n_chunks = -(-n // chunk)
+            chunked = ScoreBank(SWConfig(stream_chunk_reads=chunk), device="cuda")
+            runs = {"one_shot": lambda: one.score_database(query, db),
+                    "chunked": lambda: chunked.score_database(query, db)}
+            walls = {k: [] for k in runs}
+            b1 = b3 = 0
+            for rep in range(4):  # a warm call of each, then three timed, in turns
+                for k, run in runs.items():
+                    t0 = time.perf_counter()
+                    res, (l1, l3) = launches_of(run)
+                    wall = time.perf_counter() - t0
+                    if rep:
+                        walls[k].append(wall)
+                    if k == "chunked":
+                        b1, b3, got = b1 + l1, b3 + l3, res
+                    else:
+                        one_res = res
+                    if not np.array_equal(res.scores, case["scores"]):
+                        i = int(np.flatnonzero(res.scores != case["scores"])[0])
+                        fail(f"{name}: {k} read {i} scored {res.scores[i]}, the one-shot "
+                             f"call {case['scores'][i]}")
+            if (b1, b3) != (4 * n_chunks, 0):
+                fail(f"{name}: (wavefront, chained) launched ({b1}, {b3}) times in 4 calls, "
+                     f"want ({4 * n_chunks}, 0)")
+            if got.cells != case["cells"]:
+                fail(f"{name}: cells {got.cells}, the one-shot call {case['cells']}")
+            check_oracle(name, got, query, db, case["sample"], case["oracle"])
+            prof = {k: profiled_call(run, tmp) for k, run in runs.items()}
+            pc = prof["chunked"]
+            if len(pc["wavefront_ms"]) != n_chunks:
+                fail(f"{name}: the profiled call ran {len(pc['wavefront_ms'])} wavefront "
+                     f"kernels, want {n_chunks}")
+            med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+            row = dict(name=name, reads=n, chunk_reads=chunk, chunks=n_chunks,
+                       cells=got.cells, padded_cells=got.padded_cells,
+                       one_shot_padded_cells=one_res.padded_cells,
+                       walls_ms={k: [w * 1e3 for w in v] for k, v in walls.items()},
+                       median_ms=med, launches=[b1, b3],
+                       profiled=prof)
+            out["chunked"].append(row)
+            launches[name] = [b1, b3]
+            print(f"phase jobs: ok {name} reads={n} chunks={n_chunks} of {chunk} | every "
+                  f"score = the one-shot call's, sample 2048 + top-10 = oracle | warm walls "
+                  f"median of 3, in turns: chunked {med['chunked']:.2f} ms (runs "
+                  f"{ms_list(walls['chunked'])}), one-shot {med['one_shot']:.2f} ms (runs "
+                  f"{ms_list(walls['one_shot'])}) | launches wavefront={b1} in 4 calls | "
+                  f"profiled: chunked {pc['wall_ms']:.2f} ms, {pc['busy_share']:.1%} busy, "
+                  f"{pc['kernels']} kernels; one-shot {prof['one_shot']['wall_ms']:.2f} ms, "
+                  f"{prof['one_shot']['busy_share']:.1%} busy, {prof['one_shot']['kernels']} "
+                  f"kernels; chunked host stages ms "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in pc["host_ms"].items())
+                  + " | each chunk's wavefront ms (of it while the host worked on a stage): "
+                  + ", ".join(f"{w:.3f} ({h:.3f})" for w, h in zip(
+                      pc["wavefront_ms"], pc["wavefront_under_host_ms"]))
+                  + f" | largest packed stream {pc['max_stream_bytes'] / 1e6:.2f} MB, one-shot "
+                  f"{prof['one_shot']['max_stream_bytes'] / 1e6:.2f} MB on {card}", flush=True)
+
+        # score_streams: pack, the wavefront at rows 1 (B2's form), gather
+        case = main_cases[1]
+        reads = [case["db"].read(i) for i in range(JOBS_STREAMS_READS)]
+        got, (b1, b3) = launches_of(lambda: score_streams(case["query"], reads,
+                                                          n_streams=512, device="cuda"))
+        if (b1, b3) != (1, 0) or not np.array_equal(got, case["scores"][:JOBS_STREAMS_READS]):
+            fail(f"jobs score_streams: launches ({b1}, {b3}), scores = the bank's: "
+                 f"{np.array_equal(got, case['scores'][:JOBS_STREAMS_READS])}")
+        launches["jobs score_streams"] = [b1, b3]
+        print(f"phase jobs: ok score_streams on {JOBS_STREAMS_READS} reads of "
+              f"{case['name']} (512 streams, rows 1) = ScoreBank's scores | launches "
+              f"wavefront={b1}", flush=True)
+
+        # resume at (a): killed after JOBS_KILL_AFTER chunks, then rerun
+        case = main_cases[0]
+        query, db = case["query"], case["db"]
+        state = tmp / "a_job.npz"
+        # the entry each chunk's one-shot call goes through: the wire's on
+        # the card
+        entry = ("sw_scores_stream_packed" if one.config.wire_2bit
+                 and one.device.type == "cuda" else "sw_scores_stream")
+        real = getattr(bank_mod, entry)
+        calls = {"n": 0}
+
+        def killed(*a, **kw):
+            calls["n"] += 1
+            if calls["n"] > JOBS_KILL_AFTER:
+                raise RuntimeError(f"killed after chunk {JOBS_KILL_AFTER}")
+            return real(*a, **kw)
+
+        def counted(*a, **kw):
+            calls["n"] += 1
+            return real(*a, **kw)
+
+        setattr(bank_mod, entry, killed)
+        try:
+            resume.score_database_resumable(one, query, db, state, chunk_reads=JOBS_CHUNK_A)
+            fail("jobs resume: the killed job ran to its end")
+        except RuntimeError as e:
+            if "killed after" not in str(e):
+                raise
+        finally:
+            setattr(bank_mod, entry, real)
+        n_chunks = -(-len(db.lens) // JOBS_CHUNK_A)
+        done = np.load(state)["done"].tolist()
+        if done != [True] * JOBS_KILL_AFTER + [False] * (n_chunks - JOBS_KILL_AFTER):
+            fail(f"jobs resume: the killed job's state has done={done}")
+        calls["n"] = 0
+        setattr(bank_mod, entry, counted)
+        try:
+            t0 = time.perf_counter()
+            res, (b1, b3) = launches_of(lambda: resume.score_database_resumable(
+                one, query, db, state, chunk_reads=JOBS_CHUNK_A))
+            rerun_s = time.perf_counter() - t0
+        finally:
+            setattr(bank_mod, entry, real)
+        t0 = time.perf_counter()
+        resume._fingerprint(query, db, one.config, extra=f"stream/{JOBS_CHUNK_A}")
+        fingerprint_s = time.perf_counter() - t0
+        left = n_chunks - JOBS_KILL_AFTER
+        if (calls["n"], b1, b3) != (left, left, 0):
+            fail(f"jobs resume: the rerun scored {calls['n']} chunks with ({b1}, {b3}) "
+                 f"launches, want {left}")
+        if not np.array_equal(res.scores, case["scores"]) or res.cells != case["cells"]:
+            fail("jobs resume: the resumed scores or cells differ from the one-shot call's")
+        launches["a jobs resume"] = [b1, b3]
+        out["resume"] = dict(chunk_reads=JOBS_CHUNK_A, chunks=n_chunks,
+                             killed_after=JOBS_KILL_AFTER, rerun_chunks=calls["n"],
+                             rerun_ms=rerun_s * 1e3, fingerprint_ms=fingerprint_s * 1e3,
+                             launches=[b1, b3])
+        print(f"phase jobs: ok a jobs resume: {n_chunks} chunks of {JOBS_CHUNK_A}, killed "
+              f"after {JOBS_KILL_AFTER}; the rerun scored {calls['n']} chunks "
+              f"(launches wavefront={b1}) in {rerun_s * 1e3:.2f} ms (the job's fingerprint "
+              f"alone {fingerprint_s * 1e3:.2f} ms), every score = the one-shot call's on "
+              f"{card}", flush=True)
+
+        # faults on (f)'s reads, the column path
+        query, db = f_case["query"], f_case["db"]
+        reads = db.as_list()
+        pallas = ScoreBank(backend="pallas", device="cuda")
+        want = pallas.score_database(query, db).scores
+        runs = []
+        column_scores_cuda.launches = column_chained_cuda.launches = 0
+        for cfg in JOBS_FAULTS:
+            t0 = time.perf_counter()
+            scores, inj = score_database_with_faults(pallas, query, reads, FaultConfig(**cfg))
+            runs.append(dict(config=cfg, ms=(time.perf_counter() - t0) * 1e3,
+                             drops=inj.injected_drops, reorders=inj.injected_reorders))
+            if not np.array_equal(scores, want):
+                i = int(np.flatnonzero(scores != want)[0])
+                fail(f"jobs faults {cfg}: read {i} scored {scores[i]}, score_database "
+                     f"{want[i]}")
+        b4, b5 = column_scores_cuda.launches, column_chained_cuda.launches
+        if b4 < len(JOBS_FAULTS) or [r["reorders"] for r in runs] != [1, 1] or not runs[1]["drops"]:
+            fail(f"jobs faults: B4 launched {b4} times; drops and reorders {runs}")
+        launches["f jobs faults"] = [b4, b5]
+        caught = {}
+        guarded = ScoreBank(backend="pallas", device="cuda", verify_integrity=True)
+        for kind in ("codes", "scores"):
+            try:
+                score_database_with_faults(guarded, query, reads, FaultConfig(
+                    seed=7, corrupt_percent=100, corrupt_kind=kind))
+                fail(f"jobs faults: a corrupted {kind} batch was not caught")
+            except IntegrityError as e:
+                caught[kind] = str(e)
+        out["faults"] = dict(reads=len(reads), runs=runs, launches=[b4, b5], caught=caught)
+        print(f"phase jobs: ok f jobs faults: {len(reads)} reads of {f_case['name']}: "
+              + "; ".join(f"FaultConfig({r['config']}) {r['drops']} drops, {r['reorders']} "
+                          f"reorders, {r['ms']:.2f} ms" for r in runs)
+              + f"; launches column={b4}; every score = score_database's; corrupted codes "
+              f"and scores caught: {caught}", flush=True)
+
+        # the CLI on the card: score --resume twice, --profile, each = oracle
+        fa, oracle = tmp / "lib.fa", tmp / "oracle.txt"
+        n_reads, length = JOBS_CLI_READS
+        rc = [cli(["generate", "-n", str(n_reads + 1), "-L", str(length), "-o", str(fa)]),
+              cli(["oracle", "-q", str(fa), "-l", str(fa), "-o", str(oracle)])]
+        cli_launches = []
+        for k in range(2):
+            got, (b1, b3) = launches_of(lambda: cli([
+                "score", "-q", str(fa), "-l", str(fa), "-o", str(tmp / f"resume{k}.txt"),
+                "--resume", str(tmp / "cli_job.npz")]))
+            rc += [got, cli(["diff", str(tmp / f"resume{k}.txt"), str(oracle)])]
+            cli_launches.append([b1, b3])
+        prof_dir = tmp / "profile"
+        got, (b1, b3) = launches_of(lambda: cli([
+            "score", "-q", str(fa), "-l", str(fa), "-o", str(tmp / "profiled.txt"),
+            "--profile", str(prof_dir)]))
+        rc += [got, cli(["diff", str(tmp / "profiled.txt"), str(oracle)])]
+        cli_launches.append([b1, b3])
+        traces = list(prof_dir.glob("*.pt.trace.json"))
+        names = {e.get("name", "") for t in traces
+                 for e in json.loads(t.read_text())["traceEvents"] if e.get("cat") == "kernel"}
+        if any(rc) or cli_launches != [[1, 0], [0, 0], [1, 0]] or len(traces) != 1 or not any(
+                "stream_wavefront" in k for k in names):
+            fail(f"jobs cli: exit codes {rc}, launches {cli_launches}, traces {traces}, "
+                 f"kernels in the trace {sorted(names)[:5]}")
+        launches["jobs cli"] = [sum(x[0] for x in cli_launches), 0]
+        out["cli"] = dict(reads=n_reads, length=length, launches=cli_launches,
+                          trace_kernels=sorted(names))
+        print(f"phase jobs: ok cli: score --resume ({n_reads} reads x {length}) = oracle, "
+              f"rerun adopted its state (no launch), score --profile wrote "
+              f"{traces[0].name} with {len(names)} kernel names, the wavefront among them",
+              flush=True)
+    finally:
+        tmpdir.cleanup()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase jobs: ok in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
 # the bucketed column path's cases beside (g), which reuses case (e):
 # (name, reads or pairs, length range, query length or score width)
@@ -2338,6 +2698,8 @@ def main() -> int:
     if column_launches == 0 or column_chained_launches == 0:
         fail("the bucketed path never launched the column kernels "
              f"({column_launches}, {column_chained_launches})")
+    jobs = phase_jobs(card, cases, col_cases[0])
+    faults_launches = jobs["launches"].pop("f jobs faults")
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
@@ -2475,7 +2837,8 @@ def main() -> int:
     # per path, (wavefront, chained) launches on the main path: the exact
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
-               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving}}
+               **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving},
+               **jobs["launches"]}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -2526,12 +2889,13 @@ def main() -> int:
                              bound_ms=b_cut[0], bound_by=b_cut[1]),
               main_shapes=long_mains, configs=chains),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
-              column_launches,
+              column_launches + faults_launches[0],
               max(c["max_abs_err"] for c in col_checks + col_batches + [f_states]),
               chead["ms"], chead["plain_ms"], b_col,
               shape=[chead["B"], chead["m"], chead["n"]], main_shapes=col_batches,
               configs=col_checks, modes=modes_f,
               launches_by_path={"f-h int32": column_launches,
+                                "f jobs faults": faults_launches[0],
                                 **{f"f {k}": v["launches"]
                                    for k, v in f_states["modes"].items()}}),
         entry("column_chained", "swtpu_torch/ops/csrc/column.cu",
@@ -2568,6 +2932,7 @@ def main() -> int:
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
     ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16, "serving": serving,
+        "jobs": jobs,
         "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,15 +3,20 @@
 Batched, score-only Smith-Waterman local alignment with affine gaps, as in
 ``swtpu``, on a torch device: the streamed-wavefront path
 (``ScoreBank.score_database`` for queries of any length, longer than 128
-bases on chained tiles, and ``score_pairs`` on pair streams), and the
-bucketed column path (``backend="pallas"``: ``score_database`` and
-``score_pairs``), both exact or with ``SWConfig.score_width`` (the
-wavefront also with float32 state), with hand-written CUDA
-kernels on the GPU and their plain PyTorch versions on the CPU; and the
-kernel shootout's lane-major column kernel and the two microbenchmarks'
-kernels.  Imports torch and never JAX, and nothing of ``swtpu``: the
-configuration, the oracle, FASTA loading, the native packer and the event
-log are the port's own copies of swtpu's JAX-free modules.
+bases on chained tiles, in chunks with ``SWConfig.stream_chunk_reads``, and
+``score_pairs`` on pair streams), and the bucketed column path
+(``backend="pallas"``, or a callable backend in the column kernels' place:
+``score_database`` and ``score_pairs``), both exact or with
+``SWConfig.score_width`` and the wavefront in every state type of swtpu's,
+with hand-written CUDA kernels on the GPU and their plain PyTorch versions
+on the CPU; resident serving (``load_database`` once, then
+``score_loaded``, ``score_loaded_many`` and ``topk_loaded`` a query) and
+the serving daemon; resumable jobs, seeded fault injection and the CLI;
+and the kernel shootout's lane-major column kernel and the two
+microbenchmarks' kernels.  Imports torch and never JAX, and nothing of
+``swtpu``: the configuration, the oracle, FASTA loading, the native
+packer, the event log and the golden parsers are the port's own copies of
+swtpu's JAX-free modules.
 
 Layer map (swtpu module -> port):
 
@@ -19,19 +24,30 @@ Layer map (swtpu module -> port):
   swtpu.oracle           -> swtpu_torch.oracle         (the exact oracle; a copy)
   swtpu.io               -> swtpu_torch.io             (FASTA, encoders, EncodedDB; a copy)
   swtpu.runtime.native   -> swtpu_torch.runtime        (the C++ packer, built by g++)
-  swtpu.utils.metrics    -> swtpu_torch.utils.metrics  (BatchEvent, EventLog; a copy)
-  swtpu.bank.scorebank   -> swtpu_torch.bank.scorebank (stream and pallas paths)
-  swtpu.bank.streams     -> swtpu_torch.bank.streams   (stream host packer)
+  swtpu.utils.metrics    -> swtpu_torch.utils.metrics  (BatchEvent, EventLog, GcupsMeter:
+                                                        copies; profile_trace on
+                                                        torch.profiler)
+  swtpu.bank.scorebank   -> swtpu_torch.bank.scorebank (stream, chunked, resident and
+                                                        pallas paths; callable backends)
+  swtpu.bank.streams     -> swtpu_torch.bank.streams   (stream host packer, score_streams)
   swtpu.bank.buckets     -> swtpu_torch.bank.buckets   (length buckets)
   swtpu.bank.packer      -> swtpu_torch.bank.packer    (bucket host packer)
+  swtpu.bank.resume      -> swtpu_torch.bank.resume    (resumable jobs; swtpu's state file)
   swtpu.ops.pallas_stream-> swtpu_torch.ops.stream     (+ csrc/stream_wavefront.cu)
   swtpu.ops.pallas_kernel-> swtpu_torch.ops.column     (+ csrc/column.cu)
   swtpu.ops.pallas_lane  -> swtpu_torch.ops.lane       (+ csrc/lane.cu)
   experiments/microbench_ops.py, kernel_ablate.py
                          -> swtpu_torch.ops.microbench (+ csrc/microbench.cu)
   swtpu.ops.common       -> swtpu_torch.ops.common     (sentinel padding)
+  swtpu.parallel.sharded._local_topk
+                         -> swtpu_torch.parallel.topk  (the device top-k cut)
   swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream and batch checks)
-  swtpu.cli score        -> swtpu_torch.cli score     (+ format_score_line)
+  swtpu.testing.faults   -> swtpu_torch.testing.faults (seeded fault injection)
+  swtpu.testing.goldens  -> swtpu_torch.testing.goldens (golden-file parsers; a copy)
+  swtpu.server           -> swtpu_torch.server         (ServeEngine, serve_socket,
+                                                        format_score_line)
+  swtpu.cli              -> swtpu_torch.cli            (score, serve, oracle, generate,
+                                                        diff, events)
 """
 
 from swtpu_torch.bank import ScoreBank, ScoreResult

@@ -18,12 +18,16 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   on the device (``LoadedDatabase``); ``score_loaded``,
   ``score_loaded_many`` and ``topk_loaded`` then ship only each query's
   register and run the same wavefront entries on the resident stream.
+  ``SWConfig.stream_chunk_reads`` splits a short query's database into
+  chunks: the host packs chunk i+1 while chunk i's copy and kernels run
+  (``_score_database_stream_chunked``).
 - ``pallas`` (the bucketed column path; swtpu's name for it is kept): the
   host packs the reads into dense length buckets
   (``swtpu_torch.bank.packer``) and each bucket batch is scored by the
   column kernels (``swtpu_torch.ops.column``), chained 256-row tiles for a
   query over 256 bases.  It carries ``SWConfig.score_width``, the RTL's
-  W-bit wrap-parity arithmetic.
+  W-bit wrap-parity arithmetic.  A callable backend ``fn(q, t,
+  penalties)`` takes the column kernels' place on the same batches.
 
 On a CUDA device the kernels are the hand-written ones; on the CPU they
 are the plain PyTorch versions, with the settings swtpu uses in interpret
@@ -33,6 +37,7 @@ mode, so both packages pack the same batches there.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Sequence
 
@@ -86,6 +91,64 @@ def _put_query(query: np.ndarray, device) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+STAGE_ALIGN = 64  # bytes: each array's offset in a staging buffer
+
+
+class _PinnedStager:
+    """Host-to-device copies of the chunked dispatch that never wait for
+    the kernels: two pinned host buffers taken in turn, each filled by the
+    host and copied on a stream of its own.  A bank keeps one a thread
+    across calls: allocating pinned buffers anew each call cost more than
+    the copies themselves on the card (PERF.md, the chunked dispatch).
+
+    The compute stream waits on the event recorded after each copy; the
+    host waits on that same event before it fills the buffer again, two
+    chunks later, so it only ever waits for a copy and never for a
+    kernel.  A copy from pageable memory would block the host until the
+    kernels queued before it had run, and so serialise packing behind the
+    device."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.copy_stream = torch.cuda.Stream(self.device)
+        self.buffers = [None, None]  # pinned uint8 host buffers
+        self.copied = [None, None]  # event after each buffer's last copy
+        self.turn = 0
+
+    def put(self, *arrays):
+        """The numpy `arrays` as tensors on the device, ready for the
+        kernels that the current stream runs next."""
+        slot, self.turn = self.turn, self.turn ^ 1
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        offsets, total = [], 0
+        for a in arrays:
+            offsets.append(total)
+            total += -(-a.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+        if self.copied[slot] is not None:
+            self.copied[slot].synchronize()
+        buf = self.buffers[slot]
+        if buf is None or buf.numel() < total:
+            buf = self.buffers[slot] = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        host = buf.numpy()
+        for a, off in zip(arrays, offsets):
+            host[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.copy_stream):
+            dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+            dev.copy_(buf[:total], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.copy_stream)
+        self.copied[slot] = done
+        compute.wait_event(done)
+        # made on the copy stream, read on the compute stream: its memory
+        # must not be reused before the compute stream is done with it
+        dev.record_stream(compute)
+        return [
+            dev[off : off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+            for a, off in zip(arrays, offsets)
+        ]
 
 
 def stream_geometry(query_len: int, config: SWConfig, device) -> tuple:
@@ -155,15 +218,18 @@ class ScoreBank:
     """Batched many-vs-one scorer on one torch device.
 
     backend: 'stream' (the streamed wavefront), 'pallas' (the bucketed
-    column kernels) or 'auto': 'stream', or 'pallas' when
-    ``config.score_width`` is set.  Both backends carry
-    ``config.score_width``.  device: where the kernels run — 'cuda'
-    launches the CUDA kernels, 'cpu' runs their plain PyTorch versions."""
+    column kernels), 'auto': 'stream', or 'pallas' when
+    ``config.score_width`` is set; or a callable ``fn(q, t, penalties)``
+    that scores the bucketed path's dense batches (q [B, m], t [B, n] int8
+    -> [B] scores) in the column kernels' place, as swtpu's does.  Both
+    named backends carry ``config.score_width``.  device: where the
+    kernels run — 'cuda' launches the CUDA kernels, 'cpu' runs their plain
+    PyTorch versions."""
 
     def __init__(
         self,
         config: SWConfig = SWConfig(),
-        backend: str = "auto",
+        backend="auto",
         device="cuda",
         verify_integrity: bool = False,
     ):
@@ -172,7 +238,7 @@ class ScoreBank:
                 "backend 'scan' is not ported yet (ROADMAP item 10: scan "
                 "backend); use 'stream' or 'pallas'"
             )
-        if backend not in ("auto", "stream", "pallas"):
+        if not callable(backend) and backend not in ("auto", "stream", "pallas"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "auto":
             # Wrap-parity runs on both backends; 'auto' sends it to the
@@ -194,6 +260,7 @@ class ScoreBank:
         self.backend = backend
         # validate packed batches and score bounds; off by default
         self.verify_integrity = verify_integrity
+        self._staging = threading.local()  # .stager: this thread's _PinnedStager
 
     def _stream_dtype(self) -> str:
         """The wavefront's state type: int32 for "auto" (swtpu's "auto" is
@@ -224,11 +291,12 @@ class ScoreBank:
         (the dense forms: the database stays one int8 matrix).
 
         event_log: optional :class:`swtpu_torch.utils.metrics.EventLog`
-        receiving one "stream" record per call ("stream_long" for a query
-        over 128 bases), or on the pallas backend one "batch" record per
-        bucket batch."""
+        receiving one "stream" record per call ("stream_pipelined" when
+        ``stream_chunk_reads`` chunks it, "stream_long" for a query over 128
+        bases), or on the pallas and callable backends one "batch" record
+        per bucket batch."""
         tmat, tlens = _dense_form(targets)
-        if self.backend == "pallas":
+        if self.backend != "stream":
             return self._score_database_bucketed(query, targets, event_log)
         if len(query) > LANES:
             # chained 128-row tiles carry the tail-row D/G/H strips from
@@ -263,9 +331,8 @@ class ScoreBank:
         on_cuda = self.device.type == "cuda"
         chunk_reads = self.config.stream_chunk_reads
         if chunk_reads and n_reads > chunk_reads:
-            raise NotImplementedError(
-                "stream_chunk_reads is not ported yet (ROADMAP: chunked "
-                "overlap/resume)"
+            return self._score_database_stream_chunked(
+                query, targets, event_log, tmat, tlens, segments, rows, phys, t0
             )
         modes = self._stream_modes()
         if tlens is not None:
@@ -317,6 +384,76 @@ class ScoreBank:
                 )
             )
         return ScoreResult(scores, batch.cells, padded, elapsed)
+
+    def _score_database_stream_chunked(
+        self, query, targets, event_log, tmat, tlens, segments, rows, phys, t0
+    ) -> ScoreResult:
+        """The stream path in chunks of ``SWConfig.stream_chunk_reads``
+        reads: the host packs (and wire-packs) chunk i+1 while chunk i's
+        copy, unpack, wavefront and gather run on the device, and nothing
+        waits for the device until every chunk is dispatched.  The host
+        holds about one chunk's packed buffers at a time.
+
+        On CUDA each chunk crosses from one of two pinned staging buffers
+        on a copy stream (:class:`_PinnedStager`, which the bank keeps for
+        the calling thread: between calls it holds two chunks' packed bytes
+        pinned); the query register crosses once; each chunk's scores stay
+        on the device, and all of them are copied back in one transfer
+        after the last dispatch.
+
+        Each chunk keeps its own stream length T and its own emission
+        pattern: swtpu pads T to a power-of-two ladder so that equal chunks
+        reuse one compiled executable, which a CUDA kernel does not need.
+        ``padded_cells`` therefore counts each chunk's real T and is at
+        most swtpu's.  The scores and ``cells`` equal swtpu's."""
+        from swtpu_torch.utils.guards import check_stream_batch
+
+        C = self.config.stream_chunk_reads
+        n_reads = len(tlens) if tlens is not None else len(targets)
+        S = phys * segments
+        on_cuda = self.device.type == "cuda"
+        wire = self.config.wire_2bit and on_cuda
+        kw = dict(penalties=self.config.penalties, segments=segments, rows=rows,
+                  **self._stream_modes())
+        stager = None
+        if on_cuda:
+            stager = getattr(self._staging, "stager", None) or _PinnedStager(self.device)
+            self._staging.stager = stager
+        dq = None
+        pending = []  # each chunk's scores, on the device
+        cells = padded = 0
+        for lo in range(0, n_reads, C):
+            hi = min(lo + C, n_reads)
+            if tlens is not None:
+                batch = pack_streams(query, tmat[lo:hi], n_streams=S, segments=segments,
+                                     lens=tlens[lo:hi], rows=rows)
+            else:
+                batch = pack_streams(query, [targets[i] for i in range(lo, hi)],
+                                     n_streams=S, segments=segments, rows=rows)
+            if self.verify_integrity:
+                check_stream_batch(batch)
+            if dq is None:
+                dq = _put_query(batch.q, self.device)
+            arrays = tuple(pack_stream_wire(batch.stream)) if wire else (batch.stream,)
+            arrays += (batch.emit_stream, batch.emit_step.astype(np.int32))
+            dev = stager.put(*arrays) if on_cuda else [torch.from_numpy(a) for a in arrays]
+            score = sw_scores_stream_packed if wire else sw_scores_stream
+            pending.append(score(dq, *dev, emit_regular=batch.emit_regular, **kw))
+            cells += batch.cells
+            padded += S * batch.stream.shape[1] * (LANES // segments)
+        scores = torch.cat(pending).cpu().numpy()
+        if self.verify_integrity:
+            self._check_scores(scores, query, targets, tlens)
+        elapsed = time.perf_counter() - t0
+        if event_log is not None:
+            event_log.emit(
+                BatchEvent(
+                    "stream_pipelined", t_wall=time.time(), elapsed_s=elapsed,
+                    reads=n_reads, cells=cells, padded_cells=padded,
+                    note=f"chunks={len(pending)} chunk_reads={C} streams={S}",
+                )
+            )
+        return ScoreResult(scores, cells, padded, elapsed)
 
     def _score_database_stream_long(
         self, query, targets, event_log=None, tmat=None, tlens=None
@@ -374,7 +511,10 @@ class ScoreBank:
 
     def _score_batch(self, q: np.ndarray, t: np.ndarray) -> np.ndarray:
         """One dense bucket batch through the column kernels on the bank's
-        device: q [B, m], t [B, n] int8 -> [B] int32 scores."""
+        device (or through a callable backend): q [B, m], t [B, n] int8 ->
+        [B] int32 scores."""
+        if callable(self.backend):
+            return np.asarray(self.backend(q, t, self.config.penalties))
         kw = {}
         if self.config.score_width is not None:
             kw = dict(state_dtype="int16_biased", score_width=self.config.score_width)

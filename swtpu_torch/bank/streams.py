@@ -487,3 +487,29 @@ def batch_to_device(batch, device) -> StreamBatch:
         int(batch.cells), int(batch.segments), int(batch.rows),
         batch.emit_regular,
     )
+
+
+def score_streams(
+    query: np.ndarray,
+    targets: Sequence[np.ndarray],
+    n_streams: int = 256,
+    penalties=None,
+    device="cuda",
+    segments: int = 1,
+    rows: int = 1,
+    state_dtype: str = "int32",
+) -> np.ndarray:
+    """Streamed scoring end to end on `device`: pack the reads, run the
+    wavefront over the streams (the CUDA kernel on the card, its plain
+    version on the CPU) and gather each read's score from the strip.
+    swtpu's ``score_streams`` with `device` in place of `interpret`."""
+    from swtpu_torch.config import DEFAULT_PENALTIES
+    from swtpu_torch.ops.stream import sw_scores_stream_strip
+
+    batch = pack_streams(query, targets, n_streams, segments=segments, rows=rows)
+    d = batch_to_device(batch, device)
+    strip = sw_scores_stream_strip(
+        d.q, d.stream, penalties or DEFAULT_PENALTIES, segments=segments,
+        rows=rows, state_dtype=state_dtype,
+    )
+    return gather_stream_scores(strip.cpu().numpy(), batch)

@@ -1,21 +1,30 @@
-"""swtpu_torch command-line scorer: swtpu's `score` and `serve`
-subcommands on a torch device.
+"""swtpu_torch command-line scorer: swtpu's subcommands on a torch device.
 
     python -m swtpu_torch.cli [--device cuda|cpu] score -q query.fa \\
         -l library.fa [-o out.txt] [--topk K] [--events log.jsonl] \\
         [--backend auto|stream|pallas] [--score-width W] [--buckets 32,128,...] \\
-        [--all-queries]
+        [--all-queries] [--resume job.npz] [--profile DIR] [-t SECONDS]
     python -m swtpu_torch.cli [--device cuda|cpu] serve -l library.fa \\
         [--input commands.txt | --socket PATH | --port N] [--max-query-len 512]
+    python -m swtpu_torch.cli oracle -q query.fa -l library.fa [-o out.txt]
+    python -m swtpu_torch.cli generate -n 100 -L 128 -o data.fa [--seed 0]
+    python -m swtpu_torch.cli diff a.txt b.txt
+    python -m swtpu_torch.cli events log.jsonl
 
 `score --all-queries` scores every record of the query file; on the stream
-backend the library loads onto the device once.  `serve` loads the library
-once and answers SEQ / TOP / QUIT lines from stdin, a file or concurrent
-socket clients (``swtpu_torch.server``).
+backend the library loads onto the device once.  `score --resume` saves
+the job's progress after every unit and, rerun, scores only what is left
+(``swtpu_torch.bank.resume``); `--profile` writes a ``torch.profiler``
+Chrome trace.  `serve` loads the library once and answers SEQ / TOP / QUIT
+lines from stdin, a file or concurrent socket clients
+(``swtpu_torch.server``).  `oracle` scores with the exact numpy oracle,
+`generate` writes a random FASTA, `diff` compares two score files by read
+name and `events` summarises an event log; none of these four needs a
+card, and each writes what swtpu's does.
 
 Output lines are swtpu's (``@<time>ns: >dbK score: S``, the reference RTL
-testbench's golden format), so ``python -m swtpu.cli diff`` compares the
-two packages' outputs directly.
+testbench's golden format), so `diff` compares the two packages' outputs
+directly.
 """
 
 from __future__ import annotations
@@ -140,7 +149,9 @@ def _score_all_queries(args, bank, names, targets, pairs, event_log=None) -> int
 
 def cmd_score(args) -> int:
     from swtpu_torch.bank import ScoreBank
+    from swtpu_torch.bank.resume import score_database_resumable
     from swtpu_torch.config import Penalties, SWConfig
+    from swtpu_torch.utils.metrics import profile_trace
 
     if args.score_width and args.backend not in ("auto", "pallas", "stream"):
         # a clean SystemExit like every other argument error: wrap-parity
@@ -150,10 +161,10 @@ def cmd_score(args) -> int:
             f"--backend stream/pallas (or auto), not {args.backend!r}"
         )
     _refuse_scan(args.backend)
-    if args.all_queries and args.timeout:
+    if args.all_queries and (args.resume or args.timeout):
         raise SystemExit(
-            "--all-queries does not compose with --timeout (each query is "
-            "one short job; rerun is the restart unit)"
+            "--all-queries does not compose with --resume/--timeout "
+            "(each query is one short job; rerun is the restart unit)"
         )
     pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
     query, names, targets = _load(args.query, args.library)
@@ -182,8 +193,9 @@ def cmd_score(args) -> int:
         event_log = EventLog(args.events)
     if args.all_queries:
         try:
-            return _score_all_queries(args, bank, names, targets,
-                                      _load_all_queries(args.query), event_log)
+            with profile_trace(args.profile, bank.device):
+                return _score_all_queries(args, bank, names, targets,
+                                          _load_all_queries(args.query), event_log)
         except ValueError as e:  # a width or state the kernels refuse
             raise SystemExit(str(e))
         finally:
@@ -193,33 +205,19 @@ def cmd_score(args) -> int:
 
     def _run():
         try:
+            if args.resume:
+                return score_database_resumable(bank, query, targets, args.resume)
             return bank.score_database(query, targets, event_log=event_log)
         except ValueError as e:  # a width or state the kernels refuse
             return e
 
-    if args.timeout > 0:
-        # hard job deadline: report and exit non-zero instead of hanging
-        box = {}
-
-        def _work():
-            try:
-                box["res"] = _run()
-            except Exception as e:  # re-raised on the main thread below
-                box["err"] = e
-
-        th = threading.Thread(target=_work, daemon=True)
-        th.start()
-        th.join(timeout=args.timeout)
-        if "err" in box:
-            raise box["err"]
-        if "res" not in box:
-            print(f"# TIMEOUT after {args.timeout}s", file=sys.stderr)
-            if event_log is not None:
-                event_log.close()
-            return 16
-        res = box["res"]
-    else:
-        res = _run()
+    with profile_trace(args.profile, bank.device):
+        res = _run_with_deadline(_run, args.timeout)
+    if res is None:
+        print(f"# TIMEOUT after {args.timeout}s", file=sys.stderr)
+        if event_log is not None:
+            event_log.close()
+        return 16
     if event_log is not None:
         event_log.close()
     if isinstance(res, ValueError):
@@ -240,6 +238,27 @@ def cmd_score(args) -> int:
         for s, i in res.top_k(args.topk):
             print(f"# top: >{names[i]} score: {s}", file=sys.stderr)
     return 0
+
+
+def _run_with_deadline(run, timeout):
+    """run() on this thread, or with a hard deadline of `timeout` seconds
+    (> 0) on a worker thread; None when the deadline passed first."""
+    if timeout <= 0:
+        return run()
+    box = {}
+
+    def _work():
+        try:
+            box["res"] = run()
+        except Exception as e:  # re-raised on the calling thread below
+            box["err"] = e
+
+    th = threading.Thread(target=_work, daemon=True)
+    th.start()
+    th.join(timeout=timeout)
+    if "err" in box:
+        raise box["err"]
+    return box.get("res")
 
 
 def cmd_serve(args) -> int:
@@ -309,6 +328,89 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_oracle(args) -> int:
+    """Score the library with the exact numpy oracle (no kernel, no
+    card)."""
+    from swtpu_torch.config import Penalties
+    from swtpu_torch.oracle import score_many_vs_one
+
+    pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
+    query, names, targets = _load(args.query, args.library)
+    t0 = time.perf_counter()
+    scores = score_many_vs_one(query, targets, pen)
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        _emit(out, names, scores, t0)
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_generate(args) -> int:
+    """A random FASTA from a seed: the first record `>query`, the rest
+    `>dbK` (the reference's data/generate.py layout)."""
+    from swtpu_torch.io import CODE_BASES, FastaRecord, write_fasta
+
+    rng = np.random.default_rng(args.seed)
+    records: List[FastaRecord] = []
+    for j in range(args.number):
+        codes = rng.integers(0, 4, size=args.length)
+        seq = "".join(CODE_BASES[int(c)] for c in codes)
+        records.append(FastaRecord("query" if j == 0 else f"db{j}", seq))
+    write_fasta(args.output, records)
+    print(f"# wrote {args.number} reads x {args.length} nt to {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_diff(args) -> int:
+    """Compare two score files by read name, each in the RTL's
+    `@..ns: >dbK score: S` lines or an ssearch36 -R table; exit 1 on any
+    mismatch."""
+    from swtpu_torch.testing.goldens import parse_rtl_out_file, parse_ssearch_scores
+
+    def load(path):
+        got = parse_rtl_out_file(path)
+        return got if got else parse_ssearch_scores(path)
+
+    a, b = load(args.a), load(args.b)
+    common = sorted(set(a) & set(b))
+    mism = {k: (a[k], b[k]) for k in common if a[k] != b[k]}
+    only_a = sorted(set(a) - set(b))
+    only_b = sorted(set(b) - set(a))
+    print(f"# {len(common)} common IDs, {len(mism)} mismatches, "
+          f"{len(only_a)} only in A, {len(only_b)} only in B")
+    for k, (va, vb) in sorted(mism.items()):
+        print(f"MISMATCH {k}: {va} != {vb}")
+    return 1 if mism else 0
+
+
+def cmd_events(args) -> int:
+    """Print a JSONL event log one event a line, then its totals."""
+    from swtpu_torch.utils.metrics import EventLog
+
+    events = EventLog.parse(args.log)
+    tot_cells = tot_reads = 0
+    tot_s = 0.0
+    for e in events:
+        pad_eff = f"{e.cells/e.padded_cells:6.1%}" if e.padded_cells else "   n/a"
+        print(
+            f"{e.t_wall:14.3f} {e.kind:>8} reads={e.reads:<8} "
+            f"cells={e.cells:<12} pad_eff={pad_eff} "
+            f"{e.elapsed_s*1e3:9.2f} ms {e.gcups:8.2f} GCUPS {e.note}"
+        )
+        tot_cells += e.cells
+        tot_reads += e.reads
+        tot_s += e.elapsed_s
+    if tot_s > 0:
+        print(
+            f"# total: {len(events)} events, {tot_reads} reads, "
+            f"{tot_cells} cells in {tot_s*1e3:.1f} ms "
+            f"-> {tot_cells/tot_s/1e9:.2f} GCUPS"
+        )
+    return 0
+
+
 def _add_pen_args(p):
     p.add_argument("--match", type=int, default=5)
     p.add_argument("--mismatch", type=int, default=-4)
@@ -361,8 +463,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         "ships only its register)",
     )
     ps.add_argument("--events", help="write per-batch JSONL event log here")
+    ps.add_argument("--profile", help="write a torch.profiler Chrome trace into this "
+                    "directory")
+    ps.add_argument("--resume", help="resumable job state file: progress is saved "
+                    "after every unit, and a rerun scores only what is left")
     _add_pen_args(ps)
     ps.set_defaults(fn=cmd_score)
+
+    po = sub.add_parser("oracle", help="score with the numpy oracle (no kernel)")
+    po.add_argument("-q", "--query", required=True)
+    po.add_argument("-l", "--library", required=True)
+    po.add_argument("-o", "--output")
+    _add_pen_args(po)
+    po.set_defaults(fn=cmd_oracle)
+
+    pg = sub.add_parser("generate", help="generate a random FASTA")
+    pg.add_argument("-n", "--number", type=int, default=100)
+    pg.add_argument("-L", "--length", type=int, default=128)
+    pg.add_argument("-o", "--output", required=True)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.set_defaults(fn=cmd_generate)
 
     pv = sub.add_parser(
         "serve",
@@ -393,6 +513,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     _add_pen_args(pv)
     pv.set_defaults(fn=cmd_serve)
+
+    pd = sub.add_parser("diff", help="diff two score files by read ID")
+    pd.add_argument("a")
+    pd.add_argument("b")
+    pd.set_defaults(fn=cmd_diff)
+
+    pe = sub.add_parser("events", help="pretty-print a JSONL event log")
+    pe.add_argument("log")
+    pe.set_defaults(fn=cmd_events)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,2 +1,3 @@
 """Integrity guards of the port's scoring path (``guards``), its event
-log (``metrics``) and the card's device timers (``timing``)."""
+log, GCUPS meter and profiler hook (``metrics``) and the card's device
+timers (``timing``)."""

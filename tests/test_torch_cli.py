@@ -1,8 +1,10 @@
-"""The port's CLI and entry points: same score lines as swtpu's CLI, no JAX
+"""The port's CLI and entry points: same score lines as swtpu's CLI, the
+same bytes from oracle, generate, diff, events and score --resume, no JAX
 in the port's process, and chip_smoke.py refusing to run without a card."""
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -17,6 +19,7 @@ from swtpu.cli import main as ref_main
 from swtpu.io import FastaRecord, read_fasta, write_fasta
 from swtpu.io.encode import CODE_BASES
 from swtpu.testing.goldens import parse_rtl_out_file
+from swtpu_torch.bank import scorebank as bank_mod
 from swtpu_torch.cli import main
 
 torch.set_num_threads(1)
@@ -132,6 +135,7 @@ def test_stream_score_width_lines_equal_swtpu_cli(tmp_path, qlen):
         (["--backend", "stream", "--score-width", "40"], "out of range \\(need 2..30\\)"),
         (["--backend", "pallas", "--buckets", "32,64"], "exceeds bucket capacity 64"),
         (["--buckets", "32,x"], "comma-separated ints"),
+        (["--all-queries", "--resume", "job.npz"], "does not compose with --resume/--timeout"),
     ],
 )
 def test_score_flag_errors_exit_cleanly(tmp_path, flags, match):
@@ -170,6 +174,18 @@ def test_port_never_imports_jax(tmp_path):
         assert len(ServeEngine(bank, list("abcd"), reads, db=db).handle("SEQ ACGT")) == 4
         assert main(["--device", "cpu", "score", "-q", {str(fa)!r}, "-l", {str(fa)!r},
                      "-o", {str(tmp_path / "out.txt")!r}]) == 0
+        assert main(["--device", "cpu", "score", "-q", {str(fa)!r}, "-l", {str(fa)!r},
+                     "-o", {str(tmp_path / "resumed.txt")!r},
+                     "--resume", {str(tmp_path / "job.npz")!r}]) == 0
+        assert main(["generate", "-n", "3", "-o", {str(tmp_path / "g.fa")!r}]) == 0
+        assert main(["oracle", "-q", {str(fa)!r}, "-l", {str(fa)!r},
+                     "-o", {str(tmp_path / "oracle.txt")!r}]) == 0
+        assert main(["diff", {str(tmp_path / "out.txt")!r},
+                     {str(tmp_path / "oracle.txt")!r}]) == 0
+        import swtpu_torch.testing.faults
+        bank = swtpu_torch.ScoreBank(swtpu_torch.SWConfig(stream_chunk_reads=2), device="cpu")
+        res = bank.score_database(query, reads)
+        assert (res.scores == swtpu_torch.score_many_vs_one(query, reads)).all()
         heavy = [m for m in sys.modules
                  if m in ("jax", "swtpu") or m.startswith(("jax.", "swtpu."))]
         print("HEAVY", heavy)
@@ -195,3 +211,133 @@ def test_chip_smoke_refuses_without_a_card(tmp_path, lone):
     assert res.returncode != 0
     assert "no CUDA device" in res.stdout
     assert '"ok": true' not in res.stdout
+
+
+def _no_ns(text):
+    """Score lines without their elapsed-time field, the one part of a
+    line that differs between two runs."""
+    return re.sub(r"@ *\d+ns:", "@ns:", text)
+
+
+def test_oracle_lines_equal_swtpu_cli(tmp_path):
+    fa = _fasta(tmp_path / "gen.fa", seed=9, qlen=70)
+    pen = ["--match", "3", "--mismatch", "-2", "--gap-open", "-6", "--gap-extend", "-1"]
+    port_out, ref_out = tmp_path / "port.txt", tmp_path / "ref.txt"
+    assert main(["oracle", "-q", str(fa), "-l", str(fa), "-o", str(port_out), *pen]) == 0
+    assert ref_main(["oracle", "-q", str(fa), "-l", str(fa), "-o", str(ref_out), *pen]) == 0
+    assert _no_ns(port_out.read_text()) == _no_ns(ref_out.read_text())
+    assert len(parse_rtl_out_file(port_out)) == 25
+
+
+@pytest.mark.parametrize("argv", [["-n", "20", "-L", "64", "--seed", "3"], ["-n", "1"]])
+def test_generate_equals_swtpu_cli(tmp_path, capsys, argv):
+    path = tmp_path / "data.fa"
+    assert main(["generate", "-o", str(path), *argv]) == 0
+    got, err = path.read_bytes(), capsys.readouterr().err
+    assert ref_main(["generate", "-o", str(path), *argv]) == 0
+    assert (got, err) == (path.read_bytes(), capsys.readouterr().err)
+    names = [r.name for r in read_fasta(path)]
+    assert names[0] == "query" and names[1:] == [f"db{i}" for i in range(1, len(names))]
+
+
+@pytest.mark.parametrize("case", ["equal", "mismatch", "ssearch"])
+def test_diff_equals_swtpu_cli(tmp_path, capsys, case):
+    """diff's report and exit code equal swtpu's: two equal score files, two
+    that differ in two reads and in which reads they hold, and an RTL file
+    against an ssearch36 table."""
+    fa = _fasta(tmp_path / "gen.fa", seed=10)
+    a, b = tmp_path / "a.txt", tmp_path / "b.txt"
+    assert main(["oracle", "-q", str(fa), "-l", str(fa), "-o", str(a)]) == 0
+    scores = parse_rtl_out_file(a)
+    if case == "equal":
+        b.write_text(a.read_text())
+    elif case == "mismatch":
+        lines = a.read_text().splitlines()
+        lines[3] = lines[3].rsplit(" ", 1)[0] + " 999"
+        lines[7] = lines[7].rsplit(" ", 1)[0] + " -1"
+        b.write_text("\n".join(lines[:-2] + ["@ 1ns: >extra score: 5"]) + "\n")
+    else:
+        b.write_text("".join(f"{k} 50 0 0 0 {v} x\n" for k, v in scores.items()))
+    capsys.readouterr()
+    rc = main(["diff", str(a), str(b)])
+    got = capsys.readouterr().out
+    assert (rc, got) == (ref_main(["diff", str(a), str(b)]), capsys.readouterr().out)
+    assert rc == (case == "mismatch")
+    assert got.startswith("# 25 common IDs" if case != "mismatch" else "# 23 common IDs")
+
+
+def test_events_equals_swtpu_cli(tmp_path, capsys):
+    """events summarises a log of the port's score (one stream record) and
+    of score --all-queries (query records) as swtpu's does."""
+    fa = _fasta(tmp_path / "gen.fa", seed=11)
+    log = tmp_path / "events.jsonl"
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa), "-o",
+                 str(tmp_path / "a.txt"), "--events", str(log)]) == 0
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa), "-o",
+                 str(tmp_path / "b.txt"), "--events", str(log), "--all-queries",
+                 "--backend", "pallas"]) == 0
+    capsys.readouterr()
+    assert main(["events", str(log)]) == 0
+    got = capsys.readouterr().out
+    assert ref_main(["events", str(log)]) == 0
+    assert got == capsys.readouterr().out
+    # one stream record, then a query record for each of the file's 26
+    assert got.count("\n") == 28 and got.splitlines()[-1].startswith("# total: 27 events")
+
+
+@pytest.mark.parametrize("writer", ["swtpu", "port"])
+def test_score_resume_equals_swtpu_cli(tmp_path, monkeypatch, writer):
+    """score --resume writes swtpu's lines, and a finished job's state file
+    written by either CLI is adopted by the other: the rerun scores
+    nothing again (bucketed backends: swtpu's scan, the port's pallas)."""
+    fa = _fasta(tmp_path / "gen.fa", seed=12)
+    state = tmp_path / "job.npz"
+    port_out, ref_out = tmp_path / "port.txt", tmp_path / "ref.txt"
+    port = lambda: main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa),  # noqa: E731
+                         "-o", str(port_out), "--backend", "pallas", "--resume", str(state)])
+    ref = lambda: ref_main(["--platform", "cpu", "score", "-q", str(fa), "-l", str(fa),  # noqa: E731
+                            "-o", str(ref_out), "--backend", "scan", "--resume", str(state)])
+    assert (ref if writer == "swtpu" else port)() == 0
+    assert state.exists()
+    if writer == "swtpu":
+        def poisoned(*a, **kw):
+            raise AssertionError("batch scored again after it was done")
+
+        monkeypatch.setattr(bank_mod.ScoreBank, "_score_batch", poisoned)
+    assert (port if writer == "swtpu" else ref)() == 0
+    assert _no_ns(port_out.read_text()) == _no_ns(ref_out.read_text())
+    assert len(parse_rtl_out_file(port_out)) == 25
+
+
+def test_score_resume_stream_finishes_a_killed_job(tmp_path, monkeypatch):
+    """The port's own --resume on the stream backend: a job killed after
+    its first chunk of 8 reads is rerun, and only the last chunks are
+    scored; the lines equal a one-shot score's."""
+    fa = _fasta(tmp_path / "gen.fa", seed=13)
+    state, out, one = tmp_path / "job.npz", tmp_path / "out.txt", tmp_path / "one.txt"
+    argv = ["--device", "cpu", "score", "-q", str(fa), "-l", str(fa), "--resume", str(state)]
+    real = bank_mod.sw_scores_stream
+    calls = {"n": 0}
+
+    def flaky(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated crash")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(bank_mod, "sw_scores_stream", flaky)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        main([*argv, "-o", str(out)])
+    assert main([*argv, "-o", str(out)]) == 0
+    assert calls["n"] == 5  # chunks 1 and 2 (crashed), then 2, 3 and 4 of 25 reads
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa), "-o", str(one)]) == 0
+    assert _no_ns(out.read_text()) == _no_ns(one.read_text())
+
+
+def test_score_profile_writes_a_trace(tmp_path, capsys):
+    fa = _fasta(tmp_path / "gen.fa", seed=14)
+    prof = tmp_path / "prof"
+    assert main(["--device", "cpu", "score", "-q", str(fa), "-l", str(fa), "-o",
+                 str(tmp_path / "out.txt"), "--profile", str(prof)]) == 0
+    (trace,) = prof.glob("*.pt.trace.json")
+    assert "traceEvents" in json.loads(trace.read_text())

@@ -1155,3 +1155,131 @@ def test_serve_engine_threads_on_the_card(cuda_device):
         for lines in got[i]:
             assert [int(l.rsplit("\t", 1)[1]) for l in lines] == want
     assert engine.served == 12
+
+
+# the chunked dispatch over 3,001 reads: (query length, chunk reads); 1,000
+# and 3,000 leave a tail chunk of one read, 777 one of 670
+CHUNKED = [(20, 1000), (100, 3000), (60, 777), (128, 1000)]
+
+
+@pytest.mark.parametrize("wire", [True, False])
+@pytest.mark.parametrize("qlen,chunk", CHUNKED)
+def test_chunked_equals_one_shot_on_the_card(cuda_device, qlen, chunk, wire):
+    """stream_chunk_reads on the card, both crossings: the scores and cells
+    of the one-shot call, one wavefront launch a chunk, the oracle on a
+    sample; the pinned buffers' views keep each array's type and shape."""
+    import dataclasses
+
+    from swtpu_torch.utils.metrics import EventLog
+
+    rng = np.random.default_rng(qlen + chunk)
+    db = _db(rng, 3001, 200)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    cfg = SWConfig(wire_2bit=wire)
+    one = ScoreBank(cfg, device=cuda_device).score_database(query, db)
+    log = EventLog()
+    port.stream_strip_cuda.launches = 0
+    got = ScoreBank(dataclasses.replace(cfg, stream_chunk_reads=chunk),
+                    device=cuda_device).score_database(query, db, event_log=log)
+    chunks = -(-3001 // chunk)
+    assert port.stream_strip_cuda.launches == chunks
+    np.testing.assert_array_equal(got.scores, one.scores)
+    assert got.cells == one.cells
+    assert log.events[0].note.startswith(f"chunks={chunks} chunk_reads={chunk}")
+    held = [*range(100), 2999, 3000]
+    np.testing.assert_array_equal(got.scores[held],
+                                  score_many_vs_one(query, [db.read(i) for i in held]))
+
+
+def test_chunked_staging_kept_per_thread(cuda_device):
+    """A bank keeps its pinned staging for the calling thread across calls;
+    another thread gets its own, and every call gives the same scores."""
+    import threading
+
+    rng = np.random.default_rng(4)
+    db = _db(rng, 2500, 200)
+    query = rng.integers(0, 4, size=64).astype(np.int8)
+    bank = ScoreBank(SWConfig(stream_chunk_reads=700), device=cuda_device)
+    first = bank.score_database(query, db).scores
+    stager = bank._staging.stager
+    np.testing.assert_array_equal(bank.score_database(query, db).scores, first)
+    assert bank._staging.stager is stager
+    other = {}
+
+    def work():
+        other["scores"] = bank.score_database(query, db).scores
+        other["stager"] = bank._staging.stager
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and other["stager"] is not stager
+    np.testing.assert_array_equal(other["scores"], first)
+    np.testing.assert_array_equal(first, ScoreBank(device=cuda_device).score_database(
+        query, db).scores)
+
+
+def test_pinned_buffer_not_overwritten_while_its_copy_is_in_flight(cuda_device, monkeypatch):
+    """The copy stream sleeps before the first chunk's copy, so that copy
+    is still waiting when the host comes back to the same pinned buffer
+    for the third chunk; the host must wait for it, or the first chunk
+    would be scored on the third chunk's data."""
+    from swtpu_torch.bank import scorebank as bank_mod
+
+    real = bank_mod._PinnedStager.put
+    slept = []
+
+    def slow_first_copy(self, *arrays):
+        if not slept:
+            with torch.cuda.stream(self.copy_stream):
+                torch.cuda._sleep(400_000_000)  # a few hundred ms of cycles
+            slept.append(True)
+        return real(self, *arrays)
+
+    monkeypatch.setattr(bank_mod._PinnedStager, "put", slow_first_copy)
+    rng = np.random.default_rng(5)
+    db = _db(rng, 5000, 200)
+    query = rng.integers(0, 4, size=100).astype(np.int8)
+    got = ScoreBank(SWConfig(stream_chunk_reads=1000), device=cuda_device).score_database(
+        query, db)
+    monkeypatch.undo()
+    want = ScoreBank(device=cuda_device).score_database(query, db)
+    assert slept
+    np.testing.assert_array_equal(got.scores, want.scores)
+
+
+def test_resume_and_faults_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """score_database_resumable on the stream backend (killed after its
+    first chunk, then finished with only the rest scored) and
+    score_database_with_faults on the column kernels, on the card."""
+    from swtpu_torch.bank import resume
+    from swtpu_torch.bank import scorebank as bank_mod
+    from swtpu_torch.testing.faults import FaultConfig, score_database_with_faults
+
+    rng = np.random.default_rng(6)
+    db = _db(rng, 3001, 200)
+    query = rng.integers(0, 4, size=100).astype(np.int8)
+    bank = ScoreBank(device=cuda_device)
+    want = bank.score_database(query, db).scores
+    real = bank_mod.sw_scores_stream_packed
+    calls = {"n": 0}
+
+    def flaky(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated crash")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(bank_mod, "sw_scores_stream_packed", flaky)
+    state = tmp_path / "job.npz"
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        resume.score_database_resumable(bank, query, db, state, chunk_reads=1000)
+    res = resume.score_database_resumable(bank, query, db, state, chunk_reads=1000)
+    assert calls["n"] == 5  # chunks 0 and 1 (crashed), then 1, 2 and 3
+    np.testing.assert_array_equal(res.scores, want)
+    reads = db.as_list()
+    pallas = ScoreBank(backend="pallas", device=cuda_device)
+    scores, inj = score_database_with_faults(pallas, query, reads, FaultConfig(
+        seed=7, reorder_percent=100, drop_percent=40, delay_ms_max=1))
+    np.testing.assert_array_equal(scores, want)
+    assert inj.injected_drops > 0  # 3 here: the delays' draws shift the drops

@@ -130,8 +130,6 @@ def test_event_log_record(tmp_path):
     "make,match",
     [
         (lambda: ScoreBank(backend="scan", device="cpu"), "scan"),
-        (lambda: ScoreBank(SWConfig(stream_chunk_reads=2), device="cpu").score_database(
-            np.zeros(9, np.int8), [np.zeros(9, np.int8)] * 3), "chunked"),
     ],
 )
 def test_unported_settings_raise(make, match):

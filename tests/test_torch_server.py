@@ -310,7 +310,7 @@ def test_cli_score_all_queries_lines_equal_swtpu(tmp_path, capsys, backend):
         (["serve", "--sharded"], "ROADMAP item 12"),
         (["serve", "--socket", "x.sock", "--port", "0"], "mutually exclusive"),
         (["serve", "--backend", "scan"], "ROADMAP item 10"),
-        (["score", "--all-queries", "-t", "5"], "does not compose with --timeout"),
+        (["score", "--all-queries", "-t", "5"], "does not compose with --resume/--timeout"),
     ],
 )
 def test_cli_serving_flag_errors_exit_cleanly(tmp_path, argv, match):

@@ -268,3 +268,20 @@ def test_no_port_file_imports_swtpu():
                     offenders.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
     assert len(_port_files()) > 20
     assert offenders == []
+
+
+@pytest.mark.parametrize("module", ["bank/resume.py", "testing/faults.py",
+                                    "testing/goldens.py", "testing/__init__.py",
+                                    "utils/metrics.py", "bank/streams.py"])
+def test_scan_covers_the_job_modules(module):
+    """The import scan reaches the job layer's modules (resume, faults,
+    goldens, the profiler hook, score_streams)."""
+    assert REPO / "swtpu_torch" / module in _port_files()
+
+
+def test_fault_config_fields_equal_swtpu():
+    from swtpu.testing.faults import FaultConfig as RefFaultConfig
+    from swtpu_torch.testing.faults import FaultConfig
+
+    assert _fields(FaultConfig) == _fields(RefFaultConfig)
+    assert dataclasses.asdict(FaultConfig()) == dataclasses.asdict(RefFaultConfig())
