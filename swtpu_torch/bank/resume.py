@@ -30,8 +30,9 @@ import numpy as np
 from swtpu_torch.bank.scorebank import ScoreBank, ScoreResult, _dense_form
 
 STATE_VERSION = 2
-# reads a stream-backend unit holds unless the caller says: ~8 MB of
-# stream at 128 bases on the card; swtpu's interpret-mode size on the CPU
+# reads a stream-backend unit holds unless the caller says: on the card
+# about 33.6 MB of stream at 128 bases (a [512, 65,568] int8 stream);
+# swtpu's interpret-mode size on the CPU
 CHUNK_READS_CUDA = 1 << 18
 CHUNK_READS_CPU = 8
 

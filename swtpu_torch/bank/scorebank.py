@@ -20,7 +20,7 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   register and run the same wavefront entries on the resident stream.
   ``SWConfig.stream_chunk_reads`` splits a short query's database into
   chunks: the host packs chunk i+1 while chunk i's copy and kernels run
-  (``_score_database_stream_chunked``).
+  (``_score_database_stream``, whose call without chunks is one chunk).
 - ``pallas`` (the bucketed column path; swtpu's name for it is kept): the
   host packs the reads into dense length buckets
   (``swtpu_torch.bank.packer``) and each bucket batch is scored by the
@@ -37,7 +37,6 @@ mode, so both packages pack the same batches there.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import List, Sequence
 
@@ -97,11 +96,9 @@ STAGE_ALIGN = 64  # bytes: each array's offset in a staging buffer
 
 
 class _PinnedStager:
-    """Host-to-device copies of the chunked dispatch that never wait for
-    the kernels: two pinned host buffers taken in turn, each filled by the
-    host and copied on a stream of its own.  A bank keeps one a thread
-    across calls: allocating pinned buffers anew each call cost more than
-    the copies themselves on the card (PERF.md, the chunked dispatch).
+    """Host-to-device copies of the stream path's chunks that never wait
+    for the kernels: two pinned host buffers taken in turn, each filled by
+    the host and copied on a stream of its own, made anew for each call.
 
     The compute stream waits on the event recorded after each copy; the
     host waits on that same event before it fills the buffer again, two
@@ -260,7 +257,6 @@ class ScoreBank:
         self.backend = backend
         # validate packed batches and score bounds; off by default
         self.verify_integrity = verify_integrity
-        self._staging = threading.local()  # .stager: this thread's _PinnedStager
 
     def _stream_dtype(self) -> str:
         """The wavefront's state type: int32 for "auto" (swtpu's "auto" is
@@ -324,82 +320,21 @@ class ScoreBank:
         self, query, targets, event_log=None, tmat=None, tlens=None
     ) -> ScoreResult:
         """Streamed wavefront path: ragged reads concatenate back-to-back
-        per stream, no length buckets."""
-        t0 = time.perf_counter()
-        n_reads = len(tlens) if tlens is not None else len(targets)
-        segments, rows, phys = stream_geometry(len(query), self.config, self.device)
-        on_cuda = self.device.type == "cuda"
-        chunk_reads = self.config.stream_chunk_reads
-        if chunk_reads and n_reads > chunk_reads:
-            return self._score_database_stream_chunked(
-                query, targets, event_log, tmat, tlens, segments, rows, phys, t0
-            )
-        modes = self._stream_modes()
-        if tlens is not None:
-            batch = pack_streams(
-                query, tmat, n_streams=phys * segments, segments=segments,
-                lens=tlens, rows=rows,
-            )
-        else:
-            batch = pack_streams(
-                query, targets, n_streams=phys * segments, segments=segments,
-                rows=rows,
-            )
-        if self.verify_integrity:
-            from swtpu_torch.utils.guards import check_stream_batch
+        per stream, no length buckets.  With ``SWConfig.stream_chunk_reads``
+        below the read count it runs in chunks of that many reads: the host
+        packs (and wire-packs) chunk i+1 while chunk i's copy, unpack,
+        wavefront and gather run on the device, and nothing waits for the
+        device until every chunk is dispatched.  The host holds about one
+        chunk's packed buffers at a time.  A call without chunks is the
+        loop's one chunk.
 
-            check_stream_batch(batch)
-        pen = self.config.penalties
-        if self.config.wire_2bit and on_cuda:
-            # the stream crosses at 2.5 bits/char and expands on the device
-            codes, flags = pack_stream_wire(batch.stream)
-            scores = sw_scores_stream_packed(
-                *(_put(a, self.device) for a in (
-                    batch.q, codes, flags, batch.emit_stream,
-                    batch.emit_step.astype(np.int32),
-                )), pen,
-                segments=segments, rows=rows, emit_regular=batch.emit_regular,
-                **modes,
-            )
-        else:
-            d = batch_to_device(batch, self.device)
-            scores = sw_scores_stream(
-                d.q, d.stream, d.emit_stream, d.emit_step, pen,
-                segments=segments, rows=rows, emit_regular=batch.emit_regular,
-                **modes,
-            )
-        scores = scores.cpu().numpy()
-        if self.verify_integrity:
-            self._check_scores(scores, query, targets, tlens)
-        elapsed = time.perf_counter() - t0
-        # physical wavefront capacity: LANES DP rows per lane column per
-        # step, shared by `segments` queries
-        padded = batch.stream.shape[0] * batch.stream.shape[1] * (LANES // segments)
-        if event_log is not None:
-            event_log.emit(
-                BatchEvent(
-                    "stream", t_wall=time.time(), elapsed_s=elapsed,
-                    reads=n_reads, cells=batch.cells, padded_cells=padded,
-                    note=f"streams={batch.stream.shape[0]} T={batch.stream.shape[1]}",
-                )
-            )
-        return ScoreResult(scores, batch.cells, padded, elapsed)
-
-    def _score_database_stream_chunked(
-        self, query, targets, event_log, tmat, tlens, segments, rows, phys, t0
-    ) -> ScoreResult:
-        """The stream path in chunks of ``SWConfig.stream_chunk_reads``
-        reads: the host packs (and wire-packs) chunk i+1 while chunk i's
-        copy, unpack, wavefront and gather run on the device, and nothing
-        waits for the device until every chunk is dispatched.  The host
-        holds about one chunk's packed buffers at a time.
-
-        On CUDA each chunk crosses from one of two pinned staging buffers
-        on a copy stream (:class:`_PinnedStager`, which the bank keeps for
-        the calling thread: between calls it holds two chunks' packed bytes
-        pinned); the query register crosses once; each chunk's scores stay
-        on the device, and all of them are copied back in one transfer
-        after the last dispatch.
+        On CUDA each of several chunks crosses from one of the call's two
+        pinned staging buffers on a copy stream (:class:`_PinnedStager`);
+        one chunk, with nothing to overlap, crosses from pageable memory,
+        which took less host time than filling fresh pinned buffers
+        (PERF.md, the chunked dispatch).  The query register crosses once;
+        each chunk's scores stay on the device, and all of them are copied
+        back in one transfer after the last dispatch.
 
         Each chunk keeps its own stream length T and its own emission
         pattern: swtpu pads T to a power-of-two ladder so that equal chunks
@@ -408,21 +343,26 @@ class ScoreBank:
         most swtpu's.  The scores and ``cells`` equal swtpu's."""
         from swtpu_torch.utils.guards import check_stream_batch
 
-        C = self.config.stream_chunk_reads
+        t0 = time.perf_counter()
         n_reads = len(tlens) if tlens is not None else len(targets)
+        segments, rows, phys = stream_geometry(len(query), self.config, self.device)
+        C = self.config.stream_chunk_reads
+        chunked = bool(C) and n_reads > C
+        C = C if chunked else max(n_reads, 1)
         S = phys * segments
         on_cuda = self.device.type == "cuda"
         wire = self.config.wire_2bit and on_cuda
         kw = dict(penalties=self.config.penalties, segments=segments, rows=rows,
                   **self._stream_modes())
-        stager = None
-        if on_cuda:
-            stager = getattr(self._staging, "stager", None) or _PinnedStager(self.device)
-            self._staging.stager = stager
+        if chunked and on_cuda:
+            put = _PinnedStager(self.device).put
+        else:
+            def put(*arrays):
+                return [_put(a, self.device) for a in arrays]
         dq = None
         pending = []  # each chunk's scores, on the device
         cells = padded = 0
-        for lo in range(0, n_reads, C):
+        for lo in range(0, max(n_reads, 1), C):  # an empty database is one empty chunk
             hi = min(lo + C, n_reads)
             if tlens is not None:
                 batch = pack_streams(query, tmat[lo:hi], n_streams=S, segments=segments,
@@ -436,21 +376,25 @@ class ScoreBank:
                 dq = _put_query(batch.q, self.device)
             arrays = tuple(pack_stream_wire(batch.stream)) if wire else (batch.stream,)
             arrays += (batch.emit_stream, batch.emit_step.astype(np.int32))
-            dev = stager.put(*arrays) if on_cuda else [torch.from_numpy(a) for a in arrays]
             score = sw_scores_stream_packed if wire else sw_scores_stream
-            pending.append(score(dq, *dev, emit_regular=batch.emit_regular, **kw))
+            pending.append(score(dq, *put(*arrays), emit_regular=batch.emit_regular, **kw))
             cells += batch.cells
+            # physical wavefront capacity: LANES DP rows per lane column per
+            # step, shared by `segments` queries
             padded += S * batch.stream.shape[1] * (LANES // segments)
         scores = torch.cat(pending).cpu().numpy()
         if self.verify_integrity:
             self._check_scores(scores, query, targets, tlens)
         elapsed = time.perf_counter() - t0
         if event_log is not None:
+            if chunked:
+                kind, note = "stream_pipelined", f"chunks={len(pending)} chunk_reads={C} streams={S}"
+            else:
+                kind, note = "stream", f"streams={S} T={batch.stream.shape[1]}"
             event_log.emit(
                 BatchEvent(
-                    "stream_pipelined", t_wall=time.time(), elapsed_s=elapsed,
-                    reads=n_reads, cells=cells, padded_cells=padded,
-                    note=f"chunks={len(pending)} chunk_reads={C} streams={S}",
+                    kind, t_wall=time.time(), elapsed_s=elapsed, reads=n_reads,
+                    cells=cells, padded_cells=padded, note=note,
                 )
             )
         return ScoreResult(scores, cells, padded, elapsed)

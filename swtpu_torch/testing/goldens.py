@@ -1,7 +1,9 @@
 """Parsers for the reference repository's golden score files.
 
-The port's copy of ``swtpu.testing.goldens``.  Three independent oracles
-agree in the reference, and each has its own file format:
+The port's copy of ``swtpu.testing.goldens``, apart from where it looks
+for the data: only where ``SWTPU_REFERENCE_DATA`` points.  Three
+independent oracles agree in the reference, and each has its own file
+format:
 
 1. the RTL simulation's outputs, `data/<db>.fa_<query>.fa_out.txt`: lines
    like ``@   566ns:       >db1 score:         133`` written by the
@@ -18,20 +20,16 @@ import re
 from pathlib import Path
 from typing import Dict
 
-# the reference repository's data, checked out beside this one, unless
-# SWTPU_REFERENCE_DATA names another directory
-REFERENCE_DATA_DIR = Path(
-    os.environ.get(
-        "SWTPU_REFERENCE_DATA",
-        Path(__file__).resolve().parents[3] / "reference" / "data",
-    )
-)
+# the reference repository's data, where SWTPU_REFERENCE_DATA names its
+# directory; without it there is none
+_DATA = os.environ.get("SWTPU_REFERENCE_DATA")
+REFERENCE_DATA_DIR = Path(_DATA) if _DATA else None
 
 _RTL_LINE = re.compile(r"@\s*\d+\s*ns:\s*>(\S+)\s+score:\s*(-?\d+)")
 
 
 def reference_data_available() -> bool:
-    return REFERENCE_DATA_DIR.is_dir()
+    return REFERENCE_DATA_DIR is not None and REFERENCE_DATA_DIR.is_dir()
 
 
 def parse_rtl_out_file(path: Path) -> Dict[str, int]:

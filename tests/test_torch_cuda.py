@@ -1191,32 +1191,48 @@ def test_chunked_equals_one_shot_on_the_card(cuda_device, qlen, chunk, wire):
                                   score_many_vs_one(query, [db.read(i) for i in held]))
 
 
-def test_chunked_staging_kept_per_thread(cuda_device):
-    """A bank keeps its pinned staging for the calling thread across calls;
-    another thread gets its own, and every call gives the same scores."""
+def test_one_shot_is_one_chunk_on_the_card(cuda_device, monkeypatch):
+    """A call without chunks is the chunk loop's one chunk: no pinned
+    staging, one wavefront launch, a "stream" event with swtpu's note.  A
+    chunked call stages through a stager of its own, so two threads
+    chunking on one bank each get the one-shot call's scores."""
     import threading
 
+    from swtpu_torch.bank import scorebank as bank_mod
+    from swtpu_torch.utils.metrics import EventLog
+
+    real = bank_mod._PinnedStager.put
+    puts = []
+
+    def counted(self, *arrays):
+        puts.append(self)
+        return real(self, *arrays)
+
+    monkeypatch.setattr(bank_mod._PinnedStager, "put", counted)
     rng = np.random.default_rng(4)
     db = _db(rng, 2500, 200)
     query = rng.integers(0, 4, size=64).astype(np.int8)
+    log = EventLog()
+    port.stream_strip_cuda.launches = 0
+    first = ScoreBank(device=cuda_device).score_database(query, db, event_log=log)
+    assert not puts and port.stream_strip_cuda.launches == 1
+    assert log.events[0].kind == "stream" and log.events[0].note.startswith("streams=")
     bank = ScoreBank(SWConfig(stream_chunk_reads=700), device=cuda_device)
-    first = bank.score_database(query, db).scores
-    stager = bank._staging.stager
-    np.testing.assert_array_equal(bank.score_database(query, db).scores, first)
-    assert bank._staging.stager is stager
-    other = {}
+    got = {}
 
-    def work():
-        other["scores"] = bank.score_database(query, db).scores
-        other["stager"] = bank._staging.stager
+    def work(i):
+        got[i] = bank.score_database(query, db)
 
-    t = threading.Thread(target=work)
-    t.start()
-    t.join(120)
-    assert not t.is_alive() and other["stager"] is not stager
-    np.testing.assert_array_equal(other["scores"], first)
-    np.testing.assert_array_equal(first, ScoreBank(device=cuda_device).score_database(
-        query, db).scores)
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert len(puts) == 8 and len({id(p) for p in puts}) == 2
+    for res in got.values():
+        np.testing.assert_array_equal(res.scores, first.scores)
+        assert res.cells == first.cells
 
 
 def test_pinned_buffer_not_overwritten_while_its_copy_is_in_flight(cuda_device, monkeypatch):

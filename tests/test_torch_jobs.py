@@ -126,6 +126,20 @@ def test_chunking_off_at_or_above_the_read_count():
         assert [e.kind for e in log.events] == ["stream"]
 
 
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_empty_database_is_one_empty_chunk(chunk):
+    """No reads: one empty chunk, with or without chunks, as swtpu's."""
+    query = np.array([0, 1, 2, 3] * 5, np.int8)
+    ref_log, log = EventLog(), EventLog()
+    want = RefBank(RefConfig(stream_chunk_reads=chunk), backend="stream",
+                   interpret=True).score_database(query, [], event_log=ref_log)
+    got = ScoreBank(SWConfig(stream_chunk_reads=chunk), device="cpu").score_database(
+        query, [], event_log=log)
+    assert got.scores.dtype == want.scores.dtype == np.int32 and len(got.scores) == 0
+    assert (got.cells, got.padded_cells) == (want.cells, want.padded_cells)
+    assert [(e.kind, e.note) for e in log.events] == [(e.kind, e.note) for e in ref_log.events]
+
+
 @pytest.mark.parametrize("form", ["list", "mat_lens"])
 def test_chunked_equals_swtpu_chunked(form):
     """Scores and cells equal swtpu's chunked path; padded_cells counts
@@ -572,9 +586,12 @@ def test_score_streams_equals_swtpu(segments, rows, qlen):
     np.testing.assert_array_equal(got, score_many_vs_one(query, reads))
 
 
-def test_golden_parsers_equal_swtpu(tmp_path):
+def test_golden_parsers_equal_swtpu(tmp_path, monkeypatch):
     """The reference data is not in the checkout, so the three formats are
-    written here, with the lines that each parser must skip."""
+    written here, with the lines that each parser must skip.  The port
+    looks for the data only where SWTPU_REFERENCE_DATA points."""
+    import importlib
+
     rtl = tmp_path / "data1.fa_query1.fa_out.txt"
     rtl.write_text("# header\n@   566ns: \t      >db1 score: \t       133\n"
                    "garbage line\n@  1200ns:   >db2 score:   -4\n")
@@ -589,5 +606,13 @@ def test_golden_parsers_equal_swtpu(tmp_path):
              ("parse_swalign_dump", swalign, {"db1": 133, "db2": 106})]
     for fn, path, want in cases:
         assert getattr(goldens, fn)(path) == getattr(ref_goldens, fn)(path) == want
-    assert goldens.reference_data_available() == ref_goldens.reference_data_available()
-    assert goldens.REFERENCE_DATA_DIR.parts[-2:] == ("reference", "data")
+    try:
+        monkeypatch.setenv("SWTPU_REFERENCE_DATA", str(tmp_path))
+        importlib.reload(goldens)
+        assert goldens.REFERENCE_DATA_DIR == tmp_path and goldens.reference_data_available()
+        monkeypatch.delenv("SWTPU_REFERENCE_DATA")
+        importlib.reload(goldens)
+        assert goldens.REFERENCE_DATA_DIR is None and not goldens.reference_data_available()
+    finally:
+        monkeypatch.undo()
+        importlib.reload(goldens)
