@@ -101,7 +101,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      score_database's; corrupted codes and scores caught by the guards);
      and the CLI on the card: score --resume twice (the rerun adopts the
      state and launches nothing) and --profile (a Chrome trace holding the
-     wavefront kernel), each equal to the CLI's oracle by its diff;
+     wavefront kernel), each equal to the CLI's oracle by its diff.
+     Then scoring across shards and processes (phase "sharded"), on a
+     mesh of 4 shards that all lie on cuda:0 (the machine has one GPU):
+     (m) make_sharded_stream_scorer on (a)'s reads (4 B1 a call) and on
+     (d)'s (4 x 2 B3), every score = score_database's, the merged top-10 =
+     its top_k(10), and its stages (shard packs, stack, copy, the rest)
+     timed alone in turns with score_database; (n) make_sharded_topk on 4,096 ragged pairs on the
+     column path (4 B4 a call) and on 256 pairs on the scan, = the oracle;
+     (o) load_database_sharded over (k)'s reads: score_loaded_many_sharded,
+     score_loaded_sharded and topk_loaded_sharded = the one-device resident
+     answers (4 B1 a query of up to 128 bases, 4 x K B3 a longer one);
+     (p) run_multihost in database mode on (c)'s reads in 2 worker
+     processes on cuda:0 joined over gloo, plain, with a worker killed and
+     with a lying worker, every score = (c)'s, each worker's B1 launches
+     > 0, no process left; and the CLI's serve --sharded, its lines =
+     serve's.  Walls (warm, median of 3) beside the one-device ones;
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
@@ -231,6 +246,27 @@ def e2_ops(variant, dtype):
 # fp32 lanes; two 16-bit results per 32-bit lane (int16 on the integer
 # lanes, bfloat16 on the fp32 lanes), whatever layout a kernel chose
 LANES_PER_SM = {"int32": 64, "int16": 128, "uint16": 128, "float32": 128, "bfloat16": 256}
+# but only float32's adds run on the FMA pipe (128 results an SM a clock):
+# its max, select and compare (FMNMX, FSEL, ISETP in the step loops) run on
+# the ALU pipe at 64, and the SM's 4 schedulers dispatch 128 thread
+# instructions a clock in all.  The pipes run side by side, so a cell's
+# least time is the slowest of the three, not their sum.  The ALU rate of
+# FMNMX and FSEL: python -m swtpu_torch.tools.fp32_rates (their probes, and
+# the mix of 3 adds to 7 ALU ops, on the card).  The adds a cell of the
+# float32 recurrences: the wavefront's diag + s, I + extend and M + open;
+# the column's diag + s, I + extend and the add of its add-max
+FLOAT32_ADDS = {"wavefront": 3, "column": 3}
+FMA_LANES, ALU_LANES, DISPATCH_LANES = 128, 64, 128
+
+
+def lanes_of(dtype, ops, kernel):
+    """Results an SM a clock of a cell's `ops` operations in `dtype`: the
+    type's lanes; for float32 the slowest of the FMA pipe's adds, the ALU
+    pipe's rest and the dispatch of them all."""
+    if dtype != "float32":
+        return LANES_PER_SM[dtype]
+    adds = FLOAT32_ADDS[kernel]
+    return ops / max(adds / FMA_LANES, (ops - adds) / ALU_LANES, ops / DISPATCH_LANES)
 
 
 class Peaks:
@@ -1653,6 +1689,10 @@ def phase_serving(rng, card, main_cases):
                      wave_runs_s=r["wave_walls"], wave_ms_a_query=wave_s / len(queries) * 1e3,
                      queries=rows, topk=topk_rows, launches=[int(x) for x in launched],
                      peak_gb=r["peak_gb"])
+        if topk_idx:  # (k)'s reads and one-device answers, for phase "sharded"
+            entry["_inputs"] = dict(db=db, queries=queries, wave=[w.scores for w in wave],
+                                    topk={i: top for i, (top, _) in r["topk"].items()},
+                                    loaded_ms=[x["loaded_ms"] for x in rows])
         if "daemon" in r:
             clients, n_served = r["daemon"]
             client_walls = {}
@@ -2024,6 +2064,320 @@ def phase_jobs(card, main_cases, f_case):
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase jobs: ok in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# multi-device scoring on one card (phase "sharded"): a mesh of SHARDS
+# shards that all lie on cuda:0, the counterpart of swtpu's virtual devices
+SHARDS = 4
+N_PAIRS = (4096, (24, 128), (24, 256))  # (n) on the column path: pairs, lengths
+N_SCAN = (256, (8, 64), (8, 64))  # (n) on the scan: pairs, lengths
+P_PROCS = 2  # (p)'s worker processes, all on cuda:0, joined over gloo
+P_RUNS = (("plain", {}), ("kill", dict(kill_worker=1)), ("liar", dict(adversary_worker=1)))
+SERVE_SHARDED_READS = (2000, 128)  # serve --sharded's library: reads and length
+
+
+def phase_sharded(card, main_cases, long_cases, serving, seed):
+    """Scoring across shards and processes through the user's entry points,
+    each part's launch counters set to 0 just before it and read just after:
+    (m) make_sharded_stream_scorer over (a)'s reads (SHARDS B1 a call) and
+    (d)'s (SHARDS x 2 B3), every score = score_database's and the top-10 =
+    its top_k(10), then its stages timed alone in turns with
+    score_database; (n) make_sharded_topk on the column path (SHARDS B4 a
+    call) and on the scan, = the oracle; (o) load_database_sharded over
+    (k)'s reads, score_loaded_many_sharded, score_loaded_sharded and
+    topk_loaded_sharded = the one-device resident answers of phase
+    "serving"; (p) run_multihost in database mode on (c)'s reads in
+    P_PROCS processes on cuda:0 (plain, a worker killed, a lying worker),
+    every score = (c)'s, each worker's B1 launches > 0, no process left;
+    and the CLI's serve --sharded, its lines = serve's.  Walls: warm,
+    median of 3, beside the one-device ones of earlier phases."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from swtpu_torch import SWConfig, ScoreBank
+    from swtpu_torch.bank.scorebank import ScoreResult, stream_geometry
+    from swtpu_torch.bank.streams import (
+        _pack_shards, _stack_shards, pack_streams_sharded, scatter_sharded_scores,
+    )
+    from swtpu_torch.cli import main as cli
+    from swtpu_torch.io.fasta import read_fasta
+    from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
+    from swtpu_torch.ops.common import sentinel_pad_batch
+    from swtpu_torch.oracle import sw_score_batch
+    from swtpu_torch.parallel.mesh import make_mesh
+    from swtpu_torch.parallel.sharded import make_sharded_stream_scorer, make_sharded_topk
+    from swtpu_torch.testing.regress import run_multihost
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[torch.device("cuda:0")] * SHARDS)
+    one_bank = ScoreBank(SWConfig(), device="cuda")
+    out = dict(shards=SHARDS, m=[], n=[], o={}, p=[])
+    launches = {}
+
+    # (m): pack, score and scatter, a call at a time
+    m_launched = np.zeros(2, np.int64)
+    for case in (main_cases[0], long_cases[0]):
+        name, query, db, want = case["name"], case["query"], case["db"], case["scores"]
+        K = -(-len(query) // 128)
+        segments, rows, phys = stream_geometry(len(query), SWConfig(), "cuda")
+        stages = []
+
+        def call():
+            t0 = time.perf_counter()
+            b = pack_streams_sharded(query, db, SHARDS, n_streams=phys * segments,
+                                     segments=segments, rows=rows)
+            t1 = time.perf_counter()
+            scorer = make_sharded_stream_scorer(mesh, k=TOPK, segments=segments, rows=rows,
+                                                emit_regular=b.emit_regular)
+            s, top_s, top_ids = scorer(b.q, b.stream, b.emit_stream,
+                                       b.emit_step.astype(np.int32), b.ids)
+            scores = scatter_sharded_scores(s, b, len(db.lens))
+            stages.append((t1 - t0, time.perf_counter() - t1))
+            return scores, list(zip(top_s.tolist(), top_ids.tolist())), b.stream.shape
+
+        (results, walls), launched = launches_of(lambda: walls_of(call))
+        expect = (4 * SHARDS, 0) if K == 1 else (0, 4 * SHARDS * K)
+        if tuple(launched) != expect:
+            fail(f"m {name}: (wavefront, chained) launched {launched} in 4 calls on "
+                 f"{SHARDS} shards, want {expect}")
+        top_want = ScoreResult(want, 0, 0, 1.0).top_k(TOPK)
+        for scores, top, _ in results:
+            if not np.array_equal(scores, want):
+                k = int(np.flatnonzero(scores != want)[0])
+                fail(f"m {name}: read {k} scored {scores[k]} sharded, {want[k]} by "
+                     "score_database")
+            if top != top_want:
+                fail(f"m {name}: merged top-{TOPK} {top}, score_database's {top_want}")
+        m_launched += launched
+        wall = statistics.median(walls)
+        pack = statistics.median(x[0] for x in stages[1:])
+        rest = statistics.median(x[1] for x in stages[1:])
+        shape = results[0][2]
+        print(f"phase sharded: ok m {name} on {SHARDS} shards of cuda:0, streams "
+              f"{list(shape)}: {len(want)} scores = score_database's, top-{TOPK} = its "
+              f"top_k | launches wavefront={launched[0]} chained={launched[1]} in 4 calls | "
+              f"wall median of 3 {wall*1e3:.2f} ms (runs {ms_list(walls)}; pack {pack*1e3:.2f}, "
+              f"copy + kernels + merge + scatter {rest*1e3:.2f}) beside score_database's "
+              f"{case['wall_s']*1e3:.2f} ms on {card}", flush=True)
+        out["m"].append(dict(case=name, shards=SHARDS, shape=[int(x) for x in shape],
+                             wall_ms=wall * 1e3, runs_ms=[w * 1e3 for w in walls],
+                             pack_ms=pack * 1e3, rest_ms=rest * 1e3,
+                             score_database_ms=case["wall_s"] * 1e3,
+                             launches=[int(x) for x in launched]))
+
+        # where the sharded call's time goes: its stages timed alone (the
+        # four shard packs, the stack, the stacked stream's copy, then the
+        # kernels, merge and scatter), in turns with one-device
+        # score_database calls; a warm round, then medians of 3
+        def staged():
+            t0 = time.perf_counter()
+            batches, groups = _pack_shards(query, db, SHARDS, phys * segments, segments, rows)
+            t1 = time.perf_counter()
+            b = _stack_shards(batches, groups, phys * segments, segments)
+            t2 = time.perf_counter()
+            stream = torch.from_numpy(b.stream).to("cuda:0")
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            scorer = make_sharded_stream_scorer(mesh, k=TOPK, segments=segments, rows=rows,
+                                                emit_regular=b.emit_regular)
+            s, _, _ = scorer(b.q, stream, b.emit_stream, b.emit_step.astype(np.int32), b.ids)
+            scores = scatter_sharded_scores(s, b, len(db.lens))
+            return scores, (t1 - t0, t2 - t1, t3 - t2, time.perf_counter() - t3)
+
+        stages, one_walls = [], []
+        for _ in range(4):
+            scores, st = staged()
+            t0 = time.perf_counter()
+            one = one_bank.score_database(query, db).scores
+            one_walls.append(time.perf_counter() - t0)
+            stages.append(st)
+            if not (np.array_equal(scores, want) and np.array_equal(one, want)):
+                fail(f"m {name}: the staged sharded call or score_database in turns "
+                     "differs from score_database's scores")
+        packs, stack, copy, rest = (statistics.median(x[i] for x in stages[1:])
+                                    for i in range(4))
+        one_wall = statistics.median(one_walls[1:])
+        staged_walls = [sum(x) for x in stages[1:]]
+        print(f"phase sharded: ok m {name} in turns with score_database, medians of 3: "
+              f"4 shard packs {packs*1e3:.2f}, stack {stack*1e3:.2f}, copy of the "
+              f"{int(np.prod(shape)) / 1e6:.2f} MB stream {copy*1e3:.2f}, kernels + merge + scatter "
+              f"{rest*1e3:.2f} ms; staged wall {statistics.median(staged_walls)*1e3:.2f} ms "
+              f"(runs {ms_list(staged_walls)}) | score_database {one_wall*1e3:.2f} ms (runs "
+              f"{ms_list(one_walls[1:])}) on {card}", flush=True)
+        out["m"][-1]["turns"] = dict(
+            packs_ms=packs * 1e3, stack_ms=stack * 1e3, copy_ms=copy * 1e3, rest_ms=rest * 1e3,
+            staged_runs_ms=[w * 1e3 for w in staged_walls],
+            score_database_runs_ms=[w * 1e3 for w in one_walls[1:]])
+    launches["m sharded"] = [int(x) for x in m_launched]
+
+    # (n): the dense sharded top-k on the column path and on the scan
+    rng = np.random.default_rng([seed, 9])
+    col_total = np.zeros(2, np.int64)
+    for backend, (count, qr, tr) in (("pallas", N_PAIRS), ("scan", N_SCAN)):
+        ql = rng.integers(qr[0], qr[1] + 1, size=count)
+        tl = rng.integers(tr[0], tr[1] + 1, size=count)
+        q = rng.integers(0, 4, size=(count, qr[1])).astype(np.int8)
+        t = rng.integers(0, 4, size=(count, tr[1])).astype(np.int8)
+        t[1::97, : qr[1]] = q[1::97]  # some near-copies: ties at the top
+        qp, tp = sentinel_pad_batch(q, ql, t, tl)
+        ids = np.arange(count, dtype=np.int32)
+        topk = make_sharded_topk(mesh, k=TOPK, backend=backend)
+        column_scores_cuda.launches = column_chained_cuda.launches = 0
+        (results, walls), stream_launched = launches_of(lambda: walls_of(lambda: [
+            x.cpu().numpy() for x in topk(qp, tp, ids)]))
+        col = (column_scores_cuda.launches, column_chained_cuda.launches)
+        expect = (4 * SHARDS, 0) if backend == "pallas" else (0, 0)
+        if col != expect or any(stream_launched):
+            fail(f"n {backend}: column kernels launched {col}, wavefront {stream_launched} "
+                 f"in 4 calls, want {expect}")
+        t0 = time.perf_counter()
+        want = sw_score_batch(q, t, ql, tl)
+        oracle_s = time.perf_counter() - t0
+        top_want = ScoreResult(want, 0, 0, 1.0).top_k(TOPK)
+        for top_s, top_ids, scores in results:
+            if not np.array_equal(scores, want) or list(zip(top_s.tolist(),
+                                                            top_ids.tolist())) != top_want:
+                fail(f"n {backend}: scores or top-{TOPK} differ from the oracle's")
+        col_total += col
+        wall = statistics.median(walls)
+        print(f"phase sharded: ok n make_sharded_topk backend={backend} on {count} pairs "
+              f"(queries {qr[0]}-{qr[1]}, targets {tr[0]}-{tr[1]}) over {SHARDS} shards: "
+              f"scores and top-{TOPK} = the oracle's ({oracle_s:.1f} s) | B4 launches "
+              f"{col[0]} in 4 calls | wall median of 3 {wall*1e3:.2f} ms (runs "
+              f"{ms_list(walls)}) on {card}", flush=True)
+        out["n"].append(dict(backend=backend, pairs=count, query_lens=list(qr),
+                             target_lens=list(tr), wall_ms=wall * 1e3,
+                             runs_ms=[w * 1e3 for w in walls], b4_launches=col[0]))
+    out["column_launches"] = [int(x) for x in col_total]  # B4, B5
+
+    # (o): (k)'s reads resident over the mesh
+    k_in = serving[0].pop("_inputs")
+    db, queries, wave, topk_one = k_in["db"], k_in["queries"], k_in["wave"], k_in["topk"]
+    bank = ScoreBank(device="cuda")
+    t0 = time.perf_counter()
+    sdb, launched = launches_of(lambda: bank.load_database_sharded(db, mesh, max_query_len=256))
+    load_s = time.perf_counter() - t0
+    per_dispatch = SHARDS * dispatch_launches(queries)
+    o_launched = np.zeros(2, np.int64)
+    (waves, wave_walls), launched = launches_of(
+        lambda: walls_of(lambda: bank.score_loaded_many_sharded(queries, sdb)))
+    if list(launched) != (4 * per_dispatch).tolist():
+        fail(f"o: score_loaded_many_sharded launched {launched}, want {4 * per_dispatch}")
+    o_launched += launched
+    for many in waves:
+        for i, r in enumerate(many):
+            if not np.array_equal(r.scores, wave[i]):
+                fail(f"o: score_loaded_many_sharded of query {i} differs from score_loaded's")
+    q_rows = []
+    for i, q in enumerate(queries):
+        (results, walls), launched = launches_of(
+            lambda: walls_of(lambda: bank.score_loaded_sharded(q, sdb)))
+        if list(launched) != (4 * SHARDS * dispatch_launches([q])).tolist():
+            fail(f"o: score_loaded_sharded of query {i} ({len(q)} bases) launched {launched}")
+        o_launched += launched
+        if any(not np.array_equal(r.scores, wave[i]) for r in results):
+            fail(f"o: score_loaded_sharded of query {i} differs from score_loaded's")
+        q_rows.append(dict(qlen=len(q), ms=statistics.median(walls) * 1e3,
+                           runs_ms=[w * 1e3 for w in walls],
+                           one_device_ms=k_in["loaded_ms"][i]))
+    top_rows = {}
+    for i, want_top in topk_one.items():
+        (results, walls), launched = launches_of(
+            lambda: walls_of(lambda: bank.topk_loaded_sharded(queries[i], sdb, k=TOPK)))
+        o_launched += launched
+        if any(r != want_top for r in results):
+            fail(f"o: topk_loaded_sharded of query {i} {results[0]}, topk_loaded's {want_top}")
+        top_rows[i] = dict(qlen=len(queries[i]), ms=statistics.median(walls) * 1e3)
+    launches["o sharded"] = [int(x) for x in o_launched]
+    short = [r for r in q_rows if r["qlen"] <= 128]
+    longer = [r for r in q_rows if r["qlen"] > 128]
+    D, T, N = sdb.shape
+    wave_s = statistics.median(wave_walls)
+    print(f"phase sharded: ok o load_database_sharded of (k)'s {sdb.n_reads} reads over "
+          f"{D} shards [{T}, {N}] each in {load_s*1e3:.2f} ms | score_loaded_many_sharded "
+          f"(wave of {len(queries)}) median of 3 {wave_s*1e3:.2f} ms, score_loaded_sharded "
+          f"median of 3: <= 128 bases {min(r['ms'] for r in short):.3f}-"
+          f"{max(r['ms'] for r in short):.3f} ms (one device "
+          f"{min(r['one_device_ms'] for r in short):.3f}-"
+          f"{max(r['one_device_ms'] for r in short):.3f}), 129-256 bases "
+          f"{min(r['ms'] for r in longer):.3f}-{max(r['ms'] for r in longer):.3f} ms (one "
+          f"device {min(r['one_device_ms'] for r in longer):.3f}-"
+          f"{max(r['one_device_ms'] for r in longer):.3f}); topk_loaded_sharded("
+          f"{TOPK}) = topk_loaded's for queries {list(top_rows)} ("
+          + ", ".join(f"{t['ms']:.3f}" for t in top_rows.values())
+          + f" ms) | launches wavefront={o_launched[0]} chained={o_launched[1]} on {card}",
+          flush=True)
+    out["o"] = dict(reads=sdb.n_reads, shape=[D, T, N], load_ms=load_s * 1e3,
+                    wave_ms=wave_s * 1e3, wave_runs_ms=[w * 1e3 for w in wave_walls],
+                    queries=q_rows, topk=top_rows, launches=launches["o sharded"])
+    del sdb
+
+    # (p): the localhost multi-process harness on the card
+    c = main_cases[2]
+    p_launched = np.zeros(2, np.int64)
+    for label, kw in P_RUNS:
+        t0 = time.perf_counter()
+        res = run_multihost(c["query"], c["db"].mat, np.arange(len(c["db"].lens), dtype=np.int32),
+                            nprocs=P_PROCS, topk=TOPK, mode="database", lens=c["db"].lens,
+                            device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        left = live_children()
+        if left:
+            fail(f"p {label}: processes still running after run_multihost: {left}")
+        worker = {pid: [int(d["launches_wavefront"]), int(d["launches_chained"])]
+                  for pid, d in res.worker_outputs.items()}
+        if not np.array_equal(res.scores, c["scores"]):
+            k = int(np.flatnonzero(res.scores != c["scores"])[0])
+            fail(f"p {label}: read {k} scored {res.scores[k]}, score_database {c['scores'][k]}")
+        top = list(zip(res.top_s.tolist(), res.top_ids.tolist()))
+        if top != ScoreResult(c["scores"], 0, 0, 1.0).top_k(TOPK):
+            fail(f"p {label}: merged top-{TOPK} {top}")
+        if sorted(worker) != list(range(P_PROCS)) or any(w[0] <= 0 for w in worker.values()):
+            fail(f"p {label}: workers' (wavefront, chained) launches {worker}")
+        want = {"plain": (1, [], []), "kill": (2, [1], []), "liar": (1, [], [1])}[label]
+        if (res.attempts, res.killed_pids, res.bad_shards) != want:
+            fail(f"p {label}: attempts {res.attempts}, killed {res.killed_pids}, bad shards "
+                 f"{res.bad_shards}")
+        p_launched += np.sum(list(worker.values()), axis=0)
+        print(f"phase sharded: ok p run_multihost {label}: {P_PROCS} processes on cuda:0 over "
+              f"gloo, (c)'s {len(res.scores)} reads = score_database's, top-{TOPK} = its "
+              f"top_k, attempts {res.attempts}, killed {res.killed_pids}, bad shards "
+              f"{res.bad_shards}, workers' launches {worker} | wall {wall:.2f} s, no process "
+              f"left on {card}", flush=True)
+        out["p"].append(dict(run=label, wall_s=wall, attempts=res.attempts,
+                             worker_launches=worker, bad_shards=res.bad_shards))
+    launches["p sharded (workers)"] = [int(x) for x in p_launched]
+
+    # serve --sharded through the CLI: the same lines as serve's
+    n_reads, length = SERVE_SHARDED_READS
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, cmds = Path(tmp) / "lib.fa", Path(tmp) / "cmds.txt"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli(["generate", "-n", str(n_reads + 1), "-L", str(length), "-o", str(fa)])
+        seq = read_fasta(fa)[0].seq
+        cmds.write_text(f"SEQ {seq}\nTOP {TOPK} {seq}\nQUIT\n")
+        lines, serve_launched = {}, {}
+        for flag in ("", "--sharded"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                got, serve_launched[flag] = launches_of(lambda: cli(
+                    ["serve", "-l", str(fa), "--input", str(cmds), *([flag] if flag else [])]))
+            rc = rc or got
+            lines[flag] = [l.split("ns:", 1)[-1] for l in buf.getvalue().splitlines()]
+    if rc or lines[""] != lines["--sharded"] or len(lines[""]) != n_reads + TOPK or any(
+            list(x) != [2, 0] for x in serve_launched.values()):
+        fail(f"serve --sharded: exit codes {rc}, {len(lines['--sharded'])} lines against "
+             f"serve's {len(lines[''])}, launches {serve_launched}")
+    launches["serve sharded"] = [int(x) for x in serve_launched["--sharded"]]
+    print(f"phase sharded: ok serve --sharded ({n_reads} reads x {length}): SEQ and TOP "
+          f"{TOPK} lines = serve's ({len(lines[''])} lines), one B1 a request", flush=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase sharded: ok in {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -2700,6 +3054,7 @@ def main() -> int:
              f"({column_launches}, {column_chained_launches})")
     jobs = phase_jobs(card, cases, col_cases[0])
     faults_launches = jobs["launches"].pop("f jobs faults")
+    sharded = phase_sharded(card, cases, long_cases, serving, args.seed)
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
@@ -2745,7 +3100,8 @@ def main() -> int:
         S3, T3, dtype = row["N"] // row["segments"], row["T"], MODE_DTYPES[row["mode"]]
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S3 + T3 * row["N"] * 5,
-            128 * T3 * S3 * (WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]), LANES_PER_SM[dtype])
+            128 * T3 * S3 * (WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]),
+            lanes_of(dtype, WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype], "wavefront"))
     for row in checks_16:  # the same, with the 16-bit state's operations and lanes
         S3, T3, dtype = row["N"] // row["segments"], row["T"], MODE_DTYPES_16[row["mode"]]
         row["bound_ms"], row["bound_by"] = peaks.bound(
@@ -2786,7 +3142,8 @@ def main() -> int:
         registers."""
         rows = {}
         for label, _, dtype in MAIN_MODES:
-            b = bound_of(WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
+            ops = WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]
+            b = bound_of(ops, lanes_of(dtype, ops, "wavefront"))
             rows[label] = dict(at["modes"][label], ms=at["ms"][label],
                                int32_ms=at["ms"]["int32"], bound_ms=b[0], bound_by=b[1],
                                plain_ms=plain[label], plain_note=plain_note)
@@ -2816,7 +3173,8 @@ def main() -> int:
         pairs a warp holds, and the plain version's time there."""
         rows = {}
         for dtype in COLUMN_EXACT_STATES:
-            b = bound_of(COLUMN_OPS + COLUMN_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
+            ops = COLUMN_OPS + COLUMN_EXTRA_OPS[dtype]
+            b = bound_of(ops, lanes_of(dtype, ops, "column"))
             m = at["modes"][dtype]
             rows[dtype] = dict(m, int32_ms=at["int32_ms"],
                                int32_registers=at["int32_registers"], bound_ms=b[0],
@@ -2838,7 +3196,7 @@ def main() -> int:
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
                **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving},
-               **jobs["launches"]}
+               **jobs["launches"], **sharded["launches"]}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -2889,22 +3247,25 @@ def main() -> int:
                              bound_ms=b_cut[0], bound_by=b_cut[1]),
               main_shapes=long_mains, configs=chains),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
-              column_launches + faults_launches[0],
+              column_launches + faults_launches[0] + sharded["column_launches"][0],
               max(c["max_abs_err"] for c in col_checks + col_batches + [f_states]),
               chead["ms"], chead["plain_ms"], b_col,
               shape=[chead["B"], chead["m"], chead["n"]], main_shapes=col_batches,
               configs=col_checks, modes=modes_f,
               launches_by_path={"f-h int32": column_launches,
                                 "f jobs faults": faults_launches[0],
+                                "n sharded": sharded["column_launches"][0],
                                 **{f"f {k}": v["launches"]
                                    for k, v in f_states["modes"].items()}}),
         entry("column_chained", "swtpu_torch/ops/csrc/column.cu",
-              "swtpu/ops/pallas_kernel.py:137", column_chained_launches,
+              "swtpu/ops/pallas_kernel.py:137",
+              column_chained_launches + sharded["column_launches"][1],
               max(c["max_abs_err"] for c in col_chains + [col_tile, g_states]),
               col_tile["ms"][0], col_tile["plain_ms"][0], b_tile,
               shape=[col_tile["B"], 256, col_tile["n"]], main_shapes=[col_tile],
               configs=col_chains, modes=modes_g,
               launches_by_path={"f-h int32": column_chained_launches,
+                                "n sharded": sharded["column_launches"][1],
                                 **{f"g {k}": v["launches"]
                                    for k, v in g_states["modes"].items()}}),
         entry("lane", "swtpu_torch/ops/csrc/lane.cu", "swtpu/ops/pallas_lane.py:37",
@@ -2932,7 +3293,7 @@ def main() -> int:
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
     ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16, "serving": serving,
-        "jobs": jobs,
+        "jobs": jobs, "sharded": sharded,
         "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,14 @@ with hand-written CUDA kernels on the GPU and their plain PyTorch versions
 on the CPU; resident serving (``load_database`` once, then
 ``score_loaded``, ``score_loaded_many`` and ``topk_loaded`` a query) and
 the serving daemon; resumable jobs, seeded fault injection and the CLI;
-and the kernel shootout's lane-major column kernel and the two
-microbenchmarks' kernels.  Imports torch and never JAX, and nothing of
-``swtpu``: the configuration, the oracle, FASTA loading, the native
-packer, the event log and the golden parsers are the port's own copies of
-swtpu's JAX-free modules.
+the scan backend; scoring across devices (a mesh of shards, sharded
+scorers with the merged top-K, mesh-resident serving) and processes
+(``torch.distributed``, the localhost worker harness); and the kernel
+shootout's lane-major column kernel and the two microbenchmarks' kernels.
+Imports torch and never JAX, and nothing of ``swtpu``: the
+configuration, the oracle, FASTA loading, the native packer, the event log
+and the golden parsers are the port's own copies of swtpu's JAX-free
+modules.
 
 Layer map (swtpu module -> port):
 
@@ -39,15 +42,25 @@ Layer map (swtpu module -> port):
   experiments/microbench_ops.py, kernel_ablate.py
                          -> swtpu_torch.ops.microbench (+ csrc/microbench.cu)
   swtpu.ops.common       -> swtpu_torch.ops.common     (sentinel padding)
-  swtpu.parallel.sharded._local_topk
-                         -> swtpu_torch.parallel.topk  (the device top-k cut)
-  swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream and batch checks)
+  swtpu.ops.scan         -> swtpu_torch.ops.scan       (the column scan, torch ops)
+  swtpu.parallel.mesh    -> swtpu_torch.parallel.mesh  (Mesh: devices, rank, world)
+  swtpu.parallel.sharded -> swtpu_torch.parallel.sharded, .topk
+                                                       (sharded scorers, the merged
+                                                        top-K, the device top-k cut)
+  swtpu.parallel.multihost
+                         -> swtpu_torch.parallel.multihost (torch.distributed)
+  swtpu.bank.serving     -> swtpu_torch.bank.serving   (mesh-resident serving)
+  swtpu.utils.guards     -> swtpu_torch.utils.guards   (stream and batch checks,
+                                                        checksum)
   swtpu.testing.faults   -> swtpu_torch.testing.faults (seeded fault injection)
+  swtpu.testing.worker, regress (its multi-process half)
+                         -> swtpu_torch.testing.worker, .regress
+                                                       (the localhost harness)
   swtpu.testing.goldens  -> swtpu_torch.testing.goldens (golden-file parsers; a copy)
   swtpu.server           -> swtpu_torch.server         (ServeEngine, serve_socket,
                                                         format_score_line)
-  swtpu.cli              -> swtpu_torch.cli            (score, serve, oracle, generate,
-                                                        diff, events)
+  swtpu.cli              -> swtpu_torch.cli            (score, serve [--sharded],
+                                                        oracle, generate, diff, events)
 """
 
 from swtpu_torch.bank import ScoreBank, ScoreResult

@@ -17,7 +17,9 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   ``load_database`` packs a database once and leaves its stream resident
   on the device (``LoadedDatabase``); ``score_loaded``,
   ``score_loaded_many`` and ``topk_loaded`` then ship only each query's
-  register and run the same wavefront entries on the resident stream.
+  register and run the same wavefront entries on the resident stream;
+  ``load_database_sharded`` and its ``*_sharded`` entries do the same on
+  every shard of a mesh (``swtpu_torch.bank.serving``).
   ``SWConfig.stream_chunk_reads`` splits a short query's database into
   chunks: the host packs chunk i+1 while chunk i's copy and kernels run
   (``_score_database_stream``, whose call without chunks is one chunk).
@@ -27,7 +29,8 @@ The port of ``swtpu.bank.scorebank``'s ``score_database`` and
   column kernels (``swtpu_torch.ops.column``), chained 256-row tiles for a
   query over 256 bases.  It carries ``SWConfig.score_width``, the RTL's
   W-bit wrap-parity arithmetic.  A callable backend ``fn(q, t,
-  penalties)`` takes the column kernels' place on the same batches.
+  penalties)`` takes the column kernels' place on the same batches, and
+  ``scan`` runs them through ``swtpu_torch.ops.scan`` (torch's own ops).
 
 On a CUDA device the kernels are the hand-written ones; on the CPU they
 are the plain PyTorch versions, with the settings swtpu uses in interpret
@@ -53,6 +56,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.loader import EncodedDB
 from swtpu_torch.ops.column import sw_scores_column
 from swtpu_torch.ops.common import Q_PAD
+from swtpu_torch.ops.scan import sw_scores_scan
 from swtpu_torch.ops.stream import (
     _q_kernel_layout, _validate_config, sw_scores_stream,
     sw_scores_stream_kernel_layout, sw_scores_stream_long,
@@ -215,13 +219,15 @@ class ScoreBank:
     """Batched many-vs-one scorer on one torch device.
 
     backend: 'stream' (the streamed wavefront), 'pallas' (the bucketed
-    column kernels), 'auto': 'stream', or 'pallas' when
-    ``config.score_width`` is set; or a callable ``fn(q, t, penalties)``
-    that scores the bucketed path's dense batches (q [B, m], t [B, n] int8
-    -> [B] scores) in the column kernels' place, as swtpu's does.  Both
-    named backends carry ``config.score_width``.  device: where the
-    kernels run — 'cuda' launches the CUDA kernels, 'cpu' runs their plain
-    PyTorch versions."""
+    column kernels), 'scan' (the bucketed batches through
+    ``swtpu_torch.ops.scan``, torch's own ops on the device), 'auto':
+    'stream', or 'pallas' when ``config.score_width`` is set; or a
+    callable ``fn(q, t, penalties)`` that scores the bucketed path's dense
+    batches (q [B, m], t [B, n] int8 -> [B] scores) in the column kernels'
+    place, as swtpu's does.  'stream' and 'pallas' carry
+    ``config.score_width``; 'scan' and a callable refuse it, as swtpu's
+    do.  device: where the kernels run — 'cuda' launches the CUDA kernels,
+    'cpu' runs their plain PyTorch versions."""
 
     def __init__(
         self,
@@ -230,13 +236,15 @@ class ScoreBank:
         device="cuda",
         verify_integrity: bool = False,
     ):
-        if backend == "scan":
-            raise NotImplementedError(
-                "backend 'scan' is not ported yet (ROADMAP item 10: scan "
-                "backend); use 'stream' or 'pallas'"
-            )
-        if not callable(backend) and backend not in ("auto", "stream", "pallas"):
+        if not callable(backend) and backend not in ("auto", "stream", "pallas", "scan"):
             raise ValueError(f"unknown backend {backend!r}")
+        if config.score_width is not None and backend not in ("auto", "pallas", "stream"):
+            # wrap-parity lives in the stream and column kernels; an
+            # explicitly named scan or callable backend is never overridden
+            raise ValueError(
+                "score_width requires the 'stream' or 'pallas' backend "
+                f"(got {backend!r})"
+            )
         if backend == "auto":
             # Wrap-parity runs on both backends; 'auto' sends it to the
             # column kernels, as swtpu does off the TPU.  A wrap-parity pair
@@ -455,10 +463,14 @@ class ScoreBank:
 
     def _score_batch(self, q: np.ndarray, t: np.ndarray) -> np.ndarray:
         """One dense bucket batch through the column kernels on the bank's
-        device (or through a callable backend): q [B, m], t [B, n] int8 ->
-        [B] int32 scores."""
+        device (or the scan, or a callable backend): q [B, m], t [B, n]
+        int8 -> [B] int32 scores."""
         if callable(self.backend):
             return np.asarray(self.backend(q, t, self.config.penalties))
+        if self.backend == "scan":
+            return sw_scores_scan(
+                _put(q, self.device), _put(t, self.device), self.config.penalties
+            ).cpu().numpy()
         kw = {}
         if self.config.score_width is not None:
             kw = dict(state_dtype="int16_biased", score_width=self.config.score_width)
@@ -886,3 +898,33 @@ class ScoreBank:
         t0 = time.perf_counter()
         devs = self._dispatch_topk_loaded(query, db, k)
         return self._finish_topk_loaded(devs, query, db, t0, event_log=event_log)
+
+    def load_database_sharded(self, targets, mesh, max_query_len: int = 128,
+                              axis: str = "data"):
+        """Mesh-wide :meth:`load_database`: one resident stream shard a
+        mesh shard, each on its device (``swtpu_torch.bank.serving``)."""
+        from swtpu_torch.bank.serving import load_database_sharded
+
+        return load_database_sharded(self, targets, mesh, max_query_len=max_query_len,
+                                     axis=axis)
+
+    def score_loaded_sharded(self, query, db, event_log=None) -> ScoreResult:
+        """Score one query against a mesh-resident database: the full
+        read-order score vector."""
+        from swtpu_torch.bank.serving import score_loaded_sharded
+
+        return score_loaded_sharded(self, query, db, event_log=event_log)
+
+    def score_loaded_many_sharded(self, queries, db, event_log=None) -> List[ScoreResult]:
+        """Many queries over the mesh, every one enqueued before any result
+        is copied back."""
+        from swtpu_torch.bank.serving import score_loaded_many_sharded
+
+        return score_loaded_many_sharded(self, queries, db, event_log=event_log)
+
+    def topk_loaded_sharded(self, query, db, k: int = 10, event_log=None) -> List[tuple]:
+        """Mesh-wide best hits: each shard's cut, the merge over the mesh;
+        only 2k values are copied back."""
+        from swtpu_torch.bank.serving import topk_loaded_sharded
+
+        return topk_loaded_sharded(self, query, db, k=k, event_log=event_log)

@@ -5,10 +5,11 @@ reads go greedily to the currently shortest stream, are concatenated with
 a first-char flag, and every read's score-emission coordinate
 (stream, step) is computed up front.  For explicit pairs
 (``pack_pair_streams``) each stream holds one distinct query in its query
-register and carries only that query's targets.  The packing is
-bit-identical to swtpu's, so a batch packed by either package drives
-either package's kernels (``batch_to_device`` moves one onto a torch
-device).
+register and carries only that query's targets; for a mesh
+(``pack_streams_sharded``) reads are dealt round-robin to shards, each
+packed the same way.  The packing is bit-identical to swtpu's, so a batch
+packed by either package drives either package's kernels
+(``batch_to_device`` moves one onto a torch device).
 
 swtpu's module cannot be imported here: it reaches ``swtpu.ops`` (and so
 JAX) through ``swtpu.ops.common`` and ``swtpu.ops.pallas_stream``.
@@ -513,3 +514,112 @@ def score_streams(
         rows=rows, state_dtype=state_dtype,
     )
     return gather_stream_scores(strip.cpu().numpy(), batch)
+
+
+@dataclasses.dataclass
+class ShardedStreamBatch:
+    """Per-shard stacks of stream batches (leading axis = mesh shard).
+
+    Reads are dealt round-robin across shards and every shard's streams pad
+    to a common length, so one call of the sharded scorer covers the mesh.
+
+    q: [D, N, 128//segments] int8 (or [D, N, K*128] for a long query);
+    stream: [D, N, T] int8.
+    emit_stream/emit_step: [D, R] gather coordinates (R = max reads/shard).
+    ids: [D, R] global read index, -1 on padding slots.
+    cells: total real DP cells across shards.
+    """
+
+    q: np.ndarray
+    stream: np.ndarray
+    emit_stream: np.ndarray
+    emit_step: np.ndarray
+    ids: np.ndarray
+    cells: int
+    segments: int = 1
+    emit_regular: Optional[tuple] = None  # common per-shard pattern, if any
+
+
+def pack_streams_sharded(
+    query: np.ndarray,
+    targets: Sequence[np.ndarray],
+    n_shards: int,
+    n_streams: int = 256,
+    segments: int = 1,
+    rows: int = 1,
+) -> ShardedStreamBatch:
+    """Deal reads round-robin to `n_shards` shards and pack each with
+    :func:`pack_streams` (or :func:`pack_streams_long` for a query past one
+    128-row tile); pad stream length and read count to the shard maxima.
+    Bit-identical to swtpu's in every field.
+
+    targets: a sequence of 1-D code arrays, or the dense EncodedDB /
+    (mat, lens) form — dense shards slice the matrix round-robin and take
+    the native plan/fill path per shard (no per-read Python objects)."""
+    batches, groups = _pack_shards(query, targets, n_shards, n_streams, segments, rows)
+    return _stack_shards(batches, groups, n_streams, segments)
+
+
+def _pack_shards(query, targets, n_shards, n_streams, segments, rows):
+    """(a StreamBatch a shard, the read ids a shard): the round-robin deal
+    and each shard's pack, before the stack."""
+    from swtpu_torch.bank.scorebank import _dense_form
+
+    tmat, tlens = _dense_form(targets)
+    n_reads = len(tlens) if tlens is not None else len(targets)
+    groups = [list(range(d, n_reads, n_shards)) for d in range(n_shards)]
+    if len(query) > LANES // segments:
+        if segments != 1:
+            raise ValueError("long queries require segments=1")
+
+        def pack(t, lens):
+            return pack_streams_long(query, t, n_streams=n_streams, rows=rows, lens=lens)
+    else:
+        def pack(t, lens):
+            return pack_streams(query, t, n_streams=n_streams, segments=segments, rows=rows,
+                                lens=lens)
+    if tlens is not None:
+        batches = [pack(tmat[d::n_shards], np.asarray(tlens)[d::n_shards])
+                   for d in range(n_shards)]
+    else:
+        batches = [pack([targets[i] for i in g], None) for g in groups]
+    return batches, groups
+
+
+def _stack_shards(batches, groups, n_streams, segments) -> ShardedStreamBatch:
+    """The shards' batches padded to the longest stream and the most reads
+    a shard, stacked on a leading shard axis."""
+    T = max(b.stream.shape[1] for b in batches)
+    R = max(len(g) for g in groups)
+    D = len(batches)
+    q = np.stack([b.q for b in batches])
+    stream = np.full((D, n_streams, T), STREAM_PAD, dtype=np.int8)
+    emit_stream = np.zeros((D, R), np.int32)
+    emit_step = np.full((D, R), -1, np.int64)
+    ids = np.full((D, R), -1, np.int32)
+    cells = 0
+    for d, (g, b) in enumerate(zip(groups, batches)):
+        stream[d, :, : b.stream.shape[1]] = b.stream
+        emit_stream[d, : len(g)] = b.emit_stream
+        emit_step[d, : len(g)] = b.emit_step
+        ids[d, : len(g)] = g
+        cells += b.cells
+    # the strided-extract fast path applies mesh-wide only when every shard
+    # shares one regular pattern and no shard needed read-count padding
+    regs = {b.emit_regular for b in batches}
+    common = regs.pop() if len(regs) == 1 and all(len(g) == R for g in groups) else None
+    return ShardedStreamBatch(q, stream, emit_stream, emit_step, ids, cells, segments,
+                              emit_regular=common)
+
+
+def scatter_sharded_scores(
+    shard_scores, batch: ShardedStreamBatch, n_reads: int
+) -> np.ndarray:
+    """[D, R] per-shard scores (an array or a tensor) -> [n_reads]
+    read-order scores."""
+    if isinstance(shard_scores, torch.Tensor):
+        shard_scores = shard_scores.cpu().numpy()
+    out = np.zeros(n_reads, np.int32)
+    live = batch.ids >= 0
+    out[batch.ids[live]] = np.asarray(shard_scores)[live]
+    return out

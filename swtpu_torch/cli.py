@@ -2,10 +2,11 @@
 
     python -m swtpu_torch.cli [--device cuda|cpu] score -q query.fa \\
         -l library.fa [-o out.txt] [--topk K] [--events log.jsonl] \\
-        [--backend auto|stream|pallas] [--score-width W] [--buckets 32,128,...] \\
+        [--backend auto|stream|pallas|scan] [--score-width W] [--buckets 32,128,...] \\
         [--all-queries] [--resume job.npz] [--profile DIR] [-t SECONDS]
     python -m swtpu_torch.cli [--device cuda|cpu] serve -l library.fa \\
-        [--input commands.txt | --socket PATH | --port N] [--max-query-len 512]
+        [--input commands.txt | --socket PATH | --port N] [--max-query-len 512] \\
+        [--sharded]
     python -m swtpu_torch.cli oracle -q query.fa -l library.fa [-o out.txt]
     python -m swtpu_torch.cli generate -n 100 -L 128 -o data.fa [--seed 0]
     python -m swtpu_torch.cli diff a.txt b.txt
@@ -17,10 +18,11 @@ the job's progress after every unit and, rerun, scores only what is left
 (``swtpu_torch.bank.resume``); `--profile` writes a ``torch.profiler``
 Chrome trace.  `serve` loads the library once and answers SEQ / TOP / QUIT
 lines from stdin, a file or concurrent socket clients
-(``swtpu_torch.server``).  `oracle` scores with the exact numpy oracle,
-`generate` writes a random FASTA, `diff` compares two score files by read
-name and `events` summarises an event log; none of these four needs a
-card, and each writes what swtpu's does.
+(``swtpu_torch.server``); with `--sharded` the library is spread over
+every visible GPU (``swtpu_torch.bank.serving``).  `oracle` scores with
+the exact numpy oracle, `generate` writes a random FASTA, `diff` compares
+two score files by read name and `events` summarises an event log; none of
+these four needs a card, and each writes what swtpu's does.
 
 Output lines are swtpu's (``@<time>ns: >dbK score: S``, the reference RTL
 testbench's golden format), so `diff` compares the two packages' outputs
@@ -82,14 +84,6 @@ def _emit(out, names, scores, t_start):
     for name, s in zip(names, scores):
         ns = int((time.perf_counter() - t_start) * 1e9)
         out.write(format_score_line(name, s, ns) + "\n")
-
-
-def _refuse_scan(backend: str) -> None:
-    if backend == "scan":
-        raise SystemExit(
-            "--backend scan is not ported yet (ROADMAP item 10: scan "
-            "backend); use --backend stream or pallas"
-        )
 
 
 def _score_all_queries(args, bank, names, targets, pairs, event_log=None) -> int:
@@ -160,7 +154,6 @@ def cmd_score(args) -> int:
             f"--score-width requires the stream or column kernel: use "
             f"--backend stream/pallas (or auto), not {args.backend!r}"
         )
-    _refuse_scan(args.backend)
     if args.all_queries and (args.resume or args.timeout):
         raise SystemExit(
             "--all-queries does not compose with --resume/--timeout "
@@ -273,12 +266,6 @@ def cmd_serve(args) -> int:
     from swtpu_torch.io.loader import load_encoded
     from swtpu_torch.server import ServeEngine, serve_socket
 
-    _refuse_scan(args.backend)
-    if args.sharded:
-        raise SystemExit(
-            "--sharded is not ported yet (ROADMAP item 12: multiple GPUs); "
-            "serve without it holds the library on one device"
-        )
     if args.socket and args.port is not None:
         raise SystemExit("--socket and --port are mutually exclusive")
     pen = Penalties(args.match, args.mismatch, args.gap_open, args.gap_extend)
@@ -290,11 +277,23 @@ def cmd_serve(args) -> int:
 
         event_log = EventLog(args.events)
     db = None
-    if bank.backend == "stream":
+    if bank.backend == "stream" and args.sharded:
+        # mesh-resident serving: every visible GPU holds its shard (on
+        # another device, a mesh of that one device)
+        from swtpu_torch.parallel.mesh import make_mesh
+
+        t0 = time.perf_counter()
+        mesh = make_mesh() if bank.device.type == "cuda" else make_mesh(devices=[bank.device])
+        db = bank.load_database_sharded(targets, mesh, max_query_len=args.max_query_len)
+        print(f"# loaded {db.n_reads} reads across {db.n_shards} device shards in "
+              f"{time.perf_counter()-t0:.2f}s (mesh-resident)", file=sys.stderr)
+    elif bank.backend == "stream":
         t0 = time.perf_counter()
         db = bank.load_database(targets, max_query_len=args.max_query_len)
         print(f"# loaded {len(targets)} reads in {time.perf_counter()-t0:.2f}s "
               f"(resident on {bank.device})", file=sys.stderr)
+    elif args.sharded:
+        raise SystemExit("--sharded requires the stream backend")
     else:
         print(f"# serving {len(targets)} reads ({bank.backend})", file=sys.stderr)
     engine = ServeEngine(bank, names, targets, db=db, event_log=event_log)
@@ -419,8 +418,8 @@ def _add_pen_args(p):
 
 
 BACKEND_HELP = ("stream: the streamed wavefront; pallas: the bucketed column "
-                "kernels; auto: stream, or pallas with --score-width (scan is "
-                "not ported)")
+                "kernels; scan: the bucketed batches through the column scan "
+                "(torch ops); auto: stream, or pallas with --score-width")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -500,8 +499,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     pv.add_argument("--events", help="write per-query JSONL event log here")
     pv.add_argument(
         "--sharded", action="store_true",
-        help="hold the library across all visible devices (not ported yet: "
-        "ROADMAP item 12)",
+        help="hold the library resident across all visible GPUs (mesh-sharded "
+        "serving; queries broadcast, top-K merges across the shards)",
     )
     pv.add_argument(
         "--socket", help="serve concurrent clients on this UNIX socket "

@@ -43,10 +43,13 @@ class ServeEngine:
     dispatch lock.
 
     db: a :class:`swtpu_torch.bank.scorebank.LoadedDatabase` on the stream
-    backend; None scores each request with one ``score_database`` call
-    under the lock (the bucketed backend's route)."""
+    backend, or a :class:`swtpu_torch.bank.serving.ShardedLoadedDatabase`
+    (mesh-resident); None scores each request with one ``score_database``
+    call under the lock (the bucketed backends' route)."""
 
     def __init__(self, bank, names, targets, db=None, event_log=None):
+        from swtpu_torch.bank.serving import ShardedLoadedDatabase
+
         self.bank = bank
         self.names = names
         self.targets = targets
@@ -59,6 +62,19 @@ class ServeEngine:
             self._topk_dispatch = lambda q, k: bank.score_database(
                 q, targets, event_log=event_log).top_k(k)
             self._topk_finish = lambda devs: devs
+        elif isinstance(db, ShardedLoadedDatabase):
+            from swtpu_torch.bank.serving import (
+                dispatch_loaded_sharded, finish_loaded_sharded, finish_topk_loaded_sharded,
+            )
+
+            self._score_dispatch = lambda q: dispatch_loaded_sharded(q, db)
+            self._score_finish = lambda q, dev, t0: finish_loaded_sharded(
+                bank, q, db, dev, t0, event_log=event_log)
+            self._topk_dispatch = lambda q, k: (
+                time.perf_counter(), q,
+                dispatch_loaded_sharded(q, db, k=min(k, db.n_reads) or 1, full_scores=False))
+            self._topk_finish = lambda st: finish_topk_loaded_sharded(
+                st[1], db, st[2], st[0], event_log=event_log)
         else:
             self._score_dispatch = lambda q: bank._dispatch_loaded(q, db)
             self._score_finish = lambda q, dev, t0: bank._finish_loaded(

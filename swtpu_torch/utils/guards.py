@@ -3,7 +3,8 @@
 The port of the stream-path and bucketed-path checks of
 ``swtpu.utils.guards`` (which imports ``swtpu.ops`` and so JAX):
 structural validation of every packed batch before dispatch and of the
-scores after — the analog of the reference's bus parity checks.
+scores after — the analog of the reference's bus parity checks — and
+``checksum``, the cross-process results' crc32.
 """
 
 from __future__ import annotations
@@ -110,3 +111,11 @@ def check_stream_batch(batch) -> None:
         raise IntegrityError(
             f"emit_step[{i}] = {int(ep[i])} outside [-1, {T})"
         )
+
+
+def checksum(arr: np.ndarray) -> int:
+    """Order-sensitive checksum for cross-process result cross-checks:
+    crc32 of the array's contiguous bytes, masked to 32 bits (swtpu's)."""
+    import zlib
+
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF

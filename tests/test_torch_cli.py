@@ -130,7 +130,7 @@ def test_stream_score_width_lines_equal_swtpu_cli(tmp_path, qlen):
 @pytest.mark.parametrize(
     "flags,match",
     [
-        (["--backend", "scan"], "ROADMAP item 10"),
+        (["--backend", "scan", "--buckets", "32,64"], "exceeds bucket capacity 64"),
         (["--backend", "scan", "--score-width", "12"], "requires the stream or column"),
         (["--backend", "stream", "--score-width", "40"], "out of range \\(need 2..30\\)"),
         (["--backend", "pallas", "--buckets", "32,64"], "exceeds bucket capacity 64"),
@@ -186,6 +186,17 @@ def test_port_never_imports_jax(tmp_path):
         bank = swtpu_torch.ScoreBank(swtpu_torch.SWConfig(stream_chunk_reads=2), device="cpu")
         res = bank.score_database(query, reads)
         assert (res.scores == swtpu_torch.score_many_vs_one(query, reads)).all()
+        from swtpu_torch.parallel.mesh import make_mesh
+        from swtpu_torch.parallel.multihost import score_database_multihost
+        import swtpu_torch.testing.regress, swtpu_torch.testing.worker
+        mesh = make_mesh(devices=["cpu"] * 2)
+        res = swtpu_torch.ScoreBank(backend="scan", device="cpu").score_database(query, reads)
+        assert (res.scores == swtpu_torch.score_many_vs_one(query, reads)).all()
+        sdb = bank.load_database_sharded(reads, mesh)
+        assert bank.topk_loaded_sharded(query, sdb, k=3) == res.top_k(3)
+        _, _, local = score_database_multihost(query, reads, np.arange(4, dtype=np.int32),
+                                               mesh=mesh, k=2)
+        assert (local == res.scores).all()
         heavy = [m for m in sys.modules
                  if m in ("jax", "swtpu") or m.startswith(("jax.", "swtpu."))]
         print("HEAVY", heavy)

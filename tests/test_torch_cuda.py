@@ -1299,3 +1299,111 @@ def test_resume_and_faults_on_the_card(cuda_device, tmp_path, monkeypatch):
         seed=7, reorder_percent=100, drop_percent=40, delay_ms_max=1))
     np.testing.assert_array_equal(scores, want)
     assert inj.injected_drops > 0  # 3 here: the delays' draws shift the drops
+
+
+# ------------------------------------------------- a mesh of 4 shards on one card
+
+
+@pytest.fixture
+def cuda_mesh(cuda_device):
+    """Four shards on the first card (the counterpart of swtpu's virtual
+    devices on a machine with one GPU)."""
+    from swtpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[torch.device("cuda:0")] * 4)
+
+
+@pytest.mark.parametrize("backend,m", [("pallas", 128), ("pallas", 300), ("scan", 40)])
+def test_sharded_topk_on_the_card(cuda_mesh, backend, m):
+    """make_sharded_topk with the column kernels (B4; B5 tiles at 300 bases)
+    and the scan, one call a shard: the plain versions' scores and the
+    host's top-k order."""
+    from swtpu_torch.bank.scorebank import ScoreResult
+    from swtpu_torch.ops.common import sentinel_pad_batch
+    from swtpu_torch.ops.scan import sw_scores_scan
+    from swtpu_torch.parallel.sharded import make_sharded_topk
+
+    rng = np.random.default_rng(m)
+    B, n = 64, 96
+    q = rng.integers(0, 4, size=(B, m)).astype(np.int8)
+    t = rng.integers(0, 4, size=(B, n)).astype(np.int8)
+    t[7] = t[3]  # a tie
+    qp, tp = sentinel_pad_batch(q, rng.integers(1, m + 1, size=B), t,
+                                rng.integers(1, n + 1, size=B))
+    ids = np.arange(B, dtype=np.int32)
+    before = (column.column_scores_cuda.launches, column.column_chained_cuda.launches)
+    top_s, top_ids, scores = make_sharded_topk(cuda_mesh, k=6, backend=backend)(qp, tp, ids)
+    launched = (column.column_scores_cuda.launches - before[0],
+                column.column_chained_cuda.launches - before[1])
+    want = (sw_scores_scan(qp, tp) if backend == "scan"
+            else column.sw_scores_column(torch.from_numpy(qp), torch.from_numpy(tp))).numpy()
+    assert scores.device.type == "cuda"
+    np.testing.assert_array_equal(scores.cpu().numpy(), want)
+    assert list(zip(top_s.tolist(), top_ids.tolist())) == ScoreResult(want, 0, 0, 1).top_k(6)
+    assert launched == {"scan": (0, 0), "pallas": (4, 0) if m <= 256 else (0, 8)}[backend]
+
+
+@pytest.mark.parametrize("qlen", [100, 256])
+def test_sharded_stream_scorer_on_the_card(cuda_mesh, qlen):
+    """make_sharded_stream_scorer over 4 shards of one card: one B1 a shard
+    (2 B3 tiles a shard at 256 bases), the one-device scores and top-k."""
+    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.bank.streams import pack_streams_sharded, scatter_sharded_scores
+    from swtpu_torch.parallel.sharded import make_sharded_stream_scorer
+
+    rng = np.random.default_rng(qlen)
+    db = _db(rng, 3000, 200)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    segments, rows, phys = stream_geometry(qlen, SWConfig(), "cuda")
+    b = pack_streams_sharded(query, db, 4, n_streams=phys * segments, segments=segments,
+                             rows=rows)
+    launches = (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches)
+    s, top_s, top_ids = make_sharded_stream_scorer(
+        cuda_mesh, k=10, segments=segments, rows=rows, emit_regular=b.emit_regular)(
+        b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32), b.ids)
+    launched = (port.stream_strip_cuda.launches - launches[0],
+                port.stream_chained_cuda.launches - launches[1])
+    assert launched == ((4, 0) if qlen <= 128 else (0, 8))
+    got = scatter_sharded_scores(s, b, len(db.lens))
+    one = ScoreBank(device="cuda").score_database(query, db)
+    np.testing.assert_array_equal(got, one.scores)
+    assert list(zip(top_s.tolist(), top_ids.tolist())) == one.top_k(10)
+
+
+def test_loaded_sharded_on_the_card(cuda_mesh):
+    """load_database_sharded on 4 shards of one card: each shard's stream
+    resident and uncopied, the one-device resident answers for queries of
+    one and of two tiles, score_loaded_many_sharded, topk_loaded_sharded
+    with ties, and ServeEngine's sharded branch."""
+    from swtpu_torch.io.encode import decode_seq
+    from swtpu_torch.server import ServeEngine
+
+    rng = np.random.default_rng(12)
+    db = _db(rng, 5000, 200)
+    query = rng.integers(0, 4, size=100).astype(np.int8)
+    db.mat[::500] = 4
+    db.mat[::500, :100] = query
+    db.lens[::500] = 100
+    bank = ScoreBank(device="cuda")
+    one = bank.load_database(db, max_query_len=256)
+    sharded = bank.load_database_sharded(db, cuda_mesh, max_query_len=256)
+    assert sharded.n_shards == 4 and all(s.is_cuda and s.is_contiguous()
+                                         for s in sharded.streams)
+    queries = [query, rng.integers(0, 4, size=200).astype(np.int8)]
+    launches = (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches)
+    many = bank.score_loaded_many_sharded(queries, sharded)
+    assert (port.stream_strip_cuda.launches - launches[0],
+            port.stream_chained_cuda.launches - launches[1]) == (4, 8)
+    for q, r in zip(queries, many):
+        want = bank.score_loaded(q, one)
+        np.testing.assert_array_equal(r.scores, want.scores)
+        np.testing.assert_array_equal(bank.score_loaded_sharded(q, sharded).scores,
+                                      want.scores)
+        assert bank.topk_loaded_sharded(q, sharded, k=10) == bank.topk_loaded(q, one, k=10)
+    top = bank.topk_loaded_sharded(query, sharded, k=10)
+    assert top == [(500, i) for i in range(0, 5000, 500)]
+    engine = ServeEngine(bank, db.names, db, db=sharded)
+    seq = decode_seq(query)
+    assert engine.handle(f"TOP 3 {seq}") == [f"# top: >db{i} score: 500"
+                                             for i in (0, 500, 1000)]
+    assert sharded.order_dev.device.type == "cuda"

@@ -126,15 +126,22 @@ def test_event_log_record(tmp_path):
     assert ev.note.startswith("streams=8 T=")
 
 
-@pytest.mark.parametrize(
-    "make,match",
-    [
-        (lambda: ScoreBank(backend="scan", device="cpu"), "scan"),
-    ],
-)
-def test_unported_settings_raise(make, match):
-    with pytest.raises(NotImplementedError, match=match):
-        make()
+@pytest.mark.parametrize("qlen", [20, 140])
+def test_scan_backend_equals_the_stream_backend_and_swtpu(qlen):
+    """backend="scan" (the bucketed batches through the column scan) on
+    the CPU: the stream backend's scores on the same reads, and swtpu's
+    scan bank's, at a one-tile and a longer query."""
+    rng = np.random.default_rng(qlen)
+    db = _db(rng, 25)
+    query = rng.integers(0, 4, size=qlen).astype(np.int8)
+    got = ScoreBank(backend="scan", device="cpu").score_database(query, db)
+    np.testing.assert_array_equal(
+        got.scores, ScoreBank(backend="stream", device="cpu").score_database(query, db).scores)
+    want = RefBank(backend="scan").score_database(query, RefEncodedDB(db.names, db.mat, db.lens))
+    np.testing.assert_array_equal(got.scores, want.scores)
+    assert (got.cells, got.padded_cells) == (want.cells, want.padded_cells)
+    with pytest.raises(ValueError, match="unknown backend 'lane'"):
+        ScoreBank(backend="lane", device="cpu")
 
 
 # the wavefront's 16-bit states on the stream backend, each at penalties it

@@ -275,6 +275,38 @@ def test_cli_serve_input_lines_equal_swtpu(tmp_path, capsys):
     assert [e.kind for e in EventLog.parse(events)] == ["loaded", "loaded_topk", "loaded"]
 
 
+def test_cli_serve_sharded_lines_equal_serve_and_swtpu(tmp_path, capsys):
+    """`serve --sharded` (the library on a mesh; on the CPU a mesh of the
+    one device): the unsharded serve's lines, up to a 300-base query on
+    chained tiles, and swtpu's `serve --sharded` lines (its stream backend
+    in interpret mode over its 8 virtual devices), the ns field aside."""
+    rng = np.random.default_rng(70)
+    lib = tmp_path / "lib.fa"
+    short, long_ = _fasta(lib, rng, (40, 300))
+    cmds = tmp_path / "cmds.txt"
+    cmds.write_text(f"SEQ {short}\nTOP 3 {short}\nSEQ {long_}\nHUH\nQUIT\n")
+    events = tmp_path / "events.jsonl"
+    base = ["--device", "cpu", "serve", "-l", str(lib), "--input", str(cmds)]
+    assert main([*base, "--sharded", "--events", str(events)]) == 0
+    got = capsys.readouterr()
+    assert "across 1 device shards" in got.err and "# served 3 queries" in got.err
+    assert main(base) == 0
+    lines = got.out.splitlines()
+    assert len(lines) == 20 + 3 + 20 + 1
+    assert _no_ns(lines) == _no_ns(capsys.readouterr().out.splitlines())
+    assert lines[20] == "# top: >db7 score: 200"
+    assert [e.kind for e in EventLog.parse(events)] == [
+        "loaded_sharded", "loaded_sharded_topk", "loaded_sharded"]
+    short_cmds = tmp_path / "short.txt"
+    short_cmds.write_text(f"SEQ {short}\nTOP 3 {short}\nQUIT\n")
+    flags = ["serve", "-l", str(lib), "--input", str(short_cmds), "--sharded",
+             "--max-query-len", "128", "--backend", "stream"]
+    assert main(["--device", "cpu", *flags]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert ref_main(["--platform", "cpu", *flags]) == 0
+    assert len(got) == 23 and _no_ns(got) == _no_ns(capsys.readouterr().out.splitlines())
+
+
 @pytest.mark.parametrize("backend", ["stream", "pallas"])
 def test_cli_score_all_queries_lines_equal_swtpu(tmp_path, capsys, backend):
     """`score --all-queries` on the port, a resident database in waves on
@@ -307,9 +339,9 @@ def test_cli_score_all_queries_lines_equal_swtpu(tmp_path, capsys, backend):
 @pytest.mark.parametrize(
     "argv,match",
     [
-        (["serve", "--sharded"], "ROADMAP item 12"),
+        (["serve", "--sharded", "--backend", "pallas"], "--sharded requires the stream backend"),
         (["serve", "--socket", "x.sock", "--port", "0"], "mutually exclusive"),
-        (["serve", "--backend", "scan"], "ROADMAP item 10"),
+        (["serve", "--sharded", "--backend", "scan"], "--sharded requires the stream backend"),
         (["score", "--all-queries", "-t", "5"], "does not compose with --resume/--timeout"),
     ],
 )
