@@ -116,7 +116,16 @@ Phases, each reported on its own line; any failure exits non-zero:
      processes on cuda:0 joined over gloo, plain, with a worker killed and
      with a lying worker, every score = (c)'s, each worker's B1 launches
      > 0, no process left; and the CLI's serve --sharded, its lines =
-     serve's.  Walls (warm, median of 3) beside the one-device ones;
+     serve's.  Walls (warm, median of 3) beside the one-device ones.
+     Then the regression suites (phase "regress"): suites/default.json
+     through run_suite on cuda and on cpu, the two outcome lists equal and
+     each outcome passed or one of swtpu's skips (the stream corruptions
+     caught on the card's wire path); suites/multihost.json through
+     main_cli on cuda (each worker's B1 launches kept: "regress
+     (workers)") and through `python -m swtpu_torch.cli regress` in a
+     process of its own on the card, waited for or killed: 6 PASS lines,
+     bad_shards=[1], both shards resumed, exit code 0, no process left;
+     each suite's wall beside the card's name and power limit;
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
      must be bit-equal (the plain version takes about two minutes on case
@@ -2381,6 +2390,147 @@ def phase_sharded(card, main_cases, long_cases, serving, seed):
     return out
 
 
+# the config-driven regression suites (phase "regress"): their files, the
+# names swtpu reports SKIP when a suite turns multihost off, and the CLI
+# subprocess's time limit
+REGRESS_DEFAULT = "suites/default.json"
+REGRESS_MULTIHOST = "suites/multihost.json"
+REGRESS_SKIPS = ("multihost", "lying_device", "resume_cursor")
+REGRESS_TIMEOUT_S = 300
+
+
+def no_seconds(lines):
+    """A suite report's lines without the summary's seconds."""
+    import re
+
+    return [re.sub(r"in \d+\.\ds$", "in s", line) for line in lines]
+
+
+def phase_regress(card):
+    """swtpu_torch.testing.suite through the user's entry points:
+    suites/default.json in this process on cuda, then on cpu (the two
+    outcome lists equal, each one passed or one of swtpu's skips, the
+    stream corruptions caught on the card's wire path); then
+    suites/multihost.json through main_cli on cuda with run_multihost
+    wrapped to keep each worker's launch counts, and through `python -m
+    swtpu_torch.cli regress` as a subprocess on the card in a session of
+    its own, waited for or killed at REGRESS_TIMEOUT_S: 6 PASS lines, the
+    lying worker's shard 1, both shards resumed, exit code 0, the same
+    lines as main_cli's, and no process of its session left.  The workers'
+    B1 launches are the path "regress (workers)"."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import signal
+    import sys
+    from unittest import mock
+
+    import numpy as np
+    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.testing import regress as regress_mod
+    from swtpu_torch.testing.suite import main_cli, run_suite
+
+    t_phase = time.perf_counter()
+    out = dict(walls_s={})
+
+    # the default suite on the card and on the CPU
+    stream_strip_cuda.launches = stream_chained_cuda.launches = 0
+    rows = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        outcomes = run_suite(REPO / REGRESS_DEFAULT, device=device)
+        out["walls_s"][f"default {device}"] = time.perf_counter() - t0
+        rows[device] = [dataclasses.asdict(o) for o in outcomes]
+        bad = [o for o in outcomes
+               if not (o.passed and (not o.skipped or o.name in REGRESS_SKIPS))]
+        if bad:
+            fail(f"regress: {REGRESS_DEFAULT} on {device}: {bad}")
+    in_process = [stream_strip_cuda.launches, stream_chained_cuda.launches]
+    if rows["cuda"] != rows["cpu"]:
+        fail(f"regress: {REGRESS_DEFAULT} on cuda {rows['cuda']}, on cpu {rows['cpu']}")
+    stream = [r["detail"] for r in rows["cuda"] if r["name"] == "corruption_inject_stream"]
+    if stream != ["stream codes: caught; stream scores: caught"] * 2:
+        fail(f"regress: corruption_inject_stream on cuda: {stream}")
+    print(f"phase regress: ok {REGRESS_DEFAULT}: {len(rows['cuda'])} outcomes on cuda = "
+          f"cpu's ({sum(r['skipped'] for r in rows['cuda'])} skipped), corruption_inject_"
+          f"stream caught on both datasets | wall cuda {out['walls_s']['default cuda']:.2f} "
+          f"s, cpu {out['walls_s']['default cpu']:.2f} s on {card}", flush=True)
+
+    # the multihost suite in this process, each run_multihost's workers' launches kept
+    real_run = regress_mod.run_multihost
+    runs = []
+
+    def recording(*a, **kw):
+        res = real_run(*a, **kw)
+        runs.append(dict(mode=kw.get("mode", "pairs"), resumed=res.resumed_shards,
+                         workers={pid: [int(d["launches_wavefront"]),
+                                        int(d["launches_chained"])]
+                                  for pid, d in res.worker_outputs.items()}))
+        return res
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(regress_mod, "run_multihost", recording), \
+            contextlib.redirect_stdout(buf):
+        rc = main_cli(str(REPO / REGRESS_MULTIHOST), "cuda")
+    out["walls_s"]["multihost cuda"] = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    left = live_children()
+    if rc or left:
+        fail(f"regress: main_cli({REGRESS_MULTIHOST}) exited {rc}, processes left {left}: "
+             f"{lines}")
+    workers = np.sum([w for r in runs for w in r["workers"].values()], axis=0)
+    first_db = next((r for r in runs if r["mode"] == "database"), None)
+    if first_db is None or sorted(first_db["workers"]) != [0, 1] or any(
+            w[0] <= 0 for w in first_db["workers"].values()):
+        fail(f"regress: the database-mode workers' (wavefront, chained) launches {runs}")
+    print(f"phase regress: ok {REGRESS_MULTIHOST} through main_cli on cuda: "
+          f"{len(runs)} run_multihost calls, workers' launches "
+          f"{[r['workers'] for r in runs]} | wall {out['walls_s']['multihost cuda']:.2f} s "
+          f"on {card}", flush=True)
+
+    # the same suite through the CLI, a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "swtpu_torch.cli", "regress", "--suite", REGRESS_MULTIHOST],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+    try:
+        cli_out, cli_err = proc.communicate(timeout=REGRESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"regress: the CLI ran past {REGRESS_TIMEOUT_S} s and was killed")
+    out["walls_s"]["multihost cli"] = time.perf_counter() - t0
+    try:  # a process of the CLI's session (a worker) that outlived it
+        os.killpg(proc.pid, 0)
+        os.killpg(proc.pid, signal.SIGKILL)
+        fail("regress: a process of the CLI's session outlived it")
+    except ProcessLookupError:
+        pass
+    cli_lines = cli_out.splitlines()
+    passes = [l for l in cli_lines if l.startswith("PASS ")]
+    if (proc.returncode or len(passes) != 6
+            or "PASS ds-1 lying_device  (bad_shards=[1])" not in cli_lines
+            or "PASS ds-1 resume_cursor  (rerun resumed shards [0, 1])" not in cli_lines
+            or no_seconds(cli_lines) != no_seconds(lines) or live_children()):
+        fail(f"regress: the CLI exited {proc.returncode}: {cli_lines} (main_cli's "
+             f"{lines}); stderr {cli_err[-2000:]}")
+    print(f"phase regress: ok python -m swtpu_torch.cli regress --suite {REGRESS_MULTIHOST}"
+          f": {len(passes)} PASS, exit 0, lines = main_cli's, no process left | wall "
+          f"{out['walls_s']['multihost cli']:.2f} s on {card}", flush=True)
+    out.update(default=rows["cuda"], multihost_lines=cli_lines, runs=runs,
+               in_process_launches=in_process,
+               launches={"regress (workers)": [int(x) for x in workers]})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase regress: ok in {out['seconds']:.1f} s (in-process launches wavefront="
+          f"{in_process[0]} chained={in_process[1]}; workers' {workers.tolist()})",
+          flush=True)
+    return out
+
+
 COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
 # the bucketed column path's cases beside (g), which reuses case (e):
 # (name, reads or pairs, length range, query length or score width)
@@ -3055,6 +3205,7 @@ def main() -> int:
     jobs = phase_jobs(card, cases, col_cases[0])
     faults_launches = jobs["launches"].pop("f jobs faults")
     sharded = phase_sharded(card, cases, long_cases, serving, args.seed)
+    regress = phase_regress(card)
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
@@ -3196,7 +3347,7 @@ def main() -> int:
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
                **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving},
-               **jobs["launches"], **sharded["launches"]}
+               **jobs["launches"], **sharded["launches"], **regress["launches"]}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -3293,7 +3444,7 @@ def main() -> int:
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
     ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16, "serving": serving,
-        "jobs": jobs, "sharded": sharded,
+        "jobs": jobs, "sharded": sharded, "regress": regress,
         "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

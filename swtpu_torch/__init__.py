@@ -14,7 +14,8 @@ on the CPU; resident serving (``load_database`` once, then
 the serving daemon; resumable jobs, seeded fault injection and the CLI;
 the scan backend; scoring across devices (a mesh of shards, sharded
 scorers with the merged top-K, mesh-resident serving) and processes
-(``torch.distributed``, the localhost worker harness); and the kernel
+(``torch.distributed``, the localhost worker harness); the
+config-driven regression suites (``regress``); and the kernel
 shootout's lane-major column kernel and the two microbenchmarks' kernels.
 Imports torch and never JAX, and nothing of ``swtpu``: the
 configuration, the oracle, FASTA loading, the native packer, the event log
@@ -56,11 +57,14 @@ Layer map (swtpu module -> port):
   swtpu.testing.worker, regress (its multi-process half)
                          -> swtpu_torch.testing.worker, .regress
                                                        (the localhost harness)
+  swtpu.testing.suite    -> swtpu_torch.testing.suite  (config-driven regression
+                                                        suites: run_suite, main_cli)
   swtpu.testing.goldens  -> swtpu_torch.testing.goldens (golden-file parsers; a copy)
   swtpu.server           -> swtpu_torch.server         (ServeEngine, serve_socket,
                                                         format_score_line)
   swtpu.cli              -> swtpu_torch.cli            (score, serve [--sharded],
-                                                        oracle, generate, diff, events)
+                                                        oracle, generate, diff, events,
+                                                        regress)
 """
 
 from swtpu_torch.bank import ScoreBank, ScoreResult

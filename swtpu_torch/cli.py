@@ -11,6 +11,7 @@
     python -m swtpu_torch.cli generate -n 100 -L 128 -o data.fa [--seed 0]
     python -m swtpu_torch.cli diff a.txt b.txt
     python -m swtpu_torch.cli events log.jsonl
+    python -m swtpu_torch.cli [--device cuda|cpu] regress [--suite suites/default.json]
 
 `score --all-queries` scores every record of the query file; on the stream
 backend the library loads onto the device once.  `score --resume` saves
@@ -22,7 +23,9 @@ lines from stdin, a file or concurrent socket clients
 every visible GPU (``swtpu_torch.bank.serving``).  `oracle` scores with
 the exact numpy oracle, `generate` writes a random FASTA, `diff` compares
 two score files by read name and `events` summarises an event log; none of
-these four needs a card, and each writes what swtpu's does.
+these four needs a card, and each writes what swtpu's does.  `regress`
+runs a config-driven regression suite (``swtpu_torch.testing.suite``) and
+prints swtpu's PASS / FAIL / SKIP lines.
 
 Output lines are swtpu's (``@<time>ns: >dbK score: S``, the reference RTL
 testbench's golden format), so `diff` compares the two packages' outputs
@@ -410,6 +413,20 @@ def cmd_events(args) -> int:
     return 0
 
 
+def cmd_regress(args) -> int:
+    """Run a regression suite on --device; exit 1 on any failure."""
+    import torch
+
+    from swtpu_torch.testing.suite import main_cli
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"regress --device {args.device}: no CUDA device is available "
+            "(pass --device cpu to run the suite on the CPU)"
+        )
+    return main_cli(args.suite, args.device)
+
+
 def _add_pen_args(p):
     p.add_argument("--match", type=int, default=5)
     p.add_argument("--mismatch", type=int, default=-4)
@@ -521,6 +538,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     pe = sub.add_parser("events", help="pretty-print a JSONL event log")
     pe.add_argument("log")
     pe.set_defaults(fn=cmd_events)
+
+    pr = sub.add_parser("regress", help="run a config-driven regression suite")
+    pr.add_argument("--suite", help="JSON suite file (defaults built in)")
+    pr.set_defaults(fn=cmd_regress)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -352,3 +352,26 @@ def test_score_profile_writes_a_trace(tmp_path, capsys):
                  str(tmp_path / "out.txt"), "--profile", str(prof)]) == 0
     (trace,) = prof.glob("*.pt.trace.json")
     assert "traceEvents" in json.loads(trace.read_text())
+
+
+def test_regress_lines_equal_swtpu_cli(capsys):
+    """regress --suite suites/default.json on the CPU prints swtpu's lines
+    (the seconds aside) and exits as swtpu's does."""
+    suite = str(REPO / "suites" / "default.json")
+    rc = main(["--device", "cpu", "regress", "--suite", suite])
+    got = capsys.readouterr().out.splitlines()
+    ref_rc = ref_main(["--platform", "cpu", "regress", "--suite", suite])
+    want = capsys.readouterr().out.splitlines()
+    seconds = re.compile(r"in \d+\.\ds$")
+    assert [seconds.sub("in s", l) for l in got] == [seconds.sub("in s", l) for l in want]
+    assert rc == ref_rc == 0
+    assert got[-1].startswith("# 12/12 passed, 2 skipped in ")
+
+
+def test_regress_without_a_card_names_the_cpu_flag():
+    """The default device is the card: without one, regress exits at once
+    and names --device cpu; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: regress runs on it")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(["regress", "--suite", str(REPO / "suites" / "default.json")])

@@ -1407,3 +1407,23 @@ def test_loaded_sharded_on_the_card(cuda_mesh):
     assert engine.handle(f"TOP 3 {seq}") == [f"# top: >db{i} score: 500"
                                              for i in (0, 500, 1000)]
     assert sharded.order_dev.device.type == "cuda"
+
+
+def test_default_suite_on_the_card(cuda_device):
+    """swtpu_torch.testing.suite on the card: suites/default.json's
+    outcomes equal the CPU's field for field, and every one passes or is
+    one of swtpu's skips; the stream corruptions are caught on the wire
+    path the card takes."""
+    import dataclasses
+    from pathlib import Path
+
+    from swtpu_torch.testing.suite import run_suite
+
+    path = Path(__file__).resolve().parent.parent / "suites" / "default.json"
+    got = run_suite(path)
+    assert ([dataclasses.asdict(o) for o in got]
+            == [dataclasses.asdict(o) for o in run_suite(path, device="cpu")])
+    assert all(o.passed for o in got)
+    assert [o.name for o in got if o.skipped] == ["multihost", "lying_device"]
+    assert [o.detail for o in got if o.name == "corruption_inject_stream"] == [
+        "stream codes: caught; stream scores: caught"] * 2
