@@ -125,12 +125,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      (workers)") and through `python -m swtpu_torch.cli regress` in a
      process of its own on the card, waited for or killed: 6 PASS lines,
      bad_shards=[1], both shards resumed, exit code 0, no process left;
-     each suite's wall beside the card's name and power limit;
+     each suite's wall beside the card's name and power limit.
+     Then swtpu's bench on the card (phase "bench"): `python -m
+     swtpu_torch.cli bench` in a session of its own (exit code 0, the last
+     stdout line swtpu's four keys with its metric and a value > 0, the
+     stages on stderr, no process left); every stage of swtpu_torch.bench
+     but `cpu` in this process, each launch's window = the oracle (the
+     path "bench" of B1 and B4); `python -m swtpu_torch.bench_scaling` and
+     its `--multihost` (1, 2 and 4 gloo workers on the card), their lines
+     counted, no process left; and, once phase 5 has timed B1 in float32 at
+     (a), the headline (the stage's and the CLI's) within 10 % of (a)'s
+     cells over that time;
   5. kernel vs plain at the main path's shapes: each short case's batch,
      at the geometry ScoreBank chose for it, through both; the full strips
-     must be bit-equal (the plain version takes about two minutes on case
-     (a)); the wavefront runs in the time slices its wrapper chooses, and
-     is timed in one slice too.  Each long case's chain runs through the
+     must be bit-equal, but case (a)'s on its first 4096 steps, as the
+     full run's and as a run of the cut in 8 slices (its plain strip in
+     full took 163-200 s); the wavefront runs in the time slices its
+     wrapper chooses, and is timed in one slice too.  Each long case's chain runs through the
      kernel at full length; every tile must equal, in full, the same
      kernel in one slice, and is held against the plain version on the
      first 4096 steps, both as the full run's first steps and as a run of
@@ -173,6 +184,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -182,6 +194,10 @@ REPO = Path(__file__).resolve().parent
 TOLERANCE = 0  # integer strips and scores: bit-equal
 CHECK_STEPS = 4096  # steps of each long-case tile held against the plain version
 CUT_SLICES = 8  # slices of the CHECK_STEPS cut's own run: 7 boundaries inside it
+# main-path cases whose B1 strip phase 5 holds against the plain version
+# on its first CHECK_STEPS steps, not in full: (a)'s plain strip alone took
+# 163-200 s of the script's 1,200
+CUT_MAIN = ("a_equal128_q128",)
 STRIPS = ("acc", "oD", "oG", "oH")  # a chained tile's outputs
 
 
@@ -193,7 +209,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 WAVEFRONT_OPS = 8  # s: compare + select; max(diag + s, 0); I: max, + extend; H: max; D: max; G: max(M + open, I)
 COLUMN_OPS = 9  # diag: max; s: 2; max(diag + s, 0); I: 2 max, + extend, add-max; H: max
 # The integer types fuse an add and the max after it (DPX: VIADDMNMX for
-# int32, its packed 16x2 form for int16); the float types cannot.
+# int32, its packed 16x2 form for int16); the float types do not, so their
+# counts hold both (bfloat16's max(diag + s, 0) shares its add's
+# instruction all the same: its lanes count that, see lanes_of).
 FUSED_ADD_MAX = ("int32", "int16")
 # the wavefront's state modes beside exact int32: (label, score width,
 # state dtype); the operations a cell they add to WAVEFRONT_OPS, counted
@@ -251,31 +269,56 @@ def e2_ops(variant, dtype):
     return E2_LIVE_ROWS.get(variant, 128) * (E2_OPS[variant] + extra)
 
 
-# the card's elementwise results per clock per SM: 64 int32 lanes; 128
-# fp32 lanes; two 16-bit results per 32-bit lane (int16 on the integer
-# lanes, bfloat16 on the fp32 lanes), whatever layout a kernel chose
-LANES_PER_SM = {"int32": 64, "int16": 128, "uint16": 128, "float32": 128, "bfloat16": 256}
-# but only float32's adds run on the FMA pipe (128 results an SM a clock):
-# its max, select and compare (FMNMX, FSEL, ISETP in the step loops) run on
-# the ALU pipe at 64, and the SM's 4 schedulers dispatch 128 thread
-# instructions a clock in all.  The pipes run side by side, so a cell's
-# least time is the slowest of the three, not their sum.  The ALU rate of
-# FMNMX and FSEL: python -m swtpu_torch.tools.fp32_rates (their probes, and
-# the mix of 3 adds to 7 ALU ops, on the card).  The adds a cell of the
-# float32 recurrences: the wavefront's diag + s, I + extend and M + open;
-# the column's diag + s, I + extend and the add of its add-max
-FLOAT32_ADDS = {"wavefront": 3, "column": 3}
-FMA_LANES, ALU_LANES, DISPATCH_LANES = 128, 64, 128
+# the card's elementwise results per clock per SM of the integer types: 64
+# int32 lanes; two 16-bit results per 32-bit lane, whatever layout a
+# kernel chose
+LANES_PER_SM = {"int32": 64, "int16": 128, "uint16": 128}
+# The float types' lanes come from the pipe model of
+# swtpu_torch.tools.fp32_rates (model_lanes): their adds on the FMA pipe
+# (float32's FADD at 128 thread instructions an SM a clock, bfloat16's
+# HADD2.BF16 and HFMA2.BF16 at 64), their max, compare and select on the
+# ALU pipe (64), all through the dispatch (128), the slowest of the three
+# setting the time; bfloat16 two results an instruction, its max(diag + s,
+# 0) fused into the add's HFMA2.BF16.RELU.  `python -m
+# swtpu_torch.tools.fp32_rates` measures those rates and a mix of each
+# type's wavefront step on the card and fails if the model is under what
+# the mix reached.  E1's adds: one an op of each pattern (its max, compare
+# or select the other) and the 3 of its floor modulo (a multiply, a floor
+# and a multiply-add); E2's: the wavefront step's three a cell and its
+# max(diag + s, 0), minimal's one add and no such max
+E2_ADDS = {"full": 3, "norolls": 3, "nosel": 3, "arith": 3, "minimal": 1}
+E2_RELUS = {"full": 1, "norolls": 1, "nosel": 1, "arith": 1, "minimal": 0}
 
 
-def lanes_of(dtype, ops, kernel):
-    """Results an SM a clock of a cell's `ops` operations in `dtype`: the
-    type's lanes; for float32 the slowest of the FMA pipe's adds, the ALU
-    pipe's rest and the dispatch of them all."""
-    if dtype != "float32":
+def lanes_of(dtype, ops, adds=0, relus=0):
+    """Results an SM a clock of `ops` operations in `dtype`: an integer
+    type's lanes; for the float types fp32_rates' model, `adds` of the
+    operations float adds and `relus` of them maxes with 0 right after
+    one."""
+    if dtype in LANES_PER_SM:
         return LANES_PER_SM[dtype]
-    adds = FLOAT32_ADDS[kernel]
-    return ops / max(adds / FMA_LANES, (ops - adds) / ALU_LANES, ops / DISPATCH_LANES)
+    from swtpu_torch.tools.fp32_rates import model_lanes
+
+    return model_lanes(dtype, ops, adds, relus)
+
+
+def cell_lanes(kind, dtype, ops):
+    """lanes_of `ops` operations a cell of the wavefront or the column."""
+    from swtpu_torch.tools.fp32_rates import CELLS
+
+    return lanes_of(dtype, ops, *CELLS[kind][1:])
+
+
+def e1_lanes(pattern, dtype):
+    """lanes_of one E1 step of 8 ops and the modulo, an element."""
+    return lanes_of(dtype, 8 * e1_ops(pattern, dtype) + E1_MOD_OPS, 8 + E1_MOD_OPS)
+
+
+def e2_lanes(variant, dtype):
+    """lanes_of one E2 step."""
+    live = E2_LIVE_ROWS.get(variant, 128)
+    return lanes_of(dtype, e2_ops(variant, dtype), live * E2_ADDS[variant],
+                    live * E2_RELUS[variant])
 
 
 class Peaks:
@@ -955,10 +998,12 @@ def phase_mode_databases(card, cases, long_cases):
 
 
 def phase_kernel_at_main_shape(bank, cases):
-    """Kernel vs plain version, full strip, on each main-path case's own
-    batch at the geometry ScoreBank chose for it, in the slices the
-    wrapper chose; the kernel's time in those slices and in one, and the
-    plain version's."""
+    """Kernel vs plain version on each main-path case's own batch at the
+    geometry ScoreBank chose for it, in the slices the wrapper chose: the
+    full strip, but (a)'s (CUT_MAIN) on its first CHECK_STEPS steps only
+    (the full run's, and a run of the cut in CUT_SLICES slices; a strip is
+    causal in t), as the modes' and the tiles' checks are; the kernel's
+    time in those slices and in one, and the plain version's."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
@@ -970,23 +1015,33 @@ def phase_kernel_at_main_shape(bank, cases):
         qk, sk = laid_out_batch(c["query"], c["db"], seg, rows, phys)
         got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
         slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
+        what = f"{c['name']} seg={seg} rows={rows} in {slices} slices"
+        n = CHECK_STEPS if c["name"] in CUT_MAIN else sk.shape[0]
+        cut = sk[:n].contiguous()
         want, plain_ms = cuda_once(
-            lambda: stream_strip_reference(qk, sk, DEFAULT_PENALTIES, seg, rows)
+            lambda: stream_strip_reference(qk, cut, DEFAULT_PENALTIES, seg, rows)
         )
-        err = strip_error(f"{c['name']} seg={seg} rows={rows} in {slices} slices", got, want)
-        del want
+        err = strip_error(what if n == sk.shape[0] else f"{what}, first {n} steps",
+                          got[:n], want)
+        if n < sk.shape[0]:
+            err = max(err, strip_error(
+                f"{c['name']} first {n} steps in {CUT_SLICES} slices",
+                stream_strip_cuda(qk, cut, DEFAULT_PENALTIES, seg, rows, slices=CUT_SLICES),
+                want))
+        del want, got
         ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
         ms_one = cuda_ms(
             lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, slices=1), 3)
         T, N = sk.shape
         print(f"phase kernel_main_shape: ok {c['name']} seg={seg} rows={rows} "
-              f"strip [{T}, {N}] in {slices} slices of up to {steps} steps bit-equal | "
+              f"strip [{T}, {N}] in {slices} slices of up to {steps} steps, bit-equal on "
+              f"{'all' if n == T else f'the first {n}'} steps | "
               f"kernel {ms:.3f} ms -> {c['cells'] / ms / 1e6:.2f} GCUPS in the kernel "
               f"({ms / (c['wall_s'] * 1e3):.1%} of the wall time), in one slice "
-              f"{ms_one:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+              f"{ms_one:.3f} ms, plain {plain_ms:.1f} ms on {n} steps", flush=True)
         results.append(dict(name=c["name"], segments=seg, rows=rows, T=T, N=N,
                             slices=slices, slice_steps=steps, max_abs_err=err, ms=ms,
-                            ms_one_slice=ms_one, plain_ms=plain_ms))
+                            ms_one_slice=ms_one, plain_ms=plain_ms, check_steps=n))
     return results
 
 
@@ -2421,9 +2476,6 @@ def phase_regress(card):
     import contextlib
     import dataclasses
     import io
-    import os
-    import signal
-    import sys
     from unittest import mock
 
     import numpy as np
@@ -2491,32 +2543,16 @@ def phase_regress(card):
           f"on {card}", flush=True)
 
     # the same suite through the CLI, a process of its own
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "swtpu_torch.cli", "regress", "--suite", REGRESS_MULTIHOST],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        start_new_session=True,
-    )
-    try:
-        cli_out, cli_err = proc.communicate(timeout=REGRESS_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        fail(f"regress: the CLI ran past {REGRESS_TIMEOUT_S} s and was killed")
-    out["walls_s"]["multihost cli"] = time.perf_counter() - t0
-    try:  # a process of the CLI's session (a worker) that outlived it
-        os.killpg(proc.pid, 0)
-        os.killpg(proc.pid, signal.SIGKILL)
-        fail("regress: a process of the CLI's session outlived it")
-    except ProcessLookupError:
-        pass
+    rc, cli_out, cli_err, out["walls_s"]["multihost cli"] = run_session(
+        ["swtpu_torch.cli", "regress", "--suite", REGRESS_MULTIHOST], "regress: the CLI",
+        REGRESS_TIMEOUT_S)
     cli_lines = cli_out.splitlines()
     passes = [l for l in cli_lines if l.startswith("PASS ")]
-    if (proc.returncode or len(passes) != 6
+    if (rc or len(passes) != 6
             or "PASS ds-1 lying_device  (bad_shards=[1])" not in cli_lines
             or "PASS ds-1 resume_cursor  (rerun resumed shards [0, 1])" not in cli_lines
             or no_seconds(cli_lines) != no_seconds(lines) or live_children()):
-        fail(f"regress: the CLI exited {proc.returncode}: {cli_lines} (main_cli's "
+        fail(f"regress: the CLI exited {rc}: {cli_lines} (main_cli's "
              f"{lines}); stderr {cli_err[-2000:]}")
     print(f"phase regress: ok python -m swtpu_torch.cli regress --suite {REGRESS_MULTIHOST}"
           f": {len(passes)} PASS, exit 0, lines = main_cli's, no process left | wall "
@@ -2529,6 +2565,161 @@ def phase_regress(card):
           f"{in_process[0]} chained={in_process[1]}; workers' {workers.tolist()})",
           flush=True)
     return out
+
+
+BENCH_TIMEOUT_S = 300  # each of the phase's subprocesses
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]  # swtpu's line, in its order
+BENCH_METRIC = "GCUPS/chip (SW affine-gap scoring, 128x128)"
+BENCH_AGREE = 0.10  # the headline against (a)'s cells over B1's float32 time
+MULTIHOST_LINES = 8  # 3 counts x 2 modes, an efficiency line each
+
+
+def run_session(argv, what, timeout=BENCH_TIMEOUT_S):
+    """`python -m <argv>` from the checkout in a session of its own,
+    waited for or killed at `timeout`; (exit code, stdout, stderr, wall s).
+    Fails if it was killed, or if a process of its session outlived it."""
+    import os
+    import signal
+    import sys
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{what}: ran past {timeout} s and was killed")
+    wall = time.perf_counter() - t0
+    try:  # a process of its session (a worker) that outlived it
+        os.killpg(proc.pid, 0)
+        os.killpg(proc.pid, signal.SIGKILL)
+        fail(f"{what}: a process of its session outlived it")
+    except ProcessLookupError:
+        pass
+    return proc.returncode, out, err, wall
+
+
+def json_lines(what, out, n):
+    """The n lines of `out`, each a JSON object with swtpu's four keys."""
+    lines = out.splitlines()
+    rows = []
+    for line in lines:
+        try:
+            row = json.loads(line)
+        except json.JSONDecodeError:
+            fail(f"{what}: a stdout line is not JSON: {line!r}")
+        if list(row) != BENCH_KEYS:
+            fail(f"{what}: keys {list(row)}, not {BENCH_KEYS}")
+        rows.append(row)
+    if len(rows) != n:
+        fail(f"{what}: {len(rows)} lines, not {n}: {lines}")
+    return rows
+
+
+def phase_bench(card):
+    """swtpu's bench and bench_scaling on the card through the user's entry
+    points.  `python -m swtpu_torch.cli bench` in a session of its own: exit
+    code 0, the last stdout line swtpu's four keys with its metric and a
+    value > 0, the stage lines on stderr only, no process left.  Then every
+    stage of swtpu_torch.bench but `cpu` in this process, B1's and B4's
+    launch counters set to 0 just before (the path "bench"; each stage
+    holds every launch's window against the oracle).  Then `python -m
+    swtpu_torch.bench_scaling` (a row a mesh size of the visible GPUs, the
+    efficiency line past one) and `--multihost` (1, 2 and 4 gloo workers on
+    the card, pairs and database mode, 8 lines), no process left."""
+    import torch
+    from swtpu_torch import bench
+    from swtpu_torch.bench_scaling import MESH_SIZES
+    from swtpu_torch.ops.column import column_scores_cuda
+    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+
+    t_phase = time.perf_counter()
+    out = dict(walls_s={})
+    rc, cli_out, cli_err, out["walls_s"]["cli bench"] = run_session(
+        ["swtpu_torch.cli", "bench"], "bench: python -m swtpu_torch.cli bench")
+    lines = cli_out.splitlines()
+    stages = [l for l in cli_err.splitlines() if l.startswith("# stage ")]
+    ok_stages = [l.split(":")[0][len("# stage "):] for l in stages if ": ok in " in l]
+    if rc or not lines or ok_stages != list(bench.PLANS["cuda"]) or any(
+            l.startswith("#") for l in lines):
+        fail(f"bench: the CLI exited {rc}; stdout {lines}; stderr {cli_err[-3000:]}")
+    line = json_lines("bench: the CLI's last line", lines[-1], 1)[0]
+    # swtpu rounds the value to 0.1 and the ratio to 0.001, both from the
+    # headline stage's unrounded number, which its stderr line gives
+    g = float(re.search(r"'gcups': ([^,]+),", stages[-1]).group(1))
+    if line["metric"] != BENCH_METRIC or line["unit"] != "GCUPS" or not g > 0 \
+            or line["value"] != round(g, 1) or line["vs_baseline"] != round(g / 256.0, 3):
+        fail(f"bench: the CLI's line {line}, its headline stage's {g} GCUPS")
+    out["cli"] = dict(line=line, stages=stages, card=cli_err.splitlines()[0])
+    print(f"phase bench: ok python -m swtpu_torch.cli bench: exit 0, {lines[-1]} | stages "
+          f"{ok_stages} on stderr, no process left | wall {out['walls_s']['cli bench']:.2f} "
+          f"s on {card}", flush=True)
+
+    stream_strip_cuda.launches = stream_chained_cuda.launches = 0
+    column_scores_cuda.launches = 0
+    out["stages"] = {}
+    for name in bench.STAGES:
+        if name == "cpu":
+            continue
+        t0 = time.perf_counter()
+        res = bench.STAGES[name](torch.device("cuda"))
+        out["walls_s"][name] = time.perf_counter() - t0
+        out["stages"][name] = res
+        print(f"phase bench: ok stage {name}: {res['gcups']:.1f} GCUPS (every launch's "
+              f"window = the oracle) | " + ", ".join(
+                  f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in res.items() if k != "gcups")
+              + f" | {out['walls_s'][name]:.1f} s on {card}", flush=True)
+    launches = [stream_strip_cuda.launches, stream_chained_cuda.launches]
+    out["column_launches"] = column_scores_cuda.launches
+    if launches[0] == 0 or out["column_launches"] == 0:
+        fail(f"bench: the stages launched the wavefront {launches[0]} and the column "
+             f"kernel {out['column_launches']} times")
+    out["launches"] = {"bench": launches}
+
+    n_sizes = len([s for s in MESH_SIZES if s <= torch.cuda.device_count()])
+    for args, n in ((["swtpu_torch.bench_scaling"], n_sizes + (n_sizes > 1)),
+                    (["swtpu_torch.bench_scaling", "--multihost"], MULTIHOST_LINES)):
+        what = "python -m " + " ".join(args)
+        rc, sout, serr, wall = run_session(args, f"bench: {what}")
+        if rc:
+            fail(f"bench: {what} exited {rc}: {sout} {serr[-3000:]}")
+        rows = json_lines(f"bench: {what}", sout, n)
+        if any(r["unit"] == "reads/s" and not r["value"] > 0 for r in rows):
+            fail(f"bench: {what}: {rows}")
+        out["walls_s"][what] = wall
+        out[what] = rows
+        print(f"phase bench: ok {what}: {len(rows)} lines, exit 0, no process left | "
+              + "; ".join(f"{r['metric']} {r['value']}" for r in rows)
+              + f" | wall {wall:.2f} s on {card}", flush=True)
+    if live_children():
+        fail(f"bench: processes left {live_children()}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase bench: ok in {out['seconds']:.1f} s (launches wavefront={launches[0]} "
+          f"column={out['column_launches']})", flush=True)
+    return out
+
+
+def check_bench_headline(bench, a_ms, card):
+    """The bench headline (the in-process stream_chain stage's and the
+    CLI's) within BENCH_AGREE of (a)'s cells over B1's float32 time at (a)
+    in this run; the stage's cells must be (a)'s."""
+    head = bench["stages"]["stream_chain"]
+    cells = 262144 * 128 * 128  # (a): bench.py's headline shape
+    if head["cells"] != cells or head["state_dtype"] != "float32":
+        fail(f"bench: the headline stage ran {head['cells']} cells in {head['state_dtype']}")
+    want = cells / (a_ms * 1e-3) / 1e9
+    got = {"stage": head["gcups"], "cli": bench["cli"]["line"]["value"]}
+    bad = {k: g for k, g in got.items() if abs(g / want - 1) > BENCH_AGREE}
+    if bad:
+        fail(f"bench: headline {got} GCUPS, not within {BENCH_AGREE:.0%} of (a)'s cells over "
+             f"B1's float32 {a_ms:.4f} ms = {want:.1f}")
+    bench["headline_check"] = dict(b1_float32_ms=a_ms, expected_gcups=want, **got)
+    print(f"phase bench: ok headline {got['stage']:.1f} (stage), {got['cli']:.1f} (CLI) "
+          f"GCUPS within {BENCH_AGREE:.0%} of {cells} cells / B1 float32 {a_ms:.4f} ms = "
+          f"{want:.1f} on {card}", flush=True)
 
 
 COLUMN_OUTS = ("h", "ms", "is_")  # a chained column tile's outputs
@@ -3206,9 +3397,11 @@ def main() -> int:
     faults_launches = jobs["launches"].pop("f jobs faults")
     sharded = phase_sharded(card, cases, long_cases, serving, args.seed)
     regress = phase_regress(card)
+    bench = phase_bench(card)
     mains = phase_kernel_at_main_shape(bank, cases)
     long_mains = phase_chained_at_main_shape(bank, long_cases)
     mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
+    check_bench_headline(bench, mode_a["ms"]["float32"], card)
     a_16, d_16 = phase_16bit_at_main_shape(cases[0], long_cases[0])
     col_batches, col_tile = phase_column_at_main_shape(
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
@@ -3241,43 +3434,44 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = peaks.bound(
             2 * elems * (4 if row["dtype"] in ("int32", "float32") else 2),
             row["steps"] * elems * (8 * e1_ops(row["pattern"], row["dtype"]) + E1_MOD_OPS),
-            LANES_PER_SM[row["dtype"]])
+            e1_lanes(row["pattern"], row["dtype"]))
     for row in e2_mains:  # qT and the stream read, the int32 strip written
         S2, T2 = row["S"], row["T"]
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S2 + T2 * S2 * 5, S2 * T2 * e2_ops(row["variant"], row["dtype"]),
-            LANES_PER_SM[row["dtype"]])
+            e2_lanes(row["variant"], row["dtype"]))
     for row in mode_checks:  # the wavefront's bytes and its mode's operations
         S3, T3, dtype = row["N"] // row["segments"], row["T"], MODE_DTYPES[row["mode"]]
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S3 + T3 * row["N"] * 5,
             128 * T3 * S3 * (WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]),
-            lanes_of(dtype, WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype], "wavefront"))
+            cell_lanes("wavefront", dtype, WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]))
     for row in checks_16:  # the same, with the 16-bit state's operations and lanes
         S3, T3, dtype = row["N"] // row["segments"], row["T"], MODE_DTYPES_16[row["mode"]]
         row["bound_ms"], row["bound_by"] = peaks.bound(
             128 * S3 + T3 * row["N"] * 5,
-            128 * T3 * S3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]), LANES_PER_SM[dtype])
+            128 * T3 * S3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]),
+            cell_lanes("wavefront", dtype, WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]))
         row["bound_share"] = row["bound_ms"] / row["ms"]
     for row in chains_16:  # every tile of the chain: a chained tile's bytes
         T3, N3, K3, dtype = row["T"], row["N"], row["tiles"], MODE_DTYPES_16[row["mode"]]
         row["bound_ms"], row["bound_by"] = peaks.bound(
             K3 * (128 * N3 + T3 * N3 * (1 + 12 + 16)),
             K3 * 128 * T3 * N3 * (WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]),
-            LANES_PER_SM[dtype])
+            cell_lanes("wavefront", dtype, WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]))
         row["bound_share"] = row["bound_ms"] / row["ms"]
     b_e1 = e1_head["bound_ms"], e1_head["bound_by"]
     b_e2 = e2_head["bound_ms"], e2_head["bound_by"]
     for row in e1_table:  # the least time of one op over the array: card, its SMs
         per_op = elems * (e1_ops(row["pattern"], row["dtype"]) + E1_MOD_OPS / 8)
-        lanes = LANES_PER_SM[row["dtype"]]
+        lanes = e1_lanes(row["pattern"], row["dtype"])
         row["bound_ns_per_op"] = peaks.bound(0, per_op, lanes)[0] * 1e6
         row["bound_ns_per_op_on_its_sms"] = peaks.bound(
             0, per_op, lanes, E1_SMS[row["dtype"]])[0] * 1e6
     for row in e2_table:  # the least time of one step over S streams
         row["bound_ns_per_step"] = peaks.bound(
             0, row["S"] * e2_ops(row["variant"], row["dtype"]),
-            LANES_PER_SM[row["dtype"]])[0] * 1e6
+            e2_lanes(row["variant"], row["dtype"]))[0] * 1e6
     no_library = ("no single PyTorch call computes Smith-Waterman scores, the "
                   "microbenchmarks' op chains or the ablated wavefront step")
 
@@ -3294,7 +3488,7 @@ def main() -> int:
         rows = {}
         for label, _, dtype in MAIN_MODES:
             ops = WAVEFRONT_OPS + MODE_EXTRA_OPS[dtype]
-            b = bound_of(ops, lanes_of(dtype, ops, "wavefront"))
+            b = bound_of(ops, cell_lanes("wavefront", dtype, ops))
             rows[label] = dict(at["modes"][label], ms=at["ms"][label],
                                int32_ms=at["ms"]["int32"], bound_ms=b[0], bound_by=b[1],
                                plain_ms=plain[label], plain_note=plain_note)
@@ -3307,7 +3501,8 @@ def main() -> int:
         and the plain version's time on the first CHECK_STEPS steps."""
         rows = {}
         for label, dtype, _ in SIXTEEN_BIT:
-            b = bound_of(WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype], LANES_PER_SM[dtype])
+            ops = WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]
+            b = bound_of(ops, cell_lanes("wavefront", dtype, ops))
             m = at["modes"][label]
             rows[label] = dict(m, int32_ms=at["int32_ms"], bound_ms=b[0], bound_by=b[1],
                                bound_share=b[0] / m["ms"], rows=at["rows"],
@@ -3325,7 +3520,7 @@ def main() -> int:
         rows = {}
         for dtype in COLUMN_EXACT_STATES:
             ops = COLUMN_OPS + COLUMN_EXTRA_OPS[dtype]
-            b = bound_of(ops, lanes_of(dtype, ops, "column"))
+            b = bound_of(ops, cell_lanes("column", dtype, ops))
             m = at["modes"][dtype]
             rows[dtype] = dict(m, int32_ms=at["int32_ms"],
                                int32_registers=at["int32_registers"], bound_ms=b[0],
@@ -3347,7 +3542,8 @@ def main() -> int:
     # cases, the pairs and the state modes' score_database runs
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
                **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving},
-               **jobs["launches"], **sharded["launches"], **regress["launches"]}
+               **jobs["launches"], **sharded["launches"], **regress["launches"],
+               **bench["launches"]}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -3372,6 +3568,7 @@ def main() -> int:
               max(c["max_abs_err"] for c in checks + mains + [b2] + mode_checks + [mode_a]
                   + checks_16 + [a_16]),
               head["ms"], head["plain_ms"], b_wave,
+              plain_note=f"(a)'s first {head['check_steps']} steps",
               launches_by_path={k: v[0] for k, v in by_path.items()},
               modes=modes_a, mode_configs=mode_checks, modes_16bit=modes_a16,
               configs_16bit=checks_16,
@@ -3398,7 +3595,8 @@ def main() -> int:
                              bound_ms=b_cut[0], bound_by=b_cut[1]),
               main_shapes=long_mains, configs=chains),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
-              column_launches + faults_launches[0] + sharded["column_launches"][0],
+              column_launches + faults_launches[0] + sharded["column_launches"][0]
+              + bench["column_launches"],
               max(c["max_abs_err"] for c in col_checks + col_batches + [f_states]),
               chead["ms"], chead["plain_ms"], b_col,
               shape=[chead["B"], chead["m"], chead["n"]], main_shapes=col_batches,
@@ -3406,6 +3604,7 @@ def main() -> int:
               launches_by_path={"f-h int32": column_launches,
                                 "f jobs faults": faults_launches[0],
                                 "n sharded": sharded["column_launches"][0],
+                                "bench": bench["column_launches"],
                                 **{f"f {k}": v["launches"]
                                    for k, v in f_states["modes"].items()}}),
         entry("column_chained", "swtpu_torch/ops/csrc/column.cu",
@@ -3444,7 +3643,7 @@ def main() -> int:
         {k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()
          if k not in ("query", "db")} for c in col_cases
     ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16, "serving": serving,
-        "jobs": jobs, "sharded": sharded, "regress": regress,
+        "jobs": jobs, "sharded": sharded, "regress": regress, "bench": bench,
         "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ the serving daemon; resumable jobs, seeded fault injection and the CLI;
 the scan backend; scoring across devices (a mesh of shards, sharded
 scorers with the merged top-K, mesh-resident serving) and processes
 (``torch.distributed``, the localhost worker harness); the
-config-driven regression suites (``regress``); and the kernel
+config-driven regression suites (``regress``); swtpu's benchmarks
+(``bench``: the headline GCUPS line; ``bench_scaling``); and the kernel
 shootout's lane-major column kernel and the two microbenchmarks' kernels.
 Imports torch and never JAX, and nothing of ``swtpu``: the
 configuration, the oracle, FASTA loading, the native packer, the event log
@@ -62,9 +63,13 @@ Layer map (swtpu module -> port):
   swtpu.testing.goldens  -> swtpu_torch.testing.goldens (golden-file parsers; a copy)
   swtpu.server           -> swtpu_torch.server         (ServeEngine, serve_socket,
                                                         format_score_line)
+  bench.py (root)        -> swtpu_torch.bench          (the headline GCUPS stages and
+                                                        swtpu's one JSON line)
+  bench_scaling.py (root)-> swtpu_torch.bench_scaling  (reads/s over mesh sizes and
+                                                        localhost processes)
   swtpu.cli              -> swtpu_torch.cli            (score, serve [--sharded],
                                                         oracle, generate, diff, events,
-                                                        regress)
+                                                        regress, bench)
 """
 
 from swtpu_torch.bank import ScoreBank, ScoreResult

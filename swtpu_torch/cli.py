@@ -12,6 +12,7 @@
     python -m swtpu_torch.cli diff a.txt b.txt
     python -m swtpu_torch.cli events log.jsonl
     python -m swtpu_torch.cli [--device cuda|cpu] regress [--suite suites/default.json]
+    python -m swtpu_torch.cli [--device cuda|cpu] bench
 
 `score --all-queries` scores every record of the query file; on the stream
 backend the library loads onto the device once.  `score --resume` saves
@@ -25,7 +26,8 @@ the exact numpy oracle, `generate` writes a random FASTA, `diff` compares
 two score files by read name and `events` summarises an event log; none of
 these four needs a card, and each writes what swtpu's does.  `regress`
 runs a config-driven regression suite (``swtpu_torch.testing.suite``) and
-prints swtpu's PASS / FAIL / SKIP lines.
+prints swtpu's PASS / FAIL / SKIP lines.  `bench` runs the headline GCUPS
+benchmark (``swtpu_torch.bench``) and prints swtpu's one JSON line.
 
 Output lines are swtpu's (``@<time>ns: >dbK score: S``, the reference RTL
 testbench's golden format), so `diff` compares the two packages' outputs
@@ -427,6 +429,13 @@ def cmd_regress(args) -> int:
     return main_cli(args.suite, args.device)
 
 
+def cmd_bench(args) -> int:
+    """The headline GCUPS benchmark on --device; exit 1 when a stage fails."""
+    from swtpu_torch.bench import main as bench_main
+
+    return bench_main(args.device)
+
+
 def _add_pen_args(p):
     p.add_argument("--match", type=int, default=5)
     p.add_argument("--mismatch", type=int, default=-4)
@@ -529,6 +538,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     _add_pen_args(pv)
     pv.set_defaults(fn=cmd_serve)
+
+    pb = sub.add_parser("bench", help="run the headline GCUPS benchmark")
+    pb.set_defaults(fn=cmd_bench)
 
     pd = sub.add_parser("diff", help="diff two score files by read ID")
     pd.add_argument("a")

@@ -1,4 +1,5 @@
-"""The float32 recurrences' opcode rates on the card, and their step loops.
+"""The float32 and bfloat16 recurrences' opcode rates on the card, and their
+step loops.
 
     python -m swtpu_torch.tools.fp32_rates [--trips N]
 
@@ -7,22 +8,39 @@ and power limit, then:
 
 - ``probe`` lines: ``ops/csrc/fp32_probe.cu`` run alone, one launch a
   variant of as many blocks of 256 threads an SM as an SM holds (one
-  wave), each thread holding 8 independent values: FADD; FMNMX; FSETP
-  and FSEL; and the float32 bound's mix of 3 FADD, 5 FMNMX, 1 FSETP and 1
-  FSEL a value.  Each line gives the opcodes of the probe's loop from its
-  SASS and the thread instructions an SM retires a clock by pipe (FMA:
-  FADD, FMUL, FFMA, IMAD; ALU: the compares, min/max, selects and integer
-  adds and logic) and in all, over the launch's CUDA-event time at the SM
-  clock the blocks measured (``clock64`` over ``globaltimer``).  The mix
-  line also gives the rate that its counts predict if the pipes' times
-  add, and if the slowest pipe (or the dispatch of 128 a clock) sets it.
+  wave), each thread holding 8 independent values (bfloat16: 8 registers
+  of two): FADD; FMNMX; FSETP and FSEL; the float32 bound's mix of 3 FADD,
+  5 FMNMX, 1 FSETP and 1 FSEL a value; HADD2.BF16; HFMA2.BF16 with .RELU
+  (the M update's form); HMNMX2.BF16; and the bfloat16 wavefront's mix a
+  register of two cells in the step's own form: 1 HFMA2.RELU, 2 HADD2,
+  4 HMNMX2, a PRMT and a LOP3, the diagonal D = max(M, I) feeding the
+  next M's HFMA2 as the kernel's does, so no max result feeds only
+  another max and ptxas cannot merge two into one 3-input VHMNMX.  Each
+  line gives the opcodes of the probe's loop from its SASS and the thread
+  instructions an SM retires a clock by pipe (FMA: FADD, FMUL, FFMA, IMAD,
+  HADD2, HFMA2, HMUL2; ALU: the compares, min/max (HMNMX2 too), selects,
+  byte permutes and integer adds and logic; MMA: HFMA2.MMA, the 16-bit
+  FMA that ptxas may send down the tensor pipe) and in all, over the
+  launch's CUDA-event time at the SM clock the blocks measured
+  (``clock64`` over ``globaltimer``).  The mix lines also give the rate
+  that their counts predict, at the single-op probes' rates of their
+  type, if the pipes' times add and if the slowest pipe (or the dispatch
+  of 128 a clock) sets it, and the wavefront cell's results an SM a clock
+  that the mix reached beside the bounds' model of it: the tool exits 1
+  if the card ran the mix faster than the model allows.
+- ``rates`` lines: each pipe's rate, the fastest of its type's single-op
+  probes, and the bounds' model (``model_lanes``, which ``chip_smoke.py``'s
+  ``lanes_of`` calls) at those rates and at the nominal ones: a wavefront
+  cell's 10 operations and a column cell's 11 in results an SM a clock.
 - ``loop`` lines: the opcodes of the hottest loop (the innermost backward
   branch's body with the most instructions: the step loop) of the kernel
   library's float32 wavefront (rows 8 and 16, one tile and chained) and
-  column (4 and 8 rows a lane, B4 and the B5 tile) instantiations, a cell
-  (the loop's FADDs over the recurrence's 3 float adds a cell), and the
-  results an SM a clock the probe's rates give that mix: the largest of
-  the FMA pipe's, the ALU pipe's and the dispatch's times, against their sum.
+  column (4 and 8 rows a lane, B4 and the B5 tile) instantiations and its
+  packed bfloat16 wavefront (rows 8, one tile and chained), a cell (the
+  loop's adds over the recurrence's 3 adds a cell, two cells an
+  instruction in bfloat16), and the results an SM a clock the probe's rates
+  of its type give that mix: the largest of the pipes' and the dispatch's
+  times, against their sum.
 """
 
 from __future__ import annotations
@@ -36,13 +54,37 @@ import statistics
 import subprocess
 from pathlib import Path
 
-VARIANTS = ("FADD", "FMNMX", "FSEL", "mix")
+VARIANTS = ("FADD", "FMNMX", "FSEL", "mix", "HADD2.BF16", "HFMA2.BF16", "HMNMX2.BF16",
+            "bf16 mix")
+TYPE_OF = {v: ("bfloat16" if i >= 4 else "float32") for i, v in enumerate(VARIANTS)}
 THREADS = 256
-FMA_PIPE = {"FADD", "FMUL", "FFMA", "IMAD"}
+FMA_PIPE = {"FADD", "FMUL", "FFMA", "IMAD", "HADD2", "HFMA2", "HMUL2"}
 ALU_PIPE = {"FMNMX", "FSEL", "FSETP", "ISETP", "SEL", "IMNMX", "VIMNMX", "IADD3", "VIADD",
-            "LOP3"}
+            "LOP3", "HMNMX2", "VHMNMX", "PRMT"}
+MMA_PIPE = {"HFMA2.MMA"}
+PIPES = (("FMA", FMA_PIPE), ("ALU", ALU_PIPE), ("MMA", MMA_PIPE))
 DISPATCH = 128  # thread instructions an SM dispatches a clock: 4 schedulers x 1 warp instruction
+# The bounds' model of the float types.  A cell's adds run on the FMA pipe
+# (FADD at 128 thread instructions an SM a clock; HADD2.BF16 and HFMA2.BF16
+# at 64), its max, compare and select on the ALU pipe (64 in both types),
+# and all of them through the dispatch (128); the pipes run side by side,
+# so the slowest sets the time.  bfloat16 gives two results an instruction
+# and fuses an add and the max with 0 after it into one HFMA2.BF16.RELU;
+# float32 has no such form (PTX's fma.relu is 16-bit only).  The HFMA2.MMA
+# pipe, which ptxas may also send the 16-bit adds to, could only shorten
+# the FMA pipe's time: that sets no bound of a wavefront or column cell,
+# only that of E1's bfloat16 chains (more adds than maxes), and its rate
+# is not measured.
+NOMINAL = {"float32": {"FMA": 128, "ALU": 64}, "bfloat16": {"FMA": 64, "ALU": 64}}
+PER_INSTRUCTION = {"float32": 1, "bfloat16": 2}  # results an instruction
+FUSES_RELU = {"bfloat16"}
+# (operations, adds, maxes with 0 right after an add) a float cell: the
+# wavefront's diag + s, its max with 0, I's max and + extend, H's max, D's
+# max, G's M + open and max, the score's compare and select; the column's
+# the same with its two I maxes and its add-max
+CELLS = {"wavefront": (10, 3, 1), "column": (11, 3, 1)}
 ADDS_A_CELL = 3  # float adds a cell of both float32 recurrences
+MIX_CELLS = 32  # values a mix's loop trip updates a thread (the probe's kValues x kRounds)
 
 
 def functions(sass: str):
@@ -59,7 +101,9 @@ def functions(sass: str):
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)"
                      r"([^;]*)", line)
         if m and name:
-            ops.append((int(m.group(1), 16), m.group(2).split(".")[0], m.group(3)))
+            parts = m.group(2).split(".")
+            op = parts[0] + (".MMA" if "MMA" in parts[1:] else "")
+            ops.append((int(m.group(1), 16), op, m.group(3)))
     if name:
         yield name, ops
 
@@ -101,6 +145,41 @@ def float32_label(name: str):
     if m and m.group(1) in ("4", "8"):
         return f"column rpl={m.group(1)} {'B5 tile' if m.group(2) in ('true', '1') else 'B4'}"
     return None
+
+
+def bfloat16_label(name: str):
+    """A label of the kernel library's packed bfloat16 wavefront at rows 8
+    (one tile or chained; its main-shape rows), or None."""
+    name = re.sub(r"\((?:int|bool)\)", "", name)
+    m = re.search(r"stream_wavefront_x2_kernel<8, (\d+), 5>", name)
+    if m and m.group(1) != "1":
+        return f"wavefront rows=8 {'chained' if m.group(1) == '2' else 'tail-acc'} bfloat16"
+    return None
+
+
+def by_pipe(count) -> dict:
+    """{pipe: instructions of count on it}."""
+    return {pipe: sum(count[k] for k in ops) for pipe, ops in PIPES}
+
+
+def pipe_rates(measured: dict) -> dict:
+    """Every pipe's rate: a pipe that no single-op probe of the type reached
+    (HFMA2.MMA where ptxas kept the probe's FMAs off it) at the FMA pipe's."""
+    return {p: measured.get(p) or measured["FMA"] for p, _ in PIPES}
+
+
+def model_lanes(dtype: str, ops: float, adds: float, relus: float = 0,
+                rates: dict | None = None) -> float:
+    """Results an SM a clock of `ops` float operations in `dtype`: `adds`
+    of them on the FMA pipe, `relus` maxes with 0 that bfloat16 fuses into
+    its add's instruction, the rest on the ALU pipe; the slowest pipe or
+    the dispatch sets the time, at `rates` (thread instructions an SM a
+    clock by pipe) or the nominal ones."""
+    r = rates or NOMINAL[dtype]
+    per = PER_INSTRUCTION[dtype]
+    alu = ops - adds - (relus if dtype in FUSES_RELU else 0)
+    return ops / max(adds / (per * r["FMA"]), alu / (per * r["ALU"]),
+                     (adds + alu) / (per * DISPATCH))
 
 
 def build_probe(nvcc: str) -> Path:
@@ -172,57 +251,87 @@ def main() -> int:
     lib = build_probe(nvcc)
     loops = {}
     for name, ops in sass_of(lib, nvcc):
-        m = re.search(r"fp32_probe_kernel<(\d+)>", re.sub(r"\(int\)", "", name))
+        m = re.search(r"(?:fp32|bf16)_probe_kernel<(\d+)>", re.sub(r"\(int\)", "", name))
         if m:
             loops[int(m.group(1))] = collections.Counter(hot_loop(ops))
-    on = {}  # variant -> (FMA-pipe, ALU-pipe) thread instructions an SM a clock
+    on = {}  # variant -> {pipe: thread instructions an SM a clock}
+    over = {}  # mix -> whether it ran faster than the bounds' model allows
+    rates = {"float32": {}, "bfloat16": {}}  # each pipe's fastest single-op probe
     for v, what in enumerate(VARIANTS):
         per_sm, ms, cycles, ns = run_probe(lib, v, args.trips, sms)
         count = loops[v]
         ghz = cycles / ns
         # loop trips an SM a clock, over the launch's time at the blocks' clock
         per_clock = args.trips * per_sm * THREADS / (ms * 1e6 * ghz)
-        fma_n = sum(count[k] for k in FMA_PIPE)
-        alu_n = sum(count[k] for k in ALU_PIPE)
+        pipes = by_pipe(count)
         total = sum(count.values())
-        on[what] = (fma_n * per_clock, alu_n * per_clock)
+        on[what] = {p: n * per_clock for p, n in pipes.items()}
         line = (f"probe {what} | {per_sm} blocks an SM | loop {total} instructions: "
                 + " ".join(f"{k}:{n}" for k, n in sorted(count.items()))
                 + f" | SM clock {ghz * 1e3:.1f} MHz, {ms:.3f} ms (a block's loop "
                 f"{cycles / (ms * 1e6 * ghz):.3f} of it) | thread instructions an SM a clock: "
-                f"FMA pipe {on[what][0]:.2f}, ALU pipe {on[what][1]:.2f}, all "
-                f"{total * per_clock:.2f}")
-        if what == "mix":  # the two models at the table's rates, from its own counts
-            t_max = max(fma_n / 128, alu_n / 64, total / DISPATCH)
-            t_sum = fma_n / 128 + alu_n / 64
-            arith = fma_n + alu_n
+                + ", ".join(f"{p} pipe {r:.2f}" for p, r in on[what].items())
+                + f", all {total * per_clock:.2f}")
+        kind = TYPE_OF[what]
+        if "mix" in what:  # the two models at the single-op probes' rates, from its counts
+            r = pipe_rates(rates[kind])
+            used = {p: n for p, n in pipes.items() if n}
+            t_max = max(*(n / r[p] for p, n in used.items()), total / DISPATCH)
+            t_sum = sum(n / r[p] for p, n in used.items())
+            arith = sum(used.values())
+            # its wavefront cells' results an SM a clock beside the bounds' model
+            got = per_clock * MIX_CELLS * PER_INSTRUCTION[kind] * CELLS["wavefront"][0]
+            model = model_lanes(kind, *CELLS["wavefront"])
+            over[what] = got > model
             line += (f" | arithmetic {arith * per_clock:.2f}; predicted {arith / t_max:.2f} "
-                     f"by the slowest pipe, {arith / t_sum:.2f} by the sum")
+                     f"by the slowest pipe, {arith / t_sum:.2f} by the sum | wavefront cells: "
+                     f"{got:.1f} results an SM a clock, the bounds' model {model:.1f}"
+                     + (" (UNDER the card's rate)" if over[what] else ""))
+        else:
+            for p, rate in on[what].items():
+                if pipes[p]:
+                    rates[kind][p] = max(rates[kind].get(p, 0.0), rate)
         print(line, flush=True)
-    # the least time of a mix: the faster probe of each pipe
-    fma, alu = on["FADD"][0], max(on["FMNMX"][1], on["FSEL"][1])
-    print(f"rates an SM a clock: FMA pipe {fma:.2f}, ALU pipe {alu:.2f}, dispatch {DISPATCH}",
-          flush=True)
+    for kind, r in rates.items():
+        print(f"rates {kind} an SM a clock: "
+              + ", ".join(f"{p} pipe {x:.2f}" for p, x in r.items())
+              + f", dispatch {DISPATCH} (instructions; {PER_INSTRUCTION[kind]} results each) "
+              "| the bounds' model in results an SM a clock, at these rates and at the "
+              f"nominal {NOMINAL[kind]}: "
+              + ", ".join(f"{k} cell {model_lanes(kind, *c, rates=r):.1f} and "
+                          f"{model_lanes(kind, *c):.1f}" for k, c in CELLS.items()), flush=True)
     _build.load_library()
     for name, ops in sass_of(_build.library_path(), nvcc):
-        what = float32_label(name)
-        body = collections.Counter(hot_loop(ops)) if what else None
-        if not body or not body["FADD"]:
+        what, kind = float32_label(name), "float32"
+        if not what:
+            what, kind = bfloat16_label(name), "bfloat16"
+        if not what:
             continue
-        cells = body["FADD"] / ADDS_A_CELL
-        on_fma = sum(body[k] for k in FMA_PIPE) / cells
-        on_alu = sum(body[k] for k in ALU_PIPE) / cells
+        body = collections.Counter(hot_loop(ops))
+        per = PER_INSTRUCTION[kind]
+        adds = body["FADD"] if kind == "float32" else (
+            body["HADD2"] + body["HFMA2"] + body["HFMA2.MMA"])
+        if not adds:
+            continue
+        cells = adds * per / ADDS_A_CELL
+        pipes = {p: n / cells for p, n in by_pipe(body).items() if n}
         dispatched = sum(body.values()) / cells
-        arith = on_fma + on_alu
-        t_max = max(on_fma / fma, on_alu / alu, dispatched / DISPATCH)
-        t_sum = on_fma / fma + on_alu / alu
+        arith = sum(pipes.values())
+        r = pipe_rates(rates[kind])
+        t_max = max(*(n / r[p] for p, n in pipes.items()), dispatched / DISPATCH)
+        t_sum = sum(n / r[p] for p, n in pipes.items())
         print(f"loop {what} | a cell: "
               + " ".join(f"{k} {body[k] / cells:.2f}" for k in sorted(body)
-                         if k in FMA_PIPE | ALU_PIPE)
-              + f"; {dispatched:.2f} instructions | arithmetic {arith:.2f} a cell at "
-              f"{arith / t_max:.1f} results an SM a clock (the largest of FMA {on_fma / fma:.4f},"
-              f" ALU {on_alu / alu:.4f}, dispatch {dispatched / DISPATCH:.4f} clocks; their sum would give "
-              f"{arith / t_sum:.1f})", flush=True)
+                         if k in FMA_PIPE | ALU_PIPE | MMA_PIPE)
+              + f"; {dispatched:.2f} instructions | arithmetic {arith:.2f} instructions a cell "
+              f"at {arith / t_max:.1f} an SM a clock (the largest of "
+              + ", ".join(f"{p} {n / r[p]:.4f}" for p, n in pipes.items())
+              + f", dispatch {dispatched / DISPATCH:.4f} clocks; their sum would give "
+              f"{arith / t_sum:.1f}); {1 / t_max:.1f} cells an SM a clock", flush=True)
+    if any(over.values()):
+        print("the bounds' model is under the rate the card reached on "
+              + ", ".join(w for w, o in over.items() if o), flush=True)
+        return 1
     return 0
 
 

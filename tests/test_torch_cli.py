@@ -197,6 +197,9 @@ def test_port_never_imports_jax(tmp_path):
         _, _, local = score_database_multihost(query, reads, np.arange(4, dtype=np.int32),
                                                mesh=mesh, k=2)
         assert (local == res.scores).all()
+        import swtpu_torch.bench, swtpu_torch.bench_scaling
+        swtpu_torch.bench.CPU_PAIRS = (64, 256)  # the import graph, not the rate
+        assert main(["--device", "cpu", "bench"]) == 0
         heavy = [m for m in sys.modules
                  if m in ("jax", "swtpu") or m.startswith(("jax.", "swtpu."))]
         print("HEAVY", heavy)
@@ -375,3 +378,33 @@ def test_regress_without_a_card_names_the_cpu_flag():
         pytest.skip("a card is present: regress runs on it")
     with pytest.raises(SystemExit, match="--device cpu"):
         main(["regress", "--suite", str(REPO / "suites" / "default.json")])
+
+
+def test_bench_cpu_prints_swtpu_line(capsys, monkeypatch):
+    """bench --device cpu runs swtpu's CPU stage (the scan) and prints its
+    one JSON line: swtpu's four keys, metric and baseline (at 256 and
+    2,048 pairs: the stage's 1,024 and 4,096 take seconds of CPU)."""
+    import bench as ref_bench
+
+    from swtpu_torch import bench
+
+    monkeypatch.setattr(bench, "CPU_PAIRS", (256, 2048))
+    assert main(["--device", "cpu", "bench"]) == 0
+    out, err = capsys.readouterr()
+    assert len(out.splitlines()) == 1
+    line = json.loads(out)
+    assert list(line) == ["metric", "value", "unit", "vs_baseline"]
+    assert (line["metric"], line["unit"]) == (ref_bench.METRIC, "GCUPS")
+    gcups = float(re.search(r"# stage cpu: ok in \d+s: \{'gcups': ([^,]+),", err).group(1))
+    assert gcups > 0 and line["value"] == round(gcups, 1)  # swtpu's rounding
+    assert line["vs_baseline"] == round(gcups / ref_bench.BASELINE_GCUPS, 3)
+
+
+def test_bench_without_a_card_names_the_cpu_flag(capsys):
+    """The default device is the card: without one, bench exits at once,
+    names --device cpu and never runs the CPU stage."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: bench runs on it")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(["bench"])
+    assert "stage" not in capsys.readouterr().err

@@ -1427,3 +1427,16 @@ def test_default_suite_on_the_card(cuda_device):
     assert [o.name for o in got if o.skipped] == ["multihost", "lying_device"]
     assert [o.detail for o in got if o.name == "corruption_inject_stream"] == [
         "stream codes: caught; stream scores: caught"] * 2
+
+
+def test_bench_headline_stage_on_the_card(cuda_device):
+    """swtpu_torch.bench's headline stage on the card at swtpu's shape:
+    every launch's 64-score window equals the oracle (the stage raises
+    otherwise), float32 state, (a)'s cells, and a positive rate no lower
+    than the floor."""
+    from swtpu_torch import bench
+
+    res = bench.STAGES["stream_chain"](cuda_device)
+    assert res["cells"] == 262144 * 128 * 128
+    assert res["state_dtype"] == "float32" and list(res["times_s"]) == ["1", "33"]
+    assert 0 < res["floor"] <= res["gcups"] <= 3 * res["floor"]

@@ -69,3 +69,74 @@ def test_main_needs_a_gpu(monkeypatch, capsys):
     monkeypatch.setattr("sys.argv", ["fp32_rates"])
     assert fp32_rates.main() == 1
     assert "no CUDA device" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name, label", [
+    ("void (anonymous namespace)::stream_wavefront_x2_kernel<8, 0, 5>(Args)",
+     "wavefront rows=8 tail-acc bfloat16"),
+    ("void stream_wavefront_x2_kernel<(int)8, (int)2, (int)5>(Args)",
+     "wavefront rows=8 chained bfloat16"),
+    ("void stream_wavefront_x2_kernel<8, 1, 5>(Args)", None),  # ripple-H
+    ("void stream_wavefront_x2_kernel<8, 0, 3>(Args)", None),  # int16
+    ("void stream_wavefront_x2_kernel<4, 0, 5>(Args)", None),  # not the main rows
+    ("void stream_wavefront_kernel<16, 0, 2>(Args)", None),  # float32
+])
+def test_bfloat16_label(name, label):
+    assert fp32_rates.bfloat16_label(name) == label
+
+
+def test_bfloat16_opcodes_and_the_mma_form():
+    """HFMA2.MMA keeps its pipe apart from HFMA2; the bfloat16 adds count on
+    the FMA pipe and HMNMX2 on the ALU pipe."""
+    sass = """
+        Function : _Z5bf16v
+        /*0000*/                   HADD2.BF16_V2 R2, R2, R3 ;
+        /*0010*/                   HFMA2.MMA.BF16_V2.RELU R4, R2, R5, R6 ;
+        /*0020*/                   HFMA2.BF16_V2 R4, R2, R5, R6 ;
+        /*0030*/                   HMNMX2.BF16_V2 R7, R4, R2, !PT ;
+        /*0040*/                   BRA 0x0 ;
+"""
+    ops = [op for _, op, _ in dict(fp32_rates.functions(sass))["_Z5bf16v"]]
+    assert ops == ["HADD2", "HFMA2.MMA", "HFMA2", "HMNMX2", "BRA"]
+    pipes = fp32_rates.by_pipe(collections.Counter(ops))
+    assert pipes == {"FMA": 2, "ALU": 1, "MMA": 1}
+
+
+def test_model_lanes_is_chip_smokes_bound():
+    """The model at the nominal rates: float32 91.4 / 88.0 results an SM a
+    clock a wavefront / column cell; bfloat16 (64 instructions on both
+    pipes, two results each, max(diag + s, 0) in its add's HFMA2.RELU)
+    213.3, 182.9 without that fusion; at measured rates the slowest pipe's."""
+    wave, col = fp32_rates.CELLS["wavefront"], fp32_rates.CELLS["column"]
+    assert wave == (10, 3, 1) and col == (11, 3, 1)
+    assert fp32_rates.model_lanes("float32", *wave) == pytest.approx(10 / (7 / 64))
+    assert fp32_rates.model_lanes("float32", *col) == pytest.approx(88.0)
+    assert fp32_rates.model_lanes("float32", 10, 3) == fp32_rates.model_lanes("float32", *wave)
+    assert fp32_rates.model_lanes("bfloat16", *wave) == pytest.approx(10 / (6 / 128))
+    assert fp32_rates.model_lanes("bfloat16", 10, 3) == pytest.approx(10 / (7 / 128))
+    measured = {"FMA": 63.60, "ALU": 63.56}
+    assert fp32_rates.model_lanes("bfloat16", *wave, rates=measured) == pytest.approx(
+        10 / (6 / (2 * 63.56)))
+    # more adds than maxes (E1's chains): the FMA pipe sets the time
+    assert fp32_rates.model_lanes("bfloat16", 19, 11) == pytest.approx(19 / (11 / 128))
+    assert fp32_rates.pipe_rates({"FMA": 63.6, "ALU": 63.5}) == {
+        "FMA": 63.6, "ALU": 63.5, "MMA": 63.6}
+
+
+def test_chip_smoke_lanes_equal_the_tools_model():
+    """chip_smoke.py's bounds take the tool's model for the float types (a
+    wavefront cell, a column cell, E1's and E2's steps) and the type's
+    lanes for the integer ones."""
+    import chip_smoke
+
+    assert chip_smoke.cell_lanes("wavefront", "float32", 10) == pytest.approx(80 / 0.875)
+    assert chip_smoke.cell_lanes("column", "float32", 11) == pytest.approx(88.0)
+    assert chip_smoke.cell_lanes("wavefront", "bfloat16", 10) == pytest.approx(640 / 3)
+    assert chip_smoke.e2_lanes("full", "bfloat16") == pytest.approx(179.2)
+    assert chip_smoke.e2_lanes("nosel", "bfloat16") == pytest.approx(192.0)
+    assert chip_smoke.e2_lanes("minimal", "bfloat16") == pytest.approx(256.0)
+    assert chip_smoke.e2_lanes("full", "float32") == pytest.approx(1792 / 22)
+    assert chip_smoke.e1_lanes("addmax", "float32") == pytest.approx(128.0)
+    assert chip_smoke.e1_lanes("addmax", "bfloat16") == pytest.approx(19 / (11 / 128))
+    assert chip_smoke.cell_lanes("wavefront", "int16", 8) == 128
+    assert chip_smoke.lanes_of("int32", 8) == 64

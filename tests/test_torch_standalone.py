@@ -276,13 +276,14 @@ def test_no_port_file_imports_swtpu():
                                     "parallel/mesh.py", "parallel/sharded.py",
                                     "parallel/multihost.py", "bank/serving.py",
                                     "testing/worker.py", "testing/regress.py",
-                                    "testing/suite.py", "utils/guards.py"])
+                                    "testing/suite.py", "utils/guards.py", "bench.py",
+                                    "bench_scaling.py"])
 def test_scan_covers_the_job_modules(module):
     """The import scan reaches the job layer's modules (resume, faults,
     goldens, the profiler hook, score_streams) and the multi-device ones
     (the scan backend, the mesh, the sharded scorers, multihost, sharded
     serving, the worker and run_multihost, the checksum, the regression
-    suites)."""
+    suites) and the benchmarks."""
     assert REPO / "swtpu_torch" / module in _port_files()
 
 
