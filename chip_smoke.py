@@ -207,7 +207,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # max counts once: Hopper's DPX instruction VIADDMNMX does both, and ptxas
 # emits it for these kernels (their SASS holds 32-104 of them).
 WAVEFRONT_OPS = 8  # s: compare + select; max(diag + s, 0); I: max, + extend; H: max; D: max; G: max(M + open, I)
-COLUMN_OPS = 9  # diag: max; s: 2; max(diag + s, 0); I: 2 max, + extend, add-max; H: max
+# The column's count keeps A = I - (open + extend) in place of I, as B4's
+# kernel does (column.cu), which folds I's + extend into the diagonal's
+# add-max: diag: add-max; s: compare + select; max(diag + s, 0); I: max
+# and two add-maxes; H: max (9 with I itself: the diagonal a max, I's
+# + extend an add of its own)
+COLUMN_OPS = 8
 # The integer types fuse an add and the max after it (DPX: VIADDMNMX for
 # int32, its packed 16x2 form for int16); the float types do not, so their
 # counts hold both (bfloat16's max(diag + s, 0) shares its add's
@@ -2782,43 +2787,65 @@ def check_column_tiles(label, tiles, want_tiles) -> int:
 COLUMN_MODES = ((None, "int32"), (12, "int32"), (10, "int32"), (None, "float32"),
                 (None, "int16"))
 COLUMN_EXACT_STATES = ("float32", "int16")
+# B4's query widths in phase 3: every geometry (lanes a pair in the one-value
+# states, rows a lane in int16); 64 and 128 draw from a generator of their
+# own, so the other widths' and the cases' data stay as they were
+COLUMN_WIDTHS = (8, 32, 64, 128, 136, 256)
+COLUMN_WIDTHS_OWN_RNG = (64, 128)
+# the long-gap pairs (swtpu_torch/testing/gaps.py): query widths and modes
+LONG_GAP_WIDTHS = (32, 128, 256)
+LONG_GAP_MODES = ((None, "int32"), (12, "int32"), (None, "float32"))
 # their operations a cell beside COLUMN_OPS: float32 unfuses the M update's
-# and the I chain's add-max (2 more); int16 none (its add wraps by itself)
-COLUMN_EXTRA_OPS = {"float32": 2, "int16": 0}
+# and the I chain's add-max and gains nothing from A (its adds are apart:
+# 3 more, the 11 of fp32_rates.CELLS); int16 none (its add wraps by itself,
+# and its 16x2 add-max fuses as int32's)
+COLUMN_EXTRA_OPS = {"float32": 3, "int16": 0}
 
 
-def phase_column_vs_plain(rng, rng_odd, B=4096, n=256):
-    """B4 at each rows-per-lane and B5 over whole chains against their
-    plain versions on B ragged pairs of n target columns, in each state
-    mode; float32 and int16 also against the int32 kernel.  Then int16,
-    two pairs a warp, at an odd B - 1 pairs from `rng_odd` (the last warp's
-    high half dead): B4 at 2 and 8 rows a lane and a K = 2 chain."""
+def phase_column_vs_plain(rng, rng_odd, rng_gaps, B=4096, n=256):
+    """B4 at each geometry (COLUMN_WIDTHS) and B5 over whole chains against
+    their plain versions on B ragged pairs of n target columns, in each
+    state mode; float32 and int16 also against the int32 kernel.  B4 on B
+    long-gap pairs from `rng_gaps` (targets that are their queries with
+    8-200 bases cut out, and self-pairs: the in-del chain crosses many
+    lanes) at LONG_GAP_WIDTHS in LONG_GAP_MODES, the widths 64 and 128 from
+    it too.  Then int16, two pairs a warp, at an odd B - 1 pairs from
+    `rng_odd` (the last warp's high half dead): B4 at 2 and 8 rows a lane
+    and a K = 2 chain."""
+    import torch
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.column import (
         QUERY_TILE, column_chained_cuda, column_chained_reference,
         column_scores_cuda, column_scores_reference,
     )
+    from swtpu_torch.testing.gaps import long_gap_pairs
     from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     scores, chains = [], []
-    for m in (8, 32, 136, 256):
-        for width, dtype in COLUMN_MODES:
-            if dtype == "int32":  # an exact state runs on the pairs of the mode before
-                q, t = column_batch(rng, B, m, n)
-            args = (q, t, DEFAULT_PENALTIES, width, dtype)
-            got = column_scores_cuda(*args)
-            want, plain_ms = cuda_once(lambda: column_scores_reference(*args))
-            label = f"column m={m} width={width}" + (f" {dtype}" if dtype != "int32" else "")
-            err = strip_error(label, got, want)
-            if dtype in COLUMN_EXACT_STATES:
-                err = max(err, strip_error(label, got, column_scores_cuda(q, t),
-                                           (dtype, "int32")))
-            ms = cuda_ms(lambda: column_scores_cuda(*args), 10)
-            print(f"phase kernel_vs_plain: ok {label} [{B} pairs, {n} columns] bit-equal"
-                  f"{' (= int32)' if dtype != 'int32' else ''} | kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.1f} ms")
-            scores.append(dict(m=m, n=n, B=B, score_width=width, state_dtype=dtype,
-                               max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    runs = ([(m, mode, False) for m in COLUMN_WIDTHS for mode in COLUMN_MODES]
+            + [(m, mode, True) for m in LONG_GAP_WIDTHS for mode in LONG_GAP_MODES])
+    for m, (width, dtype), long_gaps in runs:
+        if long_gaps and (width, dtype) == LONG_GAP_MODES[0]:
+            q, t = (torch.from_numpy(x).cuda() for x in long_gap_pairs(rng_gaps, B, m))
+        elif not long_gaps and dtype == "int32":  # an exact state runs on the pairs of the mode before
+            q, t = column_batch(rng_gaps if m in COLUMN_WIDTHS_OWN_RNG else rng, B, m, n)
+        args = (q, t, DEFAULT_PENALTIES, width, dtype)
+        got = column_scores_cuda(*args)
+        want, plain_ms = cuda_once(lambda: column_scores_reference(*args))
+        label = (f"column {'long gaps ' if long_gaps else ''}m={m} width={width}"
+                 + (f" {dtype}" if dtype != "int32" else ""))
+        err = strip_error(label, got, want)
+        if dtype in COLUMN_EXACT_STATES:
+            err = max(err, strip_error(label, got, column_scores_cuda(q, t), (dtype, "int32")))
+        if long_gaps:  # every 8th pair is a query against itself: 5 a base
+            err = max(err, strip_error(f"{label} self-pairs", got[::8],
+                                       torch.full_like(got[::8], 5 * m), ("kernel", "5 m")))
+        ms = cuda_ms(lambda: column_scores_cuda(*args), 10)
+        print(f"phase kernel_vs_plain: ok {label} [{B} pairs, {t.shape[1]} columns] bit-equal"
+              f"{' (= int32)' if dtype != 'int32' else ''} | kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms")
+        scores.append(dict(m=m, n=t.shape[1], B=B, score_width=width, state_dtype=dtype,
+                           long_gaps=long_gaps, max_abs_err=err, ms=ms, plain_ms=plain_ms))
     for K in (2, 3):
         for width, dtype in ((None, "int32"), (10, "int32"), (None, "float32"),
                              (None, "int16")):
@@ -3015,16 +3042,26 @@ def column_batches(bank, query, db):
                                torch.from_numpy(b.t).cuda(), T_CHUNK)
 
 
-def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
+def column_bound(peaks, B, m, n):
+    """(least ms, what bounds it) of B4 on B pairs of m x n: the query and
+    target read and the score written once, COLUMN_OPS a cell."""
+    return peaks.bound(B * (m + n + 4), B * m * n * COLUMN_OPS)
+
+
+def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms, peaks):
     """Every bucket batch of (f) through B4 and its plain version, and
     every tile of (g)'s chain through B5 and its plain version, in full;
-    kernel and plain times; (g)'s chain against (e)'s stream chain."""
+    kernel and plain times (a bucket's also from a CUDA graph of its calls:
+    where the host's enqueue of a call outlasts the kernel, CUDA events
+    around the calls time the host), each bucket's share of its bound and its
+    instantiation's geometry, registers, spills and resident blocks; (g)'s
+    chain against (e)'s stream chain."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.column import (
-        column_chained_cuda, column_chained_reference, column_scores_cuda,
-        column_scores_reference,
+        column_chained_cuda, column_chained_reference, column_geometry, column_kernel_info,
+        column_scores_cuda, column_scores_reference,
     )
-    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once, graph_ms
 
     batches = []
     for q, t in column_batches(bank, f_case["query"], f_case["db"]):
@@ -3033,12 +3070,23 @@ def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms):
         want, plain_ms = cuda_once(lambda: column_scores_reference(q, t))
         err = strip_error(f"{f_case['name']} bucket {n}", got, want)
         ms = cuda_ms(lambda: column_scores_cuda(q, t), 5)
+        device_ms = graph_ms(lambda: column_scores_cuda(q, t), 5)
+        bound_ms, bound_by = column_bound(peaks, B, m, n)
+        lanes, rows, pairs = column_geometry(m)
+        regs, local, blocks = column_kernel_info(m)
         print(f"phase column_main_shape: ok {f_case['name']} bucket {n} [{B} pairs, "
-              f"query {m}] bit-equal | kernel {ms:.3f} ms -> "
-              f"{B * m * n / ms / 1e6:.2f} padded GCUPS in the kernel, plain "
+              f"query {m}] bit-equal | kernel {ms:.4f} ms ({device_ms:.4f} ms in the kernel "
+              f"itself) -> {B * m * n / ms / 1e6:.2f} padded GCUPS, bound {bound_ms:.4f} "
+              f"ms ({bound_by}): {bound_ms / ms:.1%} ({bound_ms / device_ms:.1%} of the "
+              f"kernel's own) | {lanes} lanes x {rows} rows a pair, {pairs} pairs a warp, "
+              f"{regs} registers, {local} spill bytes, {blocks} blocks an SM | plain "
               f"{plain_ms:.1f} ms", flush=True)
         batches.append(dict(name=f_case["name"], B=B, m=m, n=n, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms))
+                            ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, bound_share=bound_ms / ms,
+                            device_bound_share=bound_ms / device_ms, lanes_per_pair=lanes,
+                            rows_per_lane=rows, pairs_per_warp=pairs, registers=regs,
+                            local_bytes=local, resident_blocks_per_sm=blocks))
     (q, t), = column_batches(bank, g_case["query"], g_case["db"])
     (B, m), n = q.shape, t.shape[1]
     _, tiles = run_column_chain(q, t, None, column_chained_cuda)
@@ -3363,7 +3411,8 @@ def main() -> int:
     rng_16 = np.random.default_rng([args.seed, 6])  # the 16-bit states' own
     checks_16, chains_16 = phase_16bit_vs_plain(rng_16)
     col_checks, col_chains = phase_column_vs_plain(
-        rng_col, np.random.default_rng([args.seed, 7]))  # odd B: its own
+        rng_col, np.random.default_rng([args.seed, 7]),  # odd B: its own
+        np.random.default_rng([args.seed, 9]))  # widths 64 and 128, the long gaps: theirs
     lane_checks = phase_lane_vs_plain(rng_lane)
     e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
     from swtpu_torch.ops.stream import (
@@ -3404,7 +3453,7 @@ def main() -> int:
     check_bench_headline(bench, mode_a["ms"]["float32"], card)
     a_16, d_16 = phase_16bit_at_main_shape(cases[0], long_cases[0])
     col_batches, col_tile = phase_column_at_main_shape(
-        col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"])
+        col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"], peaks)
     f_states, g_states = phase_column_states(col_bank, col_cases[0], col_cases[1])
     lane, b2, e2_full = phase_shootout(card, args.seed)
     e1_table, e2_table, (e1_launches, e2_launches) = phase_microbench(card)
@@ -3424,7 +3473,7 @@ def main() -> int:
     b_chain = peaks.bound(128 * Nl + Tl * Nl * (1 + 12 + 16), 128 * Tl * Nl * WAVEFRONT_OPS)
     b_cut = peaks.bound(128 * Nl + Tc * Nl * (1 + 12 + 16), 128 * Tc * Nl * WAVEFRONT_OPS)
     B, m, n = chead["B"], chead["m"], chead["n"]
-    b_col = peaks.bound(B * (m + n + 4), B * m * n * COLUMN_OPS)
+    b_col = chead["bound_ms"], chead["bound_by"]
     Bt, nt = col_tile["B"], col_tile["n"]
     b_tile = peaks.bound(Bt * (256 + nt + 8 + 16 * nt), Bt * 256 * nt * COLUMN_OPS)
     Bl, nl = lane["B"], lane["n"]

@@ -35,7 +35,9 @@ tiles; ``_chained_call`` subtracts the bias once at the end.
 ``state_dtype`` "float32" or "int16" carries the exact state in that type,
 as swtpu's kernels do, with swtpu's prefix-scan floors (``STATE_FLOORS``).
 The plain versions run swtpu's log2(m) prefix scan in that type; the CUDA
-kernels run their ripple-and-shuffle scan, which has no floor.  Both give
+kernels ripple the chain down each lane's rows and carry it across lanes
+(``column_geometry``: B4 lazily, one lane a round; B5 and int16 by a
+shuffle scan), with no floor.  Both give
 the exact DP's integers, since every I candidate from the rows above
 exceeds the floor (base >= open + extend) and no value nears 2^15 (a
 score is at most match x 4,095 = 20,475 at +5): float32 and int16 scores
@@ -315,33 +317,53 @@ def column_chained_cuda(
 column_chained_cuda.launches = 0
 
 
-def rows_per_lane(m):
-    """Query rows a lane of the CUDA column kernel holds for a query of m
-    rows (at most QUERY_TILE): 1, 2, 4 or 8, so that 32 lanes cover m."""
-    return next(r for r in (1, 2, 4, 8) if 32 * r >= m)
+# rows a lane of the CUDA scores kernel (B4) in the one-value states
+ROWS_PER_LANE = 8
+
+
+def column_geometry(m, state_dtype="int32"):
+    """(lanes a pair, rows a lane, pairs a warp) of the CUDA scores kernel
+    for a query of m rows (1..QUERY_TILE) in `state_dtype` (a score width
+    runs int32's): the fewest lanes of ROWS_PER_LANE rows that cover m, 32
+    / lanes pairs a warp; int16 (``column_x2_kernel``) two pairs a warp of
+    32 lanes, the fewest rows a lane (1, 2, 4 or 8) that cover m.
+    ``swtpu_column_scores`` picks its instantiation by the same rule."""
+    if not 0 < m <= QUERY_TILE:
+        raise ValueError(f"query width {m} must be in 1..{QUERY_TILE}")
+    if state_dtype == "int16":
+        return 32, next(r for r in (1, 2, 4, 8) if 32 * r >= m), 2
+    lanes = next(k for k in (1, 2, 4, 8, 16, 32) if k * ROWS_PER_LANE >= m)
+    return lanes, ROWS_PER_LANE, 32 // lanes
 
 
 def column_kernel_info(m=QUERY_TILE, state_dtype="int32", score_width=None, tile=False):
     """(registers a thread, local spill bytes a thread, resident blocks an
     SM) of the CUDA column kernel's instantiation for a query of m rows (a
     chained tile with tile=True) in the state that `state_dtype` and
-    `score_width` pick, from the CUDA runtime on the current device."""
+    `score_width` pick, from the CUDA runtime on the current device.
+    Raises if the library's lanes and rows for m are not
+    ``column_geometry``'s."""
     import ctypes
 
     from swtpu_torch.ops._build import load_library
 
-    if not tile and not 0 < m <= QUERY_TILE:
-        raise ValueError(f"query width {m} must be in 1..{QUERY_TILE}")
+    if not tile:
+        geometry = column_geometry(m, state_dtype)
     if score_width is not None:
         _check_width(score_width, Penalties(0, 0, 0, 0))
     elif state_dtype not in STATE_CODES:
         raise ValueError(f"unknown state_dtype {state_dtype!r}")
     lib = load_library()
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     code = BIASED_CODE if score_width else STATE_CODES[state_dtype]
-    err = lib.swtpu_column_kernel_info(8 if tile else rows_per_lane(m), code, int(tile), out)
+    err = lib.swtpu_column_kernel_info(m, code, int(tile), out)
     _raise_on_error(lib, err, "column_kernel_info")
-    return tuple(out)
+    if not tile and tuple(out[3:]) != geometry[:2]:
+        raise RuntimeError(
+            f"the kernel takes {tuple(out[3:])} (lanes, rows) for m={m}, "
+            f"column_geometry {geometry[:2]}"
+        )
+    return tuple(out[:3])
 
 
 def _scores_call(q, t, penalties, score_width, state_dtype="int32"):
@@ -417,8 +439,8 @@ def _resolve_state(state_dtype, score_width):
 def pad_column_batch(q, t, chunk):
     """swtpu's static padding, with sentinels (score-neutral): the query to
     a multiple of 8 rows, or of QUERY_TILE rows when it will chain; the
-    target to a multiple of `chunk` columns.  Pairs are not padded: a
-    CUDA warp scores one pair and the grid masks its ragged edge."""
+    target to a multiple of `chunk` columns.  Pairs are not padded: the
+    CUDA kernel masks its last warp's ragged edge."""
     B, m = q.shape
     n = t.shape[1]
     mq = QUERY_TILE if m > QUERY_TILE else 8

@@ -41,30 +41,51 @@
 // with M_up = M[i-1, j].  The TPU evaluates the I chain as a log2(m)
 // max-plus prefix scan; any exact evaluation gives the same integers.
 //
-// Thread mapping.  One pair per warp.  Lane L owns query rows
-// L*RPL .. L*RPL + RPL - 1 (RPL = rows per lane, 1/2/4/8 so 32*RPL >= m;
-// rows past m are pad rows at the bottom, which never feed a row above
-// and never raise H) with their M, I and query codes in registers.  Per
-// column:
-//   - one __shfl_up_sync brings the diagonal max(M, I) of the lane above's
-//     last row from column j-1, and one brings this column's M of that row
-//     (M_up); lane 0 row 0 takes the boundary instead (zero, or for a tile
-//     dprev = max(ms, is)[j-1], ms[j] and the seed is[j] + extend);
-//   - the I chain ripples down the lane's own rows, then a 5-step
-//     Hillis-Steele max-plus scan across lanes (offset k lanes adds
-//     k*RPL*extend) and one more shuffle give each lane the I of the row
-//     above its first;
-//   - every lane reads the same 32 target bytes per 32 columns as two
-//     16-byte loads (one broadcast transaction) and takes byte c at column
-//     c; a tile's lane c loads ms/is of column c of the run (coalesced)
-//     and __shfl_sync hands them to lane 0, and lane 31's row 255 M and I
-//     go back to lane c the same way, stored once per run.
-// What bounds it.  Per cell it reads nothing from memory (the target is
-// one byte per column per pair, the strips 8 bytes in and 8 out per column
-// per pair), so it is bound by the dependent integer chain per column and
-// the eight shuffles that carry it across lanes.  All state stays in
-// registers for the whole target; a warp loops over all n columns itself,
-// so no state crosses blocks (the TPU's sequential grid becomes this loop).
+// B4 (column_scores_kernel; int32, wrap-parity and float32 state).  A pair
+// takes L lanes of a warp, 1 to 32, the fewest that cover its query at
+// kRows = 8 rows a lane, so a warp holds 32 / L pairs (two at (f)'s query
+// of 128; a bucketed batch pads every pair to one m and n, so the loop is
+// the same for all of them).  Lane l of a pair owns rows 8l .. 8l + 7 with
+// their M, I and query codes in registers, and reads its pair's 32 target
+// bytes a run of 32 columns as two 16-byte loads.  Each lane keeps
+// A = I - (open + extend) in place of I, which folds the extend of the I
+// candidate into the other adds: a cell is diag = max(A + open + extend, M),
+// M = max(diag + s, 0), y = max(A + extend, max(M_up, M)), the chain
+// A = max(y, A_above + extend) and H = max(H, M), eight operations with
+// Hopper's DPX add-max (VIADDMNMX).  Per column:
+//   - one __shfl_up_sync brings the lane above's last-row diagonal (from
+//     column j-1), one its new M; lane 0 of a pair takes the zero boundary;
+//   - the I chain ripples down the lane's own rows, from its own rows only;
+//   - the carry from the lanes above is propagated lazily: one shuffle hands
+//     each lane the last-row A of the lane above, and a lane whose own last
+//     row that carry raises hands its new value one lane further, repeated
+//     while __any_sync says some lane's last row rose.  The loop is exact
+//     (it stops at the fixed point of the lanes' recurrence, in integers, or
+//     in float32 below 2^24).  On random reads a carry raises a lane's first
+//     rows at about one boundary in six but its last row (8 rows and 32 of
+//     extend below) almost never, so one shuffle and one vote replace the
+//     warp-wide scan (five dependent shuffles, an add-max and a select
+//     each).  A gap that runs k rows down the column costs about k / 8
+//     more rounds of that column, one shuffle and one vote each;
+//   - the carry goes into every row with one add-max a row (lane 0's carry
+//     is a floor that never wins, so no select).
+// What bounds it.  Per cell it reads nothing from memory (a byte of target
+// a column a pair), so it is bound by the integer pipe: the eight
+// operations a cell, the carry's one a row, and a lane-column's target
+// byte, boundary selects and lazy step (seven over eight rows).  All state
+// stays in registers for the whole target; a warp loops over all n columns
+// itself, so no state crosses blocks (the TPU's sequential grid becomes
+// this loop).  A warp's pairs past B (the ragged edge) rescore pair B - 1
+// and write nothing.
+//
+// B5 (column_tile_kernel) and int16 (column_x2_kernel) run the warp-wide
+// form: one pair (int16: two) a warp of 32 lanes, rows 1-8 a lane, the I
+// chain's carry a 5-step Hillis-Steele max-plus scan across lanes (offset k
+// lanes adds k * rows * extend) and one more shuffle, merged into every row
+// with a select for lane 0.  A tile's lane c loads ms/is of column c of the
+// run (coalesced) and __shfl_sync hands them to lane 0, and lane 31's row
+// 255 M and I go back to lane c the same way, stored once per run.  B4's
+// lazy carry for them is queued (ROADMAP.md).
 //
 // Two pairs a warp (kInt16, column_x2_kernel).  The warp holds pairs 2w
 // and 2w + 1 in the low and high halves of each 32-bit register and runs the
@@ -91,7 +112,9 @@ constexpr int kWarp = 32;
 constexpr int kQueryPad = 5;   // query pad code
 constexpr int kTileRows = 256; // rows of a chained tile: 8 per lane
 constexpr int kRun = 32;       // target columns read together
-constexpr int kBlock = 128;    // threads per block: 4 pairs
+constexpr int kBlock = 128;    // threads per block: 4 warps
+constexpr int kRows = 8;       // B4's rows a lane
+constexpr int kFloor = -(1 << 30);  // lane 0's carry: never wins, never overflows
 constexpr unsigned kFull = 0xffffffffu;
 
 struct ColumnArgs {
@@ -113,8 +136,8 @@ __device__ __forceinline__ int mx(int a, int b) { return max(a, b); }
 __device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
 
 // The arithmetic of each state mode: the state type T, a constant as T
-// (cst), the boundary zero, an add, the M update, a strip value read (load)
-// and written (store).
+// (cst), the boundary zero, an add, addmax(x, y, z) = max(x + y, z), the
+// M update, a strip value read (load) and written (store).
 template <int kState>
 struct ColumnArith {  // kExact, kBiased
   using T = int;
@@ -125,6 +148,7 @@ struct ColumnArith {  // kExact, kBiased
   __device__ int cst(int x) const { return x; }
   __device__ int zero() const { return zbit; }
   __device__ int add(int x, int y) const { return x + y; }
+  __device__ int addmax(int x, int y, int z) const { return __viaddmax_s32(x, y, z); }
   __device__ int m(int x) const {
     if (kState != kBiased) return max(x, 0);
     const int w = x & mask;
@@ -141,6 +165,7 @@ struct ColumnArith<kFloat> {
   __device__ float cst(int x) const { return static_cast<float>(x); }
   __device__ float zero() const { return 0.f; }
   __device__ float add(float x, float y) const { return x + y; }
+  __device__ float addmax(float x, float y, float z) const { return fmaxf(x + y, z); }
   __device__ float m(float x) const { return fmaxf(x, 0.f); }
   __device__ float load(int x) const { return static_cast<float>(x); }
   __device__ int store(float x) const { return static_cast<int>(x); }
@@ -158,8 +183,102 @@ struct ColumnArith<kInt16> : Int16x2 {
   __device__ int store(T x, int h) const { return widen(x, h); }
 };
 
-template <int RPL, int kState, bool kTile>
-__global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
+// B4 in the one-value states: 32 / LANES pairs a warp, LANES lanes of
+// kRows rows a pair, the lazy carry (see the note at the top).
+template <int LANES, int kState>
+__global__ void __launch_bounds__(kBlock) column_scores_kernel(const ColumnArgs a) {
+  using A = ColumnArith<kState>;
+  using T = typename A::T;
+  constexpr int P = kWarp / LANES;  // pairs a warp
+  const int lane = threadIdx.x % kWarp;
+  const int sub = lane % LANES;  // the lane's place in its pair
+  const long long w = (long long)blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp;
+  if (w * P >= a.B) return;  // w is the same for the whole warp
+  const long long b = w * P + lane / LANES;
+  const bool live = b < a.B;  // a dead pair rescores pair B - 1 and writes nothing
+  const long long bb = live ? b : a.B - 1;
+  const A ar(a.width);
+  const T zero = ar.zero();
+  const T oe = ar.cst(a.go + a.ge);
+  const T ge = ar.cst(a.ge);
+  const T ma = ar.cst(a.ma), mi = ar.cst(a.mi);
+  const T seed = ar.add(zero, ar.cst(-a.go));  // row 0's zero + extend, less oe
+  const T low = ar.cst(kFloor);  // lane 0's carry
+  const T step = ar.cst(kRows * a.ge);  // a carry's extend over a lane's rows
+  const int n = a.n;
+  const int8_t* qb = a.q + bb * a.m;
+  const int8_t* tb = a.t + bb * n;
+
+  int q[kRows];
+  T M[kRows], Ad[kRows];  // Ad = I - (open + extend)
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = sub * kRows + r;
+    q[r] = i < a.m ? qb[i] : kQueryPad;
+    M[r] = zero;
+    Ad[r] = ar.add(zero, ar.cst(-(a.go + a.ge)));  // boundary column I = 0 (RTL ZERO tie)
+  }
+  T h = zero;
+
+  for (int j0 = 0; j0 < n; j0 += kRun) {
+    const int4* tp = reinterpret_cast<const int4*>(tb + j0);
+    const int4 lo = tp[0];
+    const int4 hi = tp[1];
+    const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int c = 0; c < kRun; ++c) {
+      const int tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
+      // max(M, I) of column j-1: each row's diagonal for the row below
+      T D[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) D[r] = ar.addmax(Ad[r], oe, M[r]);
+      T dup = __shfl_up_sync(kFull, D[kRows - 1], 1, LANES);
+      if (sub == 0) dup = zero;
+      T Mn[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        Mn[r] = ar.m(ar.add(r == 0 ? dup : D[r - 1], q[r] == tj ? ma : mi));
+      }
+      T mup = __shfl_up_sync(kFull, Mn[kRows - 1], 1, LANES);
+      if (sub == 0) mup = zero;
+      // the I chain inside the lane, from its own rows only
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        T y = ar.addmax(Ad[r], ge, mx(r == 0 ? mup : Mn[r - 1], M[r]));
+        if (r == 0 && sub == 0) y = mx(y, seed);
+        Ad[r] = r == 0 ? y : ar.addmax(Ad[r - 1], ge, y);
+      }
+      if constexpr (LANES > 1) {
+        // the carry: the lane above's last row, passed on while it raises one
+        const T own = Ad[kRows - 1];
+        T last = own, carry;
+        for (;;) {
+          carry = __shfl_up_sync(kFull, last, 1, LANES);
+          if (sub == 0) carry = low;
+          const T next = ar.addmax(carry, step, own);
+          if (!__any_sync(kFull, next != last)) break;
+          last = next;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) Ad[r] = ar.addmax(carry, ar.cst((r + 1) * a.ge), Ad[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        M[r] = Mn[r];
+        h = mx(h, Mn[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    h = mx(h, __shfl_xor_sync(kFull, h, off));
+  if (sub == 0 && live) a.h_out[b] = ar.store(h) - ar.store(zero);
+}
+
+// B5: one 256-row tile, one pair a warp, 8 rows a lane, the warp-wide scan.
+template <int kState>
+__global__ void __launch_bounds__(kBlock) column_tile_kernel(const ColumnArgs a) {
+  constexpr int RPL = kTileRows / kWarp;
   using A = ColumnArith<kState>;
   using T = typename A::T;
   const int lane = threadIdx.x % kWarp;
@@ -185,26 +304,21 @@ __global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
     I[r] = zero;  // boundary column I = 0 (RTL ZERO tie)
   }
   T h = zero;
-  T dprev = zero;  // tile: max(ms, is) of column j-1; zero at column -1
+  T dprev = zero;  // max(ms, is) of column j-1; zero at column -1
 
   for (int j0 = 0; j0 < n; j0 += kRun) {
     const int4* tp = reinterpret_cast<const int4*>(tb + j0);
     const int4 lo = tp[0];
     const int4 hi = tp[1];
     const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    T ms_run = zero, is_run = zero, ms_keep = zero, is_keep = zero;
-    if (kTile) {
-      ms_run = ar.load(a.ms[b * n + j0 + lane]);
-      is_run = ar.load(a.is[b * n + j0 + lane]);
-    }
+    const T ms_run = ar.load(a.ms[b * n + j0 + lane]);
+    const T is_run = ar.load(a.is[b * n + j0 + lane]);
+    T ms_keep = zero, is_keep = zero;
 #pragma unroll
     for (int c = 0; c < kRun; ++c) {
       const int tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
-      T msj = zero, isj = zero;
-      if (kTile) {
-        msj = __shfl_sync(kFull, ms_run, c);
-        isj = __shfl_sync(kFull, is_run, c);
-      }
+      const T msj = __shfl_sync(kFull, ms_run, c);
+      const T isj = __shfl_sync(kFull, is_run, c);
       // the diagonal of row 0 of this lane: the lane above's last row at j-1
       T dup = __shfl_up_sync(kFull, mx(M[RPL - 1], I[RPL - 1]), 1);
       if (lane == 0) dup = dprev;
@@ -239,33 +353,29 @@ __global__ void __launch_bounds__(kBlock) column_kernel(const ColumnArgs a) {
         M[r] = Mn[r];
         h = mx(h, Mn[r]);
       }
-      if (kTile) {
-        dprev = mx(msj, isj);
-        const T om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
-        const T oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
-        if (lane == c) {
-          ms_keep = om;
-          is_keep = oi;
-        }
+      dprev = mx(msj, isj);
+      const T om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
+      const T oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
+      if (lane == c) {
+        ms_keep = om;
+        is_keep = oi;
       }
     }
-    if (kTile) {
-      a.ms_out[b * n + j0 + lane] = ar.store(ms_keep);
-      a.is_out[b * n + j0 + lane] = ar.store(is_keep);
-    }
+    a.ms_out[b * n + j0 + lane] = ar.store(ms_keep);
+    a.is_out[b * n + j0 + lane] = ar.store(is_keep);
   }
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
     h = mx(h, __shfl_xor_sync(kFull, h, off));
   if (lane == 0) {
-    a.h_out[b] = kTile ? max(a.h[b], ar.store(h)) : ar.store(h) - ar.store(zero);
+    a.h_out[b] = max(a.h[b], ar.store(h));
   }
 }
 
-// column_kernel in int16, two pairs a warp: pairs 2w and 2w + 1 in the
-// halves of each register.  Both share m and n, so the loop and the lane
-// selects are column_kernel's; the codes, the target bytes, the match and
-// the strips are per half.
+// The warp-wide form in int16, two pairs a warp: pairs 2w and 2w + 1 in
+// the halves of each register (B4 at rows 1-8 a lane, and B5).  Both share
+// m and n, so the loop and the lane selects are column_tile_kernel's; the
+// codes, the target bytes, the match and the strips are per half.
 template <int RPL, bool kTile>
 __global__ void __launch_bounds__(kBlock) column_x2_kernel(const ColumnArgs a) {
   using A = ColumnArith<kInt16>;
@@ -385,54 +495,85 @@ __global__ void __launch_bounds__(kBlock) column_x2_kernel(const ColumnArgs a) {
   }
 }
 
-// The kernel of a state mode, and the pairs a warp of it holds: two in
-// int16.
-template <int RPL, int kState, bool kTile>
+// An instantiation: G is B4's lanes a pair in a one-value state, or the
+// int16 kernel's rows a lane; a tile (B5) ignores it.
+template <int G, int kState, bool kTile>
 constexpr auto kernel_of() {
-  if constexpr (kState == kInt16) {
-    return column_x2_kernel<RPL, kTile>;
+  if constexpr (kTile && kState == kInt16) {
+    return column_x2_kernel<kTileRows / kWarp, true>;
+  } else if constexpr (kTile) {
+    return column_tile_kernel<kState>;
+  } else if constexpr (kState == kInt16) {
+    return column_x2_kernel<G, false>;
   } else {
-    return column_kernel<RPL, kState, kTile>;
+    return column_scores_kernel<G, kState>;
   }
 }
-template <int kState>
-constexpr long long kPairsPerWarp = kState == kInt16 ? 2 : 1;
+// its pairs a warp, lanes a pair and rows a lane
+template <int G, int kState, bool kTile>
+constexpr int kPairsPerWarp = kState == kInt16 ? 2 : kTile ? 1 : kWarp / G;
+template <int G, int kState, bool kTile>
+constexpr int kLanesPerPair = kTile || kState == kInt16 ? kWarp : G;
+template <int G, int kState, bool kTile>
+constexpr int kRowsPerLane = kTile ? kTileRows / kWarp : kState == kInt16 ? G : kRows;
 
-// f(std::integral_constant<int, kState>{}) for a state code (ColumnState).
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<kState>{}) for a state code (ColumnState).
 template <typename F>
 cudaError_t with_state(int state, F f) {
   switch (state) {
-    case kExact: return f(std::integral_constant<int, kExact>{});
-    case kBiased: return f(std::integral_constant<int, kBiased>{});
-    case kFloat: return f(std::integral_constant<int, kFloat>{});
-    case kInt16: return f(std::integral_constant<int, kInt16>{});
+    case kExact: return f(Int<kExact>{});
+    case kBiased: return f(Int<kBiased>{});
+    case kFloat: return f(Int<kFloat>{});
+    case kInt16: return f(Int<kInt16>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int RPL, bool kTile>
-cudaError_t launch(const ColumnArgs& a, int state, cudaStream_t stream) {
-  if ((state == kBiased) != (a.width != 0)) return cudaErrorInvalidValue;
-  return with_state(state, [&](auto st) {
-    constexpr int K = decltype(st)::value;
-    constexpr long long P = kPairsPerWarp<K>, kWarps = kBlock / kWarp;
-    const unsigned blocks = (unsigned)(((a.B + P - 1) / P + kWarps - 1) / kWarps);
-    kernel_of<RPL, K, kTile>()<<<blocks, kBlock, 0, stream>>>(a);
-    return cudaGetLastError();
-  });
+// f(Int<G>{}) for B4's instantiation at a query of m rows (ops/column.py's
+// column_geometry is the same rule): the fewest lanes of kRows rows that
+// cover m, or in int16 the fewest rows a lane over 32 lanes.
+template <int kState, typename F>
+cudaError_t with_geometry(int m, F f) {
+  if constexpr (kState == kInt16) {
+    if (m <= 32) return f(Int<1>{});
+    if (m <= 64) return f(Int<2>{});
+    if (m <= 128) return f(Int<4>{});
+    if (m <= kTileRows) return f(Int<8>{});
+  } else {
+    if (m <= kRows) return f(Int<1>{});
+    if (m <= 2 * kRows) return f(Int<2>{});
+    if (m <= 4 * kRows) return f(Int<4>{});
+    if (m <= 8 * kRows) return f(Int<8>{});
+    if (m <= 16 * kRows) return f(Int<16>{});
+    if (m <= kTileRows) return f(Int<32>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
-// Registers a thread, local (spill) bytes a thread and resident blocks an
-// SM of one instantiation.
-template <int RPL, int kState, bool kTile>
+template <int G, int kState, bool kTile>
+cudaError_t launch(const ColumnArgs& a, cudaStream_t stream) {
+  constexpr long long P = kPairsPerWarp<G, kState, kTile>, kWarps = kBlock / kWarp;
+  const unsigned blocks = (unsigned)(((a.B + P - 1) / P + kWarps - 1) / kWarps);
+  kernel_of<G, kState, kTile>()<<<blocks, kBlock, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Registers a thread, local (spill) bytes a thread, resident blocks an SM,
+// lanes a pair and rows a lane of one instantiation.
+template <int G, int kState, bool kTile>
 cudaError_t kernel_info(int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel_of<RPL, kState, kTile>());
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel_of<G, kState, kTile>());
   if (err != cudaSuccess) return err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
+  out[3] = kLanesPerPair<G, kState, kTile>;
+  out[4] = kRowsPerLane<G, kState, kTile>;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], kernel_of<RPL, kState, kTile>(), kBlock, 0);
+      &out[2], kernel_of<G, kState, kTile>(), kBlock, 0);
 }
 
 }  // namespace
@@ -451,11 +592,11 @@ extern "C" int swtpu_column_scores(const void* q, const void* t, void* out,
                      static_cast<int32_t*>(out), nullptr, nullptr,
                      B, m, n, ma, mi, go, ge, score_width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 32) return launch<1, false>(a, state, st);
-  if (m <= 64) return launch<2, false>(a, state, st);
-  if (m <= 128) return launch<4, false>(a, state, st);
-  if (m <= kTileRows) return launch<8, false>(a, state, st);
-  return cudaErrorInvalidValue;
+  if ((state == kBiased) != (score_width != 0)) return cudaErrorInvalidValue;
+  return with_state(state, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    return with_geometry<K>(m, [&](auto g) { return launch<decltype(g)::value, K, false>(a, st); });
+  });
 }
 
 // B5, one tile: q [B, 256] int8, t [B, n] int8, ms/is [B, n] int32, h [B]
@@ -478,22 +619,21 @@ extern "C" int swtpu_column_chained(const void* q, const void* t,
                      static_cast<int32_t*>(ms_out),
                      static_cast<int32_t*>(is_out),
                      B, kTileRows, n, ma, mi, go, ge, score_width};
-  return launch<8, true>(a, state, static_cast<cudaStream_t>(stream));
+  if ((state == kBiased) != (score_width != 0)) return cudaErrorInvalidValue;
+  return with_state(state, [&](auto k) {
+    return launch<kRows, decltype(k)::value, true>(a, static_cast<cudaStream_t>(stream));
+  });
 }
 
-// out[3] = registers a thread, local bytes a thread, resident blocks an SM
-// of the instantiation for `rpl` rows a lane (1, 2, 4 or 8; a tile: 8) in
-// state code `state`, the chained tile if `tile`.  Returns the CUDA error.
-extern "C" int swtpu_column_kernel_info(int rpl, int state, int tile, int* out) {
-  return with_state(state, [&](auto st) {
-    constexpr int K = decltype(st)::value;
-    if (tile) return rpl == 8 ? kernel_info<8, K, true>(out) : cudaErrorInvalidValue;
-    switch (rpl) {
-      case 1: return kernel_info<1, K, false>(out);
-      case 2: return kernel_info<2, K, false>(out);
-      case 4: return kernel_info<4, K, false>(out);
-      case 8: return kernel_info<8, K, false>(out);
-      default: return cudaErrorInvalidValue;
-    }
+// out[5] = registers a thread, local bytes a thread, resident blocks an
+// SM, lanes a pair and rows a lane of the instantiation that a query of m
+// rows (1-256) takes in state code `state`, or of the chained tile if
+// `tile`.  Returns the CUDA error.
+extern "C" int swtpu_column_kernel_info(int m, int state, int tile, int* out) {
+  return with_state(state, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    if (tile) return kernel_info<kRows, K, true>(out);
+    if (m < 1) return cudaErrorInvalidValue;
+    return with_geometry<K>(m, [&](auto g) { return kernel_info<decltype(g)::value, K, false>(out); });
   });
 }

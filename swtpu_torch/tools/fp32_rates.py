@@ -32,15 +32,18 @@ and power limit, then:
   probes, and the bounds' model (``model_lanes``, which ``chip_smoke.py``'s
   ``lanes_of`` calls) at those rates and at the nominal ones: a wavefront
   cell's 10 operations and a column cell's 11 in results an SM a clock.
-- ``loop`` lines: the opcodes of the hottest loop (the innermost backward
-  branch's body with the most instructions: the step loop) of the kernel
-  library's float32 wavefront (rows 8 and 16, one tile and chained) and
-  column (4 and 8 rows a lane, B4 and the B5 tile) instantiations and its
-  packed bfloat16 wavefront (rows 8, one tile and chained), a cell (the
-  loop's adds over the recurrence's 3 adds a cell, two cells an
-  instruction in bfloat16), and the results an SM a clock the probe's rates
-  of its type give that mix: the largest of the pipes' and the dispatch's
-  times, against their sum.
+- ``loop`` lines: the opcodes of the hottest loop of the kernel library's
+  float32 wavefront (rows 8 and 16, one tile and chained) and column (B4 at
+  16 and 32 lanes a pair, the B5 tile) instantiations and its packed
+  bfloat16 wavefront (rows 8, one tile and chained), a cell, and the
+  results an SM a clock the probe's rates of its type give that mix: the
+  largest of the pipes' and the dispatch's times, against their sum.  A
+  wavefront's loop is the innermost backward branch's body with the most
+  instructions (the step loop), its cells the loop's adds over the
+  recurrence's 3 adds a cell (two cells an instruction in bfloat16); a
+  column kernel's is its run loop (the outermost backward branch's body:
+  32 unrolled columns, B4's carry loop once a column), its cells 32
+  columns x 8 rows a lane.
 """
 
 from __future__ import annotations
@@ -141,10 +144,29 @@ def float32_label(name: str):
     m = re.search(r"stream_wavefront_kernel<(\d+), (\d+), 2>", name)
     if m and m.group(1) in ("8", "16") and m.group(2) != "1":
         return f"wavefront rows={m.group(1)} {'chained' if m.group(2) == '2' else 'tail-acc'}"
-    m = re.search(r"column_kernel<(\d+), 2, (true|false|1|0)>", name)
-    if m and m.group(1) in ("4", "8"):
-        return f"column rpl={m.group(1)} {'B5 tile' if m.group(2) in ('true', '1') else 'B4'}"
+    m = re.search(r"column_scores_kernel<(\d+), 2>", name)
+    if m and m.group(1) in ("16", "32"):
+        return f"column lanes={m.group(1)} B4"
+    if re.search(r"column_tile_kernel<2>", name):
+        return "column B5 tile"
     return None
+
+
+def run_loop(ops):
+    """The opcodes of the outermost loop: the body [target, branch] of the
+    backward BRA that spans the most; [] without one."""
+    loops = []
+    for addr, op, rest in ops:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and m and int(m.group(1), 16) <= addr:
+            loops.append((addr - int(m.group(1), 16), int(m.group(1), 16), addr))
+    if not loops:
+        return []
+    _, a, b = max(loops)
+    return [op for addr, op, _ in ops if a <= addr <= b]
+
+
+COLUMN_CELLS = 32 * 8  # cells a lane of a column kernel's run loop: 32 columns x 8 rows
 
 
 def bfloat16_label(name: str):
@@ -307,13 +329,14 @@ def main() -> int:
             what, kind = bfloat16_label(name), "bfloat16"
         if not what:
             continue
-        body = collections.Counter(hot_loop(ops))
+        column = what.startswith("column")
+        body = collections.Counter(run_loop(ops) if column else hot_loop(ops))
         per = PER_INSTRUCTION[kind]
         adds = body["FADD"] if kind == "float32" else (
             body["HADD2"] + body["HFMA2"] + body["HFMA2.MMA"])
         if not adds:
             continue
-        cells = adds * per / ADDS_A_CELL
+        cells = COLUMN_CELLS if column else adds * per / ADDS_A_CELL
         pipes = {p: n / cells for p, n in by_pipe(body).items() if n}
         dispatched = sum(body.values()) / cells
         arith = sum(pipes.values())

@@ -29,3 +29,25 @@ def cuda_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` calls captured in one CUDA
+    graph and replayed (after one warm-up call and one warm-up replay): the
+    launches run back to back with no host work between them, so this is
+    the kernels' own time where a call's host work outlasts its kernels
+    (cuda_ms then times the host's enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -18,6 +18,7 @@ from swtpu.ops import common as ref_common
 from swtpu.ops.pallas_kernel import _sw_kernel_chained, sw_scores_pallas
 from swtpu.oracle import sw_score_batch, sw_score_single, sw_score_single_biased
 from swtpu_torch.ops import column, common
+from swtpu_torch.testing.gaps import long_gap_pairs
 
 torch.set_num_threads(1)
 
@@ -259,6 +260,30 @@ def test_exact_states_equal_swtpu_on_a_256_row_bucket(state_dtype):
     np.testing.assert_array_equal(got, _port(qp, tp))
 
 
+# the long-gap modes: (swtpu's state_dtype, score width or None)
+LONG_GAP_MODES = [("int32", None), ("int16_biased", 12), ("float32", None)]
+
+
+@pytest.mark.parametrize("state_dtype,width", LONG_GAP_MODES)
+@pytest.mark.parametrize("m", [32, 128, 256])
+def test_long_gap_pairs_equal_swtpu_and_oracle(m, state_dtype, width):
+    """Targets that are their queries with 8-200 bases cut out (and
+    self-pairs), so the in-del chain runs far down the column, across many
+    of the CUDA kernel's lanes: the plain version = swtpu's interpret-mode
+    kernel = the oracle, at tolerance 0."""
+    q, t = long_gap_pairs(np.random.default_rng(40 + m), 8, m)
+    kw = dict(state_dtype=state_dtype) if width is None else dict(
+        state_dtype=state_dtype, score_width=width)
+    got = _port(q, t, **kw)
+    lens = np.full(8, m)
+    t_lens = (t != common.T_PAD).sum(1)
+    want = (_biased(q, lens, t, t_lens, width) if width
+            else sw_score_batch(q, t, lens, t_lens))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _swtpu(q, t, **kw))
+    assert (want[::8] == 5 * m).all()  # the self-pairs
+
+
 def test_int16_chain_past_8191():
     """A two-tile chain (B5) in int16 state whose self-matching 300-base
     pair scores 12,000 at +40 a match: past the 8,191 that swtpu's int16
@@ -331,12 +356,39 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert (column.column_scores_cuda.launches, column.column_chained_cuda.launches) == launches
 
 
-@pytest.mark.parametrize("m,rpl", [(1, 1), (8, 1), (32, 1), (40, 2), (64, 2), (65, 4),
-                                   (128, 4), (136, 8), (256, 8)])
-def test_rows_per_lane_covers_the_query(m, rpl):
-    """The CUDA kernel's instantiation for a query of m rows: 32 lanes of
-    rpl rows, the fewest that cover m (swtpu_column_scores' choice)."""
-    assert column.rows_per_lane(m) == rpl
+@pytest.mark.parametrize("m,state_dtype,geometry", [
+    (1, "int32", (1, 8, 32)), (8, "int32", (1, 8, 32)), (16, "int32", (2, 8, 16)),
+    (32, "int32", (4, 8, 8)), (40, "int32", (8, 8, 4)), (64, "float32", (8, 8, 4)),
+    (65, "int32", (16, 8, 2)), (128, "int32", (16, 8, 2)), (136, "float32", (32, 8, 1)),
+    (256, "int32", (32, 8, 1)), (1, "int16", (32, 1, 2)), (32, "int16", (32, 1, 2)),
+    (40, "int16", (32, 2, 2)), (64, "int16", (32, 2, 2)), (65, "int16", (32, 4, 2)),
+    (128, "int16", (32, 4, 2)), (136, "int16", (32, 8, 2)), (256, "int16", (32, 8, 2)),
+])
+def test_rows_per_lane_covers_the_query(m, state_dtype, geometry):
+    """The CUDA kernel's instantiation for a query of m rows: (lanes a pair,
+    rows a lane, pairs a warp), B4's fewest lanes of 8 rows that cover m in
+    the one-value states, int16's fewest rows over 32 lanes, two pairs a
+    warp (swtpu_column_scores' choice)."""
+    assert column.column_geometry(m, state_dtype) == geometry
+
+
+@pytest.mark.parametrize("state_dtype", ["int32", "float32", "int16"])
+def test_column_geometry_at_every_width(state_dtype):
+    """At every query width 1..256: the lanes of a pair cover the query, a
+    warp's pairs fill its 32 lanes, and no smaller power of two of lanes
+    (one-value states) or rows (int16) would cover it."""
+    for m in range(1, column.QUERY_TILE + 1):
+        lanes, rows, pairs = column.column_geometry(m, state_dtype)
+        assert lanes * rows >= m
+        assert lanes & (lanes - 1) == 0 and rows & (rows - 1) == 0
+        if state_dtype == "int16":  # two pairs in the halves of each register
+            assert (lanes, pairs) == (32, 2) and (rows == 1 or 32 * rows // 2 < m)
+        else:
+            assert lanes * pairs == 32 and rows == column.ROWS_PER_LANE
+            assert lanes == 1 or lanes // 2 * rows < m
+    for m in (0, column.QUERY_TILE + 1):
+        with pytest.raises(ValueError, match=f"query width {m}"):
+            column.column_geometry(m, state_dtype)
 
 
 @pytest.mark.parametrize("kw,match", [

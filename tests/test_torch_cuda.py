@@ -21,6 +21,7 @@ from swtpu_torch.bank.streams import pack_streams, pack_streams_long
 from swtpu_torch.ops import column, lane, microbench
 from swtpu_torch.ops import stream as port
 from swtpu_torch.oracle import sw_score_single_biased
+from swtpu_torch.testing.gaps import long_gap_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -306,10 +307,11 @@ COLUMN_MODES = [(None, "int32"), (12, "int32"), (10, "int32"), (None, "float32")
 
 
 @pytest.mark.parametrize("width,state_dtype", COLUMN_MODES)
-@pytest.mark.parametrize("m", [8, 32, 136, 256])
+@pytest.mark.parametrize("m", [8, 32, 64, 128, 136, 256])
 def test_column_kernel_equals_plain_version(cuda_device, m, width, state_dtype):
-    """B4 at each rows-per-lane, 1001 pairs (a ragged last block), in each
-    state mode; float32 and int16 also equal int32."""
+    """B4 at each geometry (lanes a pair; int16's rows a lane), 1001 pairs
+    (a ragged last block and warp), in each state mode; float32 and int16
+    also equal int32."""
     rng = np.random.default_rng(m + (width or 0))
     q, t = _column_batch(rng, 1001, m, 160)
     want = column.column_scores_reference(q, t, DEFAULT_PENALTIES, width, state_dtype)
@@ -322,6 +324,21 @@ def test_column_kernel_equals_plain_version(cuda_device, m, width, state_dtype):
     if state_dtype != "int32":
         exact = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device))
         np.testing.assert_array_equal(got.cpu().numpy(), exact.cpu().numpy())
+
+
+@pytest.mark.parametrize("width,state_dtype", COLUMN_MODES)
+@pytest.mark.parametrize("m", [32, 128, 256])
+def test_column_kernel_long_gaps_equal_plain_version(cuda_device, m, width, state_dtype):
+    """B4 on targets that are their queries with 8-200 bases cut out (and
+    self-pairs): the in-del chain crosses many lanes, so the lazy carry runs
+    many rounds a column; 999 pairs."""
+    q, t = (torch.from_numpy(x) for x in long_gap_pairs(np.random.default_rng(m), 999, m))
+    want = column.column_scores_reference(q, t, DEFAULT_PENALTIES, width, state_dtype)
+    got = column.column_scores_cuda(q.to(cuda_device), t.to(cuda_device),
+                                    DEFAULT_PENALTIES, width, state_dtype)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if width != 10:  # a self-pair of 256 bases wraps at W = 10
+        assert (got[::8] == 5 * m).all()
 
 
 @pytest.mark.parametrize("width,state_dtype", [(None, "int32"), (10, "int32"),
@@ -1059,16 +1076,25 @@ def test_packed_column_chain_equals_plain_version(cuda_device, B):
     assert got[0] == 40 * 320
 
 
-@pytest.mark.parametrize("m,tile", [(8, False), (64, False), (128, False), (256, False),
-                                    (256, True)])
+@pytest.mark.parametrize("m,tile", [(8, False), (16, False), (32, False), (64, False),
+                                    (128, False), (256, False), (256, True)])
 @pytest.mark.parametrize("width,state_dtype", COLUMN_MODES)
 def test_column_kernels_do_not_spill(cuda_device, m, tile, width, state_dtype):
-    """Every column instantiation (each rows-per-lane, the tile, each state)
+    """Every column instantiation (each geometry, the tile, each state)
     runs from registers alone and fits a block on an SM."""
     regs, local, blocks = column.column_kernel_info(m, state_dtype, width, tile)
     assert 0 < regs <= 255
     assert local == 0
     assert blocks >= 1
+
+
+@pytest.mark.parametrize("state_dtype", ["int32", "float32", "int16"])
+def test_column_kernel_geometry_is_the_hosts(cuda_device, state_dtype):
+    """At every query width 1..256 the library's instantiation has
+    column_geometry's lanes a pair and rows a lane (column_kernel_info
+    raises where they differ)."""
+    for m in range(1, column.QUERY_TILE + 1):
+        assert column.column_kernel_info(m, state_dtype)[1] == 0
 
 
 # resident serving: (max_query_len, query lengths it serves, config)

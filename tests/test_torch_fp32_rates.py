@@ -37,6 +37,10 @@ def test_functions_and_hot_loop():
     assert fp32_rates.hot_loop(one) == ["FMNMX", "FSEL", "ISETP", "BRA"]
     assert fp32_rates.hot_loop(funcs["_Z3twov"]) == ["FADD", "BRA"]
     assert fp32_rates.hot_loop([(0, "FADD", " R1, R2, R3 ")]) == []
+    # a column kernel's run loop: the outer [0x10, 0x70]
+    assert fp32_rates.run_loop(one) == ["FADD", "FMNMX", "FSEL", "ISETP", "BRA", "IADD3",
+                                        "BRA"]
+    assert fp32_rates.run_loop([(0, "FADD", " R1, R2, R3 ")]) == []
 
 
 @pytest.mark.parametrize("name, label", [
@@ -45,9 +49,10 @@ def test_functions_and_hot_loop():
     ("void stream_wavefront_kernel<(int)8, (int)2, (int)2>(Args)", "wavefront rows=8 chained"),
     ("void stream_wavefront_kernel<16, 1, 2>(Args)", None),  # ripple-H: rows 1 only
     ("void stream_wavefront_kernel<16, 0, 0>(Args)", None),  # int32
-    ("void column_kernel<4, 2, false>(Args)", "column rpl=4 B4"),
-    ("void column_kernel<(int)8, (int)2, (bool)1>(Args)", "column rpl=8 B5 tile"),
-    ("void column_kernel<2, 2, false>(Args)", None),
+    ("void column_scores_kernel<16, 2>(Args)", "column lanes=16 B4"),
+    ("void column_tile_kernel<(int)2>(Args)", "column B5 tile"),
+    ("void column_scores_kernel<(int)4, (int)2>(Args)", None),  # not a main shape
+    ("void column_scores_kernel<32, 0>(Args)", None),  # int32
     ("void column_x2_kernel<8, false>(Args)", None),
 ])
 def test_float32_label(name, label):

@@ -23,6 +23,7 @@ from swtpu_torch.server import format_score_line
 from swtpu_torch.io import encode, fasta, loader
 from swtpu_torch.runtime import native
 from swtpu_torch.utils.metrics import BatchEvent, EventLog
+from swtpu_native_ref import use_swtpu_native
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -183,10 +184,14 @@ def test_native_library_builds_into_the_build_dir():
         Path(ref_native._SRC).read_text().split("\n", 7)[-1])
 
 
-def test_native_packer_bytes_equal_swtpu():
+def test_native_packer_bytes_equal_swtpu(monkeypatch):
     """pack_2bit, pack_wire, plan/fill streams, pack_bucket, and the FASTA
-    index and encoder: the same bytes from both libraries."""
+    index and encoder: the same bytes from both libraries (swtpu's built
+    apart from its in-place build, which a parallel worker can race)."""
+    lib = use_swtpu_native(monkeypatch)
+    assert native.native_available() and ref_native.native_available()
     port, ref = native.NativePacker(), ref_native.NativePacker()
+    assert ref._lib is lib
     rng = np.random.default_rng(2)
     codes = rng.integers(0, 4, size=1001).astype(np.int8)
     np.testing.assert_array_equal(port.pack_2bit(codes), ref.pack_2bit(codes))

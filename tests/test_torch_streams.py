@@ -9,6 +9,7 @@ import swtpu.runtime.native as native
 import swtpu_torch.runtime.native as port_native
 from swtpu.bank import streams as ref
 from swtpu_torch.bank import streams as port
+from swtpu_native_ref import use_swtpu_native
 
 torch.set_num_threads(1)
 
@@ -60,7 +61,10 @@ def test_greedy_packer_matches(segments, rows):
 
 
 @pytest.mark.parametrize("segments,rows", [(1, 16), (2, 8), (4, 4), (1, 1)])
-def test_dense_native_packer_matches(segments, rows):
+def test_dense_native_packer_matches(segments, rows, monkeypatch):
+    # swtpu's library built apart from its in-place build, which a parallel
+    # worker can race
+    use_swtpu_native(monkeypatch)
     assert native.native_available() and port_native.native_available()
     rng = np.random.default_rng(20 + segments + rows)
     query = _query(rng, segments)
