@@ -161,7 +161,16 @@ Phases, each reported on its own line; any failure exits non-zero:
      beside int32 at rows 8.  B4/B5 in float32 and int16 through
      sw_scores_column on every (f) bucket and (g)'s chain (launch counters
      set to 0 before each), equal to int32, timed beside it, and against
-     the plain version at the largest bucket and on tile 0;
+     the plain version at the largest bucket and on tile 0.  Then the top
+     of swtpu's length ladders (phase "ladders", see phase_ladders): (q) a
+     4,095-base query against 65,536 reads of 128 bases on the stream
+     backend in int32 and float32 (32 B3 tiles a call) and on the column
+     path (16 B5 tiles), (r) 16,384 reads of 513-2,048 bases (the 2,048
+     bucket) on both, (s) score_pairs at score width 12 on 1,024 pairs of
+     2,049-4,095 x 513-2,048 bases, (t) load_database for 4,096 bases on
+     (q)'s reads, and the CLI's score on (q)'s query: every score equal
+     across backends and entry points, oracle samples, and B3, B4, B1 and
+     every B5 tile against the plain versions;
   6. the shootout (experiments/torch_shootout.py's own functions) on
      65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
      its sizes, B4 == B6 on every pair and the wavefront == B4 on
@@ -172,6 +181,7 @@ Phases, each reported on its own line; any failure exits non-zero:
   7. the microbenchmarks: E1's and E2's timing tables
      (experiments/torch_microbench_ops.py, torch_kernel_ablate.py at 512
      streams in each of the four dtypes) at those scripts' step counts.
+Each phase's wall is printed on a line of its own ("phase seconds: ...").
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, error, times and bound (the
 wavefront and the chained tile also with their slices and registers, and
@@ -405,20 +415,24 @@ def long_batch(query, db, rows, phys):
     return torch.from_numpy(b.q).cuda(), torch.from_numpy(b.stream.T.copy()).cuda()
 
 
-def run_chain(q, sk, rows, tile, penalties=None, **mode):
+def run_chain(q, sk, rows, tile, penalties=None, keep=None, **mode):
     """The long-query chain (``_long_strip``) at `penalties` (None: the
     default ones) in the state `mode` (score_width, state_dtype) with
     `tile` running each tile; returns its last accumulator strip and every
-    tile's (inputs, outputs); a tile's inputs are the positional arguments
-    of `tile`, which runs in `mode`."""
+    tile's (inputs, outputs), or only those of the tile indices in `keep`;
+    a tile's inputs are the positional arguments of `tile`, which runs in
+    `mode`."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.stream import _long_strip
 
     tiles = []
+    seen = [0]
 
     def record(*args, **kw):
         outs = tile(*args, **kw)
-        tiles.append((args, outs))
+        if keep is None or seen[0] in keep:
+            tiles.append((args, outs))
+        seen[0] += 1
         return outs
 
     return _long_strip(q, sk, penalties or DEFAULT_PENALTIES, rows, tile=record,
@@ -480,10 +494,12 @@ def mode_penalties(width, qlen):
                      gap_extend=-4)
 
 
-def query_pairs(rng, n_queries, per, qrange, trange, self_every=0):
+def query_pairs(rng, n_queries, per, qrange, trange, self_every=0, self_len=None):
     """Pairs over n_queries distinct random queries with lengths in qrange,
     `per` targets each with lengths in trange, in a random order; with
-    `self_every`, every self_every-th target of a query is the query."""
+    `self_every`, every self_every-th target of a query is the query, or
+    with `self_len` (lo, hi) a window of it of lo..hi bases at a random
+    offset."""
     import numpy as np
 
     qs = [rng.integers(0, 4, size=k).astype(np.int8)
@@ -495,7 +511,12 @@ def query_pairs(rng, n_queries, per, qrange, trange, self_every=0):
         seen = np.zeros(n_queries, np.int64)
         for i, u in enumerate(owner):
             if seen[u] % self_every == 0:
-                targets[i] = qs[u].copy()
+                if self_len is None:
+                    targets[i] = qs[u].copy()
+                else:
+                    k = int(rng.integers(self_len[0], self_len[1] + 1))
+                    off = int(rng.integers(0, len(qs[u]) - k + 1))
+                    targets[i] = qs[u][off : off + k].copy()
             seen[u] += 1
     return [qs[u] for u in owner], targets
 
@@ -790,16 +811,25 @@ def timed_runs(name, run):
     return res, statistics.median(walls), walls, torch.cuda.max_memory_allocated() / 1e9
 
 
+def first_difference(name, got, want, what, at=None):
+    """Fails at the first index where two score vectors differ, named as
+    its entry of `at` where given."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        fail(f"{name}: {got.shape} scores against {what}'s {want.shape}")
+    if not np.array_equal(got, want):
+        k = int(np.flatnonzero(got != want)[0])
+        fail(f"{name} {k if at is None else at[k]} scored {got[k]}, {what} {want[k]}")
+
+
 def check_oracle(name, res, query, db, sample, want):
     """The sampled reads' scores must be `want` (the oracle's), and the
     top-10 reads must carry the oracle's scores."""
-    import numpy as np
     from swtpu_torch import score_many_vs_one
 
-    if not np.array_equal(res.scores[sample], want):
-        k = int(np.flatnonzero(res.scores[sample] != want)[0])
-        fail(f"{name}: read {sample[k]} scored {res.scores[sample[k]]}, "
-             f"oracle {want[k]}")
+    first_difference(f"{name}: read", res.scores[sample], want, "oracle", at=sample)
     top = res.top_k(10)
     top_want = score_many_vs_one(query, [db.read(i) for _, i in top])
     if [s for s, _ in top] != top_want.tolist():
@@ -854,15 +884,20 @@ PAIR_ORACLE = 2048  # pairs of (i) held against the exact oracle
 J_SAMPLE = (64, 16)  # pairs of (j) held against the biased oracle: random, wrapping
 
 
-def launches_of(run):
+def launches_of(run, column=False):
     """run() with the stream kernels' launch counters set to 0 just before
     it; (its result, (wavefront launches, chained launches)) read just
-    after."""
+    after; with `column`, the column kernels' too: (B1, B3, B4, B5)."""
+    from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
     from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
 
-    stream_strip_cuda.launches = stream_chained_cuda.launches = 0
+    wrappers = (stream_strip_cuda, stream_chained_cuda)
+    if column:
+        wrappers += (column_scores_cuda, column_chained_cuda)
+    for w in wrappers:
+        w.launches = 0
     out = run()
-    return out, (stream_strip_cuda.launches, stream_chained_cuda.launches)
+    return out, tuple(w.launches for w in wrappers)
 
 
 def phase_pairs_path(rng, card):
@@ -2579,19 +2614,26 @@ BENCH_AGREE = 0.10  # the headline against (a)'s cells over B1's float32 time
 MULTIHOST_LINES = 8  # 3 counts x 2 modes, an efficiency line each
 
 
-def run_session(argv, what, timeout=BENCH_TIMEOUT_S):
-    """`python -m <argv>` from the checkout in a session of its own,
-    waited for or killed at `timeout`; (exit code, stdout, stderr, wall s).
-    Fails if it was killed, or if a process of its session outlived it."""
-    import os
-    import signal
+def start_session(argv):
+    """`python -m <argv>` from the checkout in a session of its own, not
+    waited for: its Popen, and the wall clock when it started."""
     import sys
 
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True), time.perf_counter()
+
+
+def finish_session(started, what, timeout=BENCH_TIMEOUT_S):
+    """Waits for a start_session process, or kills its session at
+    `timeout` s from its start; (exit code, stdout, stderr, wall s).  Fails
+    if it was killed, or if a process of its session outlived it."""
+    import os
+    import signal
+
+    proc, t0 = started
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
@@ -2604,6 +2646,13 @@ def run_session(argv, what, timeout=BENCH_TIMEOUT_S):
     except ProcessLookupError:
         pass
     return proc.returncode, out, err, wall
+
+
+def run_session(argv, what, timeout=BENCH_TIMEOUT_S):
+    """`python -m <argv>` from the checkout in a session of its own,
+    waited for or killed at `timeout`; (exit code, stdout, stderr, wall s).
+    Fails if it was killed, or if a process of its session outlived it."""
+    return finish_session(start_session(argv), what, timeout)
 
 
 def json_lines(what, out, n):
@@ -2899,49 +2948,18 @@ def phase_column_vs_plain(rng, rng_odd, rng_gaps, B=4096, n=256):
     return scores, chains
 
 
-BIASED_WORKER = """\
-import json, sys
-import numpy as np
-from swtpu_torch.config import DEFAULT_PENALTIES
-from swtpu_torch.oracle import sw_score_single_biased
-width, *seqs = sys.argv[1:]
-codes = [np.frombuffer(s.encode(), np.uint8) - ord("0") for s in seqs]
-print(json.dumps([
-    sw_score_single_biased(q, t, penalties=DEFAULT_PENALTIES, score_width=int(width))
-    for q, t in zip(codes[::2], codes[1::2])
-]))
-"""
-
-
 def biased_oracle(pairs, width):
     """sw_score_single_biased on each (query, target) pair, spread over
-    worker processes (the pure-Python oracle takes ~1 s a 450-base pair).
-    The workers are plain subprocesses, each waited for (or killed) before
-    this returns; a multiprocessing pool would also start a resource
-    tracker process, which some Python releases leave running past the
-    script's end."""
-    import os
-    import sys
+    worker processes (the pure-Python oracle takes ~1 s a 450-base pair),
+    each waited for (or killed) before this returns."""
+    import tempfile
 
-    workers = max(1, min(8, (os.cpu_count() or 1) - 1, len(pairs)))
-    procs = []
-    try:
-        for k in range(workers):
-            seqs = ["".join(map(str, s.tolist())) for pair in pairs[k::workers] for s in pair]
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", BIASED_WORKER, str(width), *seqs],
-                cwd=REPO, stdout=subprocess.PIPE, text=True,
-            ))
-        outs = [p.communicate()[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        fail(f"biased oracle workers exited {[p.returncode for p in procs]}")
-    scores = [json.loads(o) for o in outs]
-    return [scores[i % workers][i // workers] for i in range(len(pairs))]
+    with tempfile.TemporaryDirectory(prefix="swtpu_oracle_") as tmp:
+        job = OracleJob(pairs, width, tmp, workers=8)
+        try:
+            return job.result()
+        finally:
+            job.kill()
 
 
 def phase_bucketed_path(rng, card, case_e):
@@ -3191,6 +3209,494 @@ def phase_column_states(bank, f_case, g_case):
     return f, g
 
 
+# phase "ladders": the top of SWConfig's length ladders (target_buckets to
+# 2,048 bases, query_buckets to 4,096; the RTL's 4,095-base LEN_WIDTH
+# envelope).  (q): (name, reads, read length, query length, a window of the
+# query every so many reads); (r): (name, reads, read lengths, query
+# length), all in the 2,048 bucket; (s): (name, distinct queries, targets
+# each, query lengths, target lengths, a window of its query every so many
+# targets, the windows' least length: 820 x 5 passes the 12-bit ceiling)
+LADDER_Q = ("q_ladder_q4095", 65536, 128, 4095, 1024)
+LADDER_R = ("r_ladder_reads2048", 16384, (513, 2048), 128)
+LADDER_S = ("s_ladder_pairs_w12", 16, 64, (2049, 4095), (513, 2048), 16, 820)
+LADDER_WIDTH = 12
+LADDER_SAMPLE = 64  # random reads of (q) and (r) held against the oracle
+LADDER_PAIRS = (8, 4)  # pairs of (s) held against the biased oracle: smallest, windows
+LADDER_B3_TILES = (0, 15, 31)  # (q)'s B3 tiles held against the plain version
+LADDER_CLI_READS = 4096  # (q)'s first reads through the CLI
+LADDER_LOAD = 4096  # (t): load_database's max_query_len
+LADDER_KERNELS = ("B1", "B3", "B4", "B5")
+
+ORACLE_WORKER = """\
+import json, sys
+import numpy as np
+from chip_smoke import pair_oracle
+from swtpu_torch.config import DEFAULT_PENALTIES
+from swtpu_torch.oracle import sw_score_single_biased
+with open(sys.argv[1]) as f:
+    width, pairs = json.load(f)
+qs, ts = zip(*([np.frombuffer(s.encode(), np.uint8) - ord("0") for s in p] for p in pairs))
+if width:
+    out = [sw_score_single_biased(q, t, penalties=DEFAULT_PENALTIES, score_width=width)
+           for q, t in zip(qs, ts)]
+else:
+    out = pair_oracle(qs, ts, range(len(qs))).tolist()
+print(json.dumps(out))
+"""
+
+
+class OracleJob:
+    """The oracle of (query, target) pairs in worker processes started now
+    and read by `result()`, so that the card's work can go on meanwhile:
+    sw_score_single_biased a pair at `width`, else the exact batch oracle
+    (pair_oracle, one worker: its loop runs over the cells of the longest
+    pair whatever the batch).  The workers are plain subprocesses (a
+    multiprocessing pool would also start a resource tracker process,
+    which some Python releases leave running past the script's end);
+    `kill()` ends any still running."""
+
+    def __init__(self, pairs, width, tmp, workers=1):
+        import os
+        import sys
+
+        self.n, self.procs = len(pairs), []
+        self.workers = max(1, min(workers, (os.cpu_count() or 1) - 1, len(pairs)))
+        for k in range(self.workers):
+            path = Path(tmp) / f"oracle_{id(self)}_{k}.json"
+            path.write_text(json.dumps([width, [
+                ["".join(map(str, s.tolist())) for s in pair]
+                for pair in pairs[k :: self.workers]]]))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", ORACLE_WORKER, str(path)], cwd=REPO,
+                stdout=subprocess.PIPE, text=True))
+
+    def result(self):
+        outs = [p.communicate()[0] for p in self.procs]
+        if any(p.returncode for p in self.procs):
+            fail(f"oracle workers exited {[p.returncode for p in self.procs]}")
+        scores = [json.loads(o) for o in outs]
+        return [scores[i % self.workers][i // self.workers] for i in range(self.n)]
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def host_peak_mb(run):
+    """(run(), the peak of the host memory it allocated through Python and
+    numpy, MB; tracemalloc)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        out = run()
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    return out, peak / 1e6
+
+
+def phase_ladders(rng, card, peaks):
+    """The top of swtpu's length ladders through the user's entry points,
+    every check exact: (q) a 4,095-base query against 65,536 reads of 128
+    bases (every 1,024th a window of the query) through score_database on
+    the stream backend in int32 and float32 (32 B3 tiles a call) and on the
+    column path (16 B5 tiles), all scores equal, the oracle on 64 sampled
+    reads, the windows and the top-10; B3 tiles 0, 15 and 31 against the
+    plain version on their first CHECK_STEPS steps (fed the kernel's own
+    strips from the tile above), every B5 tile against its plain tile in
+    full.  (r) 16,384 reads of 513-2,048 bases (the 2,048 bucket) against a
+    128-base query: one B1 a stream call, one B4 a column call, equal, the
+    oracle on 64 reads and the top-10, B4 in full and B1 on its first
+    CHECK_STEPS steps against their plain versions.  (s) score_pairs at
+    score width 12 on 1,024 pairs (16 queries of 2,049-4,095 bases, 64
+    targets each of 513-2,048, every 16th a window of its query of at
+    least 820 bases, which wraps): the stream backend's 16 biased B3 chains
+    = the column path's biased B5 chain on every pair, and
+    sw_score_single_biased on the 8 smallest pairs and 4 windows.  (t)
+    load_database(max_query_len=4096) on (q)'s reads: score_loaded = (q)'s
+    scores on every read, topk_loaded(10) = its top_k(10).  The CLI's score
+    in a session of its own on (q)'s query and first 4,096 reads: its lines
+    = the bank's scores.  Each case's warm wall (median of 3), its kernels'
+    times a tile beside their bounds, peak device memory; the launches of
+    B1, B3, B4 and B5 over the phase's entry points ("ladders").  The
+    oracles run in worker processes from the start and the CLI beside the
+    plain versions; every kernel is timed before either starts."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from swtpu_torch import DEFAULT_PENALTIES, SWConfig, ScoreBank
+    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.bank.streams import STREAM_PAD, pack_streams_long
+    from swtpu_torch.io.encode import decode_seq
+    from swtpu_torch.io.fasta import FastaRecord, write_fasta
+    from swtpu_torch.ops.column import (
+        T_CHUNK, _chained_call, column_chained_cuda, column_chained_reference,
+        column_scores_cuda, column_scores_reference, pad_column_batch,
+    )
+    from swtpu_torch.ops.stream import (
+        _long_strip, stream_chained_cuda, stream_chained_reference, stream_strip_cuda,
+        stream_strip_reference,
+    )
+    from swtpu_torch.testing.goldens import _RTL_LINE
+    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+
+    out = dict(cases={}, kernels={}, launches=dict.fromkeys(LADDER_KERNELS, 0))
+    n = CHECK_STEPS
+    jobs, cli = {}, None
+    tmp = tempfile.TemporaryDirectory(prefix="swtpu_ladders_")
+
+    def drive(name, run, want):
+        """timed_runs of `run` with the four kernels' launch counters at 0
+        just before; over its 4 calls they must have launched 4 x `want`
+        (B1, B3, B4, B5) times.  (result, the case's record)."""
+        (res, wall, walls, peak), launched = launches_of(lambda: timed_runs(name, run), column=True)
+        if launched != tuple(4 * x for x in want):
+            fail(f"{name}: (B1, B3, B4, B5) launched {launched} times in 4 calls, want "
+                 f"4 x {want}")
+        for k, x in zip(LADDER_KERNELS, launched):
+            out["launches"][k] += x
+        case = dict(wall_s=wall, walls_s=walls, peak_gb=peak, launches=launched,
+                    cells=res.cells, padded_cells=res.padded_cells,
+                    gcups=res.cells / wall / 1e9)
+        out["cases"][name] = case
+        print(f"phase ladders: ok {name} cells={res.cells} padded={res.padded_cells} "
+              f"launches (B1, B3, B4, B5) {launched} in 4 calls, peak device memory "
+              f"{peak:.2f} GB | wall median of 3 {wall*1e3:.2f} ms (runs "
+              f"{', '.join(f'{w*1e3:.2f}' for w in walls)}) -> {case['gcups']:.2f} GCUPS "
+              f"on {card}", flush=True)
+        return res
+
+    def kernel_row(key, ms, bound, live, **rest):
+        """A kernel's time beside its bound over the launch's padded shape
+        and over its live cells alone, the share `live` of them: the bound
+        is linear in the cells, so that one is bound x live."""
+        b_live = bound[0] * live
+        out["kernels"][key] = dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                                   bound_share=bound[0] / ms, live_fraction=live,
+                                   live_bound_ms=b_live, live_share=b_live / ms, **rest)
+        return (f"{ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}): {bound[0] / ms:.1%}; "
+                f"over the live cells ({live:.1%} of them) {b_live:.3f} ms: "
+                f"{b_live / ms:.1%}")
+
+    def stream_live(sk, drain):
+        """The share of a [T, N] strip's stream-steps that hold a read, or
+        the drain after a stream's last read (reads lie back to back)."""
+        fill = (torch.as_tensor(sk) != STREAM_PAD).sum(0)
+        return float((fill + drain * (fill > 0)).sum()) / sk.numel()
+
+    def b3_bound(T, N, extra=0):
+        return peaks.bound(128 * N + T * N * (1 + 12 + 16),
+                           128 * T * N * (WAVEFRONT_OPS + extra))
+
+    def b5_bound(B, nt, extra=0):
+        return peaks.bound(B * (256 + nt + 8 + 16 * nt), B * 256 * nt * (COLUMN_OPS + extra))
+
+    try:
+        # every case's data, and the oracle of the samples that do not
+        # depend on a result, started now
+        name_q, n_reads, L, qlen, every = LADDER_Q
+        db = make_db(rng, n_reads, L, L)
+        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+        windows = np.arange(0, n_reads, every)
+        for r, off in zip(windows, rng.integers(0, qlen - L + 1, size=len(windows))):
+            db.mat[r] = query[off : off + L]
+        sample = np.unique(np.concatenate([
+            rng.choice(n_reads, size=LADDER_SAMPLE, replace=False), windows]))
+        name_r, n_r, (lo, hi), rlen = LADDER_R
+        rdb = make_db(rng, n_r, lo, hi)
+        rquery = rng.integers(0, 4, size=rlen).astype(np.int8)
+        r_sample = np.sort(rng.choice(n_r, size=LADDER_SAMPLE, replace=False))
+        name_s, nq, per, qr, tr, self_every, least = LADDER_S
+        queries, targets = query_pairs(rng, nq, per, qr, tr, self_every, (least, tr[1]))
+        is_window = np.array([len(t) >= least and t.tobytes() in q.tobytes()
+                              for q, t in zip(queries, targets)])
+        if is_window.sum() != nq * per // self_every:
+            fail(f"{name_s}: {is_window.sum()} targets are windows of their query, want "
+                 f"{nq * per // self_every}")
+        n_small, n_win = LADDER_PAIRS
+        order = np.argsort([len(q) * len(t) for q, t in zip(queries, targets)], kind="stable")
+        picked = np.concatenate([order[~is_window[order]][:n_small],
+                                 order[is_window[order]][:n_win]])
+        jobs["q"] = OracleJob([(query, db.read(i)) for i in sample], None, tmp.name)
+        jobs["r"] = OracleJob([(rquery, rdb.read(i)) for i in r_sample], None, tmp.name)
+        jobs["s"] = OracleJob([(queries[i], targets[i]) for i in picked], LADDER_WIDTH,
+                              tmp.name, workers=5)
+
+        # (q): the 4,095-base query, 32 B3 tiles and 16 B5 tiles a call
+        name = name_q
+        K, Kc = -(-qlen // 128), -(-qlen // 256)
+        q_res = {}
+        for state in ("int32", "float32"):
+            bank = ScoreBank(SWConfig(stream_state_dtype=state), backend="stream",
+                             device="cuda")
+            q_res[state] = drive(f"{name} stream {state}",
+                                 lambda: bank.score_database(query, db), (0, K, 0, 0))
+        cbank = ScoreBank(backend="pallas", device="cuda")
+        col = drive(f"{name} column", lambda: cbank.score_database(query, db), (0, 0, 0, Kc))
+        for state, res in q_res.items():
+            first_difference(f"{name} stream {state}: read", res.scores, col.scores,
+                             "the column path")
+        top = q_res["int32"].top_k(10)
+        q_top = np.array(sorted({i for _, i in top} - set(sample.tolist())), np.int64)
+        if len(q_top):
+            jobs["q top"] = OracleJob([(query, db.read(i)) for i in q_top], None, tmp.name)
+
+        # (q)'s chains: every B5 tile and B3 tiles 0, 15, 31 run and timed
+        (pb,), host_mb = host_peak_mb(lambda: cbank._bucket_batches(query, db))
+        cq, ct = pad_column_batch(torch.from_numpy(pb.q).cuda(),
+                                  torch.from_numpy(pb.t).cuda(), T_CHUNK)
+        c_live = pb.cells / (cq.numel() * ct.shape[1])
+        del pb
+        _, c_tiles = run_column_chain(cq, ct, None, column_chained_cuda)
+        b5_ms = [cuda_ms(lambda: column_chained_cuda(*args), 3) for args, _ in c_tiles]
+        c_chain_ms = cuda_ms(lambda: _chained_call(cq, ct, DEFAULT_PENALTIES, None), 3)
+        B5shape = ct.shape
+        del cq, ct
+        _, rows, phys = stream_geometry(qlen, SWConfig(), "cuda")
+        qd, sk = long_batch(query, db, rows, phys)
+        _, s_tiles = run_chain(qd, sk, rows, stream_chained_cuda, keep=LADDER_B3_TILES)
+        slices = stream_chained_cuda.slices
+        b3_ms = [cuda_ms(lambda: stream_chained_cuda(*args), 3) for args, _ in s_tiles]
+        s_chain_ms = cuda_ms(lambda: _long_strip(qd, sk, DEFAULT_PENALTIES, rows), 3)
+        T, N = sk.shape
+        s_live = stream_live(sk, 128 // rows - 1)
+        del qd
+
+        # the CLI in a session of its own beside the plain versions: (q)'s
+        # query and its first reads
+        qfa, lfa, cli_out = (Path(tmp.name) / f for f in ("q.fa", "lib.fa", "out.txt"))
+        write_fasta(qfa, [FastaRecord("query_ladder", decode_seq(query))])
+        write_fasta(lfa, [FastaRecord(db.names[i], decode_seq(db.read(i)))
+                          for i in range(LADDER_CLI_READS)])
+        cli = start_session(["swtpu_torch.cli", "score", "-q", str(qfa), "-l", str(lfa),
+                             "-o", str(cli_out)])
+
+        err, b5_plain = 0, []
+        for p, (args, outs) in enumerate(c_tiles):
+            want, t_plain = cuda_once(lambda: column_chained_reference(*args))
+            for nm, g, w in zip(COLUMN_OUTS, outs, want):
+                err = max(err, strip_error(f"{name} B5 tile {p} {nm}", g, w))
+            b5_plain.append(t_plain)
+        del c_tiles, want
+        B, nt = B5shape
+        line = kernel_row("B5 q", statistics.median(b5_ms), b5_bound(B, nt), c_live,
+                          plain_ms=statistics.median(b5_plain), tiles=len(b5_ms), B=B, n=nt,
+                          tile_ms=b5_ms, chain_ms=c_chain_ms, max_abs_err=err,
+                          host_pack_mb=host_mb, plain_tile_ms=b5_plain)
+        print(f"phase ladders: ok {name} B5 [{B} pairs, {Kc * 256} query rows, {nt} "
+              f"columns]: h/ms/is of all {len(b5_ms)} tiles bit-equal to the plain tiles | "
+              f"a tile (median) {line}; chain {c_chain_ms:.3f} ms; plain "
+              f"{statistics.median(b5_plain):.1f} ms a tile | pack_many_vs_one's host "
+              f"peak {host_mb:.1f} MB (the query shipped once a read)", flush=True)
+        err, b3_plain = 0, []
+        for p, (args, outs) in zip(LADDER_B3_TILES, s_tiles):
+            qk, _, bD, bG, bH, pen, r = args
+            cut = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
+            want, t_plain = cuda_once(lambda: stream_chained_reference(qk, *cut, pen, r))
+            for nm, g, w in zip(STRIPS, outs, want):
+                err = max(err, strip_error(f"{name} B3 tile {p} {nm} first {n} steps",
+                                           g[:n], w))
+            b3_plain.append(t_plain)
+            del cut, want
+        del s_tiles, sk
+        shift_ms = (s_chain_ms - K * statistics.mean(b3_ms)) / (K - 1)
+        line = kernel_row("B3 q", statistics.median(b3_ms), b3_bound(T, N), s_live,
+                          plain_ms=statistics.median(b3_plain), tiles=K, T=T, N=N, rows=rows,
+                          slices=slices, held_tiles=list(LADDER_B3_TILES), tile_ms=b3_ms,
+                          chain_ms=s_chain_ms, shift_ms=shift_ms, check_steps=n,
+                          max_abs_err=err, plain_tile_ms=b3_plain)
+        print(f"phase ladders: ok {name} B3 rows={rows} strips [{T}, {N}], {K} tiles in "
+              f"{slices} slices: tiles {', '.join(map(str, LADDER_B3_TILES))} bit-equal to "
+              f"the plain version on their first {n} steps (4 strips, fed the kernel's own "
+              f"strips from the tile above) | a tile (median of {len(b3_ms)}) {line}; "
+              f"chain {s_chain_ms:.3f} ms ({shift_ms:.3f} ms a boundary beyond the tiles); "
+              f"plain {', '.join(f'{x:.1f}' for x in b3_plain)} ms on {n} steps", flush=True)
+
+        # (r): reads in the 2,048 bucket against a 128-base query
+        name = name_r
+        sbank = ScoreBank(device="cuda")
+        r_res = drive(f"{name} stream", lambda: sbank.score_database(rquery, rdb),
+                      (1, 0, 0, 0))
+        r_col = drive(f"{name} column", lambda: cbank.score_database(rquery, rdb),
+                      (0, 0, 1, 0))
+        first_difference(f"{name} stream: read", r_res.scores, r_col.scores, "the column path")
+        r_top = np.array(sorted({i for _, i in r_res.top_k(10)} - set(r_sample.tolist())),
+                         np.int64)
+        if len(r_top):
+            jobs["r top"] = OracleJob([(rquery, rdb.read(i)) for i in r_top], None, tmp.name)
+        (pb,), host_mb = host_peak_mb(lambda: cbank._bucket_batches(rquery, rdb))
+        bq, bt = pad_column_batch(torch.from_numpy(pb.q).cuda(),
+                                  torch.from_numpy(pb.t).cuda(), T_CHUNK)
+        c_live = pb.cells / (bq.numel() * bt.shape[1])
+        del pb
+        b4_ms = cuda_ms(lambda: column_scores_cuda(bq, bt), 5)
+        seg, rows, phys = stream_geometry(rlen, sbank.config, sbank.device)
+        qk, sk = laid_out_batch(rquery, rdb, seg, rows, phys)
+        b1_ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+        slices = stream_strip_cuda.slices
+        b1_one = cuda_ms(
+            lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, slices=1), 3)
+        got = column_scores_cuda(bq, bt)
+        want, t_plain = cuda_once(lambda: column_scores_reference(bq, bt))
+        err = strip_error(f"{name} B4 bucket {bt.shape[1]}", got, want)
+        (B, m), nb = bq.shape, bt.shape[1]
+        line = kernel_row("B4 r", b4_ms, column_bound(peaks, B, m, nb), c_live,
+                          plain_ms=t_plain, B=B, m=m, n=nb, max_abs_err=err,
+                          host_pack_mb=host_mb)
+        print(f"phase ladders: ok {name} B4 [{B} pairs, query {m}, {nb} columns] bit-equal "
+              f"to the plain version in full | kernel {line}; plain {t_plain:.1f} ms | "
+              f"pack_many_vs_one's host peak {host_mb:.1f} MB", flush=True)
+        del bq, bt, got, want
+        got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
+        cut = sk[:n].contiguous()
+        want, t_plain = cuda_once(
+            lambda: stream_strip_reference(qk, cut, DEFAULT_PENALTIES, seg, rows))
+        err = max(strip_error(f"{name} B1 first {n} steps", got[:n], want),
+                  strip_error(f"{name} B1 first {n} steps in {CUT_SLICES} slices",
+                              stream_strip_cuda(qk, cut, DEFAULT_PENALTIES, seg, rows,
+                                                slices=CUT_SLICES), want))
+        T, N = sk.shape
+        line = kernel_row("B1 r", b1_ms,
+                          peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS),
+                          stream_live(sk, 128 // (rows * seg) - 1), plain_ms=t_plain, T=T, N=N, segments=seg, rows=rows, slices=slices,
+                          ms_one_slice=b1_one, check_steps=n, max_abs_err=err)
+        print(f"phase ladders: ok {name} B1 seg={seg} rows={rows} strip [{T}, {N}] in "
+              f"{slices} slices: bit-equal to the plain version on the first {n} steps (the "
+              f"full run's, and the cut in {CUT_SLICES} slices) | kernel {line}; in one "
+              f"slice {b1_one:.3f} ms; plain {t_plain:.1f} ms on {n} steps", flush=True)
+        del qk, sk, got, cut, want
+
+        # (s): pairs at the RTL's 12-bit width, queries to 4,095 bases
+        name = name_s
+        distinct = {q.tobytes(): q for q in queries}
+        Ks = sum(-(-len(q) // 128) for q in distinct.values())
+        wcfg = SWConfig(score_width=LADDER_WIDTH)
+        wbank = ScoreBank(wcfg, backend="stream", device="cuda")
+        s_res = drive(f"{name} stream", lambda: wbank.score_pairs(queries, targets),
+                      (0, Ks, 0, 0))
+        wcol = ScoreBank(wcfg, device="cuda")
+        groups = list(wcol._pair_batches(queries, targets))
+        s_col = drive(f"{name} column", lambda: wcol.score_pairs(queries, targets),
+                      (0, 0, 0, sum(-(-g.q.shape[1] // 256) for g in groups)))
+        first_difference(f"{name} stream: pair", s_res.scores, s_col.scores,
+                         "the column path")
+        match = wcfg.penalties.match
+        wrapped = [i for i in np.flatnonzero(is_window)
+                   if s_res.scores[i] != match * len(targets[i])]
+        if len(wrapped) != is_window.sum():
+            fail(f"{name}: {len(wrapped)} of {is_window.sum()} windows past the "
+                 f"{LADDER_WIDTH}-bit ceiling wrapped")
+        # the biased kernels a tile: the column group's chain, the longest
+        # query's stream chain
+        g = max(groups, key=lambda g: g.q.shape[0] * g.t.shape[1])
+        gq, gt = pad_column_batch(torch.from_numpy(g.q).cuda(), torch.from_numpy(g.t).cuda(),
+                                  T_CHUNK)
+        Kg = gq.shape[1] // 256
+        chain_ms = cuda_ms(lambda: _chained_call(gq, gt, DEFAULT_PENALTIES, LADDER_WIDTH), 3)
+        B, nt = gt.shape
+        b5_line = kernel_row("B5 s", chain_ms / Kg,
+                             b5_bound(B, nt, MODE_EXTRA_OPS["int32"]),
+                             g.cells / (gq.numel() * nt), tiles=Kg, B=B, n=nt,
+                             chain_ms=chain_ms, groups=len(groups))
+        longest = max(distinct.values(), key=len)
+        own = [t for q, t in zip(queries, targets) if q.tobytes() == longest.tobytes()]
+        _, rows, phys = stream_geometry(len(longest), wcfg, "cuda")
+        lb = pack_streams_long(longest, own, n_streams=phys, rows=rows)
+        lq = torch.from_numpy(lb.q).cuda()
+        lsk = torch.from_numpy(lb.stream.T.copy()).cuda()
+        Kl = lq.shape[1] // 128
+        chain_ms = cuda_ms(lambda: _long_strip(lq, lsk, DEFAULT_PENALTIES, rows,
+                                               score_width=LADDER_WIDTH), 3)
+        T, N = lsk.shape
+        b3_line = kernel_row("B3 s", chain_ms / Kl,
+                             b3_bound(T, N, MODE_EXTRA_OPS["int32"]),
+                             stream_live(lsk, 128 // rows - 1), tiles=Kl, T=T, N=N,
+                             chain_ms=chain_ms, reads=len(own))
+        print(f"phase ladders: ok {name} at W={LADDER_WIDTH}: {len(groups)} column group(s) "
+              f"({', '.join(f'{x.q.shape[1]} x {x.t.shape[1]}' for x in groups)}), "
+              f"{len(distinct)} stream jobs of {Ks} B3 tiles; every pair = the column path; "
+              f"all {is_window.sum()} windows wrapped | biased B5 a tile (the group's chain "
+              f"/ {Kg}) {b5_line}; biased B3 a tile (the {len(longest)}-base query's "
+              f"chain over its {len(own)} reads, T {T} / {Kl}) {b3_line}", flush=True)
+        del gq, gt, lq, lsk
+
+        # (t): (q)'s reads resident for a 4,096-base query
+        name = "t_ladder_loaded4096"
+        bank = ScoreBank(device="cuda")
+        loaded, launched = launches_of(
+            lambda: bank.load_database(db, max_query_len=LADDER_LOAD), column=True)
+        if launched != (0, 0, 0, 0) or loaded.k_max != -(-LADDER_LOAD // 128):
+            fail(f"{name}: load launched {launched}, k_max {loaded.k_max}")
+        t_res = drive(name, lambda: bank.score_loaded(query, loaded), (0, K, 0, 0))
+        first_difference(f"{name}: read", t_res.scores, q_res["int32"].scores,
+                         "score_database")
+        tops, launched = launches_of(
+            lambda: walls_of(lambda: bank.topk_loaded(query, loaded, 10)), column=True)
+        if launched != (0, 4 * K, 0, 0):
+            fail(f"{name}: topk_loaded launched (B1, B3, B4, B5) {launched} in 4 calls")
+        for k, x in zip(LADDER_KERNELS, launched):
+            out["launches"][k] += x
+        if any(t != top for t in tops[0]):
+            fail(f"{name}: topk_loaded(10) {tops[0][0]} vs top_k(10) {top}")
+        out["cases"][name].update(load_s=loaded.load_s, T=int(loaded.stream.shape[0]),
+                                  topk_walls_s=tops[1],
+                                  topk_wall_s=statistics.median(tops[1]))
+        print(f"phase ladders: ok {name} load_database(max_query_len={LADDER_LOAD}): k_max "
+              f"{loaded.k_max}, stream [{loaded.stream.shape[0]}, {loaded.stream.shape[1]}], "
+              "load " + ", ".join(f"{k} {v*1e3:.2f} ms" for k, v in loaded.load_s.items())
+              + f" | score_loaded = score_database on all {n_reads} reads, topk_loaded(10) "
+              f"= its top_k(10) (median of 3 {statistics.median(tops[1])*1e3:.2f} ms)",
+              flush=True)
+        del loaded
+
+        rc, _, err_text, wall = finish_session(cli, "ladders: the CLI")
+        cli = None
+        lines = [_RTL_LINE.search(x) for x in cli_out.read_text().splitlines()] if rc == 0 else []
+        got = {m.group(1): int(m.group(2)) for m in lines if m}
+        want = {db.names[i]: int(q_res["int32"].scores[i]) for i in range(LADDER_CLI_READS)}
+        if rc or got != want:
+            bad = next((k for k in want if got.get(k) != want[k]), None)
+            fail(f"ladders: the CLI exited {rc}, {len(got)} score lines; first "
+                 f"difference {bad}: {got.get(bad)} vs {want.get(bad)}; "
+                 f"{err_text.strip()[-400:]}")
+        out["cli"] = dict(reads=LADDER_CLI_READS, wall_s=wall)
+        print(f"phase ladders: ok the CLI's score in a session of its own: "
+              f"{LADDER_CLI_READS} score lines = the bank's ({wall:.1f} s with the "
+              f"interpreter's start)", flush=True)
+
+        # the oracles, computed meanwhile
+        t0 = time.perf_counter()
+        for nm, res, idx, keys in ((name_q, q_res["int32"], (sample, q_top), ("q", "q top")),
+                                   (name_r, r_res, (r_sample, r_top), ("r", "r top"))):
+            for k, i in zip(keys, idx):
+                if k in jobs:
+                    first_difference(f"{nm}: {k} read", res.scores[i], jobs[k].result(),
+                                     "the oracle")
+        first_difference(f"{name_s}: picked pair", s_res.scores[picked],
+                         jobs["s"].result(), "sw_score_single_biased")
+        print(f"phase ladders: ok oracles: (q) {len(sample) + len(q_top)} reads "
+              f"({LADDER_SAMPLE} sampled, {len(windows)} windows, the top-10), (r) "
+              f"{len(r_sample) + len(r_top)} reads (the top-10 too) = the oracle; (s) the "
+              f"{n_small} smallest pairs and {n_win} windows = sw_score_single_biased "
+              f"(waited {time.perf_counter() - t0:.1f} s for them)", flush=True)
+        out["oracle"] = dict(q=len(sample) + len(q_top), r=len(r_sample) + len(r_top),
+                             s=len(picked))
+    finally:
+        for job in jobs.values():
+            job.kill()
+        if cli is not None and cli[0].poll() is None:
+            os.killpg(cli[0].pid, signal.SIGKILL)
+            cli[0].communicate()
+        tmp.cleanup()
+    return out
+
+
 LANE_CHECKS = ((1, 1001), (1, 40, 128), (1, 150, 300))  # pairs, query and target widths
 E2_CHECK = (128, 256)  # streams, steps of the strip with read starts
 E2_STREAMS = 512  # the E2 table's streams
@@ -3391,7 +3897,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    card, peaks = phase_device()
+    seconds = {}  # each phase's wall
+
+    def timed(name, phase, *a):
+        t0 = time.perf_counter()
+        got = phase(*a)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase seconds: {name} {seconds[name]:.1f} s", flush=True)
+        return got
+
+    card, peaks = timed("device", phase_device)
     import numpy as np
     import torch
 
@@ -3402,61 +3917,72 @@ def main() -> int:
     rng_col = np.random.default_rng([args.seed, 2])  # the column path's own
     rng_lane = np.random.default_rng([args.seed, 3])  # B6, E1 and E2's own
     rng_modes = np.random.default_rng([args.seed, 5])  # the state modes' and pairs' own
-    phase_build()
-    checks = phase_kernel_vs_plain(rng)
-    checks += phase_ripple_vs_plain(rng_long)
-    chains = phase_chained_vs_plain(rng_long)
-    mode_checks = phase_modes_vs_plain(rng_modes)
-    chain_mode_checks = phase_chain_modes_vs_plain(rng_modes)
+    timed("build", phase_build)
+    checks = timed("kernel_vs_plain", phase_kernel_vs_plain, rng)
+    checks += timed("ripple_vs_plain", phase_ripple_vs_plain, rng_long)
+    chains = timed("chained_vs_plain", phase_chained_vs_plain, rng_long)
+    mode_checks = timed("modes_vs_plain", phase_modes_vs_plain, rng_modes)
+    chain_mode_checks = timed("chain_modes_vs_plain", phase_chain_modes_vs_plain, rng_modes)
     rng_16 = np.random.default_rng([args.seed, 6])  # the 16-bit states' own
-    checks_16, chains_16 = phase_16bit_vs_plain(rng_16)
-    col_checks, col_chains = phase_column_vs_plain(
+    checks_16, chains_16 = timed("16bit_vs_plain", phase_16bit_vs_plain, rng_16)
+    col_checks, col_chains = timed(
+        "column_vs_plain", phase_column_vs_plain,
         rng_col, np.random.default_rng([args.seed, 7]),  # odd B: its own
         np.random.default_rng([args.seed, 9]))  # widths 64 and 128, the long gaps: theirs
-    lane_checks = phase_lane_vs_plain(rng_lane)
-    e1_checks, e2_checks, e2_mains = phase_microbench_vs_plain(rng_lane)
+    lane_checks = timed("lane_vs_plain", phase_lane_vs_plain, rng_lane)
+    e1_checks, e2_checks, e2_mains = timed("microbench_vs_plain", phase_microbench_vs_plain,
+                                           rng_lane)
     from swtpu_torch.ops.stream import (
         stream_chained_cuda, stream_kernel_info, stream_strip_cuda, streams_per_thread,
     )
 
     stream_strip_cuda.launches = 0
-    bank, cases = phase_main_path(rng, card, MAIN_CASES)
+    bank, cases = timed("main_path a-c", phase_main_path, rng, card, MAIN_CASES)
     launches = stream_strip_cuda.launches
     if launches == 0:
         fail("the main path never launched the wavefront kernel")
     stream_chained_cuda.launches = 0
-    _, long_cases = phase_main_path(rng_long, card, LONG_CASES)
+    _, long_cases = timed("main_path d-e", phase_main_path, rng_long, card, LONG_CASES)
     chained_launches = stream_chained_cuda.launches
     if chained_launches == 0:
         fail("the long-query path never launched the chained kernel")
-    pair_cases = phase_pairs_path(rng_modes, card)
-    mode_dbs = phase_mode_databases(card, cases, long_cases)
-    dbs_16 = phase_16bit_databases(card, cases[2], long_cases[1])
-    serving = phase_serving(np.random.default_rng([args.seed, 8]), card, cases)
+    pair_cases = timed("pairs_path", phase_pairs_path, rng_modes, card)
+    mode_dbs = timed("mode_databases", phase_mode_databases, card, cases, long_cases)
+    dbs_16 = timed("16bit_databases", phase_16bit_databases, card, cases[2], long_cases[1])
+    serving = timed("serving", phase_serving, np.random.default_rng([args.seed, 8]), card,
+                    cases)
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
 
     column_scores_cuda.launches = column_chained_cuda.launches = 0
-    col_bank, col_cases = phase_bucketed_path(rng_col, card, long_cases[1])
+    col_bank, col_cases = timed("bucketed_path", phase_bucketed_path, rng_col, card,
+                                long_cases[1])
     column_launches = column_scores_cuda.launches
     column_chained_launches = column_chained_cuda.launches
     if column_launches == 0 or column_chained_launches == 0:
         fail("the bucketed path never launched the column kernels "
              f"({column_launches}, {column_chained_launches})")
-    jobs = phase_jobs(card, cases, col_cases[0])
+    jobs = timed("jobs", phase_jobs, card, cases, col_cases[0])
     faults_launches = jobs["launches"].pop("f jobs faults")
-    sharded = phase_sharded(card, cases, long_cases, serving, args.seed)
-    regress = phase_regress(card)
-    bench = phase_bench(card)
-    mains = phase_kernel_at_main_shape(bank, cases)
-    long_mains = phase_chained_at_main_shape(bank, long_cases)
-    mode_a, mode_d = phase_modes_at_main_shape(bank, cases[0], long_cases[0])
+    sharded = timed("sharded", phase_sharded, card, cases, long_cases, serving, args.seed)
+    regress = timed("regress", phase_regress, card)
+    bench = timed("bench", phase_bench, card)
+    mains = timed("kernel_main_shape", phase_kernel_at_main_shape, bank, cases)
+    long_mains = timed("chained_main_shape", phase_chained_at_main_shape, bank, long_cases)
+    mode_a, mode_d = timed("modes_main_shape", phase_modes_at_main_shape, bank, cases[0],
+                           long_cases[0])
     check_bench_headline(bench, mode_a["ms"]["float32"], card)
-    a_16, d_16 = phase_16bit_at_main_shape(cases[0], long_cases[0])
-    col_batches, col_tile = phase_column_at_main_shape(
+    a_16, d_16 = timed("16bit_main_shape", phase_16bit_at_main_shape, cases[0],
+                       long_cases[0])
+    col_batches, col_tile = timed(
+        "column_main_shape", phase_column_at_main_shape,
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"], peaks)
-    f_states, g_states = phase_column_states(col_bank, col_cases[0], col_cases[1])
-    lane, b2, e2_full = phase_shootout(card, args.seed)
-    e1_table, e2_table, (e1_launches, e2_launches) = phase_microbench(card)
+    f_states, g_states = timed("column_states", phase_column_states, col_bank, col_cases[0],
+                               col_cases[1])
+    ladders = timed("ladders", phase_ladders, np.random.default_rng([args.seed, 10]), card,
+                    peaks)
+    lane, b2, e2_full = timed("shootout", phase_shootout, card, args.seed)
+    e1_table, e2_table, (e1_launches, e2_launches) = timed("microbench", phase_microbench,
+                                                           card)
     head = mains[0]  # case (a): the headline shape, segments 1, rows 16
     lhead = long_mains[0]  # case (d), tile 0
     chead = col_batches[-1]  # case (f)'s largest bucket, 512 columns
@@ -3592,7 +4118,8 @@ def main() -> int:
     by_path = {"a-c int32": [launches, 0], "d-e int32": [0, chained_launches],
                **{c["name"]: c["launches"] for c in pair_cases + mode_dbs + dbs_16 + serving},
                **jobs["launches"], **sharded["launches"], **regress["launches"],
-               **bench["launches"]}
+               **bench["launches"],
+               "ladders": [ladders["launches"]["B1"], ladders["launches"]["B3"]]}
     launches_total = [sum(x[k] for x in by_path.values()) for k in (0, 1)]
     plain_a = {"biased W=12": mode_a["plain_ms"]["biased W=8"],
                "float32": mode_a["plain_ms"]["float32"]}
@@ -3615,7 +4142,7 @@ def main() -> int:
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches_total[0],
               max(c["max_abs_err"] for c in checks + mains + [b2] + mode_checks + [mode_a]
-                  + checks_16 + [a_16]),
+                  + checks_16 + [a_16, ladders["kernels"]["B1 r"]]),
               head["ms"], head["plain_ms"], b_wave,
               plain_note=f"(a)'s first {head['check_steps']} steps",
               launches_by_path={k: v[0] for k, v in by_path.items()},
@@ -3630,7 +4157,7 @@ def main() -> int:
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:314", launches_total[1],
               max(c["max_abs_err"] for c in chains + long_mains + chain_mode_checks
-                  + [mode_d] + chains_16 + [d_16]),
+                  + [mode_d] + chains_16 + [d_16, ladders["kernels"]["B3 q"]]),
               lhead["tile_ms"][0], lhead["plain_ms"][0], b_chain,
               launches_by_path={k: v[1] for k, v in by_path.items()},
               modes=modes_d, mode_tile_ms=mode_d["tile_ms"], mode_configs=chain_mode_checks,
@@ -3645,8 +4172,9 @@ def main() -> int:
               main_shapes=long_mains, configs=chains),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
               column_launches + faults_launches[0] + sharded["column_launches"][0]
-              + bench["column_launches"],
-              max(c["max_abs_err"] for c in col_checks + col_batches + [f_states]),
+              + bench["column_launches"] + ladders["launches"]["B4"],
+              max(c["max_abs_err"] for c in col_checks + col_batches
+                  + [f_states, ladders["kernels"]["B4 r"]]),
               chead["ms"], chead["plain_ms"], b_col,
               shape=[chead["B"], chead["m"], chead["n"]], main_shapes=col_batches,
               configs=col_checks, modes=modes_f,
@@ -3654,17 +4182,21 @@ def main() -> int:
                                 "f jobs faults": faults_launches[0],
                                 "n sharded": sharded["column_launches"][0],
                                 "bench": bench["column_launches"],
+                                "ladders": ladders["launches"]["B4"],
                                 **{f"f {k}": v["launches"]
                                    for k, v in f_states["modes"].items()}}),
         entry("column_chained", "swtpu_torch/ops/csrc/column.cu",
               "swtpu/ops/pallas_kernel.py:137",
-              column_chained_launches + sharded["column_launches"][1],
-              max(c["max_abs_err"] for c in col_chains + [col_tile, g_states]),
+              column_chained_launches + sharded["column_launches"][1]
+              + ladders["launches"]["B5"],
+              max(c["max_abs_err"] for c in col_chains
+                  + [col_tile, g_states, ladders["kernels"]["B5 q"]]),
               col_tile["ms"][0], col_tile["plain_ms"][0], b_tile,
               shape=[col_tile["B"], 256, col_tile["n"]], main_shapes=[col_tile],
               configs=col_chains, modes=modes_g,
               launches_by_path={"f-h int32": column_chained_launches,
                                 "n sharded": sharded["column_launches"][1],
+                                "ladders": ladders["launches"]["B5"],
                                 **{f"g {k}": v["launches"]
                                    for k, v in g_states["modes"].items()}}),
         entry("lane", "swtpu_torch/ops/csrc/lane.cu", "swtpu/ops/pallas_lane.py:37",
@@ -3693,7 +4225,7 @@ def main() -> int:
          if k not in ("query", "db")} for c in col_cases
     ], "pair_cases": pair_cases, "mode_databases": mode_dbs + dbs_16, "serving": serving,
         "jobs": jobs, "sharded": sharded, "regress": regress, "bench": bench,
-        "seconds": time.perf_counter() - T0}))
+        "ladders": ladders, "phase_seconds": seconds, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

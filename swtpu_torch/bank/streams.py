@@ -29,6 +29,7 @@ from swtpu_torch.ops.stream import STEP_CHUNK
 STREAM_PAD = 4  # drain/pad char (never matches; no flag)
 FLAG = 8
 LANES = 128
+DRAIN = LANES - 1
 
 
 @dataclasses.dataclass
@@ -56,6 +57,10 @@ class StreamBatch:
     segments: int = 1
     rows: int = 1
     emit_regular: Optional[tuple] = None
+
+    @property
+    def total_steps(self) -> int:
+        return self.stream.shape[0] * self.stream.shape[1]
 
 
 def detect_regular_emissions(

@@ -1466,3 +1466,31 @@ def test_bench_headline_stage_on_the_card(cuda_device):
     assert res["cells"] == 262144 * 128 * 128
     assert res["state_dtype"] == "float32" and list(res["times_s"]) == ["1", "33"]
     assert 0 < res["floor"] <= res["gcups"] <= 3 * res["floor"]
+
+
+@pytest.mark.parametrize("state", ["int32", "float32"])
+def test_ladder_4095_query_on_the_card(cuda_device, state):
+    """chip_smoke.py's case (q) at 4,096 reads: a 4,095-base query against
+    reads of 128 bases, every 64th a window of the query.  The stream
+    backend's 32 B3 tiles a call = the column path's 16 B5 tiles = the
+    oracle on a sample, the windows and the top-10."""
+    rng = np.random.default_rng(4095)
+    n, L = 4096, 128
+    query = rng.integers(0, 4, size=4095).astype(np.int8)
+    mat = rng.integers(0, 4, size=(n, L)).astype(np.int8)
+    windows = np.arange(0, n, 64)
+    for r, off in zip(windows, rng.integers(0, 4095 - L + 1, size=len(windows))):
+        mat[r] = query[off : off + L]
+    db = EncodedDB([f"db{i}" for i in range(n)], mat, np.full(n, L, np.int32))
+    port.stream_chained_cuda.launches = column.column_chained_cuda.launches = 0
+    got = ScoreBank(SWConfig(stream_state_dtype=state), backend="stream",
+                    device=cuda_device).score_database(query, db)
+    assert port.stream_chained_cuda.launches == 32
+    col = ScoreBank(backend="pallas", device=cuda_device).score_database(query, db)
+    assert column.column_chained_cuda.launches == 16
+    np.testing.assert_array_equal(got.scores, col.scores)
+    idx = np.unique(np.concatenate([rng.choice(n, size=32, replace=False), windows,
+                                    [i for _, i in got.top_k(10)]]))
+    want = score_many_vs_one(query, [db.read(i) for i in idx])
+    np.testing.assert_array_equal(got.scores[idx], want)
+    assert (got.scores[windows] == 5 * L).all()

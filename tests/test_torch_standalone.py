@@ -298,3 +298,38 @@ def test_fault_config_fields_equal_swtpu():
 
     assert _fields(FaultConfig) == _fields(RefFaultConfig)
     assert dataclasses.asdict(FaultConfig()) == dataclasses.asdict(RefFaultConfig())
+
+
+@pytest.mark.parametrize("package", ["bank", "ops", "utils", "io", "parallel", "runtime",
+                                     "testing"])
+def test_subpackage_all_covers_swtpu(package):
+    """Each subpackage's __all__ holds swtpu's names, and every name it
+    lists is there (swtpu's Pallas entries as aliases of their
+    counterparts)."""
+    import importlib
+
+    got = importlib.import_module(f"swtpu_torch.{package}")
+    want = importlib.import_module(f"swtpu.{package}")
+    assert set(want.__all__) <= set(got.__all__)
+    for name in got.__all__:
+        assert hasattr(got, name), name
+
+
+def test_ops_aliases_and_stream_constants():
+    import swtpu.bank.streams as ref_streams
+    import swtpu_torch.ops as ops
+    from swtpu_torch.bank import streams
+    from swtpu_torch.ops.column import sw_scores_column
+    from swtpu_torch.ops.lane import sw_scores_lane
+
+    assert ops.sw_scores_pallas is sw_scores_column
+    assert ops.sw_scores_pallas_lane is sw_scores_lane
+    assert (ops.Q_PAD, ops.T_PAD) == (5, 4)
+    assert streams.DRAIN == ref_streams.DRAIN == 127
+    rng = np.random.default_rng(22)
+    reads = [rng.integers(0, 4, size=k).astype(np.int8) for k in (0, 5, 40, 130)]
+    query = rng.integers(0, 4, size=60).astype(np.int8)
+    for kw in (dict(segments=1, rows=1), dict(segments=2, rows=4)):
+        got = streams.pack_streams(query, reads, n_streams=8, **kw)
+        want = ref_streams.pack_streams(query, reads, n_streams=8, **kw)
+        assert got.total_steps == want.total_steps == got.stream.size
