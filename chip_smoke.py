@@ -2844,6 +2844,13 @@ COLUMN_WIDTHS_OWN_RNG = (64, 128)
 # the long-gap pairs (swtpu_torch/testing/gaps.py): query widths and modes
 LONG_GAP_WIDTHS = (32, 128, 256)
 LONG_GAP_MODES = ((None, "int32"), (12, "int32"), (None, "float32"))
+# B5's long-gap chains (K = 2 and 3 tiles): cuts of 8-300 bases, each
+# across a boundary between tiles; and small ragged batches of K = 2
+# chains, so that a partly filled last block (4 pairs a block) runs too
+CHAIN_GAP_CUT = (8, 300)
+CHAIN_SMALL_BATCHES = (1, 33, 301)
+# the one-value states of B5: (label, score width, state dtype)
+B5_STATES = (("int32", None, "int32"), ("W=12", 12, "int32"), ("float32", None, "float32"))
 # their operations a cell beside COLUMN_OPS: float32 unfuses the M update's
 # and the I chain's add-max and gains nothing from A (its adds are apart:
 # 3 more, the 11 of fp32_rates.CELLS); int16 none (its add wraps by itself,
@@ -2858,9 +2865,13 @@ def phase_column_vs_plain(rng, rng_odd, rng_gaps, B=4096, n=256):
     long-gap pairs from `rng_gaps` (targets that are their queries with
     8-200 bases cut out, and self-pairs: the in-del chain crosses many
     lanes) at LONG_GAP_WIDTHS in LONG_GAP_MODES, the widths 64 and 128 from
-    it too.  Then int16, two pairs a warp, at an odd B - 1 pairs from
-    `rng_odd` (the last warp's high half dead): B4 at 2 and 8 rows a lane
-    and a K = 2 chain."""
+    it too.  B5 on K = 2 and 3 chains of B long-gap pairs from `rng_gaps`
+    (cuts of CHAIN_GAP_CUT bases across a tile boundary: the I seed
+    crosses it, the lazy carry runs many lanes; self-pairs score 5 a base)
+    and on small ragged batches (CHAIN_SMALL_BATCHES) in LONG_GAP_MODES,
+    every tile's h/ms/is = its plain tile.  Then int16, two pairs a warp,
+    at an odd B - 1 pairs from `rng_odd` (the last warp's high half dead):
+    B4 at 2 and 8 rows a lane and a K = 2 chain."""
     import torch
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.ops.column import (
@@ -2895,29 +2906,51 @@ def phase_column_vs_plain(rng, rng_odd, rng_gaps, B=4096, n=256):
               f"{plain_ms:.1f} ms")
         scores.append(dict(m=m, n=t.shape[1], B=B, score_width=width, state_dtype=dtype,
                            long_gaps=long_gaps, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+
+    def chain(label, q, t, K, width, dtype, **rest):
+        """A K-tile chain through B5 and through its plain tile: scores and
+        every tile's h/ms/is equal (exact states also = int32's), timed."""
+        got, tiles = run_column_chain(q, t, width, column_chained_cuda, dtype)
+        (want, want_tiles), plain_ms = cuda_once(
+            lambda: run_column_chain(q, t, width, column_chained_reference, dtype)
+        )
+        label += f" width={width}" + (f" {dtype}" if dtype != "int32" else "")
+        err = max(strip_error(f"{label} scores", got, want),
+                  check_column_tiles(label, tiles, want_tiles))
+        if dtype in COLUMN_EXACT_STATES:
+            exact, _ = run_column_chain(q, t, None, column_chained_cuda)
+            err = max(err, strip_error(f"{label} scores", got, exact, (dtype, "int32")))
+        ms = cuda_ms(lambda: run_column_chain(q, t, width, column_chained_cuda, dtype), 5)
+        tile_ms = cuda_ms(lambda: column_chained_cuda(*tiles[0][0]), 10)
+        (Bq, _), nq = q.shape, t.shape[1]
+        print(f"phase kernel_vs_plain: ok {label} [{Bq} pairs, {nq} columns] "
+              f"scores + h/ms/is of every tile bit-equal | chain {ms:.4f} ms "
+              f"(kernel {tile_ms:.4f} ms per tile), plain chain {plain_ms:.1f} ms")
+        chains.append(dict(tiles=K, n=nq, B=Bq, score_width=width, state_dtype=dtype,
+                           max_abs_err=err, ms=ms, tile_ms=tile_ms, plain_ms=plain_ms,
+                           **rest))
+        return got
+
     for K in (2, 3):
         for width, dtype in ((None, "int32"), (10, "int32"), (None, "float32"),
                              (None, "int16")):
             if dtype == "int32":
                 q, t = column_batch(rng, B, K * QUERY_TILE, n)
-            got, tiles = run_column_chain(q, t, width, column_chained_cuda, dtype)
-            (want, want_tiles), plain_ms = cuda_once(
-                lambda: run_column_chain(q, t, width, column_chained_reference, dtype)
-            )
-            label = f"column chain K={K} width={width}" + (
-                f" {dtype}" if dtype != "int32" else "")
-            err = max(strip_error(f"{label} scores", got, want),
-                      check_column_tiles(label, tiles, want_tiles))
-            if dtype in COLUMN_EXACT_STATES:
-                exact, _ = run_column_chain(q, t, None, column_chained_cuda)
-                err = max(err, strip_error(f"{label} scores", got, exact, (dtype, "int32")))
-            ms = cuda_ms(lambda: run_column_chain(q, t, width, column_chained_cuda, dtype), 5)
-            tile_ms = cuda_ms(lambda: column_chained_cuda(*tiles[0][0]), 10)
-            print(f"phase kernel_vs_plain: ok {label} [{B} pairs, {n} columns] "
-                  f"scores + h/ms/is of every tile bit-equal | chain {ms:.4f} ms "
-                  f"(kernel {tile_ms:.4f} ms per tile), plain chain {plain_ms:.1f} ms")
-            chains.append(dict(tiles=K, n=n, B=B, score_width=width, state_dtype=dtype,
-                               max_abs_err=err, ms=ms, tile_ms=tile_ms, plain_ms=plain_ms))
+            chain(f"column chain K={K}", q, t, K, width, dtype)
+    for K in (2, 3):
+        m = K * QUERY_TILE
+        q, t = (torch.from_numpy(x).cuda() for x in long_gap_pairs(
+            rng_gaps, B, m, cut=CHAIN_GAP_CUT, across=QUERY_TILE))
+        for width, dtype in LONG_GAP_MODES:
+            label = f"column chain long gaps K={K}"
+            got = chain(label, q, t, K, width, dtype, long_gaps=True)
+            if width is None:  # every 8th pair a query against itself: 5 a base
+                strip_error(f"{label} {dtype} self-pairs", got[::8],
+                            torch.full_like(got[::8], 5 * m), ("kernel", "5 m"))
+    for Bs in CHAIN_SMALL_BATCHES:
+        q, t = column_batch(rng_gaps, Bs, 2 * QUERY_TILE, n)
+        for width, dtype in LONG_GAP_MODES:
+            chain(f"column chain K=2 small B={Bs}", q, t, 2, width, dtype)
     Bo = B - 1
     for m in (64, 256):
         q, t = column_batch(rng_odd, Bo, m, n)
@@ -3068,7 +3101,9 @@ def column_bound(peaks, B, m, n):
 
 def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms, peaks):
     """Every bucket batch of (f) through B4 and its plain version, and
-    every tile of (g)'s chain through B5 and its plain version, in full;
+    every tile of (g)'s chain through B5 and its plain version, in full
+    (at W = 12 too); each B5 instantiation's registers, spills, resident
+    blocks, tile times and share of its bound;
     kernel and plain times (a bucket's also from a CUDA graph of its calls:
     where the host's enqueue of a call outlasts the kernel, CUDA events
     around the calls time the host), each bucket's share of its bound and its
@@ -3123,9 +3158,42 @@ def phase_column_at_main_shape(bank, f_case, g_case, e_chain_ms, peaks):
           f"stream chain of case (e) on the same reads {e_chain_ms:.3f} ms | kernel "
           f"{', '.join(f'{x:.3f}' for x in ms)} ms, plain "
           f"{', '.join(f'{x:.1f}' for x in plain_ms)} ms per tile", flush=True)
+    # each B5 instantiation (B4's template in tile mode, one state each):
+    # its registers, spills, resident blocks, and its tiles at (g) beside
+    # their bound with the state's operations; the W=12 tiles = the plain
+    # ones in full (float32's are held in phase column_states)
+    states = {}
+    for label, width, dtype in B5_STATES:
+        regs, local, blocks = column_kernel_info(state_dtype=dtype, score_width=width,
+                                                 tile=True)
+        s_tiles = tiles
+        if label != "int32":
+            _, s_tiles = run_column_chain(q, t, width, column_chained_cuda, dtype)
+        if width is not None:
+            for p, (args, outs) in enumerate(s_tiles):
+                want = column_chained_reference(*args)
+                err = max(err, check_column_tiles(f"{g_case['name']} {label}",
+                                                  [(args, outs)], [(args, want)]))
+        t_ms = ms if label == "int32" else [cuda_ms(lambda: column_chained_cuda(*args), 5)
+                                            for args, _ in s_tiles]
+        ops = COLUMN_OPS + (MODE_EXTRA_OPS["int32"] if width is not None
+                            else COLUMN_EXTRA_OPS.get(dtype, 0))
+        bound_ms, bound_by = peaks.bound(B * (256 + n + 8 + 16 * n), B * 256 * n * ops,
+                                         cell_lanes("column", dtype, ops))
+        states[label] = dict(registers=regs, local_bytes=local, ops=ops,
+                             resident_blocks_per_sm=blocks, ms=t_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bound_share=bound_ms / statistics.median(t_ms))
+        del s_tiles
+    print(f"phase column_main_shape: ok {g_case['name']} B5 instantiations "
+          f"(column_scores_kernel<32, state, tile>) | " + "; ".join(
+              f"{k}: {v['registers']} registers, {v['local_bytes']} spill bytes, "
+              f"{v['resident_blocks_per_sm']} blocks an SM, tiles "
+              f"{', '.join(f'{x:.3f}' for x in v['ms'])} ms, bound {v['bound_ms']:.3f} ms "
+              f"({v['bound_by']}, {v['ops']} ops a cell): {v['bound_share']:.1%}"
+              for k, v in states.items()), flush=True)
     tile = dict(name=g_case["name"], tiles=len(tiles), B=B, n=n, max_abs_err=err,
                 chain_ms=chain_ms, stream_chain_ms_e=e_chain_ms, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, instantiations=states)
     return batches, tile
 
 

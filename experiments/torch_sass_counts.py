@@ -1,21 +1,27 @@
 """Instruction counts of the wavefront and column kernels' SASS, on the
 machine with the CUDA toolkit.
 
-    python experiments/torch_sass_counts.py [--root DIR] [--tag NAME]
+    python experiments/torch_sass_counts.py [--root DIR] [--tag NAME] [--dump FILE]
+    python experiments/torch_sass_counts.py --sass FILE [--tag NAME]
 
 Builds (or loads) the kernel library of the checkout at --root, runs
 cuobjdump -sass on it and prints, for the instantiations of the main
 shapes (the wavefront at rows 8 and 16, one-tile and chained; the column
-kernels: B4 at every geometry, B5's tile, int16 at 4 and 8 rows a lane),
+kernels: B4 at every geometry, B5's tile (B4's template at 32 lanes in
+tile mode), int16 at 4 and 8 rows a lane),
 the instruction count of each and the counts of the opcodes the
 recurrences run on: the 32-bit and 16x2 integer add, max and DPX add-max,
 the bfloat16 and float max and add, selects, shuffles, votes, byte
 permutes and logic ops.  A 16-bit state that runs its cells two a register
 shows 16x2 and BF16_V2 opcodes and no scalar conversions.  For a column
-kernel also its run loop (the 32 unrolled columns between the outermost
-backward branch and its target, B4's carry loop counted once a column,
-the round a column that random reads take): its instructions, and those
-over 32 columns x rows a lane x pairs a lane, the instructions a cell.
+kernel also the instructions a run of 32 columns executes on random reads
+and those over 32 columns x rows a lane x pairs a lane, the instructions a
+cell (this tree's swtpu_torch/tools/fp32_rates.column_run): B4 unrolls
+the run, its carry loop counted once a column (the round a column that
+random reads take); B5 runs it as a loop of a few unrolled columns, each
+with a vote that skips the carry's further rounds and its scan when one
+round raised no lane.  --dump FILE keeps cuobjdump's output, --sass FILE
+counts a kept one (c++filt demangles).
 Prints the card's name and power limit first.
 """
 
@@ -23,11 +29,26 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import os
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def own_module(name, *path):
+    """A module of this tree by file, whatever tree --root puts first on
+    the path (a parent may lack it)."""
+    spec = importlib.util.spec_from_file_location(name, HERE.joinpath(*path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+fp32_rates = own_module("own_fp32_rates", "swtpu_torch", "tools", "fp32_rates.py")
 
 # the wavefront's state codes (stream_wavefront.cu StateMode) and modes
 # (Mode), the column's state codes (ColumnState)
@@ -74,10 +95,13 @@ def label(name: str):
         if rows in (8, 16) and mode != 1:
             return (f"wavefront rows={rows} {WAVE_MODES[mode]} {WAVE_STATES[state]}"
                     + (" (two streams a thread)" if x2 else "")), None
-    m = re.search(r"column_scores_kernel<(\d+), (\d+)>", name)
+    m = re.search(r"column_scores_kernel<(\d+), (\d+)(?:, (true|false|1|0))?>", name)
+    if m and m.group(3) in ("true", "1"):
+        return f"column B5 tile rows=8 {COLUMN_STATES[int(m.group(2))]}", 8
     if m:
-        lanes, state = map(int, m.groups())
+        lanes, state = int(m.group(1)), int(m.group(2))
         return f"column B4 lanes={lanes:2d} rows=8 {COLUMN_STATES[state]}", 8
+    # B5's kernel of older trees (for --root)
     m = re.search(r"column_tile_kernel<(\d+)>", name)
     if m:
         return f"column B5 tile rows=8 {COLUMN_STATES[int(m.group(1))]}", 8
@@ -94,59 +118,62 @@ def label(name: str):
     return None
 
 
-def run_loop(ops):
-    """The opcodes between the outermost backward branch and its target,
-    or None if the function has no backward branch."""
-    back = [(a - t, t, a) for a, _, t in ops if t is not None and t <= a]
-    if not back:
-        return None
-    _, start, end = max(back)
-    return [op for a, op, _ in ops if start <= a <= end]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+    ap.add_argument("--root", default=str(HERE),
                     help="checkout whose kernel library to read")
     ap.add_argument("--tag", default="this", help="label of every line")
+    ap.add_argument("--dump", help="also write cuobjdump's output to this file")
+    ap.add_argument("--sass", help="read a saved cuobjdump output instead of building "
+                    "(needs no card; c++filt demangles)")
     args = ap.parse_args()
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    os.chdir(root)
-    from swtpu_torch.ops import _build
+    dump = args.dump and os.path.abspath(args.dump)
+    if args.sass:
+        sass = Path(args.sass).read_text()
+        demangler = ["c++filt"]
+    else:
+        root = os.path.abspath(args.root)
+        sys.path.insert(0, root)
+        os.chdir(root)
+        from swtpu_torch.ops import _build
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip(), flush=True)
-    _build.load_library()
-    cuda = Path(_build._nvcc()).parent
-    sass = subprocess.run([str(cuda / "cuobjdump"), "-sass", str(_build.library_path())],
-                          capture_output=True, text=True, check=True).stdout
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip(), flush=True)
+        _build.load_library()
+        cuda = Path(_build._nvcc()).parent
+        sass = subprocess.run([str(cuda / "cuobjdump"), "-sass", str(_build.library_path())],
+                              capture_output=True, text=True, check=True).stdout
+        demangler = [str(cuda / "cu++filt")]
+        if dump:
+            Path(dump).write_text(sass)
     funcs = list(functions(sass))
-    demangled = subprocess.run([str(cuda / "cu++filt")], input="\n".join(n for n, _ in funcs),
+    demangled = subprocess.run(demangler, input="\n".join(n for n, _ in funcs),
                                capture_output=True, text=True, check=True).stdout.splitlines()
+    tool = dict(fp32_rates.functions(sass))  # column_run's form of the same functions
     rows = []
-    for (_, ops), name in zip(funcs, demangled):
+    for (mangled, ops), name in zip(funcs, demangled):
         what = label(name)
         if what:
-            rows.append((*what, ops))
+            rows.append((*what, ops, tool[mangled]))
     if not rows:  # the names did not parse: show some
         print("no instantiation recognised among", len(funcs), "functions, e.g.",
               *demangled[:4], sep="\n  ")
-    for what, cells, ops in sorted(rows):
+    for what, cells, ops, tool_ops in sorted(rows):
         opcodes = [op for _, op, _ in ops]
         count = collections.Counter(op.split(".")[0] for op in opcodes)
         wide = collections.Counter(op for op in opcodes if "16x2" in op or "BF16_V2" in op)
         line = (f"{args.tag} {what} | {len(ops)} instructions | "
                 + " ".join(f"{k}:{count[k]}" for k in OPCODES if count[k])
                 + " | packed " + " ".join(f"{k}:{v}" for k, v in sorted(wide.items())))
-        loop = run_loop(ops) if cells else None
-        if loop:
-            lc = collections.Counter(op.split(".")[0] for op in loop)
-            line += (f" | run loop {len(loop)} instructions, {len(loop) / (RUN * cells):.2f} a "
-                     f"cell (SHFL {lc['SHFL'] / (RUN * cells):.2f}, VOTE "
-                     f"{lc['VOTE'] / (RUN * cells):.2f}, BRA {lc['BRA'] / (RUN * cells):.2f})")
+        run = fp32_rates.column_run(tool_ops, RUN) if cells else []
+        if run:
+            rc = collections.Counter(run)
+            per = RUN * cells
+            line += (f" | a run on random reads {len(run)} instructions, {len(run) / per:.2f} a "
+                     f"cell (SHFL {rc['SHFL'] / per:.2f}, VOTE {rc['VOTE'] / per:.2f}, BRA "
+                     f"{rc['BRA'] / per:.2f}, LDS {rc['LDS'] / per:.2f})")
         print(line, flush=True)
     return 0
 

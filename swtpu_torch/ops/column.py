@@ -36,8 +36,8 @@ tiles; ``_chained_call`` subtracts the bias once at the end.
 as swtpu's kernels do, with swtpu's prefix-scan floors (``STATE_FLOORS``).
 The plain versions run swtpu's log2(m) prefix scan in that type; the CUDA
 kernels ripple the chain down each lane's rows and carry it across lanes
-(``column_geometry``: B4 lazily, one lane a round; B5 and int16 by a
-shuffle scan), with no floor.  Both give
+(``column_geometry``: B4 and B5, one template, lazily, one lane a round;
+int16 by a shuffle scan), with no floor.  Both give
 the exact DP's integers, since every I candidate from the rows above
 exceeds the floor (base >= open + extend) and no value nears 2^15 (a
 score is at most match x 4,095 = 20,475 at +5): float32 and int16 scores

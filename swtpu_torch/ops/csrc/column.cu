@@ -78,14 +78,52 @@
 // this loop).  A warp's pairs past B (the ragged edge) rescore pair B - 1
 // and write nothing.
 //
-// B5 (column_tile_kernel) and int16 (column_x2_kernel) run the warp-wide
-// form: one pair (int16: two) a warp of 32 lanes, rows 1-8 a lane, the I
-// chain's carry a 5-step Hillis-Steele max-plus scan across lanes (offset k
-// lanes adds k * rows * extend) and one more shuffle, merged into every row
-// with a select for lane 0.  A tile's lane c loads ms/is of column c of the
-// run (coalesced) and __shfl_sync hands them to lane 0, and lane 31's row
-// 255 M and I go back to lane c the same way, stored once per run.  B4's
-// lazy carry for them is queued (ROADMAP.md).
+// B5 (column_scores_kernel<32, kState, true>; int32, wrap-parity and
+// float32 state) is B4's loop at 32 lanes of 8 rows, one pair a warp, on
+// one 256-row tile of a longer query.  Only row 0 and row 255 differ:
+//   - row 0's inputs come from the tile above's row 255 (the strips ms and
+//     is, the running high h): its diagonal is max(ms, is) of column j-1
+//     (zero at column -1), its M from above ms[j], and its I seed
+//     is[j] + extend, in A form is[j] - open, which lane 0 folds into row 0
+//     as B4 folds the boundary's zero + extend; lane 0's carry stays the
+//     floor that never wins;
+//   - row 255's M and I go out per column, I as A + open + extend (exact: a
+//     biased I is never masked, and float32 stays below 2^24);
+//   - h out is max(h in, the tile's high), biased under wrap-parity;
+//   - the carry is B4's lazy one for at most kTileRounds rounds, then the
+//     warp-wide max-plus scan (five shuffles, offset k lanes adding
+//     k x 8 x extend) and one shuffle more.  A cell of score S sends its I
+//     chain about S / 4 rows down a column, so a long high-scoring
+//     alignment (a read that is a window of the query) would cost B4's
+//     one-lane rounds up to 31 a column; random reads stop after one.
+// The strips stay off the column's shuffles: at a run's start lane c
+// stages column c's three row-0 inputs and its target code in shared
+// memory (16 bytes a column, one shuffle for the diagonal's column j-1),
+// so a column reads all four with one broadcast 16-byte load; lane 31
+// stores row 255's M and A there with one 8-byte store a column, and lane
+// c writes column c out at the run's end, one coalesced store per strip.
+// The next run's target codes and strip values are loaded a run ahead, so
+// no run starts on an exposed global load.  With the target codes in
+// shared memory no column needs a byte of a register picked by its
+// number, so the tile unrolls kTileUnroll = 4 columns where B4 unrolls its
+// run of 32: the loop's code shrinks eightfold (with the scan in every
+// column, 32 unrolled columns ran 8 % slower at (g)).  What bounds it:
+// B4's integer pipe (its operations a cell, and a load and a store a
+// column over 256 rows) where the card holds enough warps; a batch of
+// about a thousand pairs gives an SM 8 warps, 2 a scheduler, and then the
+// column's dependent chain sets the pace (the shared load, two shuffles,
+// the ripple down 8 rows, the carry's shuffle and vote).  A tile reads 8
+// bytes of strip and writes 8 a column, against 256 cells of eight
+// operations: never bound by memory.
+//
+// int16 (column_x2_kernel) keeps the warp-wide form: one pair a half of
+// each register, rows 1-8 a lane over all 32 lanes, the I chain's carry a
+// 5-step Hillis-Steele max-plus scan across lanes (offset k lanes adds
+// k * rows * extend) and one more shuffle, merged into every row with a
+// select for lane 0; its tile's strips are handed to and from lane 0 with
+// shuffles.  Each of its shuffles serves two pairs, so the scan costs it
+// half as much a cell as it cost the one-value tile, and folding it into
+// B4's template is queued (ROADMAP.md).
 //
 // Two pairs a warp (kInt16, column_x2_kernel).  The warp holds pairs 2w
 // and 2w + 1 in the low and high halves of each 32-bit register and runs the
@@ -115,6 +153,8 @@ constexpr int kRun = 32;       // target columns read together
 constexpr int kBlock = 128;    // threads per block: 4 warps
 constexpr int kRows = 8;       // B4's rows a lane
 constexpr int kFloor = -(1 << 30);  // lane 0's carry: never wins, never overflows
+constexpr int kTileRounds = 4;  // B5's carry rounds of one lane before its scan
+constexpr int kTileUnroll = 4;  // B5's columns unrolled together (B4: a run, 32)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct ColumnArgs {
@@ -183,12 +223,38 @@ struct ColumnArith<kInt16> : Int16x2 {
   __device__ int store(T x, int h) const { return widen(x, h); }
 };
 
+// B5's strips, staged in shared memory a run at a time: lane 0's inputs
+// of column c (its diagonal, its M from above and its I seed in A form)
+// beside column c's target code, and row 255's M and A of column c.
+template <typename T>
+struct alignas(16) TileEdge {
+  T d, up, seed;
+  int t;  // the column's target code
+};
+template <typename T>
+struct alignas(8) TileLast { T m, a; };
+template <typename T>
+struct TileStage {
+  TileEdge<T> in[kRun];
+  TileLast<T> out[kRun];
+};
+
+// the calling warp's stage (a tile's block is 4 warps, one pair each)
+template <typename T>
+__device__ __forceinline__ TileStage<T>& tile_stage() {
+  __shared__ TileStage<T> stage[kBlock / kWarp];
+  return stage[threadIdx.x / kWarp];
+}
+
 // B4 in the one-value states: 32 / LANES pairs a warp, LANES lanes of
-// kRows rows a pair, the lazy carry (see the note at the top).
-template <int LANES, int kState>
+// kRows rows a pair, the lazy carry (see the note at the top).  kTile: B5,
+// one 256-row tile at LANES = 32, its row 0 fed from the strips of the
+// tile above and its row 255 written out.
+template <int LANES, int kState, bool kTile>
 __global__ void __launch_bounds__(kBlock) column_scores_kernel(const ColumnArgs a) {
   using A = ColumnArith<kState>;
   using T = typename A::T;
+  static_assert(!kTile || LANES * kRows == kTileRows, "a tile is 32 lanes of 8 rows");
   constexpr int P = kWarp / LANES;  // pairs a warp
   const int lane = threadIdx.x % kWarp;
   const int sub = lane % LANES;  // the lane's place in its pair
@@ -219,36 +285,104 @@ __global__ void __launch_bounds__(kBlock) column_scores_kernel(const ColumnArgs 
     Ad[r] = ar.add(zero, ar.cst(-(a.go + a.ge)));  // boundary column I = 0 (RTL ZERO tie)
   }
   T h = zero;
+  // a tile's next run, loaded a run ahead: lane c's target code and ms/is
+  // of the run's column c; dlast, max(ms, is) of the run before's last
+  // column (zero at column -1)
+  [[maybe_unused]] int t_next, ms_next, is_next;
+  [[maybe_unused]] T dlast = zero;
+  if constexpr (kTile) {
+    if (n > 0) {
+      t_next = tb[lane];
+      ms_next = a.ms[bb * n + lane];
+      is_next = a.is[bb * n + lane];
+    }
+  }
 
   for (int j0 = 0; j0 < n; j0 += kRun) {
-    const int4* tp = reinterpret_cast<const int4*>(tb + j0);
-    const int4 lo = tp[0];
-    const int4 hi = tp[1];
-    const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
+    [[maybe_unused]] int tw[8];  // B4: the run's 32 target bytes
+    if constexpr (kTile) {
+      TileStage<T>& st = tile_stage<T>();
+      const int tc = t_next;
+      const T ms = ar.load(ms_next), is = ar.load(is_next);
+      const int jn = min(j0 + kRun, n - kRun);  // the last run reloads itself
+      t_next = tb[jn + lane];
+      ms_next = a.ms[bb * n + jn + lane];
+      is_next = a.is[bb * n + jn + lane];
+      // lane 0's diagonal at column c is max(ms, is) of column c - 1
+      const T dc = mx(ms, is);
+      T dp = __shfl_up_sync(kFull, dc, 1);
+      if (lane == 0) dp = dlast;
+      dlast = __shfl_sync(kFull, dc, kWarp - 1);
+      st.in[lane] = TileEdge<T>{dp, ms, ar.add(is, ar.cst(-a.go)), tc};
+      __syncwarp();
+    } else {
+      const int4* tp = reinterpret_cast<const int4*>(tb + j0);
+      const int4 lo = tp[0];
+      const int4 hi = tp[1];
+      tw[0] = lo.x, tw[1] = lo.y, tw[2] = lo.z, tw[3] = lo.w;
+      tw[4] = hi.x, tw[5] = hi.y, tw[6] = hi.z, tw[7] = hi.w;
+    }
+#pragma unroll (kTile ? kTileUnroll : kRun)
     for (int c = 0; c < kRun; ++c) {
-      const int tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
+      // the target code; row 0's diagonal, M from above and I seed: the
+      // boundary, or a tile's strips
+      int tj;
+      T e_d = zero, e_up = zero, e_seed = seed;
+      if constexpr (kTile) {
+        const TileEdge<T> e = tile_stage<T>().in[c];
+        tj = e.t;
+        e_d = e.d;
+        e_up = e.up;
+        e_seed = e.seed;
+      } else {
+        tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
+      }
       // max(M, I) of column j-1: each row's diagonal for the row below
       T D[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) D[r] = ar.addmax(Ad[r], oe, M[r]);
       T dup = __shfl_up_sync(kFull, D[kRows - 1], 1, LANES);
-      if (sub == 0) dup = zero;
+      if (sub == 0) dup = e_d;
       T Mn[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         Mn[r] = ar.m(ar.add(r == 0 ? dup : D[r - 1], q[r] == tj ? ma : mi));
       }
       T mup = __shfl_up_sync(kFull, Mn[kRows - 1], 1, LANES);
-      if (sub == 0) mup = zero;
+      if (sub == 0) mup = e_up;
       // the I chain inside the lane, from its own rows only
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         T y = ar.addmax(Ad[r], ge, mx(r == 0 ? mup : Mn[r - 1], M[r]));
-        if (r == 0 && sub == 0) y = mx(y, seed);
+        if (r == 0 && sub == 0) y = mx(y, e_seed);
         Ad[r] = r == 0 ? y : ar.addmax(Ad[r - 1], ge, y);
       }
-      if constexpr (LANES > 1) {
+      if constexpr (kTile) {
+        // the carry: B4's lazy rounds, at most kTileRounds, then the scan
+        const T own = Ad[kRows - 1];
+        T last = own, carry;
+        for (int round = 1;; ++round) {
+          carry = __shfl_up_sync(kFull, last, 1);
+          if (sub == 0) carry = low;
+          const T next = ar.addmax(carry, step, own);
+          if (!__any_sync(kFull, next != last)) break;
+          if (round == kTileRounds) {
+            // max-plus inclusive scan of the lanes' last rows
+            T v = next;
+#pragma unroll
+            for (int k = 1; k < kWarp; k <<= 1) {
+              const T u = __shfl_up_sync(kFull, v, k);
+              if (sub >= k) v = ar.addmax(u, ar.cst(k * kRows * a.ge), v);
+            }
+            carry = __shfl_up_sync(kFull, v, 1);
+            if (sub == 0) carry = low;
+            break;
+          }
+          last = next;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) Ad[r] = ar.addmax(carry, ar.cst((r + 1) * a.ge), Ad[r]);
+      } else if constexpr (LANES > 1) {
         // the carry: the lane above's last row, passed on while it raises one
         const T own = Ad[kRows - 1];
         T last = own, carry;
@@ -267,114 +401,33 @@ __global__ void __launch_bounds__(kBlock) column_scores_kernel(const ColumnArgs 
         M[r] = Mn[r];
         h = mx(h, Mn[r]);
       }
+      if constexpr (kTile) {
+        if (lane == kWarp - 1) tile_stage<T>().out[c] = TileLast<T>{M[kRows - 1], Ad[kRows - 1]};
+      }
+    }
+    if constexpr (kTile) {
+      // row 255 of the run's columns, lane c storing column c
+      __syncwarp();
+      const TileLast<T> o = tile_stage<T>().out[lane];
+      a.ms_out[bb * n + j0 + lane] = ar.store(o.m);
+      a.is_out[bb * n + j0 + lane] = ar.store(ar.add(o.a, oe));
     }
   }
 #pragma unroll
   for (int off = LANES / 2; off > 0; off >>= 1)
     h = mx(h, __shfl_xor_sync(kFull, h, off));
-  if (sub == 0 && live) a.h_out[b] = ar.store(h) - ar.store(zero);
-}
-
-// B5: one 256-row tile, one pair a warp, 8 rows a lane, the warp-wide scan.
-template <int kState>
-__global__ void __launch_bounds__(kBlock) column_tile_kernel(const ColumnArgs a) {
-  constexpr int RPL = kTileRows / kWarp;
-  using A = ColumnArith<kState>;
-  using T = typename A::T;
-  const int lane = threadIdx.x % kWarp;
-  const long long b =
-      (long long)blockIdx.x * (kBlock / kWarp) + threadIdx.x / kWarp;
-  if (b >= a.B) return;  // b is the same for the whole warp
-  const A ar(a.width);
-  const T zero = ar.zero();
-  const T oe = ar.cst(a.go + a.ge);
-  const T ge = ar.cst(a.ge);
-  const T ma = ar.cst(a.ma), mi = ar.cst(a.mi);
-  const int n = a.n;
-  const int8_t* qb = a.q + b * a.m;
-  const int8_t* tb = a.t + b * n;
-
-  int q[RPL];
-  T M[RPL], I[RPL];
-#pragma unroll
-  for (int r = 0; r < RPL; ++r) {
-    const int i = lane * RPL + r;
-    q[r] = i < a.m ? qb[i] : kQueryPad;
-    M[r] = zero;
-    I[r] = zero;  // boundary column I = 0 (RTL ZERO tie)
-  }
-  T h = zero;
-  T dprev = zero;  // max(ms, is) of column j-1; zero at column -1
-
-  for (int j0 = 0; j0 < n; j0 += kRun) {
-    const int4* tp = reinterpret_cast<const int4*>(tb + j0);
-    const int4 lo = tp[0];
-    const int4 hi = tp[1];
-    const int tw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    const T ms_run = ar.load(a.ms[b * n + j0 + lane]);
-    const T is_run = ar.load(a.is[b * n + j0 + lane]);
-    T ms_keep = zero, is_keep = zero;
-#pragma unroll
-    for (int c = 0; c < kRun; ++c) {
-      const int tj = static_cast<int8_t>(tw[c / 4] >> (8 * (c % 4)));
-      const T msj = __shfl_sync(kFull, ms_run, c);
-      const T isj = __shfl_sync(kFull, is_run, c);
-      // the diagonal of row 0 of this lane: the lane above's last row at j-1
-      T dup = __shfl_up_sync(kFull, mx(M[RPL - 1], I[RPL - 1]), 1);
-      if (lane == 0) dup = dprev;
-      T Mn[RPL];
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-        const T d = r == 0 ? dup : mx(M[r - 1], I[r - 1]);
-        Mn[r] = ar.m(ar.add(d, q[r] == tj ? ma : mi));
-      }
-      T mup = __shfl_up_sync(kFull, Mn[RPL - 1], 1);
-      if (lane == 0) mup = msj;
-      // the I chain inside the lane, from its own rows only
-      T acc[RPL];
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-        const T up = r == 0 ? mup : Mn[r - 1];
-        T base = mx(ar.add(mx(up, M[r]), oe), ar.add(I[r], ge));
-        if (r == 0 && lane == 0) base = mx(base, ar.add(isj, ge));  // row 0's seed
-        acc[r] = r == 0 ? base : mx(base, ar.add(acc[r - 1], ge));
-      }
-      // max-plus inclusive scan of the lanes' last rows across the warp
-      T v = acc[RPL - 1];
-#pragma unroll
-      for (int k = 1; k < kWarp; k <<= 1) {
-        const T u = __shfl_up_sync(kFull, v, k);
-        if (lane >= k) v = mx(v, ar.add(u, ar.cst(k * RPL * a.ge)));
-      }
-      const T carry = __shfl_up_sync(kFull, v, 1);  // I of the row above
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-        I[r] = lane == 0 ? acc[r] : mx(acc[r], ar.add(carry, ar.cst((r + 1) * a.ge)));
-        M[r] = Mn[r];
-        h = mx(h, Mn[r]);
-      }
-      dprev = mx(msj, isj);
-      const T om = __shfl_sync(kFull, M[RPL - 1], kWarp - 1);
-      const T oi = __shfl_sync(kFull, I[RPL - 1], kWarp - 1);
-      if (lane == c) {
-        ms_keep = om;
-        is_keep = oi;
-      }
+  if (sub == 0 && live) {
+    if constexpr (kTile) {
+      a.h_out[b] = max(a.h[b], ar.store(h));  // biased under wrap-parity
+    } else {
+      a.h_out[b] = ar.store(h) - ar.store(zero);
     }
-    a.ms_out[b * n + j0 + lane] = ar.store(ms_keep);
-    a.is_out[b * n + j0 + lane] = ar.store(is_keep);
-  }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    h = mx(h, __shfl_xor_sync(kFull, h, off));
-  if (lane == 0) {
-    a.h_out[b] = max(a.h[b], ar.store(h));
   }
 }
 
 // The warp-wide form in int16, two pairs a warp: pairs 2w and 2w + 1 in
 // the halves of each register (B4 at rows 1-8 a lane, and B5).  Both share
-// m and n, so the loop and the lane selects are column_tile_kernel's; the
+// m and n, so the loop and the lane selects are the same for both; the
 // codes, the target bytes, the match and the strips are per half.
 template <int RPL, bool kTile>
 __global__ void __launch_bounds__(kBlock) column_x2_kernel(const ColumnArgs a) {
@@ -496,17 +549,13 @@ __global__ void __launch_bounds__(kBlock) column_x2_kernel(const ColumnArgs a) {
 }
 
 // An instantiation: G is B4's lanes a pair in a one-value state, or the
-// int16 kernel's rows a lane; a tile (B5) ignores it.
+// int16 kernel's rows a lane; a tile (B5) ignores it (32 lanes, 8 rows).
 template <int G, int kState, bool kTile>
 constexpr auto kernel_of() {
-  if constexpr (kTile && kState == kInt16) {
-    return column_x2_kernel<kTileRows / kWarp, true>;
-  } else if constexpr (kTile) {
-    return column_tile_kernel<kState>;
-  } else if constexpr (kState == kInt16) {
-    return column_x2_kernel<G, false>;
+  if constexpr (kState == kInt16) {
+    return column_x2_kernel<kTile ? kTileRows / kWarp : G, kTile>;
   } else {
-    return column_scores_kernel<G, kState>;
+    return column_scores_kernel<kTile ? kWarp : G, kState, kTile>;
   }
 }
 // its pairs a warp, lanes a pair and rows a lane

@@ -21,17 +21,28 @@ CUT = (8, 200)  # bases cut out of a target, at most m - 8
 SELF_EVERY = 8  # every 8th pair (from pair 0) is a query against itself
 
 
-def long_gap_pairs(rng, B, m, cut=CUT, self_every=SELF_EVERY):
+def long_gap_pairs(rng, B, m, cut=CUT, self_every=SELF_EVERY, across=None):
     """[B, m] int8 queries and [B, m] int8 targets (numpy, sentinel-padded)
     from `rng`: query i is m random bases; target i is query i with a
     block of k bases removed, k uniform in `cut` (at most m - 8), at a
     uniform offset, then padded with T_PAD; every `self_every`-th pair is
-    query i itself."""
+    query i itself.  With `across` (a chained tile's rows), each cut
+    instead spans a boundary between tiles, one drawn uniformly among
+    those it can span: it starts above a multiple of `across` and ends
+    below it, so its in-del chain reaches the tile below through the
+    strips."""
     q = rng.integers(0, 4, size=(B, m), dtype=np.int8)
     t = np.full((B, m), T_PAD, np.int8)
     hi = min(cut[1], m - 8)
     ks = rng.integers(cut[0], hi + 1, size=B)
-    starts = rng.integers(0, m - ks + 1)
+    if across is None:
+        starts = rng.integers(0, m - ks + 1)
+    else:
+        # boundary r * across, r in 1 .. m // across - 1; the cut's first
+        # row s in [max(edge - k + 1, 0), min(edge - 1, m - k)]
+        edges = across * rng.integers(1, m // across, size=B)
+        lo = np.maximum(edges - ks + 1, 0)
+        starts = rng.integers(lo, np.minimum(edges - 1, m - ks) + 1)
     for i in range(B):
         if i % self_every == 0:
             t[i] = q[i]

@@ -144,10 +144,12 @@ def float32_label(name: str):
     m = re.search(r"stream_wavefront_kernel<(\d+), (\d+), 2>", name)
     if m and m.group(1) in ("8", "16") and m.group(2) != "1":
         return f"wavefront rows={m.group(1)} {'chained' if m.group(2) == '2' else 'tail-acc'}"
-    m = re.search(r"column_scores_kernel<(\d+), 2>", name)
+    m = re.search(r"column_scores_kernel<(\d+), 2(?:, (true|false|1|0))?>", name)
+    if m and m.group(2) in ("true", "1"):
+        return "column B5 tile"
     if m and m.group(1) in ("16", "32"):
         return f"column lanes={m.group(1)} B4"
-    if re.search(r"column_tile_kernel<2>", name):
+    if re.search(r"column_tile_kernel<2>", name):  # B5's kernel of older trees
         return "column B5 tile"
     return None
 
@@ -167,6 +169,39 @@ def run_loop(ops):
 
 
 COLUMN_CELLS = 32 * 8  # cells a lane of a column kernel's run loop: 32 columns x 8 rows
+
+
+def column_run(ops, columns=32):
+    """The opcodes a column kernel runs over a run of `columns` columns on
+    random reads: its run loop where that unrolls all of them (B4); where a
+    column loop of a few unrolled columns spans most of the run loop (B5),
+    the code outside the column loop once and the column loop's code,
+    less what each column's first carry vote skips (the code up to its
+    forward branch's target), once a pass; [] without a run loop."""
+    def target(rest):
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        return int(m.group(1), 16) if m else None
+
+    back = [(addr - target(rest), target(rest), addr) for addr, op, rest in ops
+            if op == "BRA" and target(rest) is not None and target(rest) <= addr]
+    if not back:
+        return []
+    _, rs, re_ = max(back)
+    inner = [x for x in back if rs < x[1] and x[2] < re_]
+    if not inner or max(inner)[0] * 2 < re_ - rs:
+        return run_loop(ops)
+    _, cs, ce = max(inner)
+    body = [(addr, op, rest) for addr, op, rest in ops if cs <= addr <= ce]
+    skip, ends = set(), set()
+    for (_, op, _), (addr, nop, rest) in zip(body, body[1:]):
+        t = target(rest)
+        if op == "VOTE" and nop == "BRA" and t is not None and t > addr and t not in ends:
+            ends.add(t)
+            skip.update(a for a, _, _ in body if addr < a < t)
+    if not ends:
+        return run_loop(ops)
+    outside = [op for addr, op, _ in ops if rs <= addr <= re_ and not cs <= addr <= ce]
+    return outside + [op for addr, op, _ in body if addr not in skip] * (columns // len(ends))
 
 
 def bfloat16_label(name: str):
@@ -330,7 +365,7 @@ def main() -> int:
         if not what:
             continue
         column = what.startswith("column")
-        body = collections.Counter(run_loop(ops) if column else hot_loop(ops))
+        body = collections.Counter(column_run(ops) if column else hot_loop(ops))
         per = PER_INSTRUCTION[kind]
         adds = body["FADD"] if kind == "float32" else (
             body["HADD2"] + body["HFMA2"] + body["HFMA2.MMA"])

@@ -346,9 +346,15 @@ def test_column_kernel_long_gaps_equal_plain_version(cuda_device, m, width, stat
 @pytest.mark.parametrize("K", [2, 3])
 def test_column_chain_equals_plain_version(cuda_device, K, width, state_dtype):
     """Whole K-tile chains through B5 and its plain version: every tile's
-    h, ms and is, and the scores."""
+    h, ms and is, and the scores; on 301 ragged pairs, then on 299
+    long-gap pairs of K x 256 bases whose cuts of 8-300 bases span a
+    boundary between tiles (the I seed crosses it, the lazy carry runs
+    many lanes), every 8th a self-pair scoring 5 a base."""
     rng = np.random.default_rng(K * 7 + (width or 0))
-    q, t = _column_batch(rng, 301, K * column.QUERY_TILE, 160)
+    m = K * column.QUERY_TILE
+    ragged = _column_batch(rng, 301, m, 160)
+    gaps = [torch.from_numpy(x) for x in long_gap_pairs(
+        np.random.default_rng([K, 8]), 299, m, cut=(8, 300), across=column.QUERY_TILE)]
 
     def run(q, t, tile):
         outs = []
@@ -360,16 +366,20 @@ def test_column_chain_equals_plain_version(cuda_device, K, width, state_dtype):
         return column._chained_call(q, t, DEFAULT_PENALTIES, width, tile=record,
                                     state_dtype=state_dtype), outs
 
-    launches = column.column_chained_cuda.launches
-    got, got_tiles = run(q.to(cuda_device), t.to(cuda_device), column.column_chained_cuda)
-    want, want_tiles = run(q, t, column.column_chained_reference)
-    torch.cuda.synchronize()
-    assert column.column_chained_cuda.launches == launches + K
-    for k, (g, w) in enumerate(zip(got_tiles, want_tiles)):
-        for name, a, b in zip(("h", "ms", "is_"), g, w):
-            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
-                                          err_msg=f"tile {k} {name}")
-    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    for label, (q, t) in (("ragged", ragged), ("long gaps", gaps)):
+        launches = column.column_chained_cuda.launches
+        got, got_tiles = run(q.to(cuda_device), t.to(cuda_device),
+                             column.column_chained_cuda)
+        want, want_tiles = run(q, t, column.column_chained_reference)
+        torch.cuda.synchronize()
+        assert column.column_chained_cuda.launches == launches + K
+        for k, (g, w) in enumerate(zip(got_tiles, want_tiles)):
+            for name, a, b in zip(("h", "ms", "is_"), g, w):
+                np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                              err_msg=f"{label} tile {k} {name}")
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=label)
+        if label == "long gaps" and width is None:  # W = 10 wraps a self-pair
+            assert (got[::8] == 5 * m).all()
 
 
 def test_column_kernels_reject_bad_tensors(cuda_device):

@@ -43,6 +43,41 @@ def test_functions_and_hot_loop():
     assert fp32_rates.run_loop([(0, "FADD", " R1, R2, R3 ")]) == []
 
 
+# a run loop [0x10, 0xd0] around a column loop [0x20, 0xc0] of two
+# columns, each a carry round whose vote's forward branch skips a scan
+COLUMN_LOOPS = """
+        Function : _Z5tilev
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E R2, [R4.64] ;
+        /*0020*/                   FADD R2, R2, R3 ;
+        /*0030*/                   VOTE.ANY P0, P0 ;
+        /*0040*/              @!P0 BRA 0x60 ;
+        /*0050*/                   SHFL.UP PT, R5, R6, 0x2, RZ ;
+        /*0060*/                   FMNMX R4, R2, R5, !PT ;
+        /*0070*/                   VOTE.ANY P0, P0 ;
+        /*0080*/              @!P0 BRA 0xb0 ;
+        /*0090*/                   SHFL.UP PT, R5, R6, 0x2, RZ ;
+        /*00a0*/                   SHFL.UP PT, R5, R6, 0x4, RZ ;
+        /*00b0*/                   ISETP.GE.AND P1, PT, R7, 0x10, PT ;
+        /*00c0*/               @P1 BRA 0x20 ;
+        /*00d0*/              @!P2 BRA 0x10 ;
+        /*00e0*/                   EXIT ;
+"""
+
+
+def test_column_run_counts_the_random_reads_path():
+    """B5's column loop: the code outside it once a run, its code less what
+    each column's first vote skips once a pass (32 / 2 passes); a kernel
+    with one loop level (B4) counts its run loop."""
+    (_, ops), = fp32_rates.functions(COLUMN_LOOPS)
+    run = fp32_rates.column_run(ops)
+    column = ["FADD", "VOTE", "BRA", "FMNMX", "VOTE", "BRA", "ISETP", "BRA"]
+    assert collections.Counter(run) == collections.Counter(["LDG", "BRA"] + column * 16)
+    one = dict(fp32_rates.functions(SASS))["_Z3onev"]
+    assert fp32_rates.column_run(one) == fp32_rates.run_loop(one)
+    assert fp32_rates.column_run([(0, "FADD", " R1, R2, R3 ")]) == []
+
+
 @pytest.mark.parametrize("name, label", [
     ("void (anonymous namespace)::stream_wavefront_kernel<16, 0, 2>(Args)",
      "wavefront rows=16 tail-acc"),
@@ -54,6 +89,11 @@ def test_functions_and_hot_loop():
     ("void column_scores_kernel<(int)4, (int)2>(Args)", None),  # not a main shape
     ("void column_scores_kernel<32, 0>(Args)", None),  # int32
     ("void column_x2_kernel<8, false>(Args)", None),
+    ("void column_scores_kernel<32, 2, true>(Args)", "column B5 tile"),
+    ("void column_scores_kernel<(int)32, (int)2, (bool)1>(Args)", "column B5 tile"),
+    ("void column_scores_kernel<32, 2, false>(Args)", "column lanes=32 B4"),
+    ("void column_scores_kernel<(int)4, (int)2, (bool)0>(Args)", None),  # not a main shape
+    ("void column_scores_kernel<32, 0, true>(Args)", None),  # int32
 ])
 def test_float32_label(name, label):
     assert fp32_rates.float32_label(name) == label
