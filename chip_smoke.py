@@ -166,8 +166,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      4,095-base query against 65,536 reads of 128 bases on the stream
      backend in int32 and float32 (32 B3 tiles a call) and on the column
      path (16 B5 tiles), (r) 16,384 reads of 513-2,048 bases (the 2,048
-     bucket) on both, (s) score_pairs at score width 12 on 1,024 pairs of
-     2,049-4,095 x 513-2,048 bases, (t) load_database for 4,096 bases on
+     bucket) on both, (s) score_pairs at score width 12 and exact on 1,024
+     pairs of 2,049-4,095 x 513-2,048 bases (the stream backend's 16
+     long-query jobs side by side on CUDA streams of their own: each job's
+     chain from its CUDA events, the call's device span, the overlap and
+     the streams), (t) load_database for 4,096 bases on
      (q)'s reads, and the CLI's score on (q)'s query: every score equal
      across backends and entry points, oracle samples, and B3, B4, B1 and
      every B5 tile against the plain versions;
@@ -387,6 +390,138 @@ def strip_error(label, got, want, what=("kernel", "plain")) -> int:
         fail(f"{what[0]} vs {what[1]} {label}: {len(bad)} cells differ, first "
              f"{list(at)} {what[0]} {int(got[at])} {what[1]} {int(want[at])}")
     return err
+
+
+def union_ms(intervals):
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, None
+    for a, b in sorted(intervals):
+        if reach is None or a > reach:
+            total += b - a
+            reach = b
+        elif b > reach:
+            total += b - reach
+            reach = b
+    return total
+
+
+PLAIN_WORKER = """\
+import sys, time
+import torch
+from swtpu_torch.ops import stream
+torch.set_num_threads(1)
+fn, args, kw = torch.load(sys.argv[1], weights_only=False)
+t0 = time.perf_counter()
+out = getattr(stream, fn)(*args, **kw)
+torch.save((out, (time.perf_counter() - t0) * 1e3), sys.argv[2])
+"""
+
+
+class PlainCheck:
+    """Kernel strips held against a plain version of swtpu_torch.ops.stream
+    that runs meanwhile, or that runs when the result is asked for.
+    `checks` are (label, k, got): the kernel's strip `got` must equal
+    output k of the plain version (its only output: k 0).  `result()`
+    holds them (strip_error) and returns (the largest error, the plain
+    version's ms, where it ran: "card" or "cpu")."""
+
+    def __init__(self, run, checks, where):
+        self.run, self.checks, self.where = run, checks, where
+
+    def result(self):
+        try:
+            want, ms = self.run()
+        except Exception as e:  # a worker's fault is the check's
+            fail(f"plain version for {self.checks[0][0]}: {e}")
+        wants = want if isinstance(want, (tuple, list)) else (want,)
+        err = 0
+        for label, k, got in self.checks:
+            err = max(err, strip_error(label, got, wants[k].to(got.device)))
+        self.run = self.checks = None  # the inputs and strips go back to the card
+        return err, ms, self.where
+
+
+class PlainJobs:
+    """The plain versions of the main-shape checks, which launch a few
+    hundred small operations a step and so are bound by the host's
+    launches on the card (16-21 s a B3 tile's first 4,096 steps at rows
+    16 on an H100 host), run on the CPU in worker processes (one thread each) while the
+    card's work goes on.  The plain version is the same PyTorch code on
+    the same inputs, integer or exactly integer, so its strips are the
+    card's.  `check(fn, args, checks, card=True)` runs it on the card
+    instead, timed with CUDA events when its result is asked for (after
+    the workers' jobs have started), where the kernels line reports its
+    time.  The workers are plain subprocesses, at most
+    `workers` at a time; `close()` (also at exit) kills any still
+    running."""
+
+    def __init__(self, workers=None):
+        import atexit
+        import os
+        import tempfile
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        workers = workers or max(1, min(6, (os.cpu_count() or 2) - 2))
+        self.pool = ThreadPoolExecutor(workers)
+        self.tmp = tempfile.TemporaryDirectory(prefix="plain_")
+        self.procs, self.lock, self.n, self.closed = [], threading.Lock(), 0, False
+        atexit.register(self.close)
+
+    def _run(self, path):
+        import sys
+
+        import torch
+
+        with self.lock:
+            if self.closed:
+                raise RuntimeError("the script is ending")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", PLAIN_WORKER, path, path + ".out"], cwd=REPO,
+                stderr=subprocess.PIPE, text=True)
+            self.procs.append(proc)
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"worker exited {proc.returncode}: {err.strip()[-2000:]}")
+        out, ms = torch.load(path + ".out", weights_only=False)
+        return out, ms
+
+    def check(self, fn, args, checks, card=False, **kw):
+        """A PlainCheck of `checks` against swtpu_torch.ops.stream.`fn`(*args,
+        **kw): on the CPU in a worker from now, or with `card` here on the
+        card when its result is asked for."""
+        import torch
+
+        if card:
+            from swtpu_torch.ops import stream
+            from swtpu_torch.utils.timing import cuda_once
+
+            return PlainCheck(lambda: cuda_once(lambda: getattr(stream, fn)(*args, **kw)),
+                              checks, "card")
+        self.n += 1
+        path = str(Path(self.tmp.name) / f"plain_{self.n}.pt")
+        torch.save((fn, [a.cpu() if torch.is_tensor(a) else a for a in args], kw), path)
+        return PlainCheck(self.pool.submit(self._run, path).result, checks, "cpu")
+
+    def close(self):
+        with self.lock:
+            self.closed = True
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        self.tmp.cleanup()
+
+
+_PLAIN = []
+
+
+def plain_jobs() -> PlainJobs:
+    """The script's one PlainJobs, made at first use."""
+    if not _PLAIN:
+        _PLAIN.append(PlainJobs())
+    return _PLAIN[0]
 
 
 def laid_out_batch(query, db, segments, rows, phys):
@@ -1043,45 +1178,51 @@ def phase_kernel_at_main_shape(bank, cases):
     full strip, but (a)'s (CUT_MAIN) on its first CHECK_STEPS steps only
     (the full run's, and a run of the cut in CUT_SLICES slices; a strip is
     causal in t), as the modes' and the tiles' checks are; the kernel's
-    time in those slices and in one, and the plain version's."""
+    time in those slices and in one, and the plain version's: (a)'s on the
+    card, the others' on the CPU beside the card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
-    from swtpu_torch.ops.stream import stream_strip_cuda, stream_strip_reference
-    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+    from swtpu_torch.ops.stream import stream_strip_cuda
+    from swtpu_torch.utils.timing import cuda_ms
 
-    results = []
-    for c in cases:
+    plain = plain_jobs()
+    results, checks = [], []
+    for i, c in enumerate(cases):
         seg, rows, phys = stream_geometry(len(c["query"]), bank.config, bank.device)
         qk, sk = laid_out_batch(c["query"], c["db"], seg, rows, phys)
         got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
         slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
         what = f"{c['name']} seg={seg} rows={rows} in {slices} slices"
-        n = CHECK_STEPS if c["name"] in CUT_MAIN else sk.shape[0]
+        T, N = sk.shape
+        n = CHECK_STEPS if c["name"] in CUT_MAIN else T
         cut = sk[:n].contiguous()
-        want, plain_ms = cuda_once(
-            lambda: stream_strip_reference(qk, cut, DEFAULT_PENALTIES, seg, rows)
-        )
-        err = strip_error(what if n == sk.shape[0] else f"{what}, first {n} steps",
-                          got[:n], want)
-        if n < sk.shape[0]:
-            err = max(err, strip_error(
-                f"{c['name']} first {n} steps in {CUT_SLICES} slices",
-                stream_strip_cuda(qk, cut, DEFAULT_PENALTIES, seg, rows, slices=CUT_SLICES),
-                want))
-        del want, got
+        held = [(what if n == T else f"{what}, first {n} steps", 0, got[:n].clone())]
+        if n < T:
+            held.append((f"{c['name']} first {n} steps in {CUT_SLICES} slices", 0,
+                         stream_strip_cuda(qk, cut, DEFAULT_PENALTIES, seg, rows,
+                                           slices=CUT_SLICES)))
+        del got
+        checks.append(plain.check("stream_strip_reference",
+                                  (qk, cut, DEFAULT_PENALTIES, seg, rows), held, card=i == 0))
         ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
         ms_one = cuda_ms(
             lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, slices=1), 3)
-        T, N = sk.shape
-        print(f"phase kernel_main_shape: ok {c['name']} seg={seg} rows={rows} "
-              f"strip [{T}, {N}] in {slices} slices of up to {steps} steps, bit-equal on "
+        results.append(dict(name=c["name"], segments=seg, rows=rows, T=T, N=N,
+                            slices=slices, slice_steps=steps, ms=ms, ms_one_slice=ms_one,
+                            check_steps=n))
+        del qk, sk, cut
+    for c, r, check in zip(cases, results, checks):
+        err, plain_ms, where = check.result()
+        r.update(max_abs_err=err, plain_ms=plain_ms, plain_on=where)
+        ms, n, T = r["ms"], r["check_steps"], r["T"]
+        print(f"phase kernel_main_shape: ok {c['name']} seg={r['segments']} "
+              f"rows={r['rows']} strip [{T}, {r['N']}] in {r['slices']} slices of up to "
+              f"{r['slice_steps']} steps, bit-equal on "
               f"{'all' if n == T else f'the first {n}'} steps | "
               f"kernel {ms:.3f} ms -> {c['cells'] / ms / 1e6:.2f} GCUPS in the kernel "
               f"({ms / (c['wall_s'] * 1e3):.1%} of the wall time), in one slice "
-              f"{ms_one:.3f} ms, plain {plain_ms:.1f} ms on {n} steps", flush=True)
-        results.append(dict(name=c["name"], segments=seg, rows=rows, T=T, N=N,
-                            slices=slices, slice_steps=steps, max_abs_err=err, ms=ms,
-                            ms_one_slice=ms_one, plain_ms=plain_ms, check_steps=n))
+              f"{r['ms_one_slice']:.3f} ms, plain {plain_ms:.1f} ms on {n} steps "
+              f"(on the {where})", flush=True)
     return results
 
 
@@ -1099,15 +1240,16 @@ def phase_chained_at_main_shape(bank, cases):
     full run's first steps, and a run of the cut in CUT_SLICES slices, so
     that slice boundaries fall inside the steps held.  The plain version
     takes ~1.8 ms per step at rows 16, so the full length would take
-    minutes per tile."""
+    minutes per tile.  The first case's tile 0 runs its plain version on
+    the card (the kernels line's plain time), every other tile on the CPU
+    beside the card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
-    from swtpu_torch.ops.stream import (
-        _long_strip, stream_chained_cuda, stream_chained_reference,
-    )
-    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+    from swtpu_torch.ops.stream import _long_strip, stream_chained_cuda
+    from swtpu_torch.utils.timing import cuda_ms
 
     n = CHECK_STEPS
+    plain = plain_jobs()
     results = []
     for c in cases:
         _, rows, phys = stream_geometry(len(c["query"]), bank.config, bank.device)
@@ -1116,7 +1258,7 @@ def phase_chained_at_main_shape(bank, cases):
         slices, steps = stream_chained_cuda.slices, stream_chained_cuda.slice_steps
         chain_ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 3)
         err = 0
-        tile_ms, tile_ms_one, check_ms, plain_ms = [], [], [], []
+        tile_ms, tile_ms_one, check_ms, checks = [], [], [], []
         for p, (args, outs) in enumerate(tiles):
             one = stream_chained_cuda(*args, slices=1)
             for name, g, w in zip(STRIPS, outs, one):
@@ -1127,17 +1269,30 @@ def phase_chained_at_main_shape(bank, cases):
             tile_ms_one.append(cuda_ms(lambda: stream_chained_cuda(*args, slices=1), 3))
             qk, _, bD, bG, bH, pen, r = args
             cut = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
-            want, t_plain = cuda_once(lambda: stream_chained_reference(qk, *cut, pen, r))
             got_cut = stream_chained_cuda(qk, *cut, pen, r, slices=CUT_SLICES)
-            for name, g, gc, w in zip(STRIPS, outs, got_cut, want):
+            held = []
+            for k, (name, g, gc) in enumerate(zip(STRIPS, outs, got_cut)):
                 label = f"{c['name']} tile {p} {name} first {n} steps"
-                err = max(err, strip_error(label, g[:n], w),
-                          strip_error(f"{label} in {CUT_SLICES} slices", gc, w))
+                held += [(label, k, g[:n].clone()), (f"{label} in {CUT_SLICES} slices", k, gc)]
+            # the first case's tile 0 on the card: the kernels line's plain time
+            checks.append(plain.check("stream_chained_reference", (qk, *cut, pen, r), held,
+                                      card=not results and p == 0))
             check_ms.append(cuda_ms(
                 lambda: stream_chained_cuda(qk, *cut, pen, r, slices=CUT_SLICES), 10))
-            plain_ms.append(t_plain)
+            del cut, got_cut
         del tiles
-        T, N = sk.shape
+        results.append((c, rows, sk.shape, slices, steps, chain_ms, err, tile_ms,
+                        tile_ms_one, check_ms, checks))
+        del q, sk
+    out = []
+    for c, rows, (T, N), slices, steps, chain_ms, err, tile_ms, tile_ms_one, check_ms, \
+            checks in results:
+        plain_ms, plain_on = [], []
+        for check in checks:
+            e, ms, where = check.result()
+            err = max(err, e)
+            plain_ms.append(ms)
+            plain_on.append(where)
         print(f"phase chained_main_shape: ok {c['name']} rows={rows} tiles={len(tile_ms)} "
               f"strips [{T}, {N}] | chain {chain_ms:.3f} ms -> "
               f"{c['cells'] / chain_ms / 1e6:.2f} GCUPS in the chain "
@@ -1148,13 +1303,14 @@ def phase_chained_at_main_shape(bank, cases):
               f"every tile bit-equal to the plain version (4 strips; the full run's, and "
               f"a run of the cut in {CUT_SLICES} slices: kernel "
               f"{', '.join(f'{x:.4f}' for x in check_ms)} ms), plain "
-              f"{', '.join(f'{x:.1f}' for x in plain_ms)} ms per tile", flush=True)
-        results.append(dict(name=c["name"], rows=rows, tiles=len(tile_ms), T=T, N=N,
-                            slices=slices, slice_steps=steps, max_abs_err=err,
-                            chain_ms=chain_ms, tile_ms=tile_ms, tile_ms_one_slice=tile_ms_one,
-                            check_steps=n, check_slices=CUT_SLICES, check_ms=check_ms,
-                            plain_ms=plain_ms))
-    return results
+              f"{', '.join(f'{x:.1f} ({w})' for x, w in zip(plain_ms, plain_on))} ms per "
+              "tile", flush=True)
+        out.append(dict(name=c["name"], rows=rows, tiles=len(tile_ms), T=T, N=N,
+                        slices=slices, slice_steps=steps, max_abs_err=err,
+                        chain_ms=chain_ms, tile_ms=tile_ms, tile_ms_one_slice=tile_ms_one,
+                        check_steps=n, check_slices=CUT_SLICES, check_ms=check_ms,
+                        plain_ms=plain_ms, plain_on=plain_on))
+    return out
 
 
 def time_modes(run, reps):
@@ -1181,16 +1337,14 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
     four strips in full (float32 equal; W = 12 equal plus the bias, as no
     (d) value nears 2^11), and each W = 12 tile against the plain version
     on its first CHECK_STEPS steps.  Every mode timed beside int32, on its
-    own chain's inputs."""
+    own chain's inputs.  The plain versions run on the CPU beside the
+    card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES as P
     from swtpu_torch.bank.scorebank import stream_geometry
-    from swtpu_torch.ops.stream import (
-        stream_chained_cuda, stream_chained_reference, stream_kernel_info,
-        stream_strip_cuda, stream_strip_reference,
-    )
-    from swtpu_torch.utils.timing import cuda_once
+    from swtpu_torch.ops.stream import stream_chained_cuda, stream_kernel_info, stream_strip_cuda
 
     n = CHECK_STEPS
+    plain = plain_jobs()
     seg, rows, phys = stream_geometry(len(case_a["query"]), bank.config, bank.device)
     qk, sk = laid_out_batch(case_a["query"], case_a["db"], seg, rows, phys)
     exact = stream_strip_cuda(qk, sk, P, seg, rows)
@@ -1207,27 +1361,18 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
     del exact
     a["ms"] = time_modes(lambda _, **m: stream_strip_cuda(qk, sk, P, seg, rows, **m), 3)
     cut = sk[:n].contiguous()
-    full8 = stream_strip_cuda(qk, sk, P, seg, rows, score_width=8)[:n]
-    want8, plain8_ms = cuda_once(
-        lambda: stream_strip_reference(qk, cut, P, seg, rows, score_width=8))
-    cut8 = stream_strip_cuda(qk, cut, P, seg, rows, slices=CUT_SLICES, score_width=8)
-    err = max(err, strip_error(f"(a) W=8 first {n} steps", full8, want8),
-              strip_error(f"(a) W=8 first {n} steps in {CUT_SLICES} slices", cut8, want8))
-    wantf, plainf_ms = cuda_once(
-        lambda: stream_strip_reference(qk, cut, P, seg, rows, state_dtype="float32"))
-    err = max(err, strip_error(f"(a) float32 first {n} steps",
-                               stream_strip_cuda(qk, cut, P, seg, rows, state_dtype="float32"),
-                               wantf))
-    a.update(max_abs_err=err, check_steps=n, plain_ms={"biased W=8": plain8_ms,
-                                                       "float32": plainf_ms})
-    print(f"phase modes_main_shape: ok {a['name']} seg={seg} rows={rows} strip "
-          f"[{a['T']}, {a['N']}]: W=12 and float32 = the int32 kernel (full strip), W=8 "
-          f"and float32 = the plain version on the first {n} steps (full run's and in "
-          f"{CUT_SLICES} slices) | kernel " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in a["ms"].items())
-          + f"; plain on {n} steps W=8 {plain8_ms:.1f} ms, float32 {plainf_ms:.1f} ms | "
-          + ", ".join(f"{k}: {v['slices']} slices, {v['registers']} registers"
-                      for k, v in a["modes"].items()), flush=True)
+    held = [(f"(a) W=8 first {n} steps", 0,
+             stream_strip_cuda(qk, sk, P, seg, rows, score_width=8)[:n].clone()),
+            (f"(a) W=8 first {n} steps in {CUT_SLICES} slices", 0,
+             stream_strip_cuda(qk, cut, P, seg, rows, slices=CUT_SLICES, score_width=8))]
+    a_checks = {"biased W=8": plain.check("stream_strip_reference", (qk, cut, P, seg, rows),
+                                          held, score_width=8)}
+    held = [(f"(a) float32 first {n} steps", 0,
+             stream_strip_cuda(qk, cut, P, seg, rows, state_dtype="float32"))]
+    a_checks["float32"] = plain.check("stream_strip_reference", (qk, cut, P, seg, rows), held,
+                                      state_dtype="float32")
+    a_err = err
+    del qk, sk, cut, held
 
     _, rows, phys = stream_geometry(len(case_d["query"]), bank.config, bank.device)
     q, sk = long_batch(case_d["query"], case_d["db"], rows, phys)
@@ -1235,6 +1380,7 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
     d = dict(name=case_d["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={},
              tile_ms=[], plain_ms=[])
     err = 0
+    d_checks = []  # (label, tile, its PlainCheck)
     inputs = {"int32": [args for args, _ in tiles]}  # each mode's tiles' own inputs
     for label, width, dtype in MAIN_MODES:
         bias = 0 if width is None else 1 << (width - 1)
@@ -1253,15 +1399,17 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
                 continue
             mqk, _, bD, bG, bH, pen, r = margs
             cutin = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
-            want, t_plain = cuda_once(lambda: stream_chained_reference(
-                mqk, *cutin, pen, r, score_width=width, state_dtype=dtype))
             got_cut = stream_chained_cuda(mqk, *cutin, pen, r, slices=CUT_SLICES,
                                           score_width=width, state_dtype=dtype)
-            for name, g, gc, w in zip(STRIPS, mouts, got_cut, want):
+            held = []
+            for k, (name, g, gc) in enumerate(zip(STRIPS, mouts, got_cut)):
                 label_n = f"(d) {label} tile {p} {name} first {n} steps"
-                err = max(err, strip_error(label_n, g[:n], w),
-                          strip_error(f"{label_n} in {CUT_SLICES} slices", gc, w))
-            d["plain_ms"].append((label, p, t_plain))
+                held += [(label_n, k, g[:n].clone()),
+                         (f"{label_n} in {CUT_SLICES} slices", k, gc)]
+            d_checks.append((label, p, plain.check(
+                "stream_chained_reference", (mqk, *cutin, pen, r), held, score_width=width,
+                state_dtype=dtype)))
+            del cutin, got_cut, held
     # float32's plain chained tile is timed in phase 3 (its whole chains)
         inputs[label] = [args for args, _ in mtiles]
         del mtiles
@@ -1270,14 +1418,33 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
         d["tile_ms"].append(time_modes(
             lambda label, **m: stream_chained_cuda(*inputs[label][p], **m), 3))
     del inputs
-    d.update(max_abs_err=err, check_steps=n)
+    for label, check in a_checks.items():
+        e, ms, where = check.result()
+        a_err = max(a_err, e)
+        a.setdefault("plain_ms", {})[label] = ms
+    a.update(max_abs_err=a_err, check_steps=n, plain_on=where)
+    plain8_ms, plainf_ms = a["plain_ms"]["biased W=8"], a["plain_ms"]["float32"]
+    print(f"phase modes_main_shape: ok {a['name']} seg={seg} rows={a['rows']} strip "
+          f"[{a['T']}, {a['N']}]: W=12 and float32 = the int32 kernel (full strip), W=8 "
+          f"and float32 = the plain version on the first {n} steps (full run's and in "
+          f"{CUT_SLICES} slices) | kernel " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in a["ms"].items())
+          + f"; plain on {n} steps (on the {where}) W=8 {plain8_ms:.1f} ms, float32 "
+          f"{plainf_ms:.1f} ms | "
+          + ", ".join(f"{k}: {v['slices']} slices, {v['registers']} registers"
+                      for k, v in a["modes"].items()), flush=True)
+    for label, p, check in d_checks:
+        e, ms, where = check.result()
+        err = max(err, e)
+        d["plain_ms"].append((label, p, ms))
+    d.update(max_abs_err=err, check_steps=n, plain_on=where)
     print(f"phase modes_main_shape: ok {d['name']} rows={rows} tiles={len(d['tile_ms'])} "
           f"strips [{d['T']}, {d['N']}]: float32 = int32 and W=12 = int32 + 2^11 (4 strips "
           f"of every tile, full length), W=12 = the plain version on the first {n} steps "
           f"of every tile (full run's and in {CUT_SLICES} slices) | kernel "
           f"a tile " + "; ".join(
               ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()) for t in d["tile_ms"])
-          + f"; plain on {n} steps " + ", ".join(
+          + f"; plain on {n} steps (on the {where}) " + ", ".join(
               f"{k} tile {p} {x:.1f} ms" for k, p, x in d["plain_ms"]) + " | "
           + ", ".join(f"{k}: {v['slices']} slices, {v['registers']} registers"
                       for k, v in d["modes"].items()), flush=True)
@@ -1395,15 +1562,15 @@ def phase_16bit_at_main_shape(case_a, case_d):
     uint16 equal to the int32 kernel at rows 8 and the same penalties; then
     the first CHECK_STEPS steps against the plain version, the full run's
     and a run of the cut in CUT_SLICES slices ((d): tile 0, on its own
-    chain's inputs).  Each timed beside int32 at rows 8, in turns."""
+    chain's inputs).  Each timed beside int32 at rows 8, in turns.  The
+    plain versions run on the CPU beside the card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES, Penalties
-    from swtpu_torch.ops.stream import (
-        stream_chained_cuda, stream_chained_reference, stream_kernel_info,
-        stream_strip_cuda, stream_strip_reference,
-    )
-    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+    from swtpu_torch.ops.stream import stream_chained_cuda, stream_kernel_info, stream_strip_cuda
+    from swtpu_torch.utils.timing import cuda_ms
 
     n, rows = CHECK_STEPS, SIXTEEN_ROWS
+    plain = plain_jobs()
+    checks = []  # ("a" or "d", state label, its PlainCheck)
     qk, sk = laid_out_batch(case_a["query"], case_a["db"], 1, rows, MODE_STREAMS)
     a = dict(name=case_a["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={})
     cut = sk[:n].contiguous()
@@ -1416,19 +1583,19 @@ def phase_16bit_at_main_shape(case_a, case_d):
             err = max(err, strip_error(f"(a) rows {rows} {label} full strip", got,
                                        stream_strip_cuda(qk, sk, pen, 1, rows),
                                        (label, "int32")))
-        want, plain_ms = cuda_once(
-            lambda: stream_strip_reference(qk, cut, pen, 1, rows, state_dtype=dtype))
-        got_cut = stream_strip_cuda(qk, cut, pen, 1, rows, slices=CUT_SLICES, state_dtype=dtype)
-        err = max(err, strip_error(f"(a) rows {rows} {label} first {n} steps", got[:n], want),
-                  strip_error(f"(a) rows {rows} {label} first {n} steps in {CUT_SLICES} "
-                              "slices", got_cut, want))
+        held = [(f"(a) rows {rows} {label} first {n} steps", 0, got[:n].clone()),
+                (f"(a) rows {rows} {label} first {n} steps in {CUT_SLICES} slices", 0,
+                 stream_strip_cuda(qk, cut, pen, 1, rows, slices=CUT_SLICES,
+                                   state_dtype=dtype))]
+        checks.append(("a", label, plain.check("stream_strip_reference",
+                                               (qk, cut, pen, 1, rows), held,
+                                               state_dtype=dtype)))
         regs, _, blocks = stream_kernel_info(rows, state_dtype=dtype)
         a["modes"][label] = dict(
             state_dtype=dtype, penalties=list(pen.astuple()), slices=slices,
             slice_steps=steps, registers=regs, resident_blocks_per_sm=blocks,
-            plain_ms=plain_ms, differ_from_int32=int((got != stream_strip_cuda(
-                qk, sk, pen, 1, rows)).sum()))
-        del got, want, got_cut
+            differ_from_int32=int((got != stream_strip_cuda(qk, sk, pen, 1, rows)).sum()))
+        del got, held
     int32_first = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, rows), 3)
     for label, dtype, pen in SIXTEEN_BIT:
         a["modes"][label]["ms"] = cuda_ms(
@@ -1437,12 +1604,6 @@ def phase_16bit_at_main_shape(case_a, case_d):
         lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, rows), 3)) / 2
     regs, _, _ = stream_kernel_info(rows)
     a.update(int32_registers=regs, max_abs_err=err, check_steps=n)
-    print(f"phase 16bit_main_shape: ok {a['name']} seg=1 rows={rows} strip [{a['T']}, "
-          f"{a['N']}]: int16 and uint16 = the int32 kernel (full strip), every state = the "
-          f"plain version on the first {n} steps (full run's and in {CUT_SLICES} slices) | "
-          f"kernel int32 {a['int32_ms']:.3f} ms, " + ", ".join(
-              f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
-              f"plain {v['plain_ms']:.1f} ms)" for k, v in a["modes"].items()), flush=True)
     del qk, sk, cut
 
     q, sk = long_batch(case_d["query"], case_d["db"], rows, MODE_STREAMS)
@@ -1463,19 +1624,20 @@ def phase_16bit_at_main_shape(case_a, case_d):
         args, outs = tiles[0]
         qk0, _, bD, bG, bH, _, r = args
         cutin = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
-        want, plain_ms = cuda_once(lambda: stream_chained_reference(
-            qk0, *cutin, pen, r, state_dtype=dtype))
         got_cut = stream_chained_cuda(qk0, *cutin, pen, r, slices=CUT_SLICES, state_dtype=dtype)
-        for strip, g, gc, w in zip(STRIPS, outs, got_cut, want):
+        held = []
+        for k, (strip, g, gc) in enumerate(zip(STRIPS, outs, got_cut)):
             label_n = f"(d) rows {rows} {label} tile 0 {strip} first {n} steps"
-            err = max(err, strip_error(label_n, g[:n], w),
-                      strip_error(f"{label_n} in {CUT_SLICES} slices", gc, w))
+            held += [(label_n, k, g[:n].clone()), (f"{label_n} in {CUT_SLICES} slices", k, gc)]
+        checks.append(("d", label, plain.check("stream_chained_reference",
+                                               (qk0, *cutin, pen, r), held,
+                                               state_dtype=dtype)))
         regs, _, blocks = stream_kernel_info(rows, chained=True, state_dtype=dtype)
         d["modes"][label] = dict(state_dtype=dtype, penalties=list(pen.astuple()),
                                  slices=slices, slice_steps=steps, registers=regs,
-                                 resident_blocks_per_sm=blocks, plain_ms=plain_ms)
+                                 resident_blocks_per_sm=blocks)
         inputs[label] = (args, dtype)
-        del tiles, outs, want, got_cut
+        del tiles, outs, cutin, got_cut, held
     _, tiles = run_chain(q, sk, rows, stream_chained_cuda)
     int32_args = tiles[0][0]
     del tiles
@@ -1486,12 +1648,26 @@ def phase_16bit_at_main_shape(case_a, case_d):
     d["int32_ms"] = (int32_first + cuda_ms(lambda: stream_chained_cuda(*int32_args), 3)) / 2
     regs, _, _ = stream_kernel_info(rows, chained=True)
     d.update(int32_registers=regs, max_abs_err=err, check_steps=n)
+    for case, label, check in checks:
+        e, ms, where = check.result()
+        case = a if case == "a" else d
+        case["max_abs_err"] = max(case["max_abs_err"], e)
+        case["modes"][label]["plain_ms"] = ms
+        case["plain_on"] = where
+    print(f"phase 16bit_main_shape: ok {a['name']} seg=1 rows={rows} strip [{a['T']}, "
+          f"{a['N']}]: int16 and uint16 = the int32 kernel (full strip), every state = the "
+          f"plain version on the first {n} steps (full run's and in {CUT_SLICES} slices) | "
+          f"kernel int32 {a['int32_ms']:.3f} ms, " + ", ".join(
+              f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
+              f"plain {v['plain_ms']:.1f} ms)" for k, v in a["modes"].items())
+          + f" (plain on the {a['plain_on']})", flush=True)
     print(f"phase 16bit_main_shape: ok {d['name']} rows={rows} strips [{d['T']}, {d['N']}]: "
           f"int16 and uint16 = the int32 chain (4 strips of every tile, full length), every "
           f"state's tile 0 = the plain version on the first {n} steps (full run's and in "
           f"{CUT_SLICES} slices) | tile 0 kernel int32 {d['int32_ms']:.3f} ms, " + ", ".join(
               f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
-              f"plain {v['plain_ms']:.1f} ms)" for k, v in d["modes"].items()), flush=True)
+              f"plain {v['plain_ms']:.1f} ms)" for k, v in d["modes"].items())
+          + f" (plain on the {d['plain_on']})", flush=True)
     return a, d
 
 
@@ -3300,13 +3476,15 @@ import json, sys
 import numpy as np
 from chip_smoke import pair_oracle
 from swtpu_torch.config import DEFAULT_PENALTIES
-from swtpu_torch.oracle import sw_score_single_biased
+from swtpu_torch.oracle import sw_score_single, sw_score_single_biased
 with open(sys.argv[1]) as f:
-    width, pairs = json.load(f)
+    width, per_pair, pairs = json.load(f)
 qs, ts = zip(*([np.frombuffer(s.encode(), np.uint8) - ord("0") for s in p] for p in pairs))
 if width:
     out = [sw_score_single_biased(q, t, penalties=DEFAULT_PENALTIES, score_width=width)
            for q, t in zip(qs, ts)]
+elif per_pair:
+    out = [sw_score_single(q, t, DEFAULT_PENALTIES) for q, t in zip(qs, ts)]
 else:
     out = pair_oracle(qs, ts, range(len(qs))).tolist()
 print(json.dumps(out))
@@ -3318,12 +3496,13 @@ class OracleJob:
     and read by `result()`, so that the card's work can go on meanwhile:
     sw_score_single_biased a pair at `width`, else the exact batch oracle
     (pair_oracle, one worker: its loop runs over the cells of the longest
-    pair whatever the batch).  The workers are plain subprocesses (a
+    pair whatever the batch), or with `per_pair` sw_score_single a pair
+    (its loop runs over each pair's own cells).  The workers are plain subprocesses (a
     multiprocessing pool would also start a resource tracker process,
     which some Python releases leave running past the script's end);
     `kill()` ends any still running."""
 
-    def __init__(self, pairs, width, tmp, workers=1):
+    def __init__(self, pairs, width, tmp, workers=1, per_pair=False):
         import os
         import sys
 
@@ -3331,7 +3510,7 @@ class OracleJob:
         self.workers = max(1, min(workers, (os.cpu_count() or 1) - 1, len(pairs)))
         for k in range(self.workers):
             path = Path(tmp) / f"oracle_{id(self)}_{k}.json"
-            path.write_text(json.dumps([width, [
+            path.write_text(json.dumps([width, per_pair, [
                 ["".join(map(str, s.tolist())) for s in pair]
                 for pair in pairs[k :: self.workers]]]))
             self.procs.append(subprocess.Popen(
@@ -3383,7 +3562,14 @@ def phase_ladders(rng, card, peaks):
     targets each of 513-2,048, every 16th a window of its query of at
     least 820 bases, which wraps): the stream backend's 16 biased B3 chains
     = the column path's biased B5 chain on every pair, and
-    sw_score_single_biased on the 8 smallest pairs and 4 windows.  (t)
+    sw_score_single_biased on the 8 smallest pairs and 4 windows; the same
+    pairs exact on ScoreBank(device="cuda") (the default backend, int32
+    B3) = the exact column path on every pair, the windows = 5 x their
+    length times the match score, sw_score_single on the same 12 pairs.  On both, the stream
+    backend's 16 jobs run side by side: each job's chain and span from its
+    CUDA events, the call's device span beside the 383 tiles' padded and
+    live bounds, the overlap (the jobs' spans summed over the device span)
+    and the CUDA streams the jobs ran on (fewer than 2 fails).  (t)
     load_database(max_query_len=4096) on (q)'s reads: score_loaded = (q)'s
     scores on every read, topk_loaded(10) = its top_k(10).  The CLI's score
     in a session of its own on (q)'s query and first 4,096 reads: its lines
@@ -3407,15 +3593,13 @@ def phase_ladders(rng, card, peaks):
         T_CHUNK, _chained_call, column_chained_cuda, column_chained_reference,
         column_scores_cuda, column_scores_reference, pad_column_batch,
     )
-    from swtpu_torch.ops.stream import (
-        _long_strip, stream_chained_cuda, stream_chained_reference, stream_strip_cuda,
-        stream_strip_reference,
-    )
+    from swtpu_torch.ops.stream import _long_strip, stream_chained_cuda, stream_strip_cuda
     from swtpu_torch.testing.goldens import _RTL_LINE
     from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
     out = dict(cases={}, kernels={}, launches=dict.fromkeys(LADDER_KERNELS, 0))
     n = CHECK_STEPS
+    plain = plain_jobs()
     jobs, cli = {}, None
     tmp = tempfile.TemporaryDirectory(prefix="swtpu_ladders_")
 
@@ -3464,6 +3648,99 @@ def phase_ladders(rng, card, peaks):
 
     def b5_bound(B, nt, extra=0):
         return peaks.bound(B * (256 + nt + 8 + 16 * nt), B * 256 * nt * (COLUMN_OPS + extra))
+
+    def side_by_side(label, key, bank, queries, targets, extra, want):
+        """One more score_pairs call of `bank` on (s), traced: a CUDA event
+        on a job's stream just before and just after its dispatch
+        (bank._dispatch_long wrapped: the job's span, from its copy in to
+        its scores' copy back) and on the launching stream just before and
+        just after each B3 launch (stream_chained_cuda wrapped, as
+        experiments/torch_pair_jobs.py wraps it).  Its scores must be
+        `want`, and its B3 launches one a tile.  Prints each job's chain
+        (its first launch's start to its last launch's end) and span, the
+        call's device span (the first job's start to the last job's end:
+        copies, unpacks, shifts and gaps included), the overlap (the jobs'
+        spans summed over the device span), the distinct CUDA streams (fewer
+        than 2 for more than one job fails) and the host's dispatch a job.
+        The kernel row `key`: B3's busy time, the union of its launches'
+        intervals, against the sum over the jobs of K tiles x B3's bound on
+        the job's own strip, each job packed as the bank packs it."""
+        from swtpu_torch.ops import stream as st
+
+        real_tile, dispatch, jobs = st.stream_chained_cuda, bank._dispatch_long, []
+
+        def event(stream=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            return ev
+
+        def dispatch_long(*a, stream=None, **kw):
+            t0 = time.perf_counter()
+            job = dict(stream=stream, start=event(stream), marks=[])
+            jobs.append(job)
+            got = dispatch(*a, stream=stream, **kw)
+            job.update(end=event(stream), host_ms=(time.perf_counter() - t0) * 1e3)
+            return got
+
+        def tile(*a, **kw):
+            """stream_chained_cuda between two events; the wrapper counts
+            its launch on this function, which takes its name in the module."""
+            before = event()
+            got = real_tile(*a, **kw)
+            jobs[-1]["marks"].append((before, event()))
+            return got
+
+        tile.launches = 0
+        bank._dispatch_long, st.stream_chained_cuda = dispatch_long, tile
+        torch.cuda.synchronize()
+        try:
+            res = bank.score_pairs(queries, targets)
+            torch.cuda.synchronize()
+        finally:
+            del bank._dispatch_long
+            st.stream_chained_cuda = real_tile
+            real_tile.launches += tile.launches
+        first_difference(f"{label} traced call: pair", res.scores, want, "the timed calls")
+        ref = jobs[0]["start"]
+        spans = [(ref.elapsed_time(j["start"]), ref.elapsed_time(j["end"])) for j in jobs]
+        span_ms = max(e for _, e in spans) - min(s for s, _ in spans)
+        chain = [j["marks"][0][0].elapsed_time(j["marks"][-1][1]) for j in jobs]
+        launches = [(ref.elapsed_time(x), ref.elapsed_time(y))
+                    for j in jobs for x, y in j["marks"]]
+        busy = union_ms(launches)
+        streams = len({j["stream"].cuda_stream for j in jobs})
+        if len(jobs) > 1 and streams < 2:
+            fail(f"{label}: {len(jobs)} jobs ran on {streams} CUDA stream(s)")
+        overlap = sum(e - s for s, e in spans) / span_ms
+        bound = live_bound = tiles = 0
+        owner = [q.tobytes() for q in queries]
+        for key_q, q in {k: q for k, q in zip(owner, queries)}.items():
+            _, rows, phys = stream_geometry(len(q), bank.config, bank.device)
+            lb = pack_streams_long(q, [t for k, t in zip(owner, targets) if k == key_q],
+                                   n_streams=phys, rows=rows)
+            K = lb.q.shape[1] // 128
+            N, T = lb.stream.shape
+            b = b3_bound(T, N, extra)
+            bound += K * b[0]
+            live_bound += K * b[0] * stream_live(torch.from_numpy(lb.stream).T,
+                                                 128 // rows - 1)
+            tiles += K
+        if tile.launches != tiles:
+            fail(f"{label} traced call: {tile.launches} B3 launches for {tiles} tiles")
+        peak = out["cases"][f"{label} stream"]["peak_gb"]
+        host = [j["host_ms"] for j in jobs]
+        line = kernel_row(key, busy, (bound, b[1]), live_bound / bound, jobs=len(jobs),
+                          tiles=tiles, streams=streams, overlap=overlap,
+                          device_span_ms=span_ms, launch_sum_ms=sum(y - x for x, y in launches),
+                          job_chain_ms=chain, job_span_ms=[e - s for s, e in spans],
+                          job_dispatch_ms=host, peak_gb=peak)
+        print(f"phase ladders: ok {label} side by side: {len(jobs)} jobs on {streams} CUDA "
+              f"streams, {tiles} B3 tiles | B3 busy (the union of its launches' intervals) "
+              f"{line}; job chains {', '.join(f'{x:.3f}' for x in chain)} ms (sum "
+              f"{sum(chain):.2f}); the call's device span {span_ms:.3f} ms (copies, unpacks, "
+              f"shifts and gaps too); overlap {overlap:.2f} (the jobs' spans summed over "
+              f"the span); the host's dispatch {', '.join(f'{x:.2f}' for x in host)} ms a "
+              f"job (sum {sum(host):.2f}); peak device memory {peak:.2f} GB", flush=True)
 
     try:
         # every case's data, and the oracle of the samples that do not
@@ -3562,29 +3839,35 @@ def phase_ladders(rng, card, peaks):
               f"a tile (median) {line}; chain {c_chain_ms:.3f} ms; plain "
               f"{statistics.median(b5_plain):.1f} ms a tile | pack_many_vs_one's host "
               f"peak {host_mb:.1f} MB (the query shipped once a read)", flush=True)
-        err, b3_plain = 0, []
+        # the held tiles' plain versions side by side on the CPU (PlainJobs)
+        checks = []
         for p, (args, outs) in zip(LADDER_B3_TILES, s_tiles):
             qk, _, bD, bG, bH, pen, r = args
             cut = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
-            want, t_plain = cuda_once(lambda: stream_chained_reference(qk, *cut, pen, r))
-            for nm, g, w in zip(STRIPS, outs, want):
-                err = max(err, strip_error(f"{name} B3 tile {p} {nm} first {n} steps",
-                                           g[:n], w))
-            b3_plain.append(t_plain)
-            del cut, want
+            checks.append(plain.check(
+                "stream_chained_reference", (qk, *cut, pen, r),
+                [(f"{name} B3 tile {p} {nm} first {n} steps", k, g[:n].clone())
+                 for k, (nm, g) in enumerate(zip(STRIPS, outs))]))
+            del cut
         del s_tiles, sk
+        err, b3_plain = 0, []
+        for check in checks:
+            e, t_plain, where = check.result()
+            err = max(err, e)
+            b3_plain.append(t_plain)
         shift_ms = (s_chain_ms - K * statistics.mean(b3_ms)) / (K - 1)
         line = kernel_row("B3 q", statistics.median(b3_ms), b3_bound(T, N), s_live,
                           plain_ms=statistics.median(b3_plain), tiles=K, T=T, N=N, rows=rows,
                           slices=slices, held_tiles=list(LADDER_B3_TILES), tile_ms=b3_ms,
                           chain_ms=s_chain_ms, shift_ms=shift_ms, check_steps=n,
-                          max_abs_err=err, plain_tile_ms=b3_plain)
+                          max_abs_err=err, plain_tile_ms=b3_plain, plain_on=where)
         print(f"phase ladders: ok {name} B3 rows={rows} strips [{T}, {N}], {K} tiles in "
               f"{slices} slices: tiles {', '.join(map(str, LADDER_B3_TILES))} bit-equal to "
               f"the plain version on their first {n} steps (4 strips, fed the kernel's own "
               f"strips from the tile above) | a tile (median of {len(b3_ms)}) {line}; "
               f"chain {s_chain_ms:.3f} ms ({shift_ms:.3f} ms a boundary beyond the tiles); "
-              f"plain {', '.join(f'{x:.1f}' for x in b3_plain)} ms on {n} steps", flush=True)
+              f"plain {', '.join(f'{x:.1f}' for x in b3_plain)} ms on {n} steps (on the "
+              f"{where})", flush=True)
 
         # (r): reads in the 2,048 bucket against a 128-base query
         name = name_r
@@ -3623,24 +3906,27 @@ def phase_ladders(rng, card, peaks):
         del bq, bt, got, want
         got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
         cut = sk[:n].contiguous()
-        want, t_plain = cuda_once(
-            lambda: stream_strip_reference(qk, cut, DEFAULT_PENALTIES, seg, rows))
-        err = max(strip_error(f"{name} B1 first {n} steps", got[:n], want),
-                  strip_error(f"{name} B1 first {n} steps in {CUT_SLICES} slices",
-                              stream_strip_cuda(qk, cut, DEFAULT_PENALTIES, seg, rows,
-                                                slices=CUT_SLICES), want))
+        err, t_plain, where = plain.check(
+            "stream_strip_reference", (qk, cut, DEFAULT_PENALTIES, seg, rows),
+            [(f"{name} B1 first {n} steps", 0, got[:n]),
+             (f"{name} B1 first {n} steps in {CUT_SLICES} slices", 0,
+              stream_strip_cuda(qk, cut, DEFAULT_PENALTIES, seg, rows, slices=CUT_SLICES))],
+        ).result()
         T, N = sk.shape
         line = kernel_row("B1 r", b1_ms,
                           peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS),
                           stream_live(sk, 128 // (rows * seg) - 1), plain_ms=t_plain, T=T, N=N, segments=seg, rows=rows, slices=slices,
-                          ms_one_slice=b1_one, check_steps=n, max_abs_err=err)
+                          ms_one_slice=b1_one, check_steps=n, max_abs_err=err,
+                          plain_on=where)
         print(f"phase ladders: ok {name} B1 seg={seg} rows={rows} strip [{T}, {N}] in "
               f"{slices} slices: bit-equal to the plain version on the first {n} steps (the "
               f"full run's, and the cut in {CUT_SLICES} slices) | kernel {line}; in one "
-              f"slice {b1_one:.3f} ms; plain {t_plain:.1f} ms on {n} steps", flush=True)
-        del qk, sk, got, cut, want
+              f"slice {b1_one:.3f} ms; plain {t_plain:.1f} ms on {n} steps (on the {where})",
+              flush=True)
+        del qk, sk, got, cut
 
-        # (s): pairs at the RTL's 12-bit width, queries to 4,095 bases
+        # (s): pairs at the RTL's 12-bit width and exact, queries to 4,095
+        # bases; the stream backend's jobs side by side
         name = name_s
         distinct = {q.tobytes(): q for q in queries}
         Ks = sum(-(-len(q) // 128) for q in distinct.values())
@@ -3648,6 +3934,29 @@ def phase_ladders(rng, card, peaks):
         wbank = ScoreBank(wcfg, backend="stream", device="cuda")
         s_res = drive(f"{name} stream", lambda: wbank.score_pairs(queries, targets),
                       (0, Ks, 0, 0))
+        side_by_side(name, "B3 s side by side", wbank, queries, targets,
+                     MODE_EXTRA_OPS["int32"], s_res.scores)
+        ebank = ScoreBank(device="cuda")
+        if ebank.backend != "stream":
+            fail(f"{name}: ScoreBank(device='cuda') took the {ebank.backend} backend")
+        name_e = f"{name} exact"
+        e_res = drive(f"{name_e} stream", lambda: ebank.score_pairs(queries, targets),
+                      (0, Ks, 0, 0))
+        side_by_side(name_e, "B3 s exact side by side", ebank, queries, targets, 0,
+                     e_res.scores)
+        e_tiles = sum(-(-g.q.shape[1] // 256) for g in cbank._pair_batches(queries, targets))
+        e_col = drive(f"{name_e} column", lambda: cbank.score_pairs(queries, targets),
+                      (0, 0, 0, e_tiles))
+        first_difference(f"{name_e} stream: pair", e_res.scores, e_col.scores,
+                         "the column path")
+        windows_e = np.flatnonzero(is_window)
+        first_difference(f"{name_e} stream: window", e_res.scores[windows_e],
+                         [ebank.config.penalties.match * len(targets[i]) for i in windows_e],
+                         "the match score x its length", at=windows_e)
+        # started after the timed calls, whose walls the host's packing
+        # holds, when the oracles started with the phase have ended
+        jobs["s exact"] = OracleJob([(queries[i], targets[i]) for i in picked], None,
+                                    tmp.name, workers=len(picked), per_pair=True)
         wcol = ScoreBank(wcfg, device="cuda")
         groups = list(wcol._pair_batches(queries, targets))
         s_col = drive(f"{name} column", lambda: wcol.score_pairs(queries, targets),
@@ -3748,10 +4057,13 @@ def phase_ladders(rng, card, peaks):
                                      "the oracle")
         first_difference(f"{name_s}: picked pair", s_res.scores[picked],
                          jobs["s"].result(), "sw_score_single_biased")
+        first_difference(f"{name_s} exact: picked pair", e_res.scores[picked],
+                         jobs["s exact"].result(), "sw_score_single")
         print(f"phase ladders: ok oracles: (q) {len(sample) + len(q_top)} reads "
               f"({LADDER_SAMPLE} sampled, {len(windows)} windows, the top-10), (r) "
               f"{len(r_sample) + len(r_top)} reads (the top-10 too) = the oracle; (s) the "
-              f"{n_small} smallest pairs and {n_win} windows = sw_score_single_biased "
+              f"{n_small} smallest pairs and {n_win} windows = sw_score_single_biased, "
+              "exact = sw_score_single "
               f"(waited {time.perf_counter() - t0:.1f} s for them)", flush=True)
         out["oracle"] = dict(q=len(sample) + len(q_top), r=len(r_sample) + len(r_top),
                              s=len(picked))
@@ -4237,7 +4549,9 @@ def main() -> int:
               check_cut=dict(steps=Tc, slices=lhead["check_slices"],
                              ms=lhead["check_ms"][0], plain_ms=lhead["plain_ms"][0],
                              bound_ms=b_cut[0], bound_by=b_cut[1]),
-              main_shapes=long_mains, configs=chains),
+              main_shapes=long_mains, configs=chains,
+              side_by_side={k: ladders["kernels"][k]
+                            for k in ("B3 s side by side", "B3 s exact side by side")}),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
               column_launches + faults_launches[0] + sharded["column_launches"][0]
               + bench["column_launches"] + ladders["launches"]["B4"],

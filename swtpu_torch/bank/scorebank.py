@@ -39,6 +39,7 @@ mode, so both packages pack the same batches there.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import List, Sequence
@@ -65,6 +66,16 @@ from swtpu_torch.ops.stream import (
 )
 from swtpu_torch.parallel.topk import _local_topk
 from swtpu_torch.utils.metrics import BatchEvent
+
+
+# A pair set's long-query jobs on CUDA run side by side: job u's chain on
+# CUDA stream u mod JOB_STREAMS (8, the card's default number of hardware
+# queues, CUDA_DEVICE_MAX_CONNECTIONS: more streams would share them), and
+# at most JOB_WINDOW jobs are dispatched and not yet finished, so that a
+# set of tens of thousands of distinct long queries holds a fixed number
+# of jobs' buffers
+JOB_STREAMS = 8
+JOB_WINDOW = 2 * JOB_STREAMS
 
 
 def _dense_form(targets):
@@ -99,6 +110,44 @@ def _put_query(query: np.ndarray, device) -> torch.Tensor:
 STAGE_ALIGN = 64  # bytes: each array's offset in a staging buffer
 
 
+def _stage_layout(arrays) -> tuple:
+    """(offsets, total bytes) of the contiguous numpy `arrays` laid out one
+    after another in a staging buffer, each at a STAGE_ALIGN-byte offset."""
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+    return offsets, total
+
+
+def _fill_stage(buf: torch.Tensor, arrays, offsets) -> None:
+    """Write `arrays` into the uint8 host buffer `buf` at `offsets`."""
+    host = buf.numpy()
+    for a, off in zip(arrays, offsets):
+        host[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+
+
+def _staged_views(dev: torch.Tensor, arrays, offsets) -> list:
+    """The uint8 device buffer `dev` cut back into tensors of the arrays'
+    dtypes and shapes."""
+    return [
+        dev[off : off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+        for a, off in zip(arrays, offsets)
+    ]
+
+
+def _put_pinned(arrays, device) -> list:
+    """The numpy `arrays` on the CUDA `device` without waiting for it: one
+    pinned host buffer (PyTorch's caching host allocator, which keeps it
+    until the copy has run) crosses in one copy on the current stream,
+    queued behind the stream's earlier work while the host goes on."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, total = _stage_layout(arrays)
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    _fill_stage(buf, arrays, offsets)
+    return _staged_views(buf.to(device, non_blocking=True), arrays, offsets)
+
+
 class _PinnedStager:
     """Host-to-device copies of the stream path's chunks that never wait
     for the kernels: two pinned host buffers taken in turn, each filled by
@@ -123,18 +172,13 @@ class _PinnedStager:
         kernels that the current stream runs next."""
         slot, self.turn = self.turn, self.turn ^ 1
         arrays = [np.ascontiguousarray(a) for a in arrays]
-        offsets, total = [], 0
-        for a in arrays:
-            offsets.append(total)
-            total += -(-a.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+        offsets, total = _stage_layout(arrays)
         if self.copied[slot] is not None:
             self.copied[slot].synchronize()
         buf = self.buffers[slot]
         if buf is None or buf.numel() < total:
             buf = self.buffers[slot] = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        host = buf.numpy()
-        for a, off in zip(arrays, offsets):
-            host[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        _fill_stage(buf, arrays, offsets)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.copy_stream):
             dev = torch.empty(total, dtype=torch.uint8, device=self.device)
@@ -146,10 +190,7 @@ class _PinnedStager:
         # made on the copy stream, read on the compute stream: its memory
         # must not be reused before the compute stream is done with it
         dev.record_stream(compute)
-        return [
-            dev[off : off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
-            for a, off in zip(arrays, offsets)
-        ]
+        return _staged_views(dev, arrays, offsets)
 
 
 def stream_geometry(query_len: int, config: SWConfig, device) -> tuple:
@@ -190,6 +231,26 @@ class ScoreResult:
         """(score, read_index) best hits; ties keep read order."""
         idx = np.argsort(-self.scores, kind="stable")[:k]
         return [(int(self.scores[i]), int(i)) for i in idx]
+
+
+@dataclasses.dataclass
+class LongJob:
+    """One long-query job between its dispatch and its finish
+    (:meth:`ScoreBank._dispatch_long`, :meth:`ScoreBank._finish_long`).
+    On CUDA `done` is the event recorded after the scores' copy back into
+    the pinned `scores`; on the CPU it is None and `scores` holds the
+    result."""
+
+    query: np.ndarray
+    targets: object  # the reads, as given (verify_integrity's bound check)
+    tlens: object  # their lengths in the dense forms, else None
+    n_reads: int
+    cells: int
+    padded_cells: int
+    note: str
+    t0: float  # host clock at dispatch
+    scores: torch.Tensor = None  # pinned host copy (CUDA) or the scores (CPU)
+    done: object = None
 
 
 @dataclasses.dataclass
@@ -265,6 +326,10 @@ class ScoreBank:
         self.backend = backend
         # validate packed batches and score bounds; off by default
         self.verify_integrity = verify_integrity
+        # the CUDA streams of the long-query jobs, made at first use and
+        # kept: the caching allocator reuses a block only on the stream it
+        # was made on, so fresh streams each call would allocate anew
+        self._job_streams: list = []
 
     def _stream_dtype(self) -> str:
         """The wavefront's state type: int32 for "auto" (swtpu's "auto" is
@@ -413,7 +478,18 @@ class ScoreBank:
         """Queries over 128 bases on the streamed wavefront: K-tile chaining
         (swtpu_torch.ops.stream.sw_scores_stream_long), up to the
         reference's 4,095-base LEN_WIDTH envelope and beyond.  Ignores
-        ``stream_chunk_reads``, as swtpu's long path does."""
+        ``stream_chunk_reads``, as swtpu's long path does.  One job,
+        dispatched on the current stream and finished."""
+        job = self._dispatch_long(query, targets, tmat=tmat, tlens=tlens)
+        return self._finish_long(job, event_log)
+
+    def _dispatch_long(self, query, targets, tmat=None, tlens=None, stream=None) -> LongJob:
+        """The first half of a long-query job: pack the reads
+        (pack_streams_long, the 2-bit wire on CUDA), and on CUDA enqueue on
+        `stream` (None: the current stream) the batch's copy from pinned
+        memory, the K chained tiles, their boundary shifts, the gather and
+        the scores' copy back into pinned memory, then return without
+        waiting for the device.  On the CPU the plain versions run here."""
         t0 = time.perf_counter()
         n_reads = len(tlens) if tlens is not None else len(targets)
         _, rows, phys = stream_geometry(len(query), self.config, self.device)
@@ -426,40 +502,53 @@ class ScoreBank:
             from swtpu_torch.utils.guards import check_stream_batch
 
             check_stream_batch(batch)
-        pen = self.config.penalties
-        q = _put(batch.q, self.device)
-        emit = (
-            _put(batch.emit_stream, self.device),
-            _put(batch.emit_step.astype(np.int32), self.device),
-        )
-        if self.config.wire_2bit and self.device.type == "cuda":
-            # the same 2.5 bits/char crossing as the short-query path
-            codes, flags = pack_stream_wire(batch.stream)
-            scores = sw_scores_stream_long_packed(
-                q, _put(codes, self.device), _put(flags, self.device), *emit,
-                pen, rows=rows, emit_regular=batch.emit_regular, **modes,
-            )
-        else:
-            scores = sw_scores_stream_long(
-                q, _put(batch.stream, self.device), *emit, pen, rows=rows,
-                emit_regular=batch.emit_regular, **modes,
-            )
-        scores = scores.cpu().numpy()
-        if self.verify_integrity:
-            self._check_scores(scores, query, targets, tlens)
-        elapsed = time.perf_counter() - t0
         K = batch.q.shape[1] // LANES
-        padded = batch.stream.shape[0] * batch.stream.shape[1] * LANES * K
+        N, T = batch.stream.shape
+        job = LongJob(
+            query=query, targets=targets, tlens=tlens, n_reads=n_reads, cells=batch.cells,
+            padded_cells=N * T * LANES * K, note=f"streams={N} T={T} tiles={K}", t0=t0,
+        )
+        on_cuda = self.device.type == "cuda"
+        wire = self.config.wire_2bit and on_cuda
+        # the same 2.5 bits/char crossing as the short-query path
+        arrays = (batch.q, *(pack_stream_wire(batch.stream) if wire else (batch.stream,)),
+                  batch.emit_stream, batch.emit_step.astype(np.int32))
+        score = sw_scores_stream_long_packed if wire else sw_scores_stream_long
+        kw = dict(rows=rows, emit_regular=batch.emit_regular, **modes)
+        if not on_cuda:
+            job.scores = score(*(_put(a, self.device) for a in arrays),
+                               self.config.penalties, **kw)
+            return job
+        # every tensor of the job is made and read on this one stream
+        with torch.cuda.stream(stream):
+            scores = score(*_put_pinned(arrays, self.device), self.config.penalties, **kw)
+            job.scores = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+            job.scores.copy_(scores, non_blocking=True)
+            job.done = torch.cuda.Event()
+            job.done.record()
+        return job
+
+    def _finish_long(self, job: LongJob, event_log=None, since=None) -> ScoreResult:
+        """The second half of a long-query job: wait for its scores, run
+        verify_integrity's bound check and emit its "stream_long" record,
+        whose ``elapsed_s`` is the host time from `since` (default: the
+        job's dispatch) to now."""
+        if job.done is not None:
+            job.done.synchronize()
+        scores = job.scores.numpy().copy()
+        if self.verify_integrity:
+            self._check_scores(scores, job.query, job.targets, job.tlens)
+        job.scores = job.targets = job.tlens = None
+        elapsed = time.perf_counter() - (job.t0 if since is None else since)
         if event_log is not None:
             event_log.emit(
                 BatchEvent(
                     "stream_long", t_wall=time.time(), elapsed_s=elapsed,
-                    reads=n_reads, cells=batch.cells, padded_cells=padded,
-                    note=f"streams={batch.stream.shape[0]} "
-                    f"T={batch.stream.shape[1]} tiles={K}",
+                    reads=job.n_reads, cells=job.cells, padded_cells=job.padded_cells,
+                    note=job.note,
                 )
             )
-        return ScoreResult(scores, batch.cells, padded, elapsed)
+        return ScoreResult(scores, job.cells, job.padded_cells, elapsed)
 
     def _score_batch(self, q: np.ndarray, t: np.ndarray) -> np.ndarray:
         """One dense bucket batch through the column kernels on the bank's
@@ -601,7 +690,18 @@ class ScoreBank:
         whose query fits one tile go through the pair streams together;
         each distinct long query's pairs become one many-vs-one job on the
         chained tiles (deduped, so pairs sharing a 500-base query share
-        one pack and one chain)."""
+        one pack and one chain).
+
+        On CUDA the jobs run side by side: job u is dispatched on CUDA
+        stream u mod JOB_STREAMS, so the host packs job u + 1 while the
+        card runs the jobs before it, and the thin launches of several jobs
+        share the card.  When JOB_WINDOW jobs are in flight, the oldest is
+        finished before the next is dispatched.  Jobs finish, and emit
+        their "stream_long" records, in job order; each record's
+        ``elapsed_s`` is the host time from the previous job's finish (the
+        first: from the first dispatch) to its own, so that a set's records
+        add up to its long jobs' wall.  On the CPU the same loop runs
+        without streams."""
         t0 = time.perf_counter()
         n = len(queries)
         short_idx = [i for i in range(n) if len(queries[i]) <= LANES]
@@ -620,13 +720,30 @@ class ScoreBank:
         groups: list = [[] for _ in qlist]
         for pos, i in enumerate(long_idx):
             groups[uid[pos]].append(i)
-        for u, group in enumerate(groups):
-            res = self._score_database_stream_long(
-                qlist[u], [targets[i] for i in group], event_log
-            )
+        streams = [None]
+        if self.device.type == "cuda":
+            while len(self._job_streams) < JOB_STREAMS:
+                self._job_streams.append(torch.cuda.Stream(self.device))
+            streams = self._job_streams
+        in_flight = collections.deque()  # (job, its pairs)
+        since = [time.perf_counter()]  # the last finish
+
+        def finish_oldest():
+            job, group = in_flight.popleft()
+            res = self._finish_long(job, event_log, since=since[0])
+            since[0] += res.elapsed_s
             scores[np.asarray(group, np.int64)] = res.scores
-            cells += res.cells
-            padded += res.padded_cells
+
+        for u, group in enumerate(groups):
+            if len(in_flight) >= JOB_WINDOW:
+                finish_oldest()
+            job = self._dispatch_long(qlist[u], [targets[i] for i in group],
+                                      stream=streams[u % len(streams)])
+            in_flight.append((job, group))
+            cells += job.cells
+            padded += job.padded_cells
+        while in_flight:
+            finish_oldest()
         return ScoreResult(scores, cells, padded, time.perf_counter() - t0)
 
     def _score_pairs_stream(self, queries, targets, event_log=None) -> ScoreResult:

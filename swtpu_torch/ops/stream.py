@@ -715,16 +715,16 @@ def sw_scores_stream_packed(
     )
 
 
-def _shift_steps(x, k, fill=0):
+def _shift_steps(x, k, fill=0, pad=None):
     """x[t] <- x[t + k], `fill`-padded at the tail (a left shift on the
     step axis of a [T, N] strip).  `fill` is the boundary zero: 0 exact,
-    the bias 2^(W-1) in wrap-parity."""
-    T = x.shape[0]
-    k = min(k, T)
-    out = torch.empty_like(x)
-    out[: T - k] = x[k:]
-    out[T - k :] = fill
-    return out
+    the bias 2^(W-1) in wrap-parity.  `pad`: at least min(k, T) rows of
+    `fill`, made once by a caller that shifts many strips, so that a shift
+    is one concatenation."""
+    k = min(k, x.shape[0])
+    if pad is None:
+        pad = torch.full((k, x.shape[1]), fill, dtype=x.dtype, device=x.device)
+    return torch.cat((x[k:], pad[:k]))
 
 
 def _validate_long(q, T, rows, state_dtype="int32", score_width=None,
@@ -753,19 +753,28 @@ def _long_strip(q, sk, penalties, rows, tile=_strip_call_chained, score_width=No
     wrap-parity (a plain 0 there would make row 0's M wrap to 2^W - 4 at
     the first mismatch).  Only the previous tile's strips stay alive.
     `tile` runs one tile (``_strip_call_chained``'s contract, the mode as
-    keywords)."""
-    K = q.shape[1] // LANES
+    keywords).
+
+    The host's work a tile is kept small, since a set of long-query jobs
+    is dispatched from one thread: every tile's query register is laid
+    out in one copy, and each shift is one concatenation onto rows of the
+    first tile's boundary zero, which no tile writes."""
+    N, width = q.shape
+    K = width // LANES
     SL = LANES // rows
     zero = _bias(score_width)
-    acc = bD = bG = bH = torch.full(tuple(sk.shape), zero, dtype=torch.int32, device=sk.device)
+    zeros = torch.full(tuple(sk.shape), zero, dtype=torch.int32, device=sk.device)
+    acc = bD = bG = bH = zeros
+    # tile p's register is _q_kernel_layout(q[:, p*128 : (p+1)*128], 1, rows)
+    qks = q.reshape(N, K, SL, rows).permute(1, 3, 2, 0).reshape(K, LANES, N)
+    qks = qks.to(torch.int8).contiguous()
     for p in range(K):
-        qk = _q_kernel_layout(q[:, p * LANES : (p + 1) * LANES], 1, rows)
-        acc, oD, oG, oH = tile(qk.to(torch.int8).contiguous(), sk, bD, bG, bH, penalties,
-                               rows, score_width=score_width, state_dtype=state_dtype)
+        acc, oD, oG, oH = tile(qks[p], sk, bD, bG, bH, penalties, rows,
+                               score_width=score_width, state_dtype=state_dtype)
         if p + 1 < K:
-            bD = _shift_steps(oD, SL - 2, zero)
-            bG = _shift_steps(oG, SL - 1, zero)
-            bH = _shift_steps(oH, SL - 1, zero)
+            bD = _shift_steps(oD, SL - 2, pad=zeros)
+            bG = _shift_steps(oG, SL - 1, pad=zeros)
+            bH = _shift_steps(oH, SL - 1, pad=zeros)
         del oD, oG, oH
     return acc
 

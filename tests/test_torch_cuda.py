@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from swtpu_torch import DEFAULT_PENALTIES, Penalties, SWConfig, ScoreBank, score_many_vs_one
+from swtpu_torch.bank import scorebank
 from swtpu_torch.bank.scorebank import EncodedDB
 from swtpu_torch.bank.streams import pack_streams, pack_streams_long
 from swtpu_torch.ops import column, lane, microbench
 from swtpu_torch.ops import stream as port
 from swtpu_torch.oracle import sw_score_single_biased
 from swtpu_torch.testing.gaps import long_gap_pairs
+from swtpu_torch.utils.metrics import EventLog
 
 pytestmark = pytest.mark.cuda
 
@@ -844,6 +846,75 @@ def test_stream_score_width_equals_biased_oracle(cuda_device):
         got = bank.score_database(query, db).scores
         want = [sw_score_single_biased(query, t, DEFAULT_PENALTIES, 12) for t in db.as_list()]
         np.testing.assert_array_equal(got, want)
+
+
+PAIR_JOBS = 12  # distinct long queries: jobs of the side-by-side dispatch
+
+
+def _long_query_pairs(rng):
+    """4 pairs each of PAIR_JOBS distinct queries of 129-400 bases, in a
+    random order; targets of 0-80 bases, every 5th a window of its query."""
+    qs = [rng.integers(0, 4, size=k).astype(np.int8)
+          for k in rng.integers(129, 401, size=PAIR_JOBS)]
+    owner = rng.permutation(np.repeat(np.arange(PAIR_JOBS), 4))
+    queries = [qs[u] for u in owner]
+    targets = [rng.integers(0, 4, size=k).astype(np.int8)
+               for k in rng.integers(0, 81, size=len(owner))]
+    for i in range(0, len(owner), 5):
+        k = int(rng.integers(1, 81))
+        off = int(rng.integers(0, len(queries[i]) - k + 1))
+        targets[i] = queries[i][off : off + k].copy()
+    return queries, targets
+
+
+@pytest.mark.parametrize("width", [None, 12])
+def test_pair_jobs_side_by_side(cuda_device, width, monkeypatch, tmp_path):
+    """score_pairs' long-query jobs on CUDA streams of their own: the
+    oracle's and the column path's scores, one B3 launch a tile of every
+    job, the jobs on at least 2 streams; with a window of 1 (each job
+    finished before the next is dispatched) the same scores and records."""
+    queries, targets = _long_query_pairs(np.random.default_rng(40 + (width or 0)))
+    cfg = SWConfig(score_width=width)
+    bank = ScoreBank(cfg, backend="stream", device=cuda_device)
+    distinct = {q.tobytes(): q for q in queries}
+    streams, dispatch = [], bank._dispatch_long
+
+    def dispatch_long(*args, stream=None, **kw):
+        streams.append(stream)
+        return dispatch(*args, stream=stream, **kw)
+
+    monkeypatch.setattr(bank, "_dispatch_long", dispatch_long)
+    runs = {}
+    for window in (scorebank.JOB_WINDOW, 1):
+        streams.clear()
+        monkeypatch.setattr(scorebank, "JOB_WINDOW", window)
+        log = EventLog(tmp_path / f"events{window}.jsonl")
+        launches = port.stream_chained_cuda.launches
+        res = bank.score_pairs(queries, targets, event_log=log)
+        assert port.stream_chained_cuda.launches - launches == sum(
+            -(-len(q) // 128) for q in distinct.values())
+        log.close()
+        records = [(e.kind, e.reads, e.cells, e.padded_cells, e.note)
+                   for e in EventLog.parse(tmp_path / f"events{window}.jsonl")]
+        assert [r[0] for r in records] == ["stream_long"] * PAIR_JOBS
+        assert len(streams) == PAIR_JOBS
+        assert len({s.cuda_stream for s in streams}) >= 2
+        runs[window] = res, records
+    (res, records), (one, one_records) = runs.values()
+    np.testing.assert_array_equal(one.scores, res.scores)
+    assert one_records == records
+    assert (one.cells, one.padded_cells) == (res.cells, res.padded_cells)
+    if width is None:
+        want = np.zeros(len(queries), np.int32)
+        for q in distinct.values():
+            idx = [i for i, x in enumerate(queries) if np.array_equal(x, q)]
+            want[idx] = score_many_vs_one(q, [targets[i] for i in idx])
+    else:
+        want = [sw_score_single_biased(q, t, DEFAULT_PENALTIES, width)
+                for q, t in zip(queries, targets)]
+    np.testing.assert_array_equal(res.scores, want)
+    col = ScoreBank(cfg, backend="pallas", device=cuda_device).score_pairs(queries, targets)
+    np.testing.assert_array_equal(res.scores, col.scores)
 
 
 @pytest.mark.parametrize("qlen", [60, 128, 300])
