@@ -15,7 +15,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      PyTorch version's bit for bit: at 512 physical streams, the wavefront
      for every (segments, rows) that ScoreBank uses on CUDA and for
      rows=1, its ripple-H form at segments 1 and 4, and the chained tile
-     over whole K-tile chains (K=2 at rows 16 and 1, K=4 at rows 16); the
+     over whole K-tile chains (K=2 at rows 16 and 1, K=4 at rows 16), a
+     launch a tile, and the chain kernel (one launch a chain, also with
+     one tile a block) on the same chains against both; the
      same wavefront shapes and both forms in the state modes, W-bit
      wrap-parity at W = 8, 12 and 16 on reads that pass the ceiling and
      float32 state (whose strip must also equal int32's), and whole chains
@@ -45,8 +47,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      (d) and (e) long queries (a 256-base query against ragged reads, a
      512-base one against 128-base reads); a sample of 2048 reads and the
      top-10 reads must carry the oracle's scores, the wavefront kernel's
-     launch counter must rise in every short case and the chained
-     kernel's by K tiles per call in every long case.  Then the bucketed
+     launch counter must rise in every short case and the chain kernel's
+     by one a call in every long case (its K tiles in one launch).  Then the bucketed
      column path, ScoreBank(backend="pallas", device="cuda"): (f) a
      128-base query against 262,144 ragged reads in three length buckets
      (three B4 launches per call), (g) case (e)'s query and reads (a B5
@@ -61,8 +63,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      column path's (timed the same way, for the backend comparison) and
      2,048 sampled ones to the oracle's; (j) score_pairs
      at score width 12 on the stream backend, short pairs on the pair
-     streams and 16 distinct 410-512-base queries on chained tiles (4
-     tiles each), every score equal to the column path's at width 12, 64
+     streams and 16 distinct 410-512-base queries on chained tiles (a
+     chain of 4 tiles, one launch, each), every score equal to the column path's at width 12, 64
      sampled and 16 wrapping pairs to sw_score_single_biased; and
      score_database in the new modes: case (e) at width 12 equal to (e)'s
      exact scores, cases (a) and (d) with float32 state equal to their
@@ -86,7 +88,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      top_k(10), and the daemon's lines score_loaded's and topk_loaded's.
      Each path's kernels' launch counters are set to 0 just before it
      and must have risen just after (serving: exactly one B1 a dispatch
-     of a query of up to 128 bases, one B3 a tile of a longer one).
+     of a query of up to 128 bases, one B3 chain a longer one; its
+     longest query's chain on the resident stream held as phase 5 holds
+     the long cases' chains).
      Then the job layer (phase "jobs"), after the bucketed cases: (a) with
      stream_chunk_reads=65536 (4 chunks) and (b) with 100,000 (the last
      chunk 62,144 reads), every score equal to the one-shot call's and the
@@ -105,13 +109,14 @@ Phases, each reported on its own line; any failure exits non-zero:
      Then scoring across shards and processes (phase "sharded"), on a
      mesh of 4 shards that all lie on cuda:0 (the machine has one GPU):
      (m) make_sharded_stream_scorer on (a)'s reads (4 B1 a call) and on
-     (d)'s (4 x 2 B3), every score = score_database's, the merged top-10 =
+     (d)'s (4 B3 chains of 2 tiles), every score = score_database's, the merged top-10 =
      its top_k(10), and its stages (shard packs, stack, copy, the rest)
      timed alone in turns with score_database; (n) make_sharded_topk on 4,096 ragged pairs on the
      column path (4 B4 a call) and on 256 pairs on the scan, = the oracle;
      (o) load_database_sharded over (k)'s reads: score_loaded_many_sharded,
      score_loaded_sharded and topk_loaded_sharded = the one-device resident
-     answers (4 B1 a query of up to 128 bases, 4 x K B3 a longer one);
+     answers (4 B1 a query of up to 128 bases, 4 B3 chains a longer
+     one; the longest's chain on shard 0 held as in phase 5);
      (p) run_multihost in database mode on (c)'s reads in 2 worker
      processes on cuda:0 joined over gloo, plain, with a worker killed and
      with a lying worker, every score = (c)'s, each worker's B1 launches
@@ -141,8 +146,12 @@ Phases, each reported on its own line; any failure exits non-zero:
      must be bit-equal, but case (a)'s on its first 4096 steps, as the
      full run's and as a run of the cut in 8 slices (its plain strip in
      full took 163-200 s); the wavefront runs in the time slices its
-     wrapper chooses, and is timed in one slice too.  Each long case's chain runs through the
-     kernel at full length; every tile must equal, in full, the same
+     wrapper chooses, and is timed in one slice too.  Each long case's
+     chain runs through the chain kernel (one launch, the main path's)
+     and through the per-tile kernel at full length: the chain kernel's
+     strip must equal the per-tile chain's in full and the plain chain's
+     on the first 4096 steps (hold_chain), in int32, at W = 12 and in
+     float32 at (d); every tile must equal, in full, the same
      kernel in one slice, and is held against the plain version on the
      first 4096 steps, both as the full run's first steps and as a run of
      the cut in 8 slices (see phase_chained_at_main_shape).  Each bucket
@@ -164,7 +173,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      the plain version at the largest bucket and on tile 0.  Then the top
      of swtpu's length ladders (phase "ladders", see phase_ladders): (q) a
      4,095-base query against 65,536 reads of 128 bases on the stream
-     backend in int32 and float32 (32 B3 tiles a call) and on the column
+     backend in int32 and float32 (a B3 chain of 32 tiles, one launch,
+     a call) and on the column
      path (16 B5 tiles), (r) 16,384 reads of 513-2,048 bases (the 2,048
      bucket) on both, (s) score_pairs at score width 12 and exact on 1,024
      pairs of 2,049-4,095 x 513-2,048 bases (the stream backend's 16
@@ -172,8 +182,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      chain from its CUDA events, the call's device span, the overlap and
      the streams), (t) load_database for 4,096 bases on
      (q)'s reads, and the CLI's score on (q)'s query: every score equal
-     across backends and entry points, oracle samples, and B3, B4, B1 and
-     every B5 tile against the plain versions;
+     across backends and entry points, oracle samples, and B3 (the chain
+     kernel at (q) and (s)'s longest job, three of (q)'s per-tile tiles),
+     B4, B1 and every B5 tile against the plain versions;
   6. the shootout (experiments/torch_shootout.py's own functions) on
      65,536 pairs of 128 x 128: B4, B6 and the wavefront timed at both of
      its sizes, B4 == B6 on every pair and the wavefront == B4 on
@@ -361,9 +372,11 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def live_children() -> list[str]:
+def live_children(plain=False) -> list[str]:
     """The command lines of this process's children that are still
-    running (Linux /proc; none where /proc is missing)."""
+    running (Linux /proc; none where /proc is missing); PlainJobs'
+    workers, which run beside the card's work from phase to phase and end
+    before the script does, only with `plain`."""
     pids = set()
     for f in Path("/proc/self/task").glob("*/children"):
         pids.update(f.read_text().split())
@@ -375,6 +388,8 @@ def live_children() -> list[str]:
         except OSError:
             continue
         if state == "Z":  # exited, not yet reaped
+            continue
+        if not plain and PLAIN_MARK in cmd:
             continue
         live.append(f"{pid}: {cmd.decode(errors='replace').strip()[:200]}")
     return live
@@ -415,6 +430,7 @@ t0 = time.perf_counter()
 out = getattr(stream, fn)(*args, **kw)
 torch.save((out, (time.perf_counter() - t0) * 1e3), sys.argv[2])
 """
+PLAIN_MARK = b"fn, args, kw = torch.load(sys.argv[1]"  # in a worker's command line
 
 
 class PlainCheck:
@@ -462,8 +478,8 @@ class PlainJobs:
         import threading
         from concurrent.futures import ThreadPoolExecutor
 
-        workers = workers or max(1, min(6, (os.cpu_count() or 2) - 2))
-        self.pool = ThreadPoolExecutor(workers)
+        self.workers = workers or max(1, min(6, (os.cpu_count() or 2) - 2))
+        self.pool = ThreadPoolExecutor(self.workers)
         self.tmp = tempfile.TemporaryDirectory(prefix="plain_")
         self.procs, self.lock, self.n, self.closed = [], threading.Lock(), 0, False
         atexit.register(self.close)
@@ -572,6 +588,117 @@ def run_chain(q, sk, rows, tile, penalties=None, keep=None, **mode):
 
     return _long_strip(q, sk, penalties or DEFAULT_PENALTIES, rows, tile=record,
                        **mode), tiles
+
+
+def held_steps(n, T, K, p, rows):
+    """Steps on which tile p of a K-tile chain over T steps is held against
+    the plain tile so that the chain is held on its first n steps: tile
+    p + 1 reads tile p's row 127 up to SL - 1 steps ahead (SL = 128 /
+    rows), so tile p is held on n + (K - 1 - p) x (SL - 1) steps, rounded
+    up to whole STEP_CHUNKs (the kernels' length quantum), at most T."""
+    from swtpu_torch.ops.stream import STEP_CHUNK
+
+    m = n + (K - 1 - p) * (128 // rows - 1)
+    return min(T, -(-m // STEP_CHUNK) * STEP_CHUNK)
+
+
+def plain_tiles(label, tiles, n=None, streams=slice(None), **mode):
+    """Every tile of a per-tile chain (run_chain's (inputs, outputs)) held
+    against the plain tile on the same inputs, all four strips, on the CPU
+    (PlainJobs), on the columns `streams` of the strips.  With `n`, tile p
+    is held on its first held_steps(n, ...) steps (its inputs cut there; a
+    tile is causal in t): tile 0's inputs are the plain chain's, and a tile
+    equal to the plain tile on its inputs over those steps hands the next
+    one the plain chain's over the steps that one is held on, so the chain
+    equals the plain chain on its first n steps; without `n`, every tile in
+    full.  Streams are independent columns, so the tiles go side by side in
+    one plain call a worker (their inputs and the kernel's strips
+    concatenated on the stream axis, each cut to the longest window of the
+    call's tiles, its first's): a worker's start-up, not a step, is what a
+    tile alone would cost.  A list of PlainChecks (resolve_plain)."""
+    import torch
+
+    jobs = plain_jobs()
+    per = -(-len(tiles) // jobs.workers)
+    checks = []
+    for first in range(0, len(tiles), per):
+        group = tiles[first : first + per]
+        qk, sk, _, _, _, pen, r = group[0][0]
+        T = sk.shape[0]
+        m = T if n is None else held_steps(n, T, len(tiles), first, r)
+        inputs = [torch.cat([a[i][:, streams] if i == 0 else a[i][:m, streams]
+                             for a, _ in group], 1).contiguous() for i in range(5)]
+        last = first + len(group) - 1
+        checks.append(jobs.check(
+            "stream_chained_reference", (*inputs, pen, r),
+            [(f"{label} tiles {first}-{last} {nm} first {m} steps", k,
+              torch.cat([outs[k][:m, streams] for _, outs in group], 1))
+             for k, nm in enumerate(STRIPS)], **mode))
+    return checks
+
+
+def resolve_plain(checks):
+    """(largest error, the plain tiles' ms summed, where they ran) of
+    plain_tiles' checks."""
+    out = [c.result() for c in checks]
+    return max(e for e, _, _ in out), sum(ms for _, ms, _ in out), out[0][2]
+
+
+def hold_chain(label, q, sk, rows, penalties=None, plain=True, streams=slice(None), **mode):
+    """The chain kernel (``_long_strip``'s route on the card in a 32-bit
+    state: one launch of stream_chain_cuda for every tile) against the
+    per-tile chain (run_chain with stream_chained_cuda: a launch a tile, the
+    host's shifts) on the whole last accumulator strip, both on the card,
+    and with `plain` against the plain chain on its first CHECK_STEPS steps
+    on the columns `streams`: every tile of the per-tile chain against the
+    plain tile (plain_tiles).  Without `plain` the caller holds the tiles
+    itself.  Returns (the chain's strip, its largest error against the
+    per-tile chain, the plain checks: resolve_plain)."""
+    from swtpu_torch import DEFAULT_PENALTIES
+    from swtpu_torch.ops.stream import _long_strip, stream_chain_cuda, stream_chained_cuda
+
+    pen = penalties or DEFAULT_PENALTIES
+    before = stream_chain_cuda.launches, stream_chained_cuda.launches
+    chain = _long_strip(q, sk, pen, rows, **mode)
+    launched = (stream_chain_cuda.launches - before[0],
+                stream_chained_cuda.launches - before[1])
+    if launched != (1, 0):
+        fail(f"{label}: the chain launched (chain, tile) {launched} times, want (1, 0)")
+    per_tile, tiles = run_chain(q, sk, rows, stream_chained_cuda, pen,
+                                keep=None if plain else (), **mode)
+    err = strip_error(f"{label} chain", chain, per_tile, ("chain kernel", "per-tile chain"))
+    checks = plain_tiles(label, tiles, CHECK_STEPS, streams, **mode) if plain else []
+    return chain, err, checks
+
+
+def resident_chain(label, query, stream, rows):
+    """hold_chain on a resident [T, N] stream (a loaded database's, or a
+    shard's) for `query` of more than 128 bases, its register laid out as
+    ScoreBank._dispatch_loaded lays it out: the query in every stream,
+    sentinel-padded to its K tiles."""
+    import torch
+    from swtpu_torch.ops import Q_PAD
+
+    K = -(-len(query) // 128)
+    q = torch.full((stream.shape[1], K * 128), Q_PAD, dtype=torch.int8, device=stream.device)
+    q[:, : len(query)] = torch.from_numpy(query).to(stream.device)
+    _, err, checks = hold_chain(label, q, stream, rows)
+    return err, checks
+
+
+def chain_facts(rows, T, K, **mode):
+    """The chain kernel's geometry at K tiles over [T, 512] (ring, lags,
+    slices) and its instantiation's registers, spills, resident blocks and
+    shared bytes a block."""
+    import torch
+    from swtpu_torch.ops.stream import _sm_count, chain_geometry, stream_chain_info
+
+    g = chain_geometry(512, rows, T, K, _sm_count(torch.device("cuda")))
+    regs, local, blocks, shared = stream_chain_info(rows, mode.get("score_width"),
+                                                    mode.get("state_dtype", "int32"))
+    return dict(ring=g.ring, lag_chunks=g.lag_chunks, wrap_lag_chunks=g.wrap_lag_chunks,
+                slices=g.slices, wrap=g.wrap, registers=regs, spill_bytes=local,
+                resident_blocks_per_sm=blocks, shared_bytes=shared)
 
 
 def make_db(rng, n, lo, hi):
@@ -778,39 +905,47 @@ CHAIN_CHECKS = ((2, 16), (2, 1), (4, 16))  # (tiles K, rows)
 
 
 def phase_chained_vs_plain(rng):
-    """Whole K-tile chains through the chained kernel and through its
-    plain version: the last accumulator strip and all four strips of
-    every tile must be bit-equal."""
+    """Whole K-tile chains through the chained kernel a tile at a time,
+    every tile's four strips against the plain tile on the same inputs
+    (plain_tiles: the plain chain, tile by tile, on CPU workers side by
+    side), and through the chain kernel (one launch for every tile),
+    whose last strip must equal the per-tile chain's."""
     import numpy as np
     from swtpu_torch import DEFAULT_PENALTIES
-    from swtpu_torch.ops.stream import (
-        _long_strip, stream_chained_cuda, stream_chained_reference,
-    )
-    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+    from swtpu_torch.ops.stream import RING_WARPS, _long_strip, stream_chained_cuda
+    from swtpu_torch.utils.timing import cuda_ms
 
-    results = []
+    results, pending = [], []
     for K, rows in CHAIN_CHECKS:
         S = 512
         db = make_db(rng, S * 10, 24, 256)  # T ~ 1.5k steps
         query = rng.integers(0, 4, size=128 * K).astype(np.int8)
         q, sk = long_batch(query, db, rows, S)
         acc, tiles = run_chain(q, sk, rows, stream_chained_cuda)
-        (want, want_tiles), plain_ms = cuda_once(
-            lambda: run_chain(q, sk, rows, stream_chained_reference)
-        )
         label = f"chain K={K} rows={rows}"
-        err = strip_error(f"{label} last acc", acc, want)
-        for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
-            for name, g, w in zip(STRIPS, outs, wouts):
-                err = max(err, strip_error(f"{label} tile {p} {name}", g, w))
+        checks = plain_tiles(label, tiles)
+        chain = _long_strip(q, sk, DEFAULT_PENALTIES, rows)
+        err = strip_error(f"{label} chain kernel", chain, acc, ("chain kernel", "tiles"))
+        ring = min(K, RING_WARPS)
+        del chain
         ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 5)
+        tiles_ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows,
+                                               tile=stream_chained_cuda), 5)
         tile_ms = cuda_ms(lambda: stream_chained_cuda(*tiles[0][0]), 10)
         T, N = sk.shape
-        print(f"phase kernel_vs_plain: ok {label} strips [{T}, {N}] bit-equal "
-              f"(last acc + 4 per tile) | chain {ms:.4f} ms (kernel {tile_ms:.4f} "
-              f"ms per tile), plain chain {plain_ms:.1f} ms")
+        del tiles
+        pending.append((label, K, rows, T, N, err, ms, tiles_ms, tile_ms, ring, checks))
+    for label, K, rows, T, N, err, ms, tiles_ms, tile_ms, ring, checks in pending:
+        e, plain_ms, where = resolve_plain(checks)
+        err = max(err, e)
+        print(f"phase kernel_vs_plain: ok {label} strips [{T}, {N}] bit-equal (4 per "
+              f"tile, the plain chain tile by tile; the chain kernel's last acc = the "
+              f"per-tile chain's, ring {ring}) | chain kernel {ms:.4f} ms, a launch "
+              f"a tile {tiles_ms:.4f} ms (kernel {tile_ms:.4f} ms per tile), plain chain "
+              f"{plain_ms:.1f} ms (its tiles summed, on the {where})")
         results.append(dict(tiles=K, rows=rows, T=T, N=N, max_abs_err=err,
-                            ms=ms, tile_ms=tile_ms, plain_ms=plain_ms))
+                            ms=ms, per_tile_chain_ms=tiles_ms, tile_ms=tile_ms,
+                            plain_ms=plain_ms, plain_on=where))
     return results
 
 
@@ -870,34 +1005,34 @@ CHAIN_MODE_CHECKS = (2, 4)  # tiles K at rows 16; K = 4 (512 bases) wraps at W =
 
 
 def phase_chain_modes_vs_plain(rng):
-    """Whole chains in the state modes through the kernel and the plain
-    version, every tile's four strips and the last accumulator; at K = 4
-    the reads equal to the 512-base query pass 2^11 and wrap."""
+    """Whole chains in the state modes through the kernel a tile at a time,
+    every tile's four strips against the plain tile on the same inputs
+    (plain_tiles: the plain chain, tile by tile, on CPU workers side by
+    side); at K = 4 the reads equal to the 512-base query pass 2^11 and
+    wrap.  The chain kernel's last accumulator must equal the per-tile
+    chain's."""
     import numpy as np
     from swtpu_torch import DEFAULT_PENALTIES
-    from swtpu_torch.ops.stream import (
-        _long_strip, stream_chained_cuda, stream_chained_reference,
-    )
-    from swtpu_torch.utils.timing import cuda_ms, cuda_once
+    from swtpu_torch.ops.stream import _long_strip, stream_chained_cuda
+    from swtpu_torch.utils.timing import cuda_ms
 
-    results = []
+    results, pending = [], []
     rows = 16
     for K in CHAIN_MODE_CHECKS:
         S = MODE_STREAMS
         query = rng.integers(0, 4, size=128 * K).astype(np.int8)
         db = with_copies(make_db(rng, S * 4, 24, 256), query, COPY_EVERY)
         q, sk = long_batch(query, db, rows, S)
-        exact, _ = run_chain(q, sk, rows, stream_chained_cuda)
+        exact, _ = run_chain(q, sk, rows, stream_chained_cuda, keep=())
         for label, width, dtype in MAIN_MODES:
             mode = dict(score_width=width, state_dtype=dtype)
             acc, tiles = run_chain(q, sk, rows, stream_chained_cuda, **mode)
-            (want, want_tiles), plain_ms = cuda_once(
-                lambda: run_chain(q, sk, rows, stream_chained_reference, **mode))
             name = f"{label} chain K={K} rows={rows}"
-            err = strip_error(f"{name} last acc", acc, want)
-            for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
-                for strip, g, w in zip(STRIPS, outs, wouts):
-                    err = max(err, strip_error(f"{name} tile {p} {strip}", g, w))
+            checks = plain_tiles(name, tiles, **mode)
+            del tiles
+            chain = _long_strip(q, sk, DEFAULT_PENALTIES, rows, **mode)
+            err = strip_error(f"{name} chain kernel", chain, acc, ("chain", "tiles"))
+            del chain
             bias = 0 if width is None else 1 << (width - 1)
             wrapped = int((acc - bias != exact).sum())
             if dtype == "float32":
@@ -906,12 +1041,18 @@ def phase_chain_modes_vs_plain(rng):
                 fail(f"{name}: no cell of the last accumulator strip wrapped")
             ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows, **mode), 5)
             T, N = sk.shape
-            print(f"phase kernel_vs_plain: ok {name} strips [{T}, {N}] bit-equal (last acc "
-                  f"+ 4 per tile){f', {wrapped} cells wrapped' if wrapped else ''} | chain "
-                  f"{ms:.4f} ms, plain chain {plain_ms:.1f} ms")
-            results.append(dict(mode=label, tiles=K, rows=rows, T=T, N=N,
-                                wrapped_cells=wrapped, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms))
+            pending.append((label, K, name, T, N, wrapped, err, ms, checks))
+    for label, K, name, T, N, wrapped, err, ms, checks in pending:
+        e, plain_ms, where = resolve_plain(checks)
+        err = max(err, e)
+        print(f"phase kernel_vs_plain: ok {name} strips [{T}, {N}] bit-equal (4 per tile, "
+              f"the plain chain tile by tile; the chain kernel's last acc = the per-tile "
+              f"chain's){f', {wrapped} cells wrapped' if wrapped else ''} | chain kernel "
+              f"{ms:.4f} ms, plain chain {plain_ms:.1f} ms (its tiles summed, on the "
+              f"{where})")
+        results.append(dict(mode=label, tiles=K, rows=rows, T=T, N=N,
+                            wrapped_cells=wrapped, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, plain_on=where))
     return results
 
 
@@ -974,7 +1115,7 @@ def check_oracle(name, res, query, db, sample, want):
 def phase_main_path(rng, card, main_cases):
     import numpy as np
     from swtpu_torch import SWConfig, ScoreBank, score_many_vs_one
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import stream_chain_cuda, stream_strip_cuda
 
     bank = ScoreBank(SWConfig(), device="cuda")
     cases = []
@@ -982,13 +1123,13 @@ def phase_main_path(rng, card, main_cases):
         db = make_db(rng, n, lo, hi)
         query = rng.integers(0, 4, size=qlen).astype(np.int8)
         K = -(-qlen // 128)
-        wrapper = stream_chained_cuda if K > 1 else stream_strip_cuda
+        wrapper = stream_chain_cuda if K > 1 else stream_strip_cuda
         before = wrapper.launches
         res, wall, walls, peak_gb = timed_runs(name, lambda: bank.score_database(query, db))
         launched = wrapper.launches - before
-        if K > 1 and launched != 4 * K:
-            fail(f"{name}: chained kernel launched {launched} times in 4 runs "
-                 f"of {K} tiles")
+        if K > 1 and launched != 4:
+            fail(f"{name}: the chain kernel launched {launched} times in 4 runs "
+                 f"of one chain of {K} tiles")
         if launched < 4:
             fail(f"{name}: wavefront kernel launched {launched} times in 4 runs")
         if res.scores.shape != (n,) or res.scores.dtype != np.int32:
@@ -1022,17 +1163,20 @@ J_SAMPLE = (64, 16)  # pairs of (j) held against the biased oracle: random, wrap
 def launches_of(run, column=False):
     """run() with the stream kernels' launch counters set to 0 just before
     it; (its result, (wavefront launches, chained launches)) read just
-    after; with `column`, the column kernels' too: (B1, B3, B4, B5)."""
+    after; with `column`, the column kernels' too: (B1, B3, B4, B5).  B3's
+    launches are those of a whole chain (stream_chain_cuda, the 32-bit
+    states) and of a single tile (stream_chained_cuda, the 16-bit states)."""
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import stream_chain_cuda, stream_chained_cuda, stream_strip_cuda
 
-    wrappers = (stream_strip_cuda, stream_chained_cuda)
+    kernels = [(stream_strip_cuda,), (stream_chain_cuda, stream_chained_cuda)]
     if column:
-        wrappers += (column_scores_cuda, column_chained_cuda)
-    for w in wrappers:
-        w.launches = 0
+        kernels += [(column_scores_cuda,), (column_chained_cuda,)]
+    for wrappers in kernels:
+        for w in wrappers:
+            w.launches = 0
     out = run()
-    return out, tuple(w.launches for w in wrappers)
+    return out, tuple(sum(w.launches for w in wrappers) for wrappers in kernels)
 
 
 def phase_pairs_path(rng, card):
@@ -1089,9 +1233,9 @@ def phase_pairs_path(rng, card):
     (res, wall, walls, peak), (b1, b3) = launches_of(
         lambda: timed_runs(name, lambda: wbank.score_pairs(queries, targets)))
     want_calls = -(-nq // stream_geometry(max(qr), wbank.config, wbank.device)[2])
-    if b1 < 4 * want_calls or b3 != 4 * n_long * 4:
+    if b1 < 4 * want_calls or b3 != 4 * n_long:  # a chain of 4 tiles a long query
         fail(f"{name}: (wavefront, chained) launched ({b1}, {b3}) times in 4 calls, want "
-             f"(>= {4 * want_calls}, {4 * n_long * 4})")
+             f"(>= {4 * want_calls}, {4 * n_long})")
     cbank = ScoreBank(SWConfig(score_width=J_WIDTH), device="cuda")
     col, col_wall, _, _ = timed_runs(name, lambda: cbank.score_pairs(queries, targets))
     if not np.array_equal(res.scores, col.scores):
@@ -1142,9 +1286,9 @@ def phase_mode_databases(card, cases, long_cases):
 
     case_a, case_d, case_e = cases[0], long_cases[0], long_cases[1]
     runs = (
-        ("e_w12_stream", case_e, SWConfig(score_width=J_WIDTH), (0, 16)),
+        ("e_w12_stream", case_e, SWConfig(score_width=J_WIDTH), (0, 4)),
         ("a_float32", case_a, SWConfig(stream_state_dtype="float32"), (4, 0)),
-        ("d_float32", case_d, SWConfig(stream_state_dtype="float32"), (0, 8)),
+        ("d_float32", case_d, SWConfig(stream_state_dtype="float32"), (0, 4)),
     )
     if int(case_e["scores"].max()) >= 1 << (J_WIDTH - 1):
         fail(f"case (e) scores reach 2^{J_WIDTH - 1}: width {J_WIDTH} would wrap them")
@@ -1231,18 +1375,23 @@ def phase_chained_at_main_shape(bank, cases):
     through the kernel chain at full length in the slices the wrapper
     chose (timed as the main path runs it).  Every tile's four strips must
     equal, in full, the same kernel's in one slice (timed too).  Then
-    every tile against the plain version on the first CHECK_STEPS steps
-    of every stream: both get the same inputs, the stream rows and the
-    kernel's own shifted boundary strips, cut to CHECK_STEPS rows.  A tile
-    is causal in t (step t reads only steps <= t of its inputs), so the
-    first CHECK_STEPS rows of its four output strips are exactly what the
-    cut inputs give: the check is exact for those steps.  It holds the
-    full run's first steps, and a run of the cut in CUT_SLICES slices, so
-    that slice boundaries fall inside the steps held.  The plain version
+    every tile against the plain version on its first held_steps steps
+    (CHECK_STEPS for the last tile, SL - 1 more a tile above it) of every
+    stream: both get the same inputs, the stream rows and the kernel's own
+    shifted boundary strips, cut to those rows.  A tile is causal in t
+    (step t reads only steps <= t of its inputs), so the first rows of its
+    four output strips are exactly what the cut inputs give: the check is
+    exact for those steps.  It holds the full run's first steps, and a run
+    of the cut in CUT_SLICES slices, so that slice boundaries fall inside
+    the steps held.  The plain version
     takes ~1.8 ms per step at rows 16, so the full length would take
-    minutes per tile.  The first case's tile 0 runs its plain version on
-    the card (the kernels line's plain time), every other tile on the CPU
-    beside the card's work (PlainJobs)."""
+    minutes per tile.  Every tile runs its plain version on the CPU beside
+    the card's work (PlainJobs).  The main path's chain kernel (one
+    launch for the K tiles, timed beside the chain of a launch a tile) is
+    held against the per-tile chain in full (hold_chain), and so against
+    the plain chain on the first CHECK_STEPS steps: every tile of the
+    per-tile chain equals the plain tile on its held steps, which hand the
+    next tile the plain chain's inputs on its own."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.ops.stream import _long_strip, stream_chained_cuda
@@ -1256,9 +1405,12 @@ def phase_chained_at_main_shape(bank, cases):
         q, sk = long_batch(c["query"], c["db"], rows, phys)
         _, tiles = run_chain(q, sk, rows, stream_chained_cuda)
         slices, steps = stream_chained_cuda.slices, stream_chained_cuda.slice_steps
+        _, err, _ = hold_chain(c["name"], q, sk, rows, plain=False)  # tiles held below
         chain_ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 3)
-        err = 0
-        tile_ms, tile_ms_one, check_ms, checks = [], [], [], []
+        tiles_chain_ms = cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows,
+                                                     tile=stream_chained_cuda), 3)
+        facts = chain_facts(rows, sk.shape[0], q.shape[1] // 128)
+        tile_ms, tile_ms_one, check_ms, checks, held_n = [], [], [], [], []
         for p, (args, outs) in enumerate(tiles):
             one = stream_chained_cuda(*args, slices=1)
             for name, g, w in zip(STRIPS, outs, one):
@@ -1268,47 +1420,57 @@ def phase_chained_at_main_shape(bank, cases):
             tile_ms.append(cuda_ms(lambda: stream_chained_cuda(*args), 3))
             tile_ms_one.append(cuda_ms(lambda: stream_chained_cuda(*args, slices=1), 3))
             qk, _, bD, bG, bH, pen, r = args
-            cut = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
+            m = held_steps(n, sk.shape[0], len(tiles), p, rows)
+            held_n.append(m)
+            cut = [x[:m].contiguous() for x in (sk, bD, bG, bH)]
             got_cut = stream_chained_cuda(qk, *cut, pen, r, slices=CUT_SLICES)
             held = []
             for k, (name, g, gc) in enumerate(zip(STRIPS, outs, got_cut)):
-                label = f"{c['name']} tile {p} {name} first {n} steps"
-                held += [(label, k, g[:n].clone()), (f"{label} in {CUT_SLICES} slices", k, gc)]
-            # the first case's tile 0 on the card: the kernels line's plain time
-            checks.append(plain.check("stream_chained_reference", (qk, *cut, pen, r), held,
-                                      card=not results and p == 0))
+                label = f"{c['name']} tile {p} {name} first {m} steps"
+                held += [(label, k, g[:m].clone()), (f"{label} in {CUT_SLICES} slices", k, gc)]
+            checks.append(plain.check("stream_chained_reference", (qk, *cut, pen, r), held))
             check_ms.append(cuda_ms(
                 lambda: stream_chained_cuda(qk, *cut, pen, r, slices=CUT_SLICES), 10))
             del cut, got_cut
         del tiles
         results.append((c, rows, sk.shape, slices, steps, chain_ms, err, tile_ms,
-                        tile_ms_one, check_ms, checks))
+                        tile_ms_one, check_ms, checks, tiles_chain_ms, facts, held_n))
         del q, sk
     out = []
     for c, rows, (T, N), slices, steps, chain_ms, err, tile_ms, tile_ms_one, check_ms, \
-            checks in results:
+            checks, tiles_chain_ms, facts, held_n in results:
         plain_ms, plain_on = [], []
         for check in checks:
             e, ms, where = check.result()
             err = max(err, e)
             plain_ms.append(ms)
             plain_on.append(where)
+        # the plain chain's time on those steps: its tiles' summed
+        chain_plain_ms, chain_plain_on = sum(plain_ms), plain_on[0]
         print(f"phase chained_main_shape: ok {c['name']} rows={rows} tiles={len(tile_ms)} "
-              f"strips [{T}, {N}] | chain {chain_ms:.3f} ms -> "
+              f"strips [{T}, {N}] | chain kernel {chain_ms:.3f} ms -> "
               f"{c['cells'] / chain_ms / 1e6:.2f} GCUPS in the chain "
-              f"({chain_ms / (c['wall_s'] * 1e3):.1%} of the wall time) | every tile "
+              f"({chain_ms / (c['wall_s'] * 1e3):.1%} of the wall time; ring "
+              f"{facts['ring']}, {facts['slices']} slices, {facts['registers']} registers, "
+              f"{facts['shared_bytes']} shared bytes a block), = the chain of a launch a tile "
+              f"({tiles_chain_ms:.3f} ms) in full and the plain chain on the first {n} steps "
+              f"({chain_plain_ms:.1f} ms on the {chain_plain_on}) | every tile "
               f"in {slices} slices of up to {steps} steps = one slice (4 strips, full "
               f"length): {', '.join(f'{x:.3f}' for x in tile_ms)} ms, one slice "
-              f"{', '.join(f'{x:.3f}' for x in tile_ms_one)} ms | first {n} steps of "
-              f"every tile bit-equal to the plain version (4 strips; the full run's, and "
+              f"{', '.join(f'{x:.3f}' for x in tile_ms_one)} ms | first "
+              f"{', '.join(map(str, held_n))} steps of the tiles "
+              f"bit-equal to the plain version (4 strips; the full run's, and "
               f"a run of the cut in {CUT_SLICES} slices: kernel "
               f"{', '.join(f'{x:.4f}' for x in check_ms)} ms), plain "
               f"{', '.join(f'{x:.1f} ({w})' for x, w in zip(plain_ms, plain_on))} ms per "
               "tile", flush=True)
         out.append(dict(name=c["name"], rows=rows, tiles=len(tile_ms), T=T, N=N,
                         slices=slices, slice_steps=steps, max_abs_err=err,
-                        chain_ms=chain_ms, tile_ms=tile_ms, tile_ms_one_slice=tile_ms_one,
-                        check_steps=n, check_slices=CUT_SLICES, check_ms=check_ms,
+                        chain_ms=chain_ms, per_tile_chain_ms=tiles_chain_ms, chain=facts,
+                        chain_plain_ms=chain_plain_ms, chain_plain_on=chain_plain_on,
+                        tile_ms=tile_ms, tile_ms_one_slice=tile_ms_one,
+                        check_steps=n, check_held=held_n, check_slices=CUT_SLICES,
+                        check_ms=check_ms,
                         plain_ms=plain_ms, plain_on=plain_on))
     return out
 
@@ -1336,12 +1498,16 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
     chain at W = 12 and in float32 against the int32 chain, every tile's
     four strips in full (float32 equal; W = 12 equal plus the bias, as no
     (d) value nears 2^11), and each W = 12 tile against the plain version
-    on its first CHECK_STEPS steps.  Every mode timed beside int32, on its
-    own chain's inputs.  The plain versions run on the CPU beside the
-    card's work (PlainJobs)."""
+    on its first held_steps steps (the W = 12 chain's first CHECK_STEPS).
+    Every mode timed beside int32, on its own chain's inputs.  The chain
+    kernel in each mode against the per-tile chain in full and the plain
+    chain on the first CHECK_STEPS steps (hold_chain), timed beside int32.
+    The plain versions run on the CPU beside the card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES as P
     from swtpu_torch.bank.scorebank import stream_geometry
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_kernel_info, stream_strip_cuda
+    from swtpu_torch.ops.stream import (
+        _long_strip, stream_chained_cuda, stream_kernel_info, stream_strip_cuda,
+    )
 
     n = CHECK_STEPS
     plain = plain_jobs()
@@ -1381,6 +1547,7 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
              tile_ms=[], plain_ms=[])
     err = 0
     d_checks = []  # (label, tile, its PlainCheck)
+    chain_checks = {}  # a mode's chain held against the plain tiles by hold_chain
     inputs = {"int32": [args for args, _ in tiles]}  # each mode's tiles' own inputs
     for label, width, dtype in MAIN_MODES:
         bias = 0 if width is None else 1 << (width - 1)
@@ -1390,7 +1557,14 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
                                              state_dtype=dtype)
         d["modes"][label] = dict(slices=stream_chained_cuda.slices,
                                  slice_steps=stream_chained_cuda.slice_steps,
-                                 registers=regs, resident_blocks_per_sm=blocks)
+                                 registers=regs, resident_blocks_per_sm=blocks,
+                                 chain=chain_facts(rows, sk.shape[0], q.shape[1] // 128,
+                                                   score_width=width, state_dtype=dtype))
+        # W = 12's tiles are each held against the plain tile below
+        _, cerr, checks = hold_chain(f"(d) {label}", q, sk, rows, plain=width is None,
+                                     score_width=width, state_dtype=dtype)
+        err = max(err, cerr)
+        chain_checks[label] = checks
         for p, ((_, outs), (margs, mouts)) in enumerate(zip(tiles, mtiles)):
             for name, g, w in zip(STRIPS, mouts, outs):
                 err = max(err, strip_error(f"(d) {label} tile {p} {name} - {bias}", g - bias,
@@ -1398,13 +1572,14 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
             if width is None:
                 continue
             mqk, _, bD, bG, bH, pen, r = margs
-            cutin = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
+            m = held_steps(n, sk.shape[0], len(mtiles), p, rows)
+            cutin = [x[:m].contiguous() for x in (sk, bD, bG, bH)]
             got_cut = stream_chained_cuda(mqk, *cutin, pen, r, slices=CUT_SLICES,
                                           score_width=width, state_dtype=dtype)
             held = []
             for k, (name, g, gc) in enumerate(zip(STRIPS, mouts, got_cut)):
-                label_n = f"(d) {label} tile {p} {name} first {n} steps"
-                held += [(label_n, k, g[:n].clone()),
+                label_n = f"(d) {label} tile {p} {name} first {m} steps"
+                held += [(label_n, k, g[:m].clone()),
                          (f"{label_n} in {CUT_SLICES} slices", k, gc)]
             d_checks.append((label, p, plain.check(
                 "stream_chained_reference", (mqk, *cutin, pen, r), held, score_width=width,
@@ -1418,6 +1593,7 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
         d["tile_ms"].append(time_modes(
             lambda label, **m: stream_chained_cuda(*inputs[label][p], **m), 3))
     del inputs
+    d["chain_ms"] = time_modes(lambda _, **m: _long_strip(q, sk, P, rows, **m), 3)
     for label, check in a_checks.items():
         e, ms, where = check.result()
         a_err = max(a_err, e)
@@ -1437,15 +1613,27 @@ def phase_modes_at_main_shape(bank, case_a, case_d):
         e, ms, where = check.result()
         err = max(err, e)
         d["plain_ms"].append((label, p, ms))
+    for label, checks in chain_checks.items():
+        # the plain chain's time on the first n steps: its tiles' summed
+        if checks:
+            e, ms, _ = resolve_plain(checks)
+            err = max(err, e)
+        else:
+            ms = sum(x for k, p, x in d["plain_ms"] if k == label and p >= 0)
+        d["plain_ms"].append((f"{label} chain", -1, ms))
     d.update(max_abs_err=err, check_steps=n, plain_on=where)
     print(f"phase modes_main_shape: ok {d['name']} rows={rows} tiles={len(d['tile_ms'])} "
           f"strips [{d['T']}, {d['N']}]: float32 = int32 and W=12 = int32 + 2^11 (4 strips "
-          f"of every tile, full length), W=12 = the plain version on the first {n} steps "
-          f"of every tile (full run's and in {CUT_SLICES} slices) | kernel "
-          f"a tile " + "; ".join(
+          f"of every tile, full length), W=12 = the plain version on every tile's held "
+          f"steps, the chain's first {n} (full run's and in {CUT_SLICES} slices); the "
+          f"chain kernel = the "
+          f"per-tile chain in full and the plain chain on {n} steps in each mode | chain "
+          f"kernel " + ", ".join(f"{k} {v:.3f} ms" for k, v in d["chain_ms"].items())
+          + "; a tile " + "; ".join(
               ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()) for t in d["tile_ms"])
           + f"; plain on {n} steps (on the {where}) " + ", ".join(
-              f"{k} tile {p} {x:.1f} ms" for k, p, x in d["plain_ms"]) + " | "
+              f"{k} tile {p} {x:.1f} ms" if p >= 0 else f"{k} {x:.1f} ms"
+              for k, p, x in d["plain_ms"]) + " | "
           + ", ".join(f"{k}: {v['slices']} slices, {v['registers']} registers"
                       for k, v in d["modes"].items()), flush=True)
     return a, d
@@ -1730,8 +1918,8 @@ def phase_16bit_databases(card, case_c, case_e):
 
 # resident serving: (name, the main case whose reads load, max_query_len,
 # query lengths).  (k) loads (a)'s reads for 256 bases (segments 1, rows
-# 16, K <= 2: B1 for the queries of up to 128 bases, two B3 tiles for the
-# longer ones); (l) loads (b)'s reads for 32 (segments 4, rows 4)
+# 16, K <= 2: B1 for the queries of up to 128 bases, a B3 chain of two
+# tiles for the longer ones); (l) loads (b)'s reads for 32 (segments 4, rows 4)
 K_SERVING = ("k serving", 0, 256, (16, 32, 64, 100, 128, 200, 256, 24, 48, 80,
                                    112, 128, 160, 192, 224, 240))
 L_SERVING = ("l serving", 1, 32, (8, 12, 16, 20, 24, 28, 30, 32))
@@ -1764,11 +1952,11 @@ def ms_list(walls):
 def dispatch_launches(queries):
     """(wavefront, chained) launches of one dispatch of each query on a
     resident database: one B1 for a query of up to 128 bases, else one B3
-    a 128-base tile."""
+    chain of its 128-base tiles."""
     import numpy as np
 
     return np.array([sum(len(q) <= 128 for q in queries),
-                     sum(-(-len(q) // 128) for q in queries if len(q) > 128)])
+                     sum(len(q) > 128 for q in queries)])
 
 
 def serve_resident(bank, name, db, queries, max_query_len, topk_idx):
@@ -1866,13 +2054,16 @@ def phase_serving(rng, card, main_cases):
     queries of each case against the oracle (sample + top-10), every
     topk_loaded against ScoreResult.top_k of the full vector (ties at
     (k)'s top), and the daemon's lines against score_loaded and
-    topk_loaded."""
+    topk_loaded.  (k)'s longest query's chain on the resident stream: the
+    chain kernel against the per-tile chain in full and the plain chain on
+    the first CHECK_STEPS steps (resident_chain)."""
     import numpy as np
     import torch
     from swtpu_torch import ScoreBank, score_many_vs_one
 
     bank = ScoreBank(device="cuda")
     out = []
+    chain_held = None
     for name, case, cap, lengths in (K_SERVING, L_SERVING):
         queries = [rng.integers(0, 4, size=k).astype(np.int8) for k in lengths]
         db = main_cases[case]["db"]
@@ -1894,6 +2085,10 @@ def phase_serving(rng, card, main_cases):
         if left:
             fail(f"{name}: processes still running after the daemon's shutdown: {left}")
         loaded, wave = r["loaded"], r["wave"]
+        if loaded.k_max > 1:
+            longest = max(queries, key=len)
+            chain_held = (name, len(longest), *resident_chain(
+                f"{name} query of {len(longest)} bases", longest, loaded.stream, loaded.rows))
         # 4 waves and 4 score_loaded a query, 4 topk_loaded a topk query,
         # and a SEQ and a TOP a daemon client
         want = 8 * dispatch_launches(queries)
@@ -1999,6 +2194,14 @@ def phase_serving(rng, card, main_cases):
                   + "; server shut down, no process left", flush=True)
             entry["daemon"] = dict(clients=client_walls, served=n_served)
         out.append(entry)
+    name, qlen, err, checks = chain_held
+    e, ms, where = resolve_plain(checks)
+    if max(err, e):
+        fail(f"{name}: the chain kernel on the resident stream differs by {max(err, e)}")
+    print(f"phase serving: ok {name} the {qlen}-base query's chain kernel on the resident "
+          f"stream = the per-tile chain in full and the plain chain on its first "
+          f"{CHECK_STEPS} steps ({ms:.1f} ms on the {where})", flush=True)
+    out[0]["chain_held"] = dict(qlen=qlen, plain_ms=ms, plain_on=where)
     return out
 
 
@@ -2361,13 +2564,14 @@ def phase_sharded(card, main_cases, long_cases, serving, seed):
     """Scoring across shards and processes through the user's entry points,
     each part's launch counters set to 0 just before it and read just after:
     (m) make_sharded_stream_scorer over (a)'s reads (SHARDS B1 a call) and
-    (d)'s (SHARDS x 2 B3), every score = score_database's and the top-10 =
+    (d)'s (SHARDS B3 chains of 2 tiles), every score = score_database's and the top-10 =
     its top_k(10), then its stages timed alone in turns with
     score_database; (n) make_sharded_topk on the column path (SHARDS B4 a
     call) and on the scan, = the oracle; (o) load_database_sharded over
     (k)'s reads, score_loaded_many_sharded, score_loaded_sharded and
     topk_loaded_sharded = the one-device resident answers of phase
-    "serving"; (p) run_multihost in database mode on (c)'s reads in
+    "serving", and the longest query's chain kernel on shard 0's stream
+    held as resident_chain holds it; (p) run_multihost in database mode on (c)'s reads in
     P_PROCS processes on cuda:0 (plain, a worker killed, a lying worker),
     every score = (c)'s, each worker's B1 launches > 0, no process left;
     and the CLI's serve --sharded, its lines = serve's.  Walls: warm,
@@ -2420,7 +2624,7 @@ def phase_sharded(card, main_cases, long_cases, serving, seed):
             return scores, list(zip(top_s.tolist(), top_ids.tolist())), b.stream.shape
 
         (results, walls), launched = launches_of(lambda: walls_of(call))
-        expect = (4 * SHARDS, 0) if K == 1 else (0, 4 * SHARDS * K)
+        expect = (4 * SHARDS, 0) if K == 1 else (0, 4 * SHARDS)  # a B3 chain a shard
         if tuple(launched) != expect:
             fail(f"m {name}: (wavefront, chained) launched {launched} in 4 calls on "
                  f"{SHARDS} shards, want {expect}")
@@ -2542,6 +2746,9 @@ def phase_sharded(card, main_cases, long_cases, serving, seed):
     sdb, launched = launches_of(lambda: bank.load_database_sharded(db, mesh, max_query_len=256))
     load_s = time.perf_counter() - t0
     per_dispatch = SHARDS * dispatch_launches(queries)
+    longest = max(queries, key=len)
+    o_err, o_checks = resident_chain(f"o shard 0, query of {len(longest)} bases", longest,
+                                     sdb.streams[0], sdb.rows)
     o_launched = np.zeros(2, np.int64)
     (waves, wave_walls), launched = launches_of(
         lambda: walls_of(lambda: bank.score_loaded_many_sharded(queries, sdb)))
@@ -2591,9 +2798,17 @@ def phase_sharded(card, main_cases, long_cases, serving, seed):
           + ", ".join(f"{t['ms']:.3f}" for t in top_rows.values())
           + f" ms) | launches wavefront={o_launched[0]} chained={o_launched[1]} on {card}",
           flush=True)
+    e, o_plain_ms, o_plain_on = resolve_plain(o_checks)
+    if max(o_err, e):
+        fail(f"o: the chain kernel on shard 0 differs by {max(o_err, e)}")
+    print(f"phase sharded: ok o the {len(longest)}-base query's chain kernel on shard 0's "
+          f"stream = the per-tile chain in full and the plain chain on its first "
+          f"{CHECK_STEPS} steps ({o_plain_ms:.1f} ms on the {o_plain_on})", flush=True)
     out["o"] = dict(reads=sdb.n_reads, shape=[D, T, N], load_ms=load_s * 1e3,
                     wave_ms=wave_s * 1e3, wave_runs_ms=[w * 1e3 for w in wave_walls],
-                    queries=q_rows, topk=top_rows, launches=launches["o sharded"])
+                    queries=q_rows, topk=top_rows, launches=launches["o sharded"],
+                    chain_held=dict(qlen=len(longest), plain_ms=o_plain_ms,
+                                    plain_on=o_plain_on))
     del sdb
 
     # (p): the localhost multi-process harness on the card
@@ -2695,7 +2910,7 @@ def phase_regress(card):
     from unittest import mock
 
     import numpy as np
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import stream_chain_cuda, stream_chained_cuda, stream_strip_cuda
     from swtpu_torch.testing import regress as regress_mod
     from swtpu_torch.testing.suite import main_cli, run_suite
 
@@ -2703,7 +2918,7 @@ def phase_regress(card):
     out = dict(walls_s={})
 
     # the default suite on the card and on the CPU
-    stream_strip_cuda.launches = stream_chained_cuda.launches = 0
+    stream_strip_cuda.launches = stream_chain_cuda.launches = stream_chained_cuda.launches = 0
     rows = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -2714,7 +2929,8 @@ def phase_regress(card):
                if not (o.passed and (not o.skipped or o.name in REGRESS_SKIPS))]
         if bad:
             fail(f"regress: {REGRESS_DEFAULT} on {device}: {bad}")
-    in_process = [stream_strip_cuda.launches, stream_chained_cuda.launches]
+    in_process = [stream_strip_cuda.launches,
+                  stream_chain_cuda.launches + stream_chained_cuda.launches]
     if rows["cuda"] != rows["cpu"]:
         fail(f"regress: {REGRESS_DEFAULT} on cuda {rows['cuda']}, on cpu {rows['cpu']}")
     stream = [r["detail"] for r in rows["cuda"] if r["name"] == "corruption_inject_stream"]
@@ -2863,7 +3079,7 @@ def phase_bench(card):
     from swtpu_torch import bench
     from swtpu_torch.bench_scaling import MESH_SIZES
     from swtpu_torch.ops.column import column_scores_cuda
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import stream_chain_cuda, stream_chained_cuda, stream_strip_cuda
 
     t_phase = time.perf_counter()
     out = dict(walls_s={})
@@ -2887,7 +3103,7 @@ def phase_bench(card):
           f"{ok_stages} on stderr, no process left | wall {out['walls_s']['cli bench']:.2f} "
           f"s on {card}", flush=True)
 
-    stream_strip_cuda.launches = stream_chained_cuda.launches = 0
+    stream_strip_cuda.launches = stream_chain_cuda.launches = stream_chained_cuda.launches = 0
     column_scores_cuda.launches = 0
     out["stages"] = {}
     for name in bench.STAGES:
@@ -2902,7 +3118,8 @@ def phase_bench(card):
                   f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                   for k, v in res.items() if k != "gcups")
               + f" | {out['walls_s'][name]:.1f} s on {card}", flush=True)
-    launches = [stream_strip_cuda.launches, stream_chained_cuda.launches]
+    launches = [stream_strip_cuda.launches,
+                stream_chain_cuda.launches + stream_chained_cuda.launches]
     out["column_launches"] = column_scores_cuda.launches
     if launches[0] == 0 or out["column_launches"] == 0:
         fail(f"bench: the stages launched the wavefront {launches[0]} and the column "
@@ -3466,7 +3683,7 @@ LADDER_S = ("s_ladder_pairs_w12", 16, 64, (2049, 4095), (513, 2048), 16, 820)
 LADDER_WIDTH = 12
 LADDER_SAMPLE = 64  # random reads of (q) and (r) held against the oracle
 LADDER_PAIRS = (8, 4)  # pairs of (s) held against the biased oracle: smallest, windows
-LADDER_B3_TILES = (0, 15, 31)  # (q)'s B3 tiles held against the plain version
+LADDER_B3_TILES = (0, 15, 31)  # (q)'s per-tile B3 tiles timed alone
 LADDER_CLI_READS = 4096  # (q)'s first reads through the CLI
 LADDER_LOAD = 4096  # (t): load_database's max_query_len
 LADDER_KERNELS = ("B1", "B3", "B4", "B5")
@@ -3549,18 +3766,22 @@ def phase_ladders(rng, card, peaks):
     """The top of swtpu's length ladders through the user's entry points,
     every check exact: (q) a 4,095-base query against 65,536 reads of 128
     bases (every 1,024th a window of the query) through score_database on
-    the stream backend in int32 and float32 (32 B3 tiles a call) and on the
-    column path (16 B5 tiles), all scores equal, the oracle on 64 sampled
-    reads, the windows and the top-10; B3 tiles 0, 15 and 31 against the
-    plain version on their first CHECK_STEPS steps (fed the kernel's own
-    strips from the tile above), every B5 tile against its plain tile in
-    full.  (r) 16,384 reads of 513-2,048 bases (the 2,048 bucket) against a
+    the stream backend in int32 and float32 (a B3 chain of 32 tiles, one
+    launch, a call) and on the column path (16 B5 tiles), all scores
+    equal, the oracle on 64 sampled reads, the windows and the top-10; the
+    chain kernel against the per-tile chain in full and the plain chain on
+    its first CHECK_STEPS steps (hold_chain: every tile of the per-tile
+    chain against the plain tile, fed the kernel's own strips from the tile
+    above), every B5 tile against its plain tile in full.  (r) 16,384
+    reads of 513-2,048 bases (the 2,048 bucket) against a
     128-base query: one B1 a stream call, one B4 a column call, equal, the
     oracle on 64 reads and the top-10, B4 in full and B1 on its first
     CHECK_STEPS steps against their plain versions.  (s) score_pairs at
     score width 12 on 1,024 pairs (16 queries of 2,049-4,095 bases, 64
     targets each of 513-2,048, every 16th a window of its query of at
     least 820 bases, which wraps): the stream backend's 16 biased B3 chains
+    (a launch each; the longest query's held as (q)'s is, its plain chain
+    on the streams that hold its reads and as many of pads, in full)
     = the column path's biased B5 chain on every pair, and
     sw_score_single_biased on the 8 smallest pairs and 4 windows; the same
     pairs exact on ScoreBank(device="cuda") (the default backend, int32
@@ -3624,17 +3845,24 @@ def phase_ladders(rng, card, peaks):
               f"on {card}", flush=True)
         return res
 
-    def kernel_row(key, ms, bound, live, **rest):
+    def kernel_row(key, ms, bound, live, skips=False, **rest):
         """A kernel's time beside its bound over the launch's padded shape
         and over its live cells alone, the share `live` of them: the bound
-        is linear in the cells, so that one is bound x live."""
+        is linear in the cells, so that one is bound x live.  A kernel
+        that `skips` the streams with no read (B3's chain) needs only the
+        live cells: its bound_ms is the live bound, the padded one a side
+        field (padded_bound_ms, padded_share)."""
         b_live = bound[0] * live
-        out["kernels"][key] = dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
-                                   bound_share=bound[0] / ms, live_fraction=live,
-                                   live_bound_ms=b_live, live_share=b_live / ms, **rest)
-        return (f"{ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}): {bound[0] / ms:.1%}; "
-                f"over the live cells ({live:.1%} of them) {b_live:.3f} ms: "
-                f"{b_live / ms:.1%}")
+        b = b_live if skips else bound[0]
+        out["kernels"][key] = dict(ms=ms, bound_ms=b, bound_by=bound[1], bound_share=b / ms,
+                                   live_fraction=live, live_bound_ms=b_live,
+                                   live_share=b_live / ms, padded_bound_ms=bound[0],
+                                   padded_share=bound[0] / ms, **rest)
+        padded = f"bound {bound[0]:.3f} ms ({bound[1]}): {bound[0] / ms:.1%}"
+        over = f"over the live cells ({live:.1%} of them) {b_live:.3f} ms: {b_live / ms:.1%}"
+        if skips:
+            return f"{ms:.3f} ms, bound {over}; over the padded shape {padded}"
+        return f"{ms:.3f} ms, {padded}; {over}"
 
     def stream_live(sk, drain):
         """The share of a [T, N] strip's stream-steps that hold a read, or
@@ -3654,9 +3882,9 @@ def phase_ladders(rng, card, peaks):
         on a job's stream just before and just after its dispatch
         (bank._dispatch_long wrapped: the job's span, from its copy in to
         its scores' copy back) and on the launching stream just before and
-        just after each B3 launch (stream_chained_cuda wrapped, as
-        experiments/torch_pair_jobs.py wraps it).  Its scores must be
-        `want`, and its B3 launches one a tile.  Prints each job's chain
+        just after each B3 launch (stream_chain_cuda wrapped, as
+        experiments/torch_chain_b3.py wraps it).  Its scores must be
+        `want`, and its B3 launches one a job (its chain).  Prints each job's chain
         (its first launch's start to its last launch's end) and span, the
         call's device span (the first job's start to the last job's end:
         copies, unpacks, shifts and gaps included), the overlap (the jobs'
@@ -3664,10 +3892,11 @@ def phase_ladders(rng, card, peaks):
         than 2 for more than one job fails) and the host's dispatch a job.
         The kernel row `key`: B3's busy time, the union of its launches'
         intervals, against the sum over the jobs of K tiles x B3's bound on
-        the job's own strip, each job packed as the bank packs it."""
+        the live cells of the job's own strip, each job packed as the bank
+        packs it (the padded bound beside it)."""
         from swtpu_torch.ops import stream as st
 
-        real_tile, dispatch, jobs = st.stream_chained_cuda, bank._dispatch_long, []
+        real_tile, dispatch, jobs = st.stream_chain_cuda, bank._dispatch_long, []
 
         def event(stream=None):
             ev = torch.cuda.Event(enable_timing=True)
@@ -3683,22 +3912,22 @@ def phase_ladders(rng, card, peaks):
             return got
 
         def tile(*a, **kw):
-            """stream_chained_cuda between two events; the wrapper counts
-            its launch on this function, which takes its name in the module."""
+            """stream_chain_cuda between two events; the wrapper counts its
+            launch on this function, which takes its name in the module."""
             before = event()
             got = real_tile(*a, **kw)
             jobs[-1]["marks"].append((before, event()))
             return got
 
         tile.launches = 0
-        bank._dispatch_long, st.stream_chained_cuda = dispatch_long, tile
+        bank._dispatch_long, st.stream_chain_cuda = dispatch_long, tile
         torch.cuda.synchronize()
         try:
             res = bank.score_pairs(queries, targets)
             torch.cuda.synchronize()
         finally:
             del bank._dispatch_long
-            st.stream_chained_cuda = real_tile
+            st.stream_chain_cuda = real_tile
             real_tile.launches += tile.launches
         first_difference(f"{label} traced call: pair", res.scores, want, "the timed calls")
         ref = jobs[0]["start"]
@@ -3725,17 +3954,19 @@ def phase_ladders(rng, card, peaks):
             live_bound += K * b[0] * stream_live(torch.from_numpy(lb.stream).T,
                                                  128 // rows - 1)
             tiles += K
-        if tile.launches != tiles:
-            fail(f"{label} traced call: {tile.launches} B3 launches for {tiles} tiles")
+        if tile.launches != len(jobs):
+            fail(f"{label} traced call: {tile.launches} B3 launches for {len(jobs)} jobs "
+                 f"({tiles} tiles)")
         peak = out["cases"][f"{label} stream"]["peak_gb"]
         host = [j["host_ms"] for j in jobs]
-        line = kernel_row(key, busy, (bound, b[1]), live_bound / bound, jobs=len(jobs),
+        line = kernel_row(key, busy, (bound, b[1]), live_bound / bound, True, jobs=len(jobs),
                           tiles=tiles, streams=streams, overlap=overlap,
                           device_span_ms=span_ms, launch_sum_ms=sum(y - x for x, y in launches),
                           job_chain_ms=chain, job_span_ms=[e - s for s, e in spans],
                           job_dispatch_ms=host, peak_gb=peak)
         print(f"phase ladders: ok {label} side by side: {len(jobs)} jobs on {streams} CUDA "
-              f"streams, {tiles} B3 tiles | B3 busy (the union of its launches' intervals) "
+              f"streams, {tiles} B3 tiles in {tile.launches} chain launches | B3 busy (the "
+              f"union of its launches' intervals) "
               f"{line}; job chains {', '.join(f'{x:.3f}' for x in chain)} ms (sum "
               f"{sum(chain):.2f}); the call's device span {span_ms:.3f} ms (copies, unpacks, "
               f"shifts and gaps too); overlap {overlap:.2f} (the jobs' spans summed over "
@@ -3781,7 +4012,7 @@ def phase_ladders(rng, card, peaks):
             bank = ScoreBank(SWConfig(stream_state_dtype=state), backend="stream",
                              device="cuda")
             q_res[state] = drive(f"{name} stream {state}",
-                                 lambda: bank.score_database(query, db), (0, K, 0, 0))
+                                 lambda: bank.score_database(query, db), (0, 1, 0, 0))
         cbank = ScoreBank(backend="pallas", device="cuda")
         col = drive(f"{name} column", lambda: cbank.score_database(query, db), (0, 0, 0, Kc))
         for state, res in q_res.items():
@@ -3808,8 +4039,12 @@ def phase_ladders(rng, card, peaks):
         _, s_tiles = run_chain(qd, sk, rows, stream_chained_cuda, keep=LADDER_B3_TILES)
         slices = stream_chained_cuda.slices
         b3_ms = [cuda_ms(lambda: stream_chained_cuda(*args), 3) for args, _ in s_tiles]
+        _, q_chain_err, q_chain_checks = hold_chain(f"{name} B3", qd, sk, rows)
         s_chain_ms = cuda_ms(lambda: _long_strip(qd, sk, DEFAULT_PENALTIES, rows), 3)
+        s_tiles_chain_ms = cuda_ms(lambda: _long_strip(qd, sk, DEFAULT_PENALTIES, rows,
+                                                       tile=stream_chained_cuda), 3)
         T, N = sk.shape
+        q_facts = chain_facts(rows, T, K)
         s_live = stream_live(sk, 128 // rows - 1)
         del qd
 
@@ -3839,35 +4074,17 @@ def phase_ladders(rng, card, peaks):
               f"a tile (median) {line}; chain {c_chain_ms:.3f} ms; plain "
               f"{statistics.median(b5_plain):.1f} ms a tile | pack_many_vs_one's host "
               f"peak {host_mb:.1f} MB (the query shipped once a read)", flush=True)
-        # the held tiles' plain versions side by side on the CPU (PlainJobs)
-        checks = []
-        for p, (args, outs) in zip(LADDER_B3_TILES, s_tiles):
-            qk, _, bD, bG, bH, pen, r = args
-            cut = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
-            checks.append(plain.check(
-                "stream_chained_reference", (qk, *cut, pen, r),
-                [(f"{name} B3 tile {p} {nm} first {n} steps", k, g[:n].clone())
-                 for k, (nm, g) in enumerate(zip(STRIPS, outs))]))
-            del cut
         del s_tiles, sk
-        err, b3_plain = 0, []
-        for check in checks:
-            e, t_plain, where = check.result()
-            err = max(err, e)
-            b3_plain.append(t_plain)
-        shift_ms = (s_chain_ms - K * statistics.mean(b3_ms)) / (K - 1)
-        line = kernel_row("B3 q", statistics.median(b3_ms), b3_bound(T, N), s_live,
-                          plain_ms=statistics.median(b3_plain), tiles=K, T=T, N=N, rows=rows,
-                          slices=slices, held_tiles=list(LADDER_B3_TILES), tile_ms=b3_ms,
-                          chain_ms=s_chain_ms, shift_ms=shift_ms, check_steps=n,
-                          max_abs_err=err, plain_tile_ms=b3_plain, plain_on=where)
-        print(f"phase ladders: ok {name} B3 rows={rows} strips [{T}, {N}], {K} tiles in "
-              f"{slices} slices: tiles {', '.join(map(str, LADDER_B3_TILES))} bit-equal to "
-              f"the plain version on their first {n} steps (4 strips, fed the kernel's own "
-              f"strips from the tile above) | a tile (median of {len(b3_ms)}) {line}; "
-              f"chain {s_chain_ms:.3f} ms ({shift_ms:.3f} ms a boundary beyond the tiles); "
-              f"plain {', '.join(f'{x:.1f}' for x in b3_plain)} ms on {n} steps (on the "
-              f"{where})", flush=True)
+        shift_ms = (s_tiles_chain_ms - K * statistics.mean(b3_ms)) / (K - 1)
+        q_b3 = dict(T=T, N=N, rows=rows, live=s_live, tile_ms=b3_ms, tile_slices=slices,
+                    per_tile_chain_ms=s_tiles_chain_ms, shift_ms=shift_ms)
+        print(f"phase ladders: ok {name} B3 rows={rows} strips [{T}, {N}], {K} tiles a "
+              f"launch each in {slices} slices (every tile held against the plain tile on "
+              f"its held steps, the chain's first {n}, with the chain kernel, below) | tiles "
+              f"{', '.join(map(str, LADDER_B3_TILES))} (median) "
+              f"{statistics.median(b3_ms):.3f} ms; chain of a launch a tile "
+              f"{s_tiles_chain_ms:.3f} ms ({shift_ms:.3f} ms a boundary beyond the tiles); "
+              f"the chain kernel {s_chain_ms:.3f} ms", flush=True)
 
         # (r): reads in the 2,048 bucket against a 128-base query
         name = name_r
@@ -3933,7 +4150,7 @@ def phase_ladders(rng, card, peaks):
         wcfg = SWConfig(score_width=LADDER_WIDTH)
         wbank = ScoreBank(wcfg, backend="stream", device="cuda")
         s_res = drive(f"{name} stream", lambda: wbank.score_pairs(queries, targets),
-                      (0, Ks, 0, 0))
+                      (0, len(distinct), 0, 0))  # a B3 chain a job
         side_by_side(name, "B3 s side by side", wbank, queries, targets,
                      MODE_EXTRA_OPS["int32"], s_res.scores)
         ebank = ScoreBank(device="cuda")
@@ -3941,7 +4158,7 @@ def phase_ladders(rng, card, peaks):
             fail(f"{name}: ScoreBank(device='cuda') took the {ebank.backend} backend")
         name_e = f"{name} exact"
         e_res = drive(f"{name_e} stream", lambda: ebank.score_pairs(queries, targets),
-                      (0, Ks, 0, 0))
+                      (0, len(distinct), 0, 0))
         side_by_side(name_e, "B3 s exact side by side", ebank, queries, targets, 0,
                      e_res.scores)
         e_tiles = sum(-(-g.q.shape[1] // 256) for g in cbank._pair_batches(queries, targets))
@@ -3988,19 +4205,30 @@ def phase_ladders(rng, card, peaks):
         lq = torch.from_numpy(lb.q).cuda()
         lsk = torch.from_numpy(lb.stream.T.copy()).cuda()
         Kl = lq.shape[1] // 128
+        # the plain chain on the streams that hold the job's reads (the
+        # greedy packer's first ones) and as many of pads
+        live = int((lsk != STREAM_PAD).any(0).nonzero().max()) + 1
+        held = slice(0, min(lsk.shape[1], 2 * live))
+        _, s_chain_err, s_chain_checks = hold_chain(f"{name} B3 longest job", lq, lsk, rows,
+                                                    streams=held, score_width=LADDER_WIDTH)
         chain_ms = cuda_ms(lambda: _long_strip(lq, lsk, DEFAULT_PENALTIES, rows,
                                                score_width=LADDER_WIDTH), 3)
+        tiles_chain_ms = cuda_ms(lambda: _long_strip(lq, lsk, DEFAULT_PENALTIES, rows,
+                                                     tile=stream_chained_cuda,
+                                                     score_width=LADDER_WIDTH), 3)
         T, N = lsk.shape
-        b3_line = kernel_row("B3 s", chain_ms / Kl,
-                             b3_bound(T, N, MODE_EXTRA_OPS["int32"]),
-                             stream_live(lsk, 128 // rows - 1), tiles=Kl, T=T, N=N,
-                             chain_ms=chain_ms, reads=len(own))
+        s_b3 = dict(T=T, N=N, K=Kl, live=stream_live(lsk, 128 // rows - 1), reads=len(own),
+                    plain_streams=held.stop,
+                    per_tile_chain_ms=tiles_chain_ms, chain_ms=chain_ms,
+                    facts=chain_facts(rows, T, Kl, score_width=LADDER_WIDTH))
         print(f"phase ladders: ok {name} at W={LADDER_WIDTH}: {len(groups)} column group(s) "
               f"({', '.join(f'{x.q.shape[1]} x {x.t.shape[1]}' for x in groups)}), "
               f"{len(distinct)} stream jobs of {Ks} B3 tiles; every pair = the column path; "
               f"all {is_window.sum()} windows wrapped | biased B5 a tile (the group's chain "
-              f"/ {Kg}) {b5_line}; biased B3 a tile (the {len(longest)}-base query's "
-              f"chain over its {len(own)} reads, T {T} / {Kl}) {b3_line}", flush=True)
+              f"/ {Kg}) {b5_line}; the biased B3 chain kernel {chain_ms:.3f} ms (the "
+              f"{len(longest)}-base query's {Kl} tiles over its {len(own)} reads, T {T}; "
+              f"= the per-tile chain, {tiles_chain_ms:.3f} ms, in full; its plain check "
+              f"below)", flush=True)
         del gq, gt, lq, lsk
 
         # (t): (q)'s reads resident for a 4,096-base query
@@ -4010,12 +4238,12 @@ def phase_ladders(rng, card, peaks):
             lambda: bank.load_database(db, max_query_len=LADDER_LOAD), column=True)
         if launched != (0, 0, 0, 0) or loaded.k_max != -(-LADDER_LOAD // 128):
             fail(f"{name}: load launched {launched}, k_max {loaded.k_max}")
-        t_res = drive(name, lambda: bank.score_loaded(query, loaded), (0, K, 0, 0))
+        t_res = drive(name, lambda: bank.score_loaded(query, loaded), (0, 1, 0, 0))
         first_difference(f"{name}: read", t_res.scores, q_res["int32"].scores,
                          "score_database")
         tops, launched = launches_of(
             lambda: walls_of(lambda: bank.topk_loaded(query, loaded, 10)), column=True)
-        if launched != (0, 4 * K, 0, 0):
+        if launched != (0, 4, 0, 0):  # a B3 chain a call
             fail(f"{name}: topk_loaded launched (B1, B3, B4, B5) {launched} in 4 calls")
         for k, x in zip(LADDER_KERNELS, launched):
             out["launches"][k] += x
@@ -4046,6 +4274,40 @@ def phase_ladders(rng, card, peaks):
         print(f"phase ladders: ok the CLI's score in a session of its own: "
               f"{LADDER_CLI_READS} score lines = the bank's ({wall:.1f} s with the "
               f"interpreter's start)", flush=True)
+
+        # the chain kernel's rows: its plain chains, computed meanwhile
+        t0 = time.perf_counter()
+        e, q_plain_ms, q_plain_on = resolve_plain(q_chain_checks)
+        K, (T, N) = -(-qlen // 128), (q_b3["T"], q_b3["N"])
+        b = b3_bound(T, N)
+        line = kernel_row("B3 q", s_chain_ms, (K * b[0], b[1]), q_b3["live"], True,
+                          plain_ms=q_plain_ms, plain_on=q_plain_on, tiles=K, T=T, N=N,
+                          rows=q_b3["rows"], chain=q_facts, check_steps=min(n, T),
+                          max_abs_err=max(q_chain_err, e),
+                          per_tile_chain_ms=q_b3["per_tile_chain_ms"], tile_ms=q_b3["tile_ms"],
+                          tile_slices=q_b3["tile_slices"], shift_ms=q_b3["shift_ms"],
+                          timed_tiles=list(LADDER_B3_TILES))
+        print(f"phase ladders: ok {name_q} B3 chain kernel [{T}, {N}], {K} tiles in one "
+              f"launch (ring {q_facts['ring']}, {q_facts['slices']} slices, "
+              f"{q_facts['registers']} registers, {q_facts['shared_bytes']} shared bytes a "
+              f"block) = the per-tile chain ({q_b3['per_tile_chain_ms']:.3f} ms) in full, "
+              f"whose {K} tiles (4 strips) = the plain tiles on their held steps: the plain "
+              f"chain on its first {min(n, T)} steps ({q_plain_ms:.1f} ms summed over its jobs, on "
+              f"the {q_plain_on}) | {line}", flush=True)
+        e, s_plain_ms, s_plain_on = resolve_plain(s_chain_checks)
+        b = b3_bound(s_b3["T"], s_b3["N"], MODE_EXTRA_OPS["int32"])
+        line = kernel_row("B3 s", s_b3["chain_ms"], (s_b3["K"] * b[0], b[1]), s_b3["live"],
+                          True, plain_ms=s_plain_ms, plain_on=s_plain_on, tiles=s_b3["K"],
+                          plain_streams=s_b3["plain_streams"],
+                          T=s_b3["T"], N=s_b3["N"], reads=s_b3["reads"], chain=s_b3["facts"],
+                          check_steps=min(n, s_b3["T"]), max_abs_err=max(s_chain_err, e),
+                          per_tile_chain_ms=s_b3["per_tile_chain_ms"])
+        print(f"phase ladders: ok {name_s} biased B3 chain kernel of the longest job "
+              f"[{s_b3['T']}, {s_b3['N']}], {s_b3['K']} tiles = the per-tile chain, whose "
+              f"tiles = the plain tiles on their first {min(n, s_b3['T'])} steps of streams "
+              f"0-{s_b3['plain_streams'] - 1} (its reads' and as many of pads): the plain "
+              f"chain there ({s_plain_ms:.1f} ms summed, on the {s_plain_on}) | {line} "
+              f"(waited {time.perf_counter() - t0:.1f} s for the plain chains)", flush=True)
 
         # the oracles, computed meanwhile
         t0 = time.perf_counter()
@@ -4313,7 +4575,8 @@ def main() -> int:
     e1_checks, e2_checks, e2_mains = timed("microbench_vs_plain", phase_microbench_vs_plain,
                                            rng_lane)
     from swtpu_torch.ops.stream import (
-        stream_chained_cuda, stream_kernel_info, stream_strip_cuda, streams_per_thread,
+        chained_launches as b3_launches, stream_chain_cuda, stream_chained_cuda,
+        stream_kernel_info, stream_strip_cuda, streams_per_thread,
     )
 
     stream_strip_cuda.launches = 0
@@ -4321,9 +4584,9 @@ def main() -> int:
     launches = stream_strip_cuda.launches
     if launches == 0:
         fail("the main path never launched the wavefront kernel")
-    stream_chained_cuda.launches = 0
+    stream_chain_cuda.launches = stream_chained_cuda.launches = 0
     _, long_cases = timed("main_path d-e", phase_main_path, rng_long, card, LONG_CASES)
-    chained_launches = stream_chained_cuda.launches
+    chained_launches = b3_launches()
     if chained_launches == 0:
         fail("the long-query path never launched the chained kernel")
     pair_cases = timed("pairs_path", phase_pairs_path, rng_modes, card)
@@ -4377,7 +4640,13 @@ def main() -> int:
     # a chained tile reads 1 + 12 bytes and writes 16 a stream-step
     Tl, Nl, Tc = lhead["T"], lhead["N"], lhead["check_steps"]
     b_chain = peaks.bound(128 * Nl + Tl * Nl * (1 + 12 + 16), 128 * Tl * Nl * WAVEFRONT_OPS)
-    b_cut = peaks.bound(128 * Nl + Tc * Nl * (1 + 12 + 16), 128 * Tc * Nl * WAVEFRONT_OPS)
+    Tc0 = lhead["check_held"][0]  # tile 0's held steps, its cut run's
+    b_cut = peaks.bound(128 * Nl + Tc0 * Nl * (1 + 12 + 16), 128 * Tc0 * Nl * WAVEFRONT_OPS)
+    # the chain kernel at (d): every tile's register and the stream read
+    # once, the last strip written once, K tiles' operations: K x the tile's
+    # bound where the operations bound it
+    Kd = lhead["tiles"]
+    b_fused = peaks.bound(Kd * 128 * Nl + Tl * Nl * (1 + 4), Kd * 128 * Tl * Nl * WAVEFRONT_OPS)
     B, m, n = chead["B"], chead["m"], chead["n"]
     b_col = chead["bound_ms"], chead["bound_by"]
     Bt, nt = col_tile["B"], col_tile["n"]
@@ -4507,17 +4776,16 @@ def main() -> int:
         mode_a, lambda ops, lanes: peaks.bound(128 * N + T * N * 5, 128 * T * N * ops, lanes),
         plain_a, f"the first {mode_a['check_steps']} steps (biased: at W = 8, the same "
         "operations)")
-    plain_d = {k: x for k, p, x in mode_d["plain_ms"] if p == 0}
-    plain_d["float32"] = next(c["plain_ms"] for c in chain_mode_checks
-                              if c["mode"] == "float32")
+    plain_d = {k.removesuffix(" chain"): x for k, p, x in mode_d["plain_ms"] if p < 0}
     modes_d = mode_rows(
-        dict(mode_d, ms=mode_d["tile_ms"][0]),
-        lambda ops, lanes: peaks.bound(128 * Nl + Tl * Nl * (1 + 12 + 16),
-                                       128 * Tl * Nl * ops, lanes),
-        plain_d, f"W = 12: tile 0's first {mode_d['check_steps']} steps; float32: phase "
-        "3's whole K = 2 chain")
+        dict(mode_d, ms=mode_d["chain_ms"],
+             modes={k: dict(v["chain"], tile_slices=v["slices"], tile_registers=v["registers"])
+                    for k, v in mode_d["modes"].items()}),
+        lambda ops, lanes: peaks.bound(Kd * 128 * Nl + Tl * Nl * (1 + 4),
+                                       Kd * 128 * Tl * Nl * ops, lanes),
+        plain_d, f"the plain chain's first {mode_d['check_steps']} steps (on the CPU)")
     regs, _, blocks_sm = stream_kernel_info(head["rows"])
-    regs_chain, _, blocks_sm_chain = stream_kernel_info(lhead["rows"], chained=True)
+    regs_tile, _, blocks_sm_tile = stream_kernel_info(lhead["rows"], chained=True)
     kernels = [
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches_total[0],
@@ -4538,20 +4806,30 @@ def main() -> int:
               "swtpu/ops/pallas_stream.py:314", launches_total[1],
               max(c["max_abs_err"] for c in chains + long_mains + chain_mode_checks
                   + [mode_d] + chains_16 + [d_16, ladders["kernels"]["B3 q"]]),
-              lhead["tile_ms"][0], lhead["plain_ms"][0], b_chain,
+              lhead["chain_ms"], lhead["chain_plain_ms"], b_fused,
+              plain_note=f"the plain chain ({Kd} tiles) on (d)'s first {Tc} steps, on the "
+                         f"{lhead['chain_plain_on']}",
               launches_by_path={k: v[1] for k, v in by_path.items()},
+              tiles=Kd, tile_bound_ms=b_chain[0], per_tile_chain_ms=lhead["per_tile_chain_ms"],
               modes=modes_d, mode_tile_ms=mode_d["tile_ms"], mode_configs=chain_mode_checks,
               modes_16bit=modes_d16, configs_16bit=chains_16,
-              shape=[Tl, Nl], plain_shape=[Tc, Nl],
-              slices=lhead["slices"], slice_steps=lhead["slice_steps"],
-              registers=regs_chain, resident_blocks_per_sm=blocks_sm_chain,
-              ms_one_slice=lhead["tile_ms_one_slice"][0],
-              check_cut=dict(steps=Tc, slices=lhead["check_slices"],
+              shape=[Tl, Nl], plain_shape=[Tc, Nl], ring=lhead["chain"]["ring"],
+              slices=lhead["chain"]["slices"], registers=lhead["chain"]["registers"],
+              spill_bytes=lhead["chain"]["spill_bytes"],
+              shared_bytes_per_block=lhead["chain"]["shared_bytes"],
+              resident_blocks_per_sm=lhead["chain"]["resident_blocks_per_sm"],
+              one_tile=dict(ms=lhead["tile_ms"][0], plain_ms=lhead["plain_ms"][0],
+                            bound_ms=b_chain[0], bound_by=b_chain[1],
+                            slices=lhead["slices"], slice_steps=lhead["slice_steps"],
+                            registers=regs_tile, resident_blocks_per_sm=blocks_sm_tile,
+                            ms_one_slice=lhead["tile_ms_one_slice"][0]),
+              check_cut=dict(steps=Tc0, slices=lhead["check_slices"],
                              ms=lhead["check_ms"][0], plain_ms=lhead["plain_ms"][0],
                              bound_ms=b_cut[0], bound_by=b_cut[1]),
               main_shapes=long_mains, configs=chains,
               side_by_side={k: ladders["kernels"][k]
-                            for k in ("B3 s side by side", "B3 s exact side by side")}),
+                            for k in ("B3 s side by side", "B3 s exact side by side")},
+              ladders={k: ladders["kernels"][k] for k in ("B3 q", "B3 s")}),
         entry("column", "swtpu_torch/ops/csrc/column.cu", "swtpu/ops/pallas_kernel.py:54",
               column_launches + faults_launches[0] + sharded["column_launches"][0]
               + bench["column_launches"] + ladders["launches"]["B4"],
@@ -4598,7 +4876,7 @@ def main() -> int:
               case=[e2_head["variant"], e2_head["dtype"]], table=e2_table,
               full_vs_wavefront=e2_full, main_shapes=e2_mains, configs=e2_checks),
     ]
-    left = live_children()
+    left = live_children(plain=True)
     if left:
         fail(f"processes this script started are still running: {left}")
     print(card)

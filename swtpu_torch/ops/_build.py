@@ -118,6 +118,11 @@ def load_library() -> ctypes.CDLL:
                 *[ctypes.c_void_p] * 9, *[ctypes.c_int] * 7, ctypes.c_void_p,
                 *[ctypes.c_int] * 3,
             ]
+            lib.swtpu_stream_chain.restype = ctypes.c_int
+            lib.swtpu_stream_chain.argtypes = [
+                *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8, ctypes.c_void_p,
+                *[ctypes.c_int] * 4,
+            ]
             lib.swtpu_stream_kernel_info.restype = ctypes.c_int
             lib.swtpu_stream_kernel_info.argtypes = [
                 *[ctypes.c_int] * 4, ctypes.POINTER(ctypes.c_int),

@@ -21,13 +21,36 @@
 // previous H, reset at a read's first char, and the strip row is the
 // segment tail's H itself.
 //
-// Chained tile (seg = 1): bD/bG/bH [T, S] int32 are the tile above's row
-// 127, already shifted by the host, so the tile's row 0 reads them in
-// place of the zero boundary: diag = f0 ? 0 : bD[t], G_up = bG[t],
-// H_up = bH[t].  The tile writes its tail accumulator and its own row 127
-// (oD, oG, oH [T, S] int32) every step.  Per stream-step that is 12 bytes
-// read and 16 written against 128 cells, so the chained tile is bound by
-// the same dependent integer chain as the plain one.
+// Chained tiles (B3, seg = 1, stream_chain_kernel).  A query of K x 128
+// bases is K tiles of 128 query rows.  Tile p+1's row 0 reads tile p's row
+// 127 in place of the zero boundary: at step t, diag = f0 ? 0 :
+// D127[t + SL - 2], G_up = G127[t + SL - 1], H_up = H127[t + SL - 1] (the
+// same column of the same read; SL = 128/R).  One launch runs a chain:
+//   - a block is P = min(K, 4) warps on one group of streams (the 32/W
+//     streams of a warp); warp w runs tiles w, w + P, w + 2P, ..., each
+//     kLag char chunks behind the tile above, all warps in lockstep with
+//     one __syncthreads a chunk;
+//   - warp w hands its row 127 to warp w + 1 through a ring of kRing steps
+//     in shared memory, written at every step it computes and read by the
+//     next warp's head lanes at the step they use it; the wrap from tile p
+//     to tile p + 1 with p + 1 a multiple of P goes through [T, S] strips
+//     in device memory, written where the tile writes its outputs, which
+//     warp 0 stages into shared memory a chunk of steps at a time, two
+//     chunks ahead, 3 values a lane; past the step the tiles stopped at,
+//     the boundary is the zero, so no tile waits for steps its producer
+//     will not make;
+//   - only the last tile writes the accumulator strip.
+// kLag covers the shift of SL - 1 steps: floor((SL + 6) / 8) + 1 chunks,
+// 2 at rows 16 and 17 at rows 1; the wrap's lag adds the staging's two
+// chunks (kWrapLag, 4 at rows 16).  A chain takes about its slice's steps
+// plus (P - 1) x kLag chunks a pass of P tiles on the clock.  The
+// per-tile contract (swtpu_stream_chained: bD/bG/bH [T, S], the tile
+// above's row 127 shifted by the host, in; acc, oD, oG, oH [T, S] out
+// wherever the tile writes) is the same kernel at K = 1 with those strips
+// switched on (kOneTile).  A tile moves at most 12 bytes
+// in and 16 out a stream-step against 128 cells, so the chain is bound by
+// the dependent integer chain of each tile.  The 16-bit states keep a
+// launch a tile (stream_wavefront_x2_kernel in kChained mode).
 //
 // What bounds it.  Per stream-step a segment head reads 1 byte and a
 // segment tail writes 4, so the card's memory bandwidth is far from the
@@ -75,6 +98,14 @@
 //     strip stores stay as coalesced as with one slice.
 // The overlap costs at most a read plus SLg - 1 steps a slice.  The
 // wrapper picks C from S, W, T, SLg and the SM count (ops/stream.py).
+// In a chain every tile of a block uses the same slice and stops at the
+// same step (its tails see the same chars), so slice c of tile p+1 needs
+// only slice c of tile p: tile p's values from before its first read
+// start feed only columns that tile p+1 does not write either.  A chain's
+// block first looks for a read start at or after b0 in its streams: with
+// none it writes nothing in a slice after the first, and in slice 0 (zero
+// boundary, pads only, so every tile's accumulator is the zero) it writes
+// the zero into the strip and computes nothing.
 //
 // State modes (kState), each form in each, as the TPU kernels have them:
 //   - kExact: int32 state, the boundary zero 0, M = max(diag + s, 0);
@@ -321,43 +352,28 @@ __device__ __forceinline__ unsigned sublane_step_x2(
 }
 
 // What a launch computes: the strip of tail accumulators (B1, B2), the
-// strip of tail H (B2 ripple-H), or one chained tile (B3).
-enum Mode { kTailAcc, kRippleH, kChained };
+// strip of tail H (B2 ripple-H), or one chained tile (B3); kChainMode
+// names the whole chain (stream_chain_kernel) to swtpu_stream_kernel_info.
+enum Mode { kTailAcc, kRippleH, kChained, kChainMode };
 
 struct Args {
   const int8_t* qk;
   const int8_t* sk;
-  const int32_t* bD;  // kChained only: the tile above's shifted row 127
+  const int32_t* bD;  // 16-bit kChained only: the tile above's shifted row 127
   const int32_t* bG;
   const int32_t* bH;
   int32_t* strip;
-  int32_t* oD;  // kChained only: this tile's row 127
+  int32_t* oD;  // 16-bit kChained only: this tile's row 127
   int32_t* oG;
   int32_t* oH;
   int S, T, seg, ma, mi, go, ge;
   int width;  // kBiased only: W
 };
 
-// The head's char of step t and, for a chained tile, the tile above's
-// shifted row 127 at step t; a pad and zeros where `in` is false (off the
-// head, or past T).
-template <bool kChain, class A, class T = typename A::T>
-__device__ __forceinline__ void fetch(const A& ar, const Args& a,
-                                      const int8_t* src, size_t ld, int s,
-                                      bool in, int t, int& c, T& d, T& g,
-                                      T& h) {
-  c = in ? src[(size_t)t * ld] : kPad;
-  if (kChain) {
-    const size_t o = (size_t)t * a.S + s;
-    d = in ? ar.load(a.bD[o]) : ar.zero();
-    g = in ? ar.load(a.bG[o]) : ar.zero();
-    h = in ? ar.load(a.bH[o]) : ar.zero();
-  }
-}
-
 template <int R, int kMode, int kState>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_wavefront_kernel(const Args a) {
+  static_assert(kMode != kChained, "the 32-bit chained tile is stream_chain_kernel");
   using A = Arith<kState>;
   using T = typename A::T;
   const A ar(a.width);
@@ -367,7 +383,6 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   constexpr int W = SL < 32 ? SL : 32;  // threads per stream
   constexpr int V = SL / W;             // sublanes per thread
   constexpr bool kRipple = kMode == kRippleH;
-  constexpr bool kChain = kMode == kChained;
   const int S = a.S;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = tid / W;
@@ -380,8 +395,6 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   const int pt = p0 + V - 1;   // and last
   const bool head = live && p0 % SLg == 0;
   const bool tail = live && pt % SLg == SLg - 1;
-  // a segment head sees zero boundaries, a chained tile's row 0 the strips
-  const bool seghead = head && !kChain;
   const size_t ld = (size_t)a.seg * S;
   const int8_t* src = a.sk + (size_t)(p0 / SLg) * S + s;
   int32_t* dst = a.strip + (size_t)(pt / SLg) * S + s;
@@ -417,28 +430,22 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
   T acc = z;
 
-  // slot k holds the inputs of step t0 + k; once used it is refilled with
-  // step t0 + kChunk + k, so each load is issued a chunk ahead of its use
-  // and across the slice's early exit (loading each chunk at its top
-  // instead left the one-slice kernel 24-29 % slower).  A chunk never
-  // straddles T (T % 8 == 0, b0 % 32 == 0), so one test covers a chunk.
+  // slot k holds the head's char of step t0 + k (a pad off the head); once
+  // used it is refilled with step t0 + kChunk + k, so each load is issued a
+  // chunk ahead of its use and across the slice's early exit (loading each
+  // chunk at its top instead left the one-slice kernel 24-29 % slower).  A
+  // chunk never straddles T (T % 8 == 0, b0 % 32 == 0), so one test covers
+  // a chunk.
   int cin[kChunk];
-  T bd[kChunk], bg[kChunk], bh[kChunk];
 #pragma unroll
-  for (int k = 0; k < kChunk; ++k) {
-    fetch<kChain>(ar, a, src, ld, s, head, b0 + k, cin[k], bd[k], bg[k], bh[k]);
-  }
+  for (int k = 0; k < kChunk; ++k) cin[k] = head ? src[(size_t)(b0 + k) * ld] : kPad;
   for (int t0 = b0; t0 < a.T; t0 += kChunk) {
     if (t0 >= b1 && __all_sync(kFull, done)) break;
     const bool next = head && t0 + kChunk < a.T;
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const int c_in = cin[k];
-      const T d_in = kChain ? bd[k] : z;
-      const T g_in = kChain ? bg[k] : z;
-      const T h_in = kChain ? bh[k] : z;
-      fetch<kChain>(ar, a, src, ld, s, next, t0 + kChunk + k, cin[k], bd[k],
-                    bg[k], bh[k]);
+      cin[k] = next ? src[(size_t)(t0 + kChunk + k) * ld] : kPad;
       // the sublane above this thread's first one lives in lane - 1
       const int nC = __shfl_up_sync(kFull, C[V - 1], 1, W);
       const T nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
@@ -456,10 +463,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
         if (v == V - 1) f0_tail = f0;
       }
       C[0] = head ? c_in : nC;
-      const bool row0 = kChain && head;
+      // a segment head sees zero boundaries
       const bool f0 = sublane_step<R, kRipple>(
-          ar, C[0], seghead, row0 ? g_in : nG, row0 ? h_in : nH,
-          row0 ? d_in : nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
+          ar, C[0], head, nG, nH, nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi,
+          go, ge);
       if (V == 1) f0_tail = f0;
       // branch-free, so that the tail lanes do not split the warp: every
       // lane keeps an accumulator, only a writing tail stores.  Every flag
@@ -469,18 +476,278 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       if (!kRipple) acc = mx(f0_tail ? z : acc, H[V - 1]);
       writing = f0_tail ? tail && t < handover : writing;
       done = f0_tail ? !writing : done;
-      if (writing) {
-        const size_t o = (size_t)t * ld;
-        if (kChain) {  // seg = 1: o is (t, s)
-          dst[o] = ar.store(acc);
-          a.oD[o + s] = ar.store(D[V - 1][R - 1]);
-          a.oG[o + s] = ar.store(G[V - 1][R - 1]);
-          a.oH[o + s] = ar.store(H[V - 1]);
-        } else {
-          dst[o] = ar.emit(kRipple ? H[V - 1] : acc);
+      if (writing) dst[(size_t)t * ld] = ar.emit(kRipple ? H[V - 1] : acc);
+    }
+  }
+}
+
+// The chained tiles of a long query (B3) in a 32-bit state: one launch a
+// chain, a block's P warps on one group of streams, warp w running tiles
+// w, w + P, ... kLag chunks behind the tile above (see the header).
+constexpr int kRingWarps = kBlock / 32;  // P at most: tiles a block runs side by side
+constexpr int kRing = 32;                // steps of row 127 a ring holds
+constexpr int kGroupMax = 4;             // streams a warp holds at most (rows 16)
+constexpr int kScanLoads = 4;            // chars a thread loads a round of the scan
+
+struct ChainArgs {
+  const int8_t* qk;   // [K, 128, S]: tile p's register at qk + p * 128 * S
+  const int8_t* sk;   // [T, S]
+  const int32_t* bD;  // one tile: the tile above's row 127, shifted by the host
+  const int32_t* bG;
+  const int32_t* bH;
+  int32_t* strip;  // [T, S]: the last tile's accumulator
+  int32_t* oD;     // one tile: its own row 127; a chain: the wrap strips
+  int32_t* oG;
+  int32_t* oH;
+  int S, T, K, ma, mi, go, ge;
+  int width;  // kBiased only: W
+};
+
+// kOneTile: one tile on the per-tile contract (K = 1, the strips in and out)
+template <int R, int kState, bool kOneTile>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    stream_chain_kernel(const ChainArgs a) {
+  using A = Arith<kState>;
+  using T = typename A::T;
+  const A ar(a.width);
+  const T ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
+          ge = ar.cst(a.ge), z = ar.zero();
+  constexpr int SL = kLanes / R;        // wavefront sublanes per stream
+  constexpr int W = SL < 32 ? SL : 32;  // threads per stream
+  constexpr int V = SL / W;             // sublanes per thread
+  constexpr int NG = 32 / W;            // streams a warp holds
+  // chunks a tile runs behind the tile above in the ring: its row 0 reads
+  // the producer's step t + SL - 1 for t up to a chunk's last step, which
+  // the producer finished an iteration before
+  constexpr int kLag = (SL + kChunk - 2) / kChunk + 1;
+  // and behind the wrap strips: warp 0 stages them two chunks ahead
+  constexpr int kWrapLag = (SL + 3 * kChunk - 3) / kChunk + 1;
+  // the ring holds every step from the lowest one a consumer reads in an
+  // iteration to the highest one its producer stores in it
+  static_assert(kChunk * kLag - SL + 10 <= kRing, "the ring is too short for the lag");
+  static_assert(NG <= kGroupMax, "a warp holds more streams than the ring");
+  const int S = a.S, nT = a.T;
+  const int P = blockDim.x / 32;
+  const int w = threadIdx.x / 32;      // this warp's place in the ring
+  const int g = threadIdx.x % 32 / W;  // its stream in the group
+  const int lane = threadIdx.x % W;
+  const int s0 = blockIdx.x * NG;  // the group's first stream
+  const int s = s0 + g;
+  // threads past the last stream run the loop (the shuffles need the
+  // whole warp) but read and write nothing
+  const bool live = s < S;
+  const int p0 = lane * V;  // this thread's first sublane
+  const bool head = live && p0 == 0;
+  const bool tail = live && p0 + V - 1 == SL - 1;
+  const int8_t* src = a.sk + s;
+
+  // this block's slice: nominal steps [b0, b1), as in stream_wavefront_kernel
+  const int slice = blockIdx.y;
+  const int quanta = nT / kSliceQuantum;
+  const int b0 = kSliceQuantum * (int)((long long)slice * quanta / gridDim.y);
+  const int b1 = slice + 1 == (int)gridDim.y
+                     ? nT
+                     : kSliceQuantum * (int)((long long)(slice + 1) * quanta / gridDim.y);
+  const int handover = b1 + SL - 1;
+
+  // row 127's D, G and H by step: ring[w] is warp w's for warp w + 1; the
+  // last, kStage, holds warp 0's row-0 boundary staged from device memory
+  // (the wrap strips, or the per-tile contract's strips)
+  constexpr int kStage = kRingWarps - 1;
+  __shared__ T ring[kRingWarps][kRing][kGroupMax][3];
+  __shared__ int s_end;  // the step the block's tiles stopped at (T before)
+
+  // a read start in the group's streams at or after b0?  Without one a
+  // slice after the first writes nothing, and slice 0 of a chain (zero
+  // boundary, pads only) writes the zero that every tile's accumulator
+  // holds; the per-tile contract's slice 0 runs as it is
+  if (slice > 0 || !kOneTile) {
+    const int per = blockDim.x / NG;  // steps one load of the block covers
+    const int ts = threadIdx.x / NG, ss = s0 + threadIdx.x % NG;
+    bool any = false;
+    for (int tb = b0; tb < nT && !any; tb += kScanLoads * per) {
+      bool f = false;
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u) {
+        const int t = tb + u * per + ts;
+        if (t < nT && ss < S && a.sk[(size_t)t * S + ss] >= kFlag) f = true;
+      }
+      any = __syncthreads_or(f);
+    }
+    if (!any) {
+      if (slice == 0) {
+        for (int t = ts; t < nT; t += per) {
+          if (ss < S) a.strip[(size_t)t * S + ss] = ar.store(z);
         }
       }
+      return;
     }
+  }
+  if (threadIdx.x == 0) s_end = nT;
+  __syncthreads();
+  volatile int* const end_at = &s_end;
+
+  // row 0 reads the tile above's row 127 at t + shd (D) and t + shg (G, H);
+  // the per-tile contract's strips are shifted by the host
+  constexpr int shd = kOneTile ? 0 : SL - 2, shg = kOneTile ? 0 : SL - 1;
+  // the strips warp 0 stages: D, G and H (a select, not an array: a
+  // runtime index would put the array in local memory)
+  auto strip_of = [&](int v) {
+    return v == 0 ? (kOneTile ? a.bD : a.oD) : v == 1 ? (kOneTile ? a.bG : a.oG)
+                                                       : (kOneTile ? a.bH : a.oH);
+  };
+  const int wl = threadIdx.x % 32;  // lane in the warp
+  // Warp 0 stages the strips a chunk of steps at a time: staging chunk m
+  // is row 127 at steps b0 + 8m + shd + j, j < 8; chunk c of a tile reads
+  // staging chunks c and c + 1.  A lane loads up to 3 of its 24 x NG
+  // values (D, G, H of 8 steps of NG streams), streams fastest, the zero
+  // past `lim`; the loads of one chunk are stored a chunk later.
+  int staged[3];
+  auto stage_load = [&](int m, int lim) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int i = wl + 32 * u;
+      const int gs = i % NG, j = i / NG % kChunk, v = i / (NG * kChunk);
+      const int x = b0 + kChunk * m + shd + j;
+      staged[u] = i < 3 * kChunk * NG && x < lim && s0 + gs < S
+                      ? strip_of(v)[(size_t)x * S + s0 + gs]
+                      : ar.store(z);
+    }
+  };
+  auto stage_store = [&](int m) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int i = wl + 32 * u;
+      const int gs = i % NG, j = i / NG % kChunk, v = i / (NG * kChunk);
+      const int x = b0 + kChunk * m + shd + j;
+      if (i < 3 * kChunk * NG) ring[kStage][(x - b0) & (kRing - 1)][gs][v] = ar.load(staged[u]);
+    }
+    __syncwarp();
+  };
+
+  int q[V][R], C[V];
+  T D[V][R], G[V][R], D2L[V], H[V];
+  T acc = z;
+  bool writing = false, done = true;
+  // slot k holds the head's char of step t0 + k, refilled a chunk ahead as
+  // in stream_wavefront_kernel
+  int cin[kChunk];
+  // this warp's tile p, which starts at iteration `start` and is at its
+  // chunk c (-1 between tiles); where its row 0 reads: the ring of the
+  // warp above, or its staged strips (warp 0 below tile 0, or one tile),
+  // up to step `lim` (b0 for a chain's tile 0: the zero boundary)
+  int p = w, start = w * kLag, c = -1;
+  const int from = w > 0 ? w - 1 : kStage;
+  const bool staging = w == 0 && (kOneTile || P < a.K);
+
+  for (int it = 0;; ++it) {
+    if (c < 0 && p < a.K && it == start) {  // tile p starts
+      const int8_t* qk = a.qk + (size_t)p * kLanes * S;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        C[v] = kPad;
+        D2L[v] = z;
+        H[v] = z;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          D[v][r] = z;
+          G[v][r] = z;
+          q[v][r] = live ? qk[(size_t)(r * SL + p0 + v) * S + s] : kQueryPad;
+        }
+      }
+      acc = z;
+      // slice 0 writes from step 0, the others from their first tail flag;
+      // a thread that is no tail never writes and is always done
+      writing = tail && slice == 0;
+      done = !tail;
+      c = 0;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) cin[k] = head ? src[(size_t)(b0 + k) * S] : kPad;
+      if (staging && (kOneTile || p > 0)) {
+        const int lim = *end_at;
+        stage_load(0, lim);
+        stage_store(0);
+        stage_load(1, lim);
+        stage_store(1);
+        stage_load(2, lim);
+      }
+    }
+    if (c >= 0) {
+      const int t0 = b0 + kChunk * c;
+      if (t0 >= nT || (t0 >= b1 && __all_sync(kFull, done))) {
+        // the tile stops where every tile of the block stops (its tails
+        // see the same chars); the warp's next tile starts once this run
+        // and the lags allow
+        if (wl == 0) *end_at = t0;
+        p += P;
+        start = max(it + 1, it - c + (P - 1) * kLag + kWrapLag);
+        c = -1;
+      } else {
+        const bool next = head && t0 + kChunk < nT;
+        const int lim = kOneTile || p > 0 ? *end_at : b0;
+        if (staging && (kOneTile || p > 0) && c > 0) {
+          stage_store(c + 1);
+          stage_load(c + 2, lim);
+        }
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int t = t0 + k;
+          const int c_in = cin[k];
+          cin[k] = next ? src[(size_t)(t + kChunk) * S] : kPad;
+          // the tile above's row 127: D at t + shd, G and H at t + shg
+          T d_in = z, g_in = z, h_in = z;
+          if (head && t + shd < lim) d_in = ring[from][(t + shd - b0) & (kRing - 1)][g][0];
+          if (head && t + shg < lim) {
+            g_in = ring[from][(t + shg - b0) & (kRing - 1)][g][1];
+            h_in = ring[from][(t + shg - b0) & (kRing - 1)][g][2];
+          }
+          // the sublane above this thread's first one lives in lane - 1
+          const int nC = __shfl_up_sync(kFull, C[V - 1], 1, W);
+          const T nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
+          const T nH = __shfl_up_sync(kFull, H[V - 1], 1, W);
+          const T nD = __shfl_up_sync(kFull, D2L[V - 1], 1, W);
+          bool f0_tail = false;
+#pragma unroll
+          for (int v = V - 1; v >= 1; --v) {
+            C[v] = C[v - 1];
+            const bool f0 = sublane_step<R, false>(
+                ar, C[v], false, G[v - 1][R - 1], H[v - 1], D2L[v - 1], q[v],
+                D[v], G[v], D2L[v], H[v], ma, mi, go, ge);
+            if (v == V - 1) f0_tail = f0;
+          }
+          C[0] = head ? c_in : nC;
+          // the tile's row 0 reads the tile above's row 127
+          const bool f0 = sublane_step<R, false>(
+              ar, C[0], false, head ? g_in : nG, head ? h_in : nH,
+              head ? d_in : nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
+          if (V == 1) f0_tail = f0;
+          acc = mx(f0_tail ? z : acc, H[V - 1]);
+          writing = f0_tail ? tail && t < handover : writing;
+          done = f0_tail ? !writing : done;
+          // the last tile writes the accumulator; a tile above the last one
+          // hands its row 127 to the next warp every step, or if it is the
+          // ring's last warp writes it to the wrap strips
+          const bool last = kOneTile || p == a.K - 1;
+          if (!kOneTile && !last && w < P - 1 && tail) {
+            T* r = ring[w][(t - b0) & (kRing - 1)][g];
+            r[0] = D[V - 1][R - 1];
+            r[1] = G[V - 1][R - 1];
+            r[2] = H[V - 1];
+          }
+          if (writing) {
+            const size_t o = (size_t)t * S + s;
+            if (last) a.strip[o] = ar.store(acc);
+            if (kOneTile || (!last && w == P - 1)) {
+              a.oD[o] = ar.store(D[V - 1][R - 1]);
+              a.oG[o] = ar.store(G[V - 1][R - 1]);
+              a.oH[o] = ar.store(H[V - 1]);
+            }
+          }
+        }
+        ++c;
+      }
+    }
+    if (!__syncthreads_or(p < a.K)) break;
   }
 }
 
@@ -654,11 +921,14 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
 }
 
-// The kernel of a state mode: two streams a thread in a 16-bit state.
+// The kernel of a mode and a state mode: two streams a thread in a 16-bit
+// state; a 32-bit chained tile is stream_chain_kernel (ChainArgs).
 template <int R, int kMode, int kState>
 constexpr auto kernel_of() {
   if constexpr (kPacked<kState>) {
     return stream_wavefront_x2_kernel<R, kMode, kState>;
+  } else if constexpr (kMode == kChained) {
+    return stream_chain_kernel<R, kState, true>;
   } else {
     return stream_wavefront_kernel<R, kMode, kState>;
   }
@@ -672,6 +942,17 @@ cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
   const long long threads = ((long long)a.S + P - 1) / P * W;
   const int blocks = (int)((threads + kBlock - 1) / kBlock);
   kernel_of<R, kMode, kState>()<<<dim3(blocks, slices), kBlock, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// A chain (or one tile) in a 32-bit state: a block of `ring` warps a group
+// of streams, a slice a grid row.
+template <int R, int kState, bool kOneTile>
+cudaError_t launch_chain(const ChainArgs& a, int ring, int slices, cudaStream_t stream) {
+  constexpr int SL = kLanes / R;
+  constexpr int NG = 32 / (SL < 32 ? SL : 32);  // streams a warp holds
+  const int groups = (a.S + NG - 1) / NG;
+  stream_chain_kernel<R, kState, kOneTile><<<dim3(groups, slices), 32 * ring, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -727,17 +1008,22 @@ cudaError_t launch_rows(int rows, int width, int state, const Args& a,
   });
 }
 
-// Registers a thread, local (spill) bytes a thread and resident blocks an
-// SM of one instantiation.
-template <int R, int kMode, int kState>
-cudaError_t kernel_info(int* out) {
+// Registers a thread, local (spill) bytes a thread, resident blocks an SM
+// of kBlock threads and static shared bytes a block of a kernel.
+template <class F>
+cudaError_t func_info(F* kernel, int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel_of<R, kMode, kState>());
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], kernel_of<R, kMode, kState>(), kBlock, 0);
+  out[3] = (int)fa.sharedSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, kBlock, 0);
+}
+
+template <int R, int kMode, int kState>
+cudaError_t kernel_info(int* out) {
+  return func_info(kernel_of<R, kMode, kState>(), out);
 }
 
 }  // namespace
@@ -770,8 +1056,10 @@ extern "C" int swtpu_stream_wavefront(const void* qk, const void* sk,
 // One chained tile at segments 1: qk [128, S] int8, sk [T, S] int8,
 // bD/bG/bH [T, S] int32 -> acc, oD, oG, oH [T, S] int32 (biased in the
 // biased mode).  rows in {1, 2, 4, 8, 16}; T % 8 == 0; slices, width and
-// state as for swtpu_stream_wavefront.  The caller checks these.  Returns
-// the launch's CUDA error.
+// state as for swtpu_stream_wavefront.  A 32-bit state runs
+// stream_chain_kernel at K = 1 with the strips switched on, a 16-bit one
+// stream_wavefront_x2_kernel.  The caller checks these.  Returns the
+// launch's CUDA error.
 extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
                                     const void* bD, const void* bG,
                                     const void* bH, void* acc, void* oD,
@@ -779,19 +1067,68 @@ extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
                                     int rows, int ma, int mi, int go, int ge,
                                     void* stream, int slices, int width,
                                     int state) {
-  const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
-               static_cast<const int32_t*>(bD), static_cast<const int32_t*>(bG),
-               static_cast<const int32_t*>(bH), static_cast<int32_t*>(acc),
-               static_cast<int32_t*>(oD), static_cast<int32_t*>(oG),
-               static_cast<int32_t*>(oH), S, T, 1, ma, mi, go, ge, width};
-  return launch_rows<kChained>(rows, width, state, a, slices,
-                               static_cast<cudaStream_t>(stream));
+  const auto* q8 = static_cast<const int8_t*>(qk);
+  const auto* s8 = static_cast<const int8_t*>(sk);
+  const auto *d = static_cast<const int32_t*>(bD), *g = static_cast<const int32_t*>(bG),
+             *h = static_cast<const int32_t*>(bH);
+  auto *o = static_cast<int32_t*>(acc), *od = static_cast<int32_t*>(oD),
+       *og = static_cast<int32_t*>(oG), *oh = static_cast<int32_t*>(oH);
+  const Args a{q8, s8, d, g, h, o, od, og, oh, S, T, 1, ma, mi, go, ge, width};
+  const ChainArgs c{q8, s8, d, g, h, o, od, og, oh, S, T, 1, ma, mi, go, ge, width};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_state(width, state, [&](auto m) {
+    return with_rows(rows, [&](auto r) {
+      constexpr int M = decltype(m)::value, R = decltype(r)::value;
+      if constexpr (!kInstantiated<M, R>) {
+        return cudaErrorInvalidValue;
+      } else if constexpr (kPacked<M>) {
+        return launch<R, kChained, M>(a, slices, st);
+      } else {
+        return launch_chain<R, M, true>(c, 1, slices, st);
+      }
+    });
+  });
 }
 
-// out[3] = registers a thread, local bytes a thread, resident blocks an SM
-// of the instantiation for `rows` in `mode` (0 tail accumulator, 1 ripple-H
-// at rows 1, 2 chained tile) and the state mode of width and state.
-// Returns the CUDA error.
+// A whole chain of K tiles in a 32-bit state: qk [K, 128, S] int8 (tile
+// p's register at p x 128 x S), sk [T, S] int8 -> strip [T, S] int32, the
+// last tile's accumulator (biased in the biased mode).  `ring` warps a
+// block in 1..4, at most K; wrap: [3, T, S] int32 scratch, the strips
+// through which every ring-th tile hands its row 127 on (null when
+// K <= ring).  rows, T, slices, width and state as for
+// swtpu_stream_chained; a 16-bit state returns cudaErrorInvalidValue.
+// The caller checks these.  Returns the launch's CUDA error.
+extern "C" int swtpu_stream_chain(const void* qk, const void* sk, void* strip,
+                                  void* wrap, int S, int T, int K, int rows,
+                                  int ma, int mi, int go, int ge, void* stream,
+                                  int slices, int ring, int width, int state) {
+  if (ring < 1 || ring > kRingWarps || ring > K || (K > ring && wrap == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  int32_t* w = static_cast<int32_t*>(wrap);
+  const size_t n = (size_t)T * S;
+  const ChainArgs a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
+                    nullptr, nullptr, nullptr, static_cast<int32_t*>(strip),
+                    w, w ? w + n : nullptr, w ? w + 2 * n : nullptr,
+                    S, T, K, ma, mi, go, ge, width};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_state(width, state, [&](auto m) {
+    return with_rows(rows, [&](auto r) {
+      constexpr int M = decltype(m)::value, R = decltype(r)::value;
+      if constexpr (kPacked<M>) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch_chain<R, M, false>(a, ring, slices, st);
+      }
+    });
+  });
+}
+
+// out[4] = registers a thread, local bytes a thread, resident blocks an SM
+// of kBlock threads and static shared bytes a block of the instantiation
+// for `rows` in `mode` (0 tail accumulator, 1 ripple-H at rows 1, 2
+// chained tile, 3 the whole chain, 32-bit states only) and the state mode
+// of width and state.  Returns the CUDA error.
 extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
                                         int state, int* out) {
   return with_state(width, state, [&](auto m) {
@@ -802,11 +1139,17 @@ extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
     }
     return with_rows(rows, [&](auto r) {
       constexpr int R = decltype(r)::value;
-      if constexpr (kInstantiated<K, R>) {
+      if constexpr (!kInstantiated<K, R>) {
+        return cudaErrorInvalidValue;
+      } else if (mode == kChainMode) {
+        if constexpr (kPacked<K>) {
+          return cudaErrorInvalidValue;
+        } else {
+          return func_info(stream_chain_kernel<R, K, false>, out);
+        }
+      } else {
         return mode == kChained ? kernel_info<R, kChained, K>(out)
                                 : kernel_info<R, kTailAcc, K>(out);
-      } else {
-        return cudaErrorInvalidValue;
       }
     });
   });

@@ -12,7 +12,9 @@ instead be the tail row's rippled H (``tail_acc=False``).
 Queries longer than 128 bases chain K = ceil(len/128) tiles of 128 query
 rows (``sw_scores_stream_long``): each tile's row 0 reads the tile above's
 row-127 D/G/H from boundary strips, and each tile emits its own row 127
-for the tile below.
+for the tile below.  On CUDA in a 32-bit state one launch runs the whole
+chain (``stream_chain_cuda``): the tiles run side by side, a fixed lag
+apart, and hand row 127 down on the chip.
 
 Every form runs in swtpu's six state modes: exact int32 state; float32
 state (the same values, exact below 2^24); the RTL's W-bit biased
@@ -32,15 +34,20 @@ PyTorch versions of the two kernels; ``stream_strip_cuda`` and
 (``csrc/stream_wavefront.cu``), which cut each stream's steps into time
 slices that restart at read starts (``choose_slices``) and give the same
 strips bit for bit; in a 16-bit state a thread holds two streams, one in
-each half of its 32-bit registers.  ``_strip_call`` and ``_strip_call_chained`` take the
-plain version for a tensor on the CPU and the kernel for a CUDA tensor;
-there is no fallback from one to the other.
+each half of its 32-bit registers.  ``stream_chain_cuda`` is the chained
+tile's kernel over a whole chain (``chain_geometry``), whose plain
+version is ``_long_strip`` with ``stream_chained_reference``; the per-tile
+``stream_chained_cuda`` is the same kernel at K = 1 in a 32-bit state.
+``_strip_call`` and ``_strip_call_chained`` take the plain version for a
+tensor on the CPU and the kernel for a CUDA tensor; there is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
 
 import functools
 import operator
+from typing import NamedTuple
 
 import torch
 
@@ -66,6 +73,13 @@ RESIDENT_WARPS_PER_SM = 12  # what the kernel's __launch_bounds__ guarantees
 SLICE_WARPS_PER_SM = 32
 MIN_SLICE_STEPS = 1024
 PIPE_FILLS_PER_SLICE = 16
+# The chain kernel: a block runs up to RING_WARPS tiles of one group of
+# streams side by side, each a lag of chain_lag_chunks(rows) chunks of
+# CHAR_CHUNK steps behind the one above, handing row 127 down through a
+# ring of RING_STEPS steps in shared memory (csrc/stream_wavefront.cu)
+RING_WARPS = KERNEL_BLOCK // 32
+RING_STEPS = 32
+CHAR_CHUNK = 8  # steps whose chars the kernels load together
 
 
 # the wavefront's state types, as the plain version holds them: the
@@ -413,20 +427,75 @@ def streams_per_thread(state_dtype):
     return 2 if state_dtype in SIXTEEN_BIT_STATES else 1
 
 
-def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32"):
+def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32", tiles=1):
     """The wrapper's slice count for S physical streams at `rows` and
     `segments` over T steps in `state_dtype` on a card of `sms` SMs: a
     grid of about SLICE_WARPS_PER_SM warps for every SM (a slice has
-    ceil(S / streams_per_thread) x min(128 / rows, 32) threads), with no
-    slice under MIN_SLICE_STEPS steps nor under PIPE_FILLS_PER_SLICE times
-    the steps a slice takes to fill a segment's pipe; 2 slices where that
-    leaves fewer and T >= MIN_SLICE_STEPS; at least 1."""
-    threads = -(-S // streams_per_thread(state_dtype)) * min(LANES // rows, 32)
+    ceil(S / streams_per_thread) x min(128 / rows, 32) threads, times the
+    `tiles` a chain's block runs side by side), with no slice under
+    MIN_SLICE_STEPS steps nor under PIPE_FILLS_PER_SLICE times the steps a
+    slice takes to fill a segment's pipe; 2 slices where that leaves fewer
+    and T >= MIN_SLICE_STEPS; at least 1."""
+    threads = -(-S // streams_per_thread(state_dtype)) * min(LANES // rows, 32) * tiles
     blocks = -(-threads // KERNEL_BLOCK)
     want = round(sms * SLICE_WARPS_PER_SM * 32 / KERNEL_BLOCK / blocks)
     shortest = max(MIN_SLICE_STEPS, PIPE_FILLS_PER_SLICE * (LANES // rows // segments))
     fit = max(T // shortest, 2 if T >= MIN_SLICE_STEPS else 1)
     return max(1, min(want, fit))
+
+
+def chain_lag_chunks(rows):
+    """Chunks of CHAR_CHUNK steps by which a chain's tile runs behind the
+    tile above in a block's ring: its row 0 at step t reads the tile
+    above's row 127 at step t + SL - 1 (SL = 128 / rows), so the tile above
+    must have finished the chunk that holds that step for t up to the last
+    of a chunk."""
+    return (LANES // rows + CHAR_CHUNK - 2) // CHAR_CHUNK + 1
+
+
+def chain_wrap_lag_chunks(rows):
+    """Chunks by which the ring's first warp runs behind the last warp's
+    tile above it, whose row 127 it reads from the wrap strips in device
+    memory, staged two chunks ahead: the tile above must have finished
+    step t + 2 x CHAR_CHUNK + SL - 2 for t up to the last of a chunk."""
+    return (LANES // rows + 3 * CHAR_CHUNK - 3) // CHAR_CHUNK + 1
+
+
+class ChainGeometry(NamedTuple):
+    """How the chain kernel runs K tiles over S streams and T steps: `ring`
+    warps a block (tiles side by side; warp w runs tiles w, w + ring, ...),
+    each `lag_chunks` chunks behind the one above (`wrap_lag_chunks` where
+    it reads the wrap strips), `ring_steps` steps of row 127 in a block's
+    shared-memory ring, `streams_per_warp` streams a block, `blocks` blocks
+    a slice of `block_threads` threads, `slices` time slices, and whether
+    every ring-th tile hands its row 127 on through [3, T, S] strips in
+    device memory (`wrap`)."""
+
+    ring: int
+    lag_chunks: int
+    wrap_lag_chunks: int
+    ring_steps: int
+    streams_per_warp: int
+    blocks: int
+    block_threads: int
+    slices: int
+    wrap: bool
+
+
+def chain_geometry(S, rows, T, K, sms):
+    """The chain kernel's geometry for K tiles over S streams and T steps
+    at `rows` on a card of `sms` SMs: min(K, RING_WARPS) warps a block.
+    The slices are choose_slices' for the grid a slice holds at once, the
+    streams times the ring's warps: a block runs its K tiles in passes of
+    the ring, so the resident grid, not the K tiles, sets how many warps
+    each SM gets."""
+    ring = min(K, RING_WARPS)
+    per_warp = 32 // min(LANES // rows, 32)
+    return ChainGeometry(
+        ring=ring, lag_chunks=chain_lag_chunks(rows),
+        wrap_lag_chunks=chain_wrap_lag_chunks(rows), ring_steps=RING_STEPS,
+        streams_per_warp=per_warp, blocks=-(-S // per_warp), block_threads=32 * ring,
+        slices=choose_slices(S, rows, T, sms, tiles=ring), wrap=K > ring)
 
 
 def slice_steps(T, slices):
@@ -546,6 +615,66 @@ def stream_chained_cuda(
 stream_chained_cuda.launches = stream_chained_cuda.slices = stream_chained_cuda.slice_steps = 0
 
 
+def stream_chain_cuda(qks, sk, penalties=DEFAULT_PENALTIES, rows=16, slices=None,
+                      score_width=None, state_dtype="int32"):
+    """The chain kernel: every tile of a long-query chain in one launch.
+    qks [K, 128, S] int8 (tile p's register in kernel layout, as
+    ``_long_strip`` lays them out), sk [T, S] int8 -> the last tile's
+    accumulator strip [T, S] int32 (biased with score_width), equal to the
+    plain chain's (``_long_strip`` with ``stream_chained_reference``).
+    CUDA tensors and 32-bit states only.  ``slices`` as for
+    :func:`stream_strip_cuda` (None: :func:`chain_geometry`'s); the
+    strip does not depend on them.  Launches on the current stream, counts
+    each launch in ``stream_chain_cuda.launches`` and records the last
+    launch's ``.slices`` and ``.slice_steps``."""
+    from swtpu_torch.ops._build import load_library
+
+    if state_dtype in SIXTEEN_BIT_STATES:
+        raise ValueError(f"the chain kernel takes 32-bit states, not {state_dtype!r}; "
+                         "a 16-bit chain runs a tile a launch (stream_chained_cuda)")
+    _validate_config(1, rows, state_dtype, score_width, penalties)
+    _check_kernel_tensors(qks=(qks, torch.int8), sk=(sk, torch.int8))
+    if qks.dim() != 3 or qks.shape[1] != LANES or qks.shape[2] != sk.shape[1]:
+        raise ValueError(f"qks must be [K, {LANES}, S] for a [T, S] stream, got "
+                         f"{tuple(qks.shape)} for {tuple(sk.shape)}")
+    K, _, S = qks.shape
+    T = sk.shape[0]
+    if K < 1:
+        raise ValueError("a chain needs at least one tile")
+    if T % STEP_CHUNK:
+        raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
+    geometry = chain_geometry(S, rows, T, K, _sm_count(qks.device))
+    slices = geometry.slices if slices is None else _slice_count(slices, S, rows, T, None)
+    out = torch.empty((T, S), dtype=torch.int32, device=qks.device)
+    if T == 0 or S == 0:
+        return out
+    # the wrap strips: [3, T, S], written and read by the kernel alone
+    wrap = (torch.empty((3, T, S), dtype=torch.int32, device=qks.device)
+            if geometry.wrap else None)
+    lib = load_library()
+    ma, mi, go, ge = penalties.astuple()
+    with torch.cuda.device(qks.device):
+        err = lib.swtpu_stream_chain(
+            qks.data_ptr(), sk.data_ptr(), out.data_ptr(),
+            None if wrap is None else wrap.data_ptr(), S, T, K, rows, ma, mi, go, ge,
+            torch.cuda.current_stream().cuda_stream, slices, geometry.ring,
+            *_kernel_state(score_width, state_dtype),
+        )
+    _raise_on_error(lib, err, "stream_chain")
+    stream_chain_cuda.launches += 1
+    _record_slices(stream_chain_cuda, slices, T)
+    return out
+
+
+stream_chain_cuda.launches = stream_chain_cuda.slices = stream_chain_cuda.slice_steps = 0
+
+
+def chained_launches():
+    """Launches of the chained tile's kernels so far: whole chains
+    (stream_chain_cuda) and single tiles (stream_chained_cuda)."""
+    return stream_chain_cuda.launches + stream_chained_cuda.launches
+
+
 def stream_kernel_info(rows, tail_acc=True, chained=False, score_width=None,
                        state_dtype="int32"):
     """(registers a thread, local spill bytes a thread, resident blocks an
@@ -553,15 +682,30 @@ def stream_kernel_info(rows, tail_acc=True, chained=False, score_width=None,
     ripple-H form at rows 1 with tail_acc=False; the chained tile with
     chained=True) in the state mode that `score_width` and `state_dtype`
     pick, from the CUDA runtime on the current device."""
+    # the instantiation does not depend on the penalties: none refused here
+    _validate_config(1, rows, state_dtype, score_width, Penalties(0, 0, 0, 0))
+    return _kernel_info(rows, 2 if chained else (1 if not tail_acc and rows == 1 else 0),
+                        score_width, state_dtype)[:3]
+
+
+def stream_chain_info(rows, score_width=None, state_dtype="int32"):
+    """(registers a thread, local spill bytes a thread, resident blocks of
+    KERNEL_BLOCK threads an SM, static shared bytes a block) of the chain
+    kernel's instantiation for `rows` in a 32-bit state, from the CUDA
+    runtime on the current device."""
+    _validate_config(1, rows, state_dtype, score_width, Penalties(0, 0, 0, 0))
+    if state_dtype in SIXTEEN_BIT_STATES:
+        raise ValueError(f"the chain kernel takes 32-bit states, not {state_dtype!r}")
+    return _kernel_info(rows, 3, score_width, state_dtype)
+
+
+def _kernel_info(rows, mode, score_width, state_dtype):
     import ctypes
 
     from swtpu_torch.ops._build import load_library
 
-    # the instantiation does not depend on the penalties: none refused here
-    _validate_config(1, rows, state_dtype, score_width, Penalties(0, 0, 0, 0))
     lib = load_library()
-    mode = 2 if chained else (1 if not tail_acc and rows == 1 else 0)
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     err = lib.swtpu_stream_kernel_info(rows, mode, *_kernel_state(score_width, state_dtype), out)
     _raise_on_error(lib, err, "stream_kernel_info")
     return tuple(out)
@@ -739,8 +883,17 @@ def _validate_long(q, T, rows, state_dtype="int32", score_width=None,
         raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
 
 
-def _long_strip(q, sk, penalties, rows, tile=_strip_call_chained, score_width=None,
-                state_dtype="int32"):
+def tile_registers(q, rows):
+    """Every tile's query register of q [N, K*128] in one copy: [K, 128, N]
+    int8, tile p's _q_kernel_layout(q[:, p*128 : (p+1)*128], 1, rows), as
+    the chain kernel (stream_chain_cuda) takes them."""
+    N, width = q.shape
+    K = width // LANES
+    qks = q.reshape(N, K, LANES // rows, rows).permute(1, 3, 2, 0).reshape(K, LANES, N)
+    return qks.to(torch.int8).contiguous()
+
+
+def _long_strip(q, sk, penalties, rows, tile=None, score_width=None, state_dtype="int32"):
     """The K-tile chain on q [N, K*128] and the kernel-layout stream sk
     [T, N] int8 -> the last tile's accumulator strip [T, N] int32 (biased
     with score_width).
@@ -751,23 +904,28 @@ def _long_strip(q, sk, penalties, rows, tile=_strip_call_chained, score_width=No
     outputs shifted left by those steps.  The first tile's boundaries and
     the shifts' fill are the boundary zero: 0, or the bias 2^(W-1) in
     wrap-parity (a plain 0 there would make row 0's M wrap to 2^W - 4 at
-    the first mismatch).  Only the previous tile's strips stay alive.
-    `tile` runs one tile (``_strip_call_chained``'s contract, the mode as
-    keywords).
+    the first mismatch).
 
-    The host's work a tile is kept small, since a set of long-query jobs
-    is dispatched from one thread: every tile's query register is laid
-    out in one copy, and each shift is one concatenation onto rows of the
-    first tile's boundary zero, which no tile writes."""
-    N, width = q.shape
-    K = width // LANES
+    On CUDA in a 32-bit state, with no `tile` given, one launch of the
+    chain kernel (``stream_chain_cuda``) runs every tile and hands the
+    boundaries down on the chip: no shift and no intermediate strip is
+    made.  Otherwise each tile runs through `tile` (``_strip_call_chained``'s
+    contract, the mode as keywords; None: ``_strip_call_chained``, the
+    plain tile on the CPU and a launch a tile on CUDA), only the previous
+    tile's strips stay alive, every tile's register is laid out in one
+    copy, and each shift is one concatenation onto rows of the first
+    tile's boundary zero, which no tile writes."""
+    K = q.shape[1] // LANES
     SL = LANES // rows
+    qks = tile_registers(q, rows)
+    if tile is None:
+        if sk.device.type == "cuda" and state_dtype not in SIXTEEN_BIT_STATES:
+            return stream_chain_cuda(qks, sk, penalties, rows, score_width=score_width,
+                                     state_dtype=state_dtype)
+        tile = _strip_call_chained
     zero = _bias(score_width)
     zeros = torch.full(tuple(sk.shape), zero, dtype=torch.int32, device=sk.device)
     acc = bD = bG = bH = zeros
-    # tile p's register is _q_kernel_layout(q[:, p*128 : (p+1)*128], 1, rows)
-    qks = q.reshape(N, K, SL, rows).permute(1, 3, 2, 0).reshape(K, LANES, N)
-    qks = qks.to(torch.int8).contiguous()
     for p in range(K):
         acc, oD, oG, oH = tile(qks[p], sk, bD, bG, bH, penalties, rows,
                                score_width=score_width, state_dtype=state_dtype)

@@ -134,7 +134,7 @@ def main(argv=None) -> int:
         csum = checksum(local_scores)
 
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import chained_launches, stream_strip_cuda
 
     np.savez(
         args.output,
@@ -145,7 +145,7 @@ def main(argv=None) -> int:
         pid=args.pid,
         checksum=csum,
         launches_wavefront=stream_strip_cuda.launches,
-        launches_chained=stream_chained_cuda.launches,
+        launches_chained=chained_launches(),
         launches_column=column_scores_cuda.launches,
         launches_column_chained=column_chained_cuda.launches,
     )

@@ -278,13 +278,117 @@ def test_long_query_score_database_equals_oracle(cuda_device, qlen, wire):
     rng = np.random.default_rng(qlen + wire)
     db = _db(rng, 2000, 200)
     query = rng.integers(0, 4, size=qlen).astype(np.int8)
-    launches = port.stream_chained_cuda.launches
+    launches = port.stream_chain_cuda.launches, port.stream_chained_cuda.launches
     res = ScoreBank(SWConfig(wire_2bit=wire), device=cuda_device).score_database(query, db)
     K = -(-qlen // 128)
-    assert port.stream_chained_cuda.launches == launches + K
+    # one launch of the chain kernel runs the K tiles
+    assert (port.stream_chain_cuda.launches - launches[0],
+            port.stream_chained_cuda.launches - launches[1]) == (1, 0)
     np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
     b = pack_streams_long(query, db.mat, n_streams=512, rows=16, lens=db.lens)
     assert (res.cells, res.padded_cells) == (b.cells, b.stream.size * 128 * K)
+
+
+CHAIN_MODES = {"int32": (None, "int32"), "biased W=12": (12, "int32"),
+               "float32": (None, "float32")}
+
+
+def _chain_case(rows, K, S, reads, lo, hi):
+    """(q [S, K*128], sk [T, S]) on the card's host side: `reads` reads of
+    lo-hi bases packed as ScoreBank packs them (fewer reads than streams
+    leave whole warps of pads), every 5th a window of the query across a
+    tile boundary, the query 5 bases short of K tiles."""
+    rng = np.random.default_rng(rows * 100 + K + S)
+    query = rng.integers(0, 4, size=128 * K - 5).astype(np.int8)
+    reads_ = [rng.integers(0, 4, size=int(n)).astype(np.int8)
+              for n in rng.integers(lo, hi + 1, size=reads)]
+    for i in range(0, reads, 5):
+        if K > 1:
+            at = 128 * int(rng.integers(1, K))
+            reads_[i] = query[at - int(rng.integers(5, 60)) : at + int(rng.integers(5, 60))]
+    b = pack_streams_long(query, reads_, n_streams=S, rows=rows)
+    return torch.from_numpy(b.q), torch.from_numpy(b.stream.T.copy())
+
+
+# (rows, K): every row count at a few tiles (rows 1: an 18-chunk lag),
+# and rows 16 up to the 32 tiles of a 4,095-base query
+CHAIN_CASES = [(r, k) for r in (1, 4, 8) for k in (1, 2, 5)] + [
+    (16, k) for k in (1, 2, 3, 4, 5, 8, 9, 17, 32)]
+
+
+@pytest.mark.parametrize("mode", list(CHAIN_MODES))
+@pytest.mark.parametrize("rows,K", CHAIN_CASES)
+def test_chain_kernel_equals_per_tile_chain(cuda_device, rows, K, mode):
+    """The chain kernel's strip = the per-tile kernel's chain (K launches,
+    the host's shifts) on the whole strip, bit for bit: on 42 streams full
+    of reads (a ragged last warp) and on 512 streams of which 64 hold reads
+    (whole warps of pads, skipped); at the geometry's slices and at
+    32-step slices; from K = 5 on, every 4th tile is fed through the wrap
+    strips; one launch a call."""
+    width, dtype = CHAIN_MODES[mode]
+    kw = dict(score_width=width, state_dtype=dtype)
+    for S, reads, lo, hi in ((42, 300, 10, 120), (512, 64, 100, 300)):
+        q, sk = _chain_case(rows, K, S, reads, lo, hi)
+        q, sk = q.to(cuda_device), sk.to(cuda_device)
+        launches = port.stream_chained_cuda.launches
+        want = port._long_strip(q, sk, DEFAULT_PENALTIES, rows,
+                                tile=port.stream_chained_cuda, **kw)
+        assert port.stream_chained_cuda.launches == launches + K
+        qks = port.tile_registers(q, rows)
+        T = sk.shape[0]
+        for run in (dict(), dict(slices=T // port.STEP_CHUNK)):
+            launches = port.stream_chain_cuda.launches
+            got = port.stream_chain_cuda(qks, sk, DEFAULT_PENALTIES, rows, **run, **kw)
+            torch.cuda.synchronize()
+            assert port.stream_chain_cuda.launches == launches + 1
+            np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                          err_msg=f"S={S} {run}")
+        launches = port.stream_chain_cuda.launches, port.stream_chained_cuda.launches
+        got = port._long_strip(q, sk, DEFAULT_PENALTIES, rows, **kw)
+        assert (port.stream_chain_cuda.launches - launches[0],
+                port.stream_chained_cuda.launches - launches[1]) == (1, 0)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", list(CHAIN_MODES))
+def test_chain_kernel_equals_plain_chain(cuda_device, mode):
+    """The chain kernel against the plain chain (_long_strip with the plain
+    tile on the CPU), K = 3 at rows 16 and K = 2 at rows 1."""
+    width, dtype = CHAIN_MODES[mode]
+    kw = dict(score_width=width, state_dtype=dtype)
+    for rows, K in ((16, 3), (1, 2)):
+        q, sk = _chain_case(rows, K, 42, 120, 10, 80)
+        want = port._long_strip(q, sk, DEFAULT_PENALTIES, rows, **kw)
+        got = port._long_strip(q.to(cuda_device), sk.to(cuda_device), DEFAULT_PENALTIES,
+                               rows, **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"rows {rows}")
+
+
+@pytest.mark.parametrize("rows", port.ROWS)
+def test_chain_kernel_holds_its_occupancy(cuda_device, rows):
+    """Every 32-bit instantiation of the chain kernel holds the resident
+    warps its launch bounds promise, without spilling, and its ring in
+    shared memory."""
+    for width, dtype in CHAIN_MODES.values():
+        regs, local, blocks, shared = port.stream_chain_info(rows, width, dtype)
+        assert 0 < regs <= 65536 // (port.RESIDENT_WARPS_PER_SM * 32)
+        assert local == 0
+        assert blocks * port.KERNEL_BLOCK >= port.RESIDENT_WARPS_PER_SM * 32
+        assert (port.RING_WARPS - 1) * port.RING_STEPS * 3 * 4 <= shared <= 8192
+
+
+def test_chain_kernel_rejects_bad_inputs(cuda_device):
+    """Bad shapes and a 16-bit state raise before any launch."""
+    qks = torch.zeros((3, 128, 8), dtype=torch.int8, device=cuda_device)
+    sk = torch.zeros((64, 8), dtype=torch.int8, device=cuda_device)
+    launches = port.stream_chain_cuda.launches
+    with pytest.raises(ValueError, match="qks must be"):
+        port.stream_chain_cuda(qks[:, :64], sk, DEFAULT_PENALTIES, 16)
+    with pytest.raises(ValueError, match="32-bit states"):
+        port.stream_chain_cuda(qks, sk, DEFAULT_PENALTIES, 8, state_dtype="int16")
+    with pytest.raises(ValueError, match="stream length"):
+        port.stream_chain_cuda(qks, sk[:40], DEFAULT_PENALTIES, 16)
+    assert port.stream_chain_cuda.launches == launches
 
 
 def _column_batch(rng, B, m, n):
@@ -833,10 +937,10 @@ def test_stream_score_width_equals_biased_oracle(cuda_device):
     queries, targets = _pairs(rng, 200, 24, 128, 30)
     longs, ltargets = _pairs(rng, 40, 420, 500, 2)
     queries, targets = queries + longs, targets + ltargets
-    launches = port.stream_strip_cuda.launches, port.stream_chained_cuda.launches
+    launches = port.stream_strip_cuda.launches, port.stream_chain_cuda.launches
     res = bank.score_pairs(queries, targets)
     assert port.stream_strip_cuda.launches > launches[0]
-    assert port.stream_chained_cuda.launches - launches[1] == 2 * 4  # 2 queries of 4 tiles
+    assert port.stream_chain_cuda.launches - launches[1] == 2  # 2 chains of 4 tiles
     want = [sw_score_single_biased(q, t, DEFAULT_PENALTIES, 12) for q, t in zip(queries, targets)]
     np.testing.assert_array_equal(res.scores, want)
     assert res.scores[200] < 5 * len(queries[200])  # wrapped
@@ -870,7 +974,7 @@ def _long_query_pairs(rng):
 @pytest.mark.parametrize("width", [None, 12])
 def test_pair_jobs_side_by_side(cuda_device, width, monkeypatch, tmp_path):
     """score_pairs' long-query jobs on CUDA streams of their own: the
-    oracle's and the column path's scores, one B3 launch a tile of every
+    oracle's and the column path's scores, one B3 launch (its chain) a
     job, the jobs on at least 2 streams; with a window of 1 (each job
     finished before the next is dispatched) the same scores and records."""
     queries, targets = _long_query_pairs(np.random.default_rng(40 + (width or 0)))
@@ -889,10 +993,9 @@ def test_pair_jobs_side_by_side(cuda_device, width, monkeypatch, tmp_path):
         streams.clear()
         monkeypatch.setattr(scorebank, "JOB_WINDOW", window)
         log = EventLog(tmp_path / f"events{window}.jsonl")
-        launches = port.stream_chained_cuda.launches
+        launches = port.stream_chain_cuda.launches
         res = bank.score_pairs(queries, targets, event_log=log)
-        assert port.stream_chained_cuda.launches - launches == sum(
-            -(-len(q) // 128) for q in distinct.values())
+        assert port.stream_chain_cuda.launches - launches == len(distinct)
         log.close()
         records = [(e.kind, e.reads, e.cells, e.padded_cells, e.note)
                    for e in EventLog.parse(tmp_path / f"events{window}.jsonl")]
@@ -1207,12 +1310,14 @@ def test_loaded_database_equals_score_database(cuda_device, case, wire):
     bank = ScoreBank(cfg, backend="stream", device=cuda_device)
     loaded = bank.load_database(reads, max_query_len=cap)
     assert loaded.stream.is_cuda and loaded.stream.is_contiguous()
-    port.stream_strip_cuda.launches = port.stream_chained_cuda.launches = 0
+    port.stream_strip_cuda.launches = port.stream_chain_cuda.launches = 0
+    port.stream_chained_cuda.launches = 0
     wave = bank.score_loaded_many(queries, loaded)
     short = sum(len(q) <= 128 for q in queries)
     assert port.stream_strip_cuda.launches == short
-    assert port.stream_chained_cuda.launches == sum(-(-len(q) // 128)
-                                                    for q in queries if len(q) > 128)
+    # one chain a longer query, no tile on its own
+    assert port.stream_chain_cuda.launches == len(queries) - short
+    assert port.stream_chained_cuda.launches == 0
     for q, res in zip(queries, wave):
         want = bank.score_database(q, reads)
         np.testing.assert_array_equal(res.scores, want.scores)
@@ -1453,7 +1558,8 @@ def test_sharded_topk_on_the_card(cuda_mesh, backend, m):
 @pytest.mark.parametrize("qlen", [100, 256])
 def test_sharded_stream_scorer_on_the_card(cuda_mesh, qlen):
     """make_sharded_stream_scorer over 4 shards of one card: one B1 a shard
-    (2 B3 tiles a shard at 256 bases), the one-device scores and top-k."""
+    (one B3 chain of 2 tiles a shard at 256 bases), the one-device scores
+    and top-k."""
     from swtpu_torch.bank.scorebank import stream_geometry
     from swtpu_torch.bank.streams import pack_streams_sharded, scatter_sharded_scores
     from swtpu_torch.parallel.sharded import make_sharded_stream_scorer
@@ -1464,13 +1570,13 @@ def test_sharded_stream_scorer_on_the_card(cuda_mesh, qlen):
     segments, rows, phys = stream_geometry(qlen, SWConfig(), "cuda")
     b = pack_streams_sharded(query, db, 4, n_streams=phys * segments, segments=segments,
                              rows=rows)
-    launches = (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches)
+    launches = (port.stream_strip_cuda.launches, port.stream_chain_cuda.launches)
     s, top_s, top_ids = make_sharded_stream_scorer(
         cuda_mesh, k=10, segments=segments, rows=rows, emit_regular=b.emit_regular)(
         b.q, b.stream, b.emit_stream, b.emit_step.astype(np.int32), b.ids)
     launched = (port.stream_strip_cuda.launches - launches[0],
-                port.stream_chained_cuda.launches - launches[1])
-    assert launched == ((4, 0) if qlen <= 128 else (0, 8))
+                port.stream_chain_cuda.launches - launches[1])
+    assert launched == ((4, 0) if qlen <= 128 else (0, 4))
     got = scatter_sharded_scores(s, b, len(db.lens))
     one = ScoreBank(device="cuda").score_database(query, db)
     np.testing.assert_array_equal(got, one.scores)
@@ -1497,10 +1603,10 @@ def test_loaded_sharded_on_the_card(cuda_mesh):
     assert sharded.n_shards == 4 and all(s.is_cuda and s.is_contiguous()
                                          for s in sharded.streams)
     queries = [query, rng.integers(0, 4, size=200).astype(np.int8)]
-    launches = (port.stream_strip_cuda.launches, port.stream_chained_cuda.launches)
+    launches = (port.stream_strip_cuda.launches, port.stream_chain_cuda.launches)
     many = bank.score_loaded_many_sharded(queries, sharded)
     assert (port.stream_strip_cuda.launches - launches[0],
-            port.stream_chained_cuda.launches - launches[1]) == (4, 8)
+            port.stream_chain_cuda.launches - launches[1]) == (4, 4)  # a chain a shard
     for q, r in zip(queries, many):
         want = bank.score_loaded(q, one)
         np.testing.assert_array_equal(r.scores, want.scores)
@@ -1554,7 +1660,8 @@ def test_ladder_4095_query_on_the_card(cuda_device, state):
     """chip_smoke.py's case (q) at 4,096 reads: a 4,095-base query against
     reads of 128 bases, every 64th a window of the query.  The stream
     backend's 32 B3 tiles a call = the column path's 16 B5 tiles = the
-    oracle on a sample, the windows and the top-10."""
+    oracle on a sample, the windows and the top-10.  The 32 B3 tiles run
+    in one launch of the chain kernel."""
     rng = np.random.default_rng(4095)
     n, L = 4096, 128
     query = rng.integers(0, 4, size=4095).astype(np.int8)
@@ -1563,10 +1670,11 @@ def test_ladder_4095_query_on_the_card(cuda_device, state):
     for r, off in zip(windows, rng.integers(0, 4095 - L + 1, size=len(windows))):
         mat[r] = query[off : off + L]
     db = EncodedDB([f"db{i}" for i in range(n)], mat, np.full(n, L, np.int32))
-    port.stream_chained_cuda.launches = column.column_chained_cuda.launches = 0
+    port.stream_chain_cuda.launches = column.column_chained_cuda.launches = 0
+    port.stream_chained_cuda.launches = 0
     got = ScoreBank(SWConfig(stream_state_dtype=state), backend="stream",
                     device=cuda_device).score_database(query, db)
-    assert port.stream_chained_cuda.launches == 32
+    assert (port.stream_chain_cuda.launches, port.stream_chained_cuda.launches) == (1, 0)
     col = ScoreBank(backend="pallas", device=cuda_device).score_database(query, db)
     assert column.column_chained_cuda.launches == 16
     np.testing.assert_array_equal(got.scores, col.scores)
