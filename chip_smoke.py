@@ -1326,7 +1326,7 @@ def phase_kernel_at_main_shape(bank, cases):
     card, the others' on the CPU beside the card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES
     from swtpu_torch.bank.scorebank import stream_geometry
-    from swtpu_torch.ops.stream import stream_strip_cuda
+    from swtpu_torch.ops.stream import stream_strip_cuda, wavefront_geometry
     from swtpu_torch.utils.timing import cuda_ms
 
     plain = plain_jobs()
@@ -1334,7 +1334,9 @@ def phase_kernel_at_main_shape(bank, cases):
     for i, c in enumerate(cases):
         seg, rows, phys = stream_geometry(len(c["query"]), bank.config, bank.device)
         qk, sk = laid_out_batch(c["query"], c["db"], seg, rows, phys)
-        got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
+        # the slices the bank's call takes: from the batch's longest read
+        longest = int(c["db"].lens.max())
+        got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, longest_read=longest)
         slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
         what = f"{c['name']} seg={seg} rows={rows} in {slices} slices"
         T, N = sk.shape
@@ -1348,10 +1350,16 @@ def phase_kernel_at_main_shape(bank, cases):
         del got
         checks.append(plain.check("stream_strip_reference",
                                   (qk, cut, DEFAULT_PENALTIES, seg, rows), held, card=i == 0))
-        ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+        # 10 calls: the first launch's host work, which the events count,
+        # then weighs a tenth (the plain versions' CPU workers load the host)
+        ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows,
+                                               longest_read=longest), 10)
         ms_one = cuda_ms(
             lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, slices=1), 3)
+        g = wavefront_geometry(rows, seg)
         results.append(dict(name=c["name"], segments=seg, rows=rows, T=T, N=N,
+                            lanes_a_stream=g.lanes, sublanes_a_thread=g.sublanes,
+                            rows_a_thread=rows * g.sublanes, longest_read=longest,
                             slices=slices, slice_steps=steps, ms=ms, ms_one_slice=ms_one,
                             check_steps=n))
         del qk, sk, cut
@@ -1360,8 +1368,10 @@ def phase_kernel_at_main_shape(bank, cases):
         r.update(max_abs_err=err, plain_ms=plain_ms, plain_on=where)
         ms, n, T = r["ms"], r["check_steps"], r["T"]
         print(f"phase kernel_main_shape: ok {c['name']} seg={r['segments']} "
-              f"rows={r['rows']} strip [{T}, {r['N']}] in {r['slices']} slices of up to "
-              f"{r['slice_steps']} steps, bit-equal on "
+              f"rows={r['rows']} ({r['lanes_a_stream']} threads a stream, "
+              f"{r['sublanes_a_thread']} sublanes a thread) strip [{T}, {r['N']}] in "
+              f"{r['slices']} slices of up to {r['slice_steps']} steps (longest read "
+              f"{r['longest_read']}), bit-equal on "
               f"{'all' if n == T else f'the first {n}'} steps | "
               f"kernel {ms:.3f} ms -> {c['cells'] / ms / 1e6:.2f} GCUPS in the kernel "
               f"({ms / (c['wall_s'] * 1e3):.1%} of the wall time), in one slice "
@@ -3814,7 +3824,9 @@ def phase_ladders(rng, card, peaks):
         T_CHUNK, _chained_call, column_chained_cuda, column_chained_reference,
         column_scores_cuda, column_scores_reference, pad_column_batch,
     )
-    from swtpu_torch.ops.stream import _long_strip, stream_chained_cuda, stream_strip_cuda
+    from swtpu_torch.ops.stream import (
+        _long_strip, stream_chained_cuda, stream_strip_cuda, wavefront_geometry,
+    )
     from swtpu_torch.testing.goldens import _RTL_LINE
     from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
@@ -4106,7 +4118,9 @@ def phase_ladders(rng, card, peaks):
         b4_ms = cuda_ms(lambda: column_scores_cuda(bq, bt), 5)
         seg, rows, phys = stream_geometry(rlen, sbank.config, sbank.device)
         qk, sk = laid_out_batch(rquery, rdb, seg, rows, phys)
-        b1_ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows), 3)
+        r_longest = int(rdb.lens.max())  # the slices the bank's call takes
+        b1_ms = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows,
+                                                  longest_read=r_longest), 10)
         slices = stream_strip_cuda.slices
         b1_one = cuda_ms(
             lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, slices=1), 3)
@@ -4121,7 +4135,7 @@ def phase_ladders(rng, card, peaks):
               f"to the plain version in full | kernel {line}; plain {t_plain:.1f} ms | "
               f"pack_many_vs_one's host peak {host_mb:.1f} MB", flush=True)
         del bq, bt, got, want
-        got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows)
+        got = stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows, longest_read=r_longest)
         cut = sk[:n].contiguous()
         err, t_plain, where = plain.check(
             "stream_strip_reference", (qk, cut, DEFAULT_PENALTIES, seg, rows),
@@ -4132,9 +4146,12 @@ def phase_ladders(rng, card, peaks):
         T, N = sk.shape
         line = kernel_row("B1 r", b1_ms,
                           peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS),
-                          stream_live(sk, 128 // (rows * seg) - 1), plain_ms=t_plain, T=T, N=N, segments=seg, rows=rows, slices=slices,
-                          ms_one_slice=b1_one, check_steps=n, max_abs_err=err,
-                          plain_on=where)
+                          stream_live(sk, 128 // (rows * seg) - 1), plain_ms=t_plain, T=T,
+                          N=N, segments=seg, rows=rows, slices=slices,
+                          lanes_a_stream=wavefront_geometry(rows, seg).lanes,
+                          sublanes_a_thread=wavefront_geometry(rows, seg).sublanes,
+                          longest_read=r_longest, ms_one_slice=b1_one, check_steps=n,
+                          max_abs_err=err, plain_on=where)
         print(f"phase ladders: ok {name} B1 seg={seg} rows={rows} strip [{T}, {N}] in "
               f"{slices} slices: bit-equal to the plain version on the first {n} steps (the "
               f"full run's, and the cut in {CUT_SLICES} slices) | kernel {line}; in one "
@@ -4635,6 +4652,11 @@ def main() -> int:
     # the recurrence's operations on the cells the kernel computes
     T, N = head["T"], head["N"]
     b_wave = peaks.bound(128 * N + T * N * 5, 128 * T * N * WAVEFRONT_OPS)
+    for m in mains:  # each of (a)-(c): its bound and its share of it
+        S = m["N"] // m["segments"]  # physical streams, 128 query rows each
+        m["bound_ms"], m["bound_by"] = peaks.bound(
+            128 * S + m["T"] * m["N"] * 5, 128 * m["T"] * S * WAVEFRONT_OPS)
+        m["bound_share"] = m["bound_ms"] / m["ms"]
     b2["bound_ms"], b2["bound_by"] = peaks.bound(
         128 * b2["N"] + b2["T"] * b2["N"] * 5, 128 * b2["T"] * b2["N"] * WAVEFRONT_OPS)
     # a chained tile reads 1 + 12 bytes and writes 16 a stream-step
@@ -4786,6 +4808,16 @@ def main() -> int:
         plain_d, f"the plain chain's first {mode_d['check_steps']} steps (on the CPU)")
     regs, _, blocks_sm = stream_kernel_info(head["rows"])
     regs_tile, _, blocks_sm_tile = stream_kernel_info(lhead["rows"], chained=True)
+    # B1's instantiations at the main paths' rows: registers, spill bytes
+    # and resident blocks an SM, a thread holding 16 query rows at each
+    b1_instantiations = {
+        f"rows {r} {label}": dict(zip(("registers", "spill_bytes", "resident_blocks_per_sm"),
+                                      stream_kernel_info(r, score_width=w, state_dtype=d)))
+        for r in (4, 8, 16)
+        for label, w, d in (("int32", None, "int32"), *MAIN_MODES)}
+    for label, info in b1_instantiations.items():
+        if info["spill_bytes"]:
+            fail(f"B1 {label} spills {info['spill_bytes']} bytes a thread")
     kernels = [
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches_total[0],
@@ -4801,6 +4833,7 @@ def main() -> int:
               shape=[head["T"], head["N"]], slices=head["slices"],
               slice_steps=head["slice_steps"], registers=regs,
               resident_blocks_per_sm=blocks_sm, ms_one_slice=head["ms_one_slice"],
+              instantiations=b1_instantiations, long_reads=ladders["kernels"]["B1 r"],
               main_shapes=mains, shootout_rows1=b2, configs=checks),
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:314", launches_total[1],

@@ -6,13 +6,19 @@ machine with the CUDA toolkit.
 
 Builds (or loads) the kernel library of the checkout at --root, runs
 cuobjdump -sass on it and prints, for the instantiations of the main
-shapes (the wavefront at rows 8 and 16, one-tile and chained; the column
-kernels: B4 at every geometry, B5's tile (B4's template at 32 lanes in
-tile mode), int16 at 4 and 8 rows a lane),
+shapes (the wavefront at rows 4, 8 and 16, one-tile and chained; the
+column kernels: B4 at every geometry, B5's tile (B4's template at 32 lanes
+in tile mode), int16 at 4 and 8 rows a lane),
 the instruction count of each and the counts of the opcodes the
 recurrences run on: the 32-bit and 16x2 integer add, max and DPX add-max,
 the bfloat16 and float max and add, selects, shuffles, votes, byte
-permutes and logic ops.  A 16-bit state that runs its cells two a register
+permutes and logic ops.  For a one-tile wavefront (B1, B2) also its step
+loop (the innermost loop with the most instructions: a chunk of 8 steps)
+over the cells a thread steps in it, 8 x rows x the sublanes a thread
+holds x the streams it holds (the geometry of the tree read:
+swtpu_torch.ops.stream.wavefront_geometry where the tree has it, else
+min(128 / rows, 32) threads a stream), with its shuffles, selects, votes,
+compares and loads a cell and a step.  A 16-bit state that runs its cells two a register
 shows 16x2 and BF16_V2 opcodes and no scalar conversions.  For a column
 kernel also the instructions a run of 32 columns executes on random reads
 and those over 32 columns x rows a lane x pairs a lane, the instructions a
@@ -92,8 +98,8 @@ def label(name: str):
     m = re.search(r"stream_wavefront_(x2_)?kernel<(\d+), (\d+), (\d+)>", name)
     if m:
         x2, (rows, mode, state) = m.group(1), map(int, m.groups()[1:])
-        if rows in (8, 16) and mode != 1:
-            return (f"wavefront rows={rows} {WAVE_MODES[mode]} {WAVE_STATES[state]}"
+        if rows in (4, 8, 16) and mode != 1:
+            return (f"wavefront rows={rows:2d} {WAVE_MODES[mode]} {WAVE_STATES[state]}"
                     + (" (two streams a thread)" if x2 else "")), None
     m = re.search(r"column_scores_kernel<(\d+), (\d+)(?:, (true|false|1|0))?>", name)
     if m and m.group(3) in ("true", "1"):
@@ -118,6 +124,39 @@ def label(name: str):
     return None
 
 
+STEP_OPS = ("SHFL", "SEL", "VOTE", "ISETP", "LDG", "STG")  # reported a cell and a step
+
+
+def cells_a_thread_step(rows, state, x2, geometry):
+    """Cells a thread of a one-tile wavefront steps at once: rows x the
+    sublanes it holds x the streams it holds."""
+    dtype = WAVE_STATES[state]
+    if geometry is None:
+        sublanes = 128 // rows // min(128 // rows, 32)
+    else:
+        sublanes = geometry(rows, 1, "int32" if dtype == "biased" else dtype).sublanes
+    return rows * sublanes * (2 if x2 else 1)
+
+
+def step_loop_line(name, tool_ops, geometry):
+    """The step loop's instructions a cell and a step of a one-tile
+    wavefront instantiation, or '' for any other kernel."""
+    name = re.sub(r"\((?:int|bool)\)", "", name)
+    m = re.search(r"stream_wavefront_(x2_)?kernel<(\d+), ([01]), (\d+)>", name)
+    if not m:
+        return ""
+    rows, state = int(m.group(2)), int(m.group(4))
+    loop = fp32_rates.hot_loop(tool_ops)
+    if not loop:
+        return ""
+    steps = 8  # the kernels' kChunk: steps a trip of the step loop
+    cells = steps * cells_a_thread_step(rows, state, m.group(1), geometry)
+    count = collections.Counter(op.split(".")[0] for op in loop)
+    return (f" | step loop {len(loop)} instructions, {len(loop) / cells:.2f} a cell "
+            f"({cells // steps} cells a thread-step), {len(loop) / steps:.1f} a thread-step ("
+            + ", ".join(f"{k} {count[k] / steps:.2f}" for k in STEP_OPS) + " a step)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE),
@@ -128,14 +167,21 @@ def main() -> int:
                     "(needs no card; c++filt demangles)")
     args = ap.parse_args()
     dump = args.dump and os.path.abspath(args.dump)
+    geometry = None
     if args.sass:
         sass = Path(args.sass).read_text()
         demangler = ["c++filt"]
+        sys.path.insert(0, str(HERE))
+        from swtpu_torch.ops import stream
+
+        geometry = getattr(stream, "wavefront_geometry", None)
     else:
         root = os.path.abspath(args.root)
         sys.path.insert(0, root)
         os.chdir(root)
-        from swtpu_torch.ops import _build
+        from swtpu_torch.ops import _build, stream
+
+        geometry = getattr(stream, "wavefront_geometry", None)
 
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,11 +202,11 @@ def main() -> int:
     for (mangled, ops), name in zip(funcs, demangled):
         what = label(name)
         if what:
-            rows.append((*what, ops, tool[mangled]))
+            rows.append((*what, ops, tool[mangled], step_loop_line(name, tool[mangled], geometry)))
     if not rows:  # the names did not parse: show some
         print("no instantiation recognised among", len(funcs), "functions, e.g.",
               *demangled[:4], sep="\n  ")
-    for what, cells, ops, tool_ops in sorted(rows):
+    for what, cells, ops, tool_ops, step in sorted(rows):
         opcodes = [op for _, op, _ in ops]
         count = collections.Counter(op.split(".")[0] for op in opcodes)
         wide = collections.Counter(op for op in opcodes if "16x2" in op or "BF16_V2" in op)
@@ -174,7 +220,7 @@ def main() -> int:
             line += (f" | a run on random reads {len(run)} instructions, {len(run) / per:.2f} a "
                      f"cell (SHFL {rc['SHFL'] / per:.2f}, VOTE {rc['VOTE'] / per:.2f}, BRA "
                      f"{rc['BRA'] / per:.2f}, LDS {rc['LDS'] / per:.2f})")
-        print(line, flush=True)
+        print(line + step, flush=True)
     return 0
 
 

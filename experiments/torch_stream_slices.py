@@ -20,7 +20,12 @@ uint16 (at penalties it can hold: +5/-4, no gap cost) and bfloat16, the
 wrappers take `state_dtype`, the column kernels at chip_smoke.py's (f)
 buckets (B4) and (g) tiles (B5) in int32, float32 and int16.  --only
 states times just those state-mode lines and (a)/(d) at rows 16 (the
-comparison of two trees' state modes, P E E P in one call).
+comparison of two trees' state modes, P E E P in one call); --only b1
+times B1 at (a), (b), (c) and chip_smoke.py's (r) (16,384 reads of
+513-2,048 bases, rows 16) and B2 (the shootout's rows-1 strip in both
+forms, E2's comparison strip) over wide sweeps of slice counts, the
+default passing the batch's longest read where the tree's wrapper takes
+it (`longest_read`).
 Each line ends with a digest of the outputs: equal digests across trees
 and counts mean bit-equal strips.  Prints the card's name and power limit
 first; every number is this run's.
@@ -41,8 +46,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose swtpu_torch and chip_smoke.py to run")
     ap.add_argument("--tag", default="this", help="label of every line")
-    ap.add_argument("--only", choices=("all", "states"), default="all",
-                    help="states: only (a)/(d) at rows 16 and the state-mode lines")
+    ap.add_argument("--only", choices=("all", "states", "b1"), default="all",
+                    help="states: only (a)/(d) at rows 16 and the state-mode lines; "
+                    "b1: only B1 at (a)-(c) and (r) and B2, over wide slice sweeps")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -100,6 +106,9 @@ def main() -> int:
         z = torch.zeros(tuple(sk.shape), dtype=torch.int32, device="cuda")
         return qk, sk, z
 
+    if args.only == "b1":
+        b1_sweeps(report, P)
+        return 0
     rng = np.random.default_rng(1)
     short = args.only == "all"
     for seg, rows in ((1, 16), (4, 4), (1, 1)) if short else ():
@@ -196,6 +205,55 @@ def column_states(tag, digest):
     print(f"{tag} (g) B5 tiles [{q.shape[0]} pairs, {t.shape[1]} columns] | ms a tile "
           f"{' '.join(parts)} | digest {'/'.join(f'{d:012x}' for d in sorted(digests))}",
           flush=True)
+
+
+def b1_sweeps(report, P):
+    """B1 at (a), (b), (c) and (r) and B2 at the shootout's strip (both
+    forms) and E2's comparison, over wide sweeps of slice counts."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from chip_smoke import LADDER_R, laid_out_batch, make_db
+    from experiments import torch_shootout as so
+    from swtpu_torch.ops import stream as st
+
+    takes_longest = "longest_read" in inspect.signature(st.stream_strip_cuda).parameters
+
+    def longest(db):
+        return dict(longest_read=int(db.lens.max())) if takes_longest else {}
+
+    cases = [("(a)", np.random.default_rng(7), 262144, (128, 128), 128, 1, 16, [1, 16, 33]),
+             ("(b)", np.random.default_rng(9), 262144, (24, 256), 32, 4, 4,
+              [1, 4, 8, 12, 16, 24, 33, 48, 66]),
+             ("(c)", np.random.default_rng(19), 65536, (24, 256), 64, 2, 8,
+              [1, 4, 8, 12, 16, 24, 33, 48]),
+             ("(r)", np.random.default_rng(10), LADDER_R[1], LADDER_R[2], LADDER_R[3], 1, 16,
+              [1, 4, 6, 8, 10, 12, 16, 20, 24, 33, 48, 66])]
+    for name, rng, n, (lo, hi), qlen, seg, rows, counts in cases:
+        db = make_db(rng, n, lo, hi)
+        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+        qk, sk = laid_out_batch(query, db, seg, rows, 512)
+        lr = longest(db)
+        report(f"B1 {name} seg={seg} rows={rows} [{sk.shape[0]}, {sk.shape[1]}] longest read "
+               f"{int(db.lens.max())}",
+               lambda **kw: st.stream_strip_cuda(qk, sk, P, seg, rows, **lr, **kw), counts,
+               reps=5)
+        del qk, sk
+    qs, ts = so.make_pairs(0)
+    _, d = so.wavefront_batches(qs, ts, so.BIG)[512]
+    qk, sk = st._to_kernel_layout(d.q, d.stream, 1, 1)
+    for form, tail_acc in (("tail-acc", True), ("ripple-H", False)):
+        report(f"B2 shootout {form} rows=1 [{sk.shape[0]}, 512]",
+               lambda **kw: st.stream_strip_cuda(qk, sk, P, 1, 1, tail_acc, **kw),
+               [1, 2, 4, 8, 16, 33])
+    r2 = np.random.default_rng([0, 4])  # chip_smoke.py's E2 comparison, seed 0
+    qT = torch.from_numpy(r2.integers(0, 4, (128, 512)).astype(np.int8)).cuda()
+    s2 = r2.integers(0, 4, (4096, 512)).astype(np.int8)
+    s2[r2.random(s2.shape) < 0.01] |= 8
+    s2 = torch.from_numpy(s2).cuda()
+    report("B2 E2 comparison rows=1 [4096, 512]",
+           lambda **kw: st.stream_strip_cuda(qT, s2, P, 1, 1, **kw), [1, 2, 4, 8])
 
 
 def short_cases(rng, report, tile0, P):

@@ -62,7 +62,7 @@ from swtpu_torch.ops.stream import (
     _q_kernel_layout, _validate_config, sw_scores_stream,
     sw_scores_stream_kernel_layout, sw_scores_stream_long,
     sw_scores_stream_long_kernel_layout, sw_scores_stream_long_packed,
-    sw_scores_stream_packed, unpack_stream_wire,
+    reads_up_to, sw_scores_stream_packed, unpack_stream_wire,
 )
 from swtpu_torch.parallel.topk import _local_topk
 from swtpu_torch.utils.metrics import BatchEvent
@@ -276,6 +276,14 @@ class LoadedDatabase:
     load_s: dict = dataclasses.field(default_factory=dict)
 
 
+def longest_read(lengths):
+    """The longest of the read lengths (an array or an iterable), 0 for
+    none: what the wavefront's slice rule takes (ops.stream.reads_up_to)."""
+    if isinstance(lengths, np.ndarray):
+        return int(lengths.max(initial=0))
+    return max(lengths, default=0)
+
+
 class ScoreBank:
     """Batched many-vs-one scorer on one torch device.
 
@@ -450,7 +458,11 @@ class ScoreBank:
             arrays = tuple(pack_stream_wire(batch.stream)) if wire else (batch.stream,)
             arrays += (batch.emit_stream, batch.emit_step.astype(np.int32))
             score = sw_scores_stream_packed if wire else sw_scores_stream
-            pending.append(score(dq, *put(*arrays), emit_regular=batch.emit_regular, **kw))
+            longest = longest_read(tlens[lo:hi] if tlens is not None
+                                   else map(len, targets[lo:hi]))
+            with reads_up_to(longest):
+                pending.append(score(dq, *put(*arrays), emit_regular=batch.emit_regular,
+                                     **kw))
             cells += batch.cells
             # physical wavefront capacity: LANES DP rows per lane column per
             # step, shared by `segments` queries
@@ -780,11 +792,12 @@ class ScoreBank:
 
                 check_stream_batch(batch)
             d = batch_to_device(batch, self.device)
-            s = sw_scores_stream(
-                d.q, d.stream, d.emit_stream, d.emit_step, self.config.penalties,
-                segments=segments, rows=rows, emit_regular=batch.emit_regular,
-                **modes,
-            ).cpu().numpy()
+            with reads_up_to(longest_read(len(targets[i]) for i in idxs)):
+                s = sw_scores_stream(
+                    d.q, d.stream, d.emit_stream, d.emit_step, self.config.penalties,
+                    segments=segments, rows=rows, emit_regular=batch.emit_regular,
+                    **modes,
+                ).cpu().numpy()
             if self.verify_integrity:
                 from swtpu_torch.utils.guards import check_scores
 
@@ -912,10 +925,11 @@ class ScoreBank:
         q = torch.full((N, width), Q_PAD, dtype=torch.int8, device=self.device)
         q[:, : len(query)] = _put_query(query, self.device)
         if short:
-            return sw_scores_stream_kernel_layout(
-                _q_kernel_layout(q, db.segments, db.rows), db.stream,
-                db.emit_stream_dev, db.emit_step_dev, segments=db.segments, **kw,
-            )
+            with reads_up_to(longest_read(db.t_lens)):
+                return sw_scores_stream_kernel_layout(
+                    _q_kernel_layout(q, db.segments, db.rows), db.stream,
+                    db.emit_stream_dev, db.emit_step_dev, segments=db.segments, **kw,
+                )
         # the chained tiles read the resident [T, N] stream as it is
         return sw_scores_stream_long_kernel_layout(
             q, db.stream, db.emit_stream_dev, db.emit_step_dev, **kw,

@@ -266,9 +266,13 @@ def dispatch_loaded_sharded(query: np.ndarray, db: ShardedLoadedDatabase,
                             k: int = 0, full_scores: bool = True):
     """Enqueue one query over the whole mesh; returns the device outputs
     (scores [D, R] and/or the top-K) without waiting for them."""
+    from swtpu_torch.bank.scorebank import longest_read
+    from swtpu_torch.ops.stream import reads_up_to
+
     regs, long_q = _query_register(query, db)
     fn = _get_scorer(db, long_q, k, full_scores)
-    return fn(regs, db.streams, db.emit_stream_dev, db.emit_step_dev, db.ids_dev)
+    with reads_up_to(longest_read(db.t_lens)):
+        return fn(regs, db.streams, db.emit_stream_dev, db.emit_step_dev, db.ids_dev)
 
 
 def _padded_cells(db: ShardedLoadedDatabase, qlen: int) -> int:

@@ -510,14 +510,15 @@ def score_streams(
     version on the CPU) and gather each read's score from the strip.
     swtpu's ``score_streams`` with `device` in place of `interpret`."""
     from swtpu_torch.config import DEFAULT_PENALTIES
-    from swtpu_torch.ops.stream import sw_scores_stream_strip
+    from swtpu_torch.ops.stream import reads_up_to, sw_scores_stream_strip
 
     batch = pack_streams(query, targets, n_streams, segments=segments, rows=rows)
     d = batch_to_device(batch, device)
-    strip = sw_scores_stream_strip(
-        d.q, d.stream, penalties or DEFAULT_PENALTIES, segments=segments,
-        rows=rows, state_dtype=state_dtype,
-    )
+    with reads_up_to(max(map(len, targets), default=0)):
+        strip = sw_scores_stream_strip(
+            d.q, d.stream, penalties or DEFAULT_PENALTIES, segments=segments,
+            rows=rows, state_dtype=state_dtype,
+        )
     return gather_stream_scores(strip.cpu().numpy(), batch)
 
 

@@ -61,9 +61,12 @@
 // card offers the chain is SMs, warps a scheduler to hide its latency, and
 // registers to hold the state.  The design keeps the whole DP state in
 // registers and spends nothing else per step:
-//   - one stream is W = min(128/R, 32) consecutive threads of one warp;
-//     each thread owns V = (128/R)/W consecutive wavefront sublanes, each
-//     of R query rows, with their D/G/H state and query codes in registers;
+//   - one stream is W consecutive threads of one warp: W = 8 in the
+//     one-tile kernel's 32-bit states (B1) at R = 4, 8, 16, so that each
+//     thread owns V = 16/R consecutive wavefront sublanes, 16 query rows,
+//     with their D/G/H state and query codes in registers; 16 and 32 at
+//     R = 2 and 1, 4 sublanes a thread (kStreamLanesOf, below);
+//     W = min(128/R, 32) in the chain kernel and the 16-bit one;
 //   - the one-sublane shift of the char pipe, D (two steps back), G and H
 //     is four __shfl_up_sync per step at width W, and a register move
 //     between the V sublanes inside a thread;
@@ -72,7 +75,7 @@
 //     loads each step's stream char (and a chained tile's boundary values)
 //     kChunk steps ahead of its use.
 //
-// Slices.  S streams of W threads fill few SMs (at S = 512 and R = 16,
+// Slices.  S streams of W threads fill few SMs (at S = 512 and W = 8,
 // 4,096 threads: 32 blocks for 132 SMs, one warp a scheduler, each step a
 // full chain latency).  So each stream's T steps are cut into C time
 // slices (blockIdx.y), run side by side, and the grid is S x W x C threads.
@@ -97,7 +100,9 @@
 //   - consecutive streams of one slice share a warp, so char loads and
 //     strip stores stay as coalesced as with one slice.
 // The overlap costs at most a read plus SLg - 1 steps a slice.  The
-// wrapper picks C from S, W, T, SLg and the SM count (ops/stream.py).
+// wrapper picks C from S, W, T, SLg and the SM count, and where the caller
+// gives it the batch's longest read, slices of at least three such reads
+// in whole waves of blocks (ops/stream.py choose_slices).
 // In a chain every tile of a block uses the same slice and stops at the
 // same step (its tails see the same chars), so slice c of tile p+1 needs
 // only slice c of tile p: tile p's values from before its first read
@@ -370,6 +375,32 @@ struct Args {
   int width;  // kBiased only: W
 };
 
+// Threads a stream of stream_wavefront_kernel (B1, B2) in a 32-bit state:
+// a thread holds V = min(16 / R, kMaxSublanes) sublanes, so 16 query rows
+// at rows 4, 8 and 16 (W = 8 threads a stream), and pays the step's fixed
+// work (the four shuffles, the char slot, the tail's selects and store,
+// the loop) once for 16 cells, as rows 16 did alone before; the V
+// sublanes of a thread are independent within a step, which adds
+// instruction-level parallelism where rows 16 has one chain of 16 rows.
+// At rows 2 and 1 more sublanes spilled registers (8 sublanes at rows 2,
+// 16 at rows 1), and rows 1's 127-step pipe fill a slice wants the threads
+// (on an H100, B2 on E2's [4096, 512] strip took 0.541 ms at its best slice
+// count with 8 threads a stream, 0.343 with 32), so there a thread holds 4
+// sublanes: 16 and 32 threads a stream.  A segment
+// holds SLg = 128 / (R x seg) sublanes, a multiple of V, so a segment's
+// head and tail are a thread's first and last sublanes.  The 16-bit
+// kernel and the chain kernel keep min(128 / R, 32) threads a stream.
+constexpr int kRowsPerThread = 16;
+constexpr int kMaxSublanes = 4;
+
+template <int R>
+constexpr int kSublanesOf =
+    kRowsPerThread / R < kMaxSublanes ? kRowsPerThread / R : kMaxSublanes;
+
+template <int R, bool kPackedState>
+constexpr int kStreamLanesOf =
+    kPackedState ? (kLanes / R < 32 ? kLanes / R : 32) : kLanes / R / kSublanesOf<R>;
+
 template <int R, int kMode, int kState>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_wavefront_kernel(const Args a) {
@@ -379,9 +410,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   const A ar(a.width);
   const T ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
           ge = ar.cst(a.ge), z = ar.zero();
-  constexpr int SL = kLanes / R;        // wavefront sublanes per stream
-  constexpr int W = SL < 32 ? SL : 32;  // threads per stream
-  constexpr int V = SL / W;             // sublanes per thread
+  constexpr int SL = kLanes / R;                   // wavefront sublanes per stream
+  constexpr int W = kStreamLanesOf<R, false>;      // threads per stream
+  constexpr int V = SL / W;                        // sublanes per thread
+  static_assert(W * V == SL && V == kSublanesOf<R>, "V sublanes a thread");
   constexpr bool kRipple = kMode == kRippleH;
   const int S = a.S;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -799,9 +831,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   const A ar(a.width);
   const unsigned ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
                  ge = ar.cst(a.ge), z = 0u;
-  constexpr int SL = kLanes / R;        // wavefront sublanes per stream
-  constexpr int W = SL < 32 ? SL : 32;  // threads per stream pair
-  constexpr int V = SL / W;             // sublanes per thread
+  constexpr int SL = kLanes / R;               // wavefront sublanes per stream
+  constexpr int W = kStreamLanesOf<R, true>;   // threads per stream pair
+  constexpr int V = SL / W;                    // sublanes per thread
   constexpr bool kRipple = kMode == kRippleH;
   constexpr bool kChain = kMode == kChained;
   const int S = a.S;
@@ -936,8 +968,7 @@ constexpr auto kernel_of() {
 
 template <int R, int kMode, int kState>
 cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
-  constexpr int SL = kLanes / R;
-  constexpr int W = SL < 32 ? SL : 32;
+  constexpr int W = kStreamLanesOf<R, kPacked<kState>>;
   constexpr int P = kPacked<kState> ? 2 : 1;  // streams a thread holds
   const long long threads = ((long long)a.S + P - 1) / P * W;
   const int blocks = (int)((threads + kBlock - 1) / kBlock);

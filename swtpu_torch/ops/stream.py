@@ -45,6 +45,8 @@ from one to the other.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import operator
 from typing import NamedTuple
@@ -73,6 +75,21 @@ RESIDENT_WARPS_PER_SM = 12  # what the kernel's __launch_bounds__ guarantees
 SLICE_WARPS_PER_SM = 32
 MIN_SLICE_STEPS = 1024
 PIPE_FILLS_PER_SLICE = 16
+# Where the caller gives the longest read of the batch (``longest_read``),
+# a slice instead spans at least READS_PER_SLICE times that read plus a
+# segment's pipe fill: a slice runs on past its end until every tail of its
+# warp has seen a read start, up to a read more, so this bounds the
+# overrun's share by the reads the batch holds, not by a fixed guess.  3
+# comes from sweeps of B1's slice counts at chip_smoke.py's (b), (c) and
+# (r) (experiments/torch_stream_slices.py --only b1): their best counts
+# were slices of 8.6, 4.3 and 2.6 such reads (8 slices each); at 3, with
+# whole waves of blocks (choose_slices), the rule gives them 8, 8 and 4.
+READS_PER_SLICE = 3
+# query rows a thread of the 32-bit wavefront kernel (B1, B2) holds, in at
+# most MAX_SUBLANES sublanes: 16 rows, 8 threads a stream, at rows 4, 8
+# and 16 (csrc/stream_wavefront.cu kRowsPerThread, kMaxSublanes)
+ROWS_PER_THREAD = 16
+MAX_SUBLANES = 4
 # The chain kernel: a block runs up to RING_WARPS tiles of one group of
 # streams side by side, each a lag of chain_lag_chunks(rows) chunks of
 # CHAR_CHUNK steps behind the one above, handing row 127 down through a
@@ -272,8 +289,9 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
     def plane():
         return torch.full((SL, S), zbit, dtype=dt, device=dev)
 
-    G = [plane() for _ in range(rows)]
-    D = [plane() for _ in range(rows)]
+    # plane r of G and D holds row r of every sublane
+    G = torch.full((rows, SL, S), zbit, dtype=dt, device=dev)
+    D = torch.full((rows, SL, S), zbit, dtype=dt, device=dev)
     D2L = plane()  # D of row R-1, two steps back
     Hl = plane()  # H of row R-1, one step back
     C = torch.full((SL, S), 4, dtype=i32, device=dev)
@@ -291,7 +309,6 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
         C[heads] = sc[t]
         f0 = C >= FLAG_BIT
         cval = C & 7
-        s0 = torch.where(cval == qs[0], ma_t, mi_t)
         # row 0 of a sublane reads the sublane above
         upD, upG, upH = (torch.roll(x, 1, 0) for x in (D2L, G[rows - 1], Hl))
         if bounds is None:
@@ -300,25 +317,25 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
             # the tile's row 0 reads the tile above's row 127: the same
             # column of the same read, so no zero but the read-start one
             upD[0], upG[0], upH[0] = bD[t], bG[t], bH[t]
-        Mc = m_update(add(torch.where(f0, zero, upD), s0))
-        G_left = torch.where(f0, zero, G[0])
-        Ic = add(torch.maximum(upG, G_left), ge)
-        Hcur = torch.maximum(upH, Mc)
+        # M of every row at once: row 0's diagonal is the sublane above's D
+        # two steps back, row r's its own row r - 1's a step back
+        diag = torch.cat((upD[None], D[:-1]))
+        M = m_update(add(torch.where(f0, zero, diag), torch.where(cval == qs, ma_t, mi_t)))
+        G_left = torch.where(f0, zero, G)
+        M_open = add(M, go)
+        Hcur = torch.maximum(upH, M.amax(0))
         if ripple:
             # H ripples with the data; its own register resets at a read start
             Hcur = torch.maximum(Hcur, torch.where(f0, zero, Hl))
-        newD = [torch.maximum(Mc, Ic)]
-        newG = [torch.maximum(add(Mc, go), Ic)]
-        for r in range(1, rows):
-            sr = torch.where(cval == qs[r], ma_t, mi_t)
-            Mc = m_update(add(torch.where(f0, zero, D[r - 1]), sr))
-            G_left = torch.where(f0, zero, G[r])
-            Ic = add(torch.maximum(newG[r - 1], G_left), ge)
-            Hcur = torch.maximum(Hcur, Mc)
-            newD.append(torch.maximum(Mc, Ic))
-            newG.append(torch.maximum(add(Mc, go), Ic))
+        # the gap chain runs down the rows within the step
+        I = torch.empty_like(M)
+        newG = torch.empty_like(G)
+        g = upG
+        for r in range(rows):
+            I[r] = add(torch.maximum(g, G_left[r]), ge)
+            g = newG[r] = torch.maximum(M_open[r], I[r])
         D2L = D[rows - 1]
-        D = newD
+        D = torch.maximum(M, I)
         G = newG
         Hl = Hcur
         if ripple:
@@ -327,7 +344,7 @@ def _wavefront_reference(qk, sk, penalties, segments, rows, tail_acc=True, bound
             acc = torch.maximum(torch.where(f0[tails], zero, acc), Hcur[tails])
             strip[t] = acc - unbias
         if bounds is not None:
-            for o, x in zip(outs, (newD[-1], newG[-1], Hcur)):
+            for o, x in zip(outs, (D[-1], G[-1], Hcur)):
                 o[t] = x[SL - 1]
     if bounds is None:
         return strip
@@ -427,21 +444,98 @@ def streams_per_thread(state_dtype):
     return 2 if state_dtype in SIXTEEN_BIT_STATES else 1
 
 
-def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32", tiles=1):
+class WavefrontGeometry(NamedTuple):
+    """How the CUDA wavefront kernel maps one launch's streams to threads:
+    `lanes` threads a stream (W), each holding `sublanes` consecutive
+    wavefront sublanes (V) of the rows; `streams_per_thread` streams a
+    thread (two in a 16-bit state); a segment spans `segment_sublanes`
+    (SLg) sublanes, whole threads, the first its head and the last its
+    tail."""
+
+    lanes: int
+    sublanes: int
+    streams_per_thread: int
+    segment_sublanes: int
+
+
+def wavefront_geometry(rows, segments=1, state_dtype="int32"):
+    """The thread mapping of stream_wavefront_kernel (B1, B2) in a 32-bit
+    state: a thread holds V = min(16 / rows, MAX_SUBLANES) sublanes, so 16
+    query rows in 8 threads a stream at rows 4, 8 and 16, and 4 sublanes
+    in 16 and 32 threads at rows 2 and 1 (more spilled registers, and
+    rows 1's long pipe fill wants the threads); a segment's SLg =
+    128 / (rows x segments) sublanes are whole threads.  In a 16-bit state
+    (stream_wavefront_x2_kernel, two streams a thread) and in the chain
+    kernel, min(128 / rows, 32) threads a stream.  The kernels compute the
+    same; the strip does not depend on the mapping."""
+    SL = LANES // rows
+    per_thread = streams_per_thread(state_dtype)
+    if per_thread == 2:
+        lanes = min(SL, 32)
+    else:
+        lanes = SL // min(ROWS_PER_THREAD // rows, MAX_SUBLANES)
+    return WavefrontGeometry(lanes=lanes, sublanes=SL // lanes,
+                             streams_per_thread=per_thread, segment_sublanes=SL // segments)
+
+
+def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32", tiles=1,
+                  longest_read=None, lanes=None):
     """The wrapper's slice count for S physical streams at `rows` and
-    `segments` over T steps in `state_dtype` on a card of `sms` SMs: a
-    grid of about SLICE_WARPS_PER_SM warps for every SM (a slice has
-    ceil(S / streams_per_thread) x min(128 / rows, 32) threads, times the
-    `tiles` a chain's block runs side by side), with no slice under
-    MIN_SLICE_STEPS steps nor under PIPE_FILLS_PER_SLICE times the steps a
-    slice takes to fill a segment's pipe; 2 slices where that leaves fewer
-    and T >= MIN_SLICE_STEPS; at least 1."""
-    threads = -(-S // streams_per_thread(state_dtype)) * min(LANES // rows, 32) * tiles
+    `segments` over T steps in `state_dtype` on a card of `sms` SMs.  A
+    slice has ceil(S / streams_per_thread) x `lanes` threads (the wavefront
+    kernel's, :func:`wavefront_geometry`, by default) times the `tiles` a
+    chain's block runs side by side.
+
+    Without `longest_read` (and in a 16-bit state): a grid of about
+    SLICE_WARPS_PER_SM warps for every SM, no slice under MIN_SLICE_STEPS
+    steps nor under PIPE_FILLS_PER_SLICE times the steps a slice takes to
+    fill a segment's pipe, and 2 slices where that leaves fewer and
+    T >= MIN_SLICE_STEPS.
+
+    With the batch's longest read (in bases), in a 32-bit state: a grid of
+    about SLICE_WARPS_PER_SM / V warps an SM (V, the sublanes a thread
+    holds, independent within a step, hide what warps would), no slice
+    under READS_PER_SLICE x (longest_read + SLg) steps (SLg = 128 /
+    (rows x segments): a slice runs on past its end by up to a read and a
+    pipe fill), and then the largest count whose blocks fill the SMs to
+    within a tenth of a whole wave, so that no SM runs a slice more than
+    most.  At least 1."""
+    geometry = wavefront_geometry(rows, segments, state_dtype)
+    if lanes is None:
+        lanes = geometry.lanes
+    threads = -(-S // geometry.streams_per_thread) * lanes * tiles
     blocks = -(-threads // KERNEL_BLOCK)
-    want = round(sms * SLICE_WARPS_PER_SM * 32 / KERNEL_BLOCK / blocks)
-    shortest = max(MIN_SLICE_STEPS, PIPE_FILLS_PER_SLICE * (LANES // rows // segments))
-    fit = max(T // shortest, 2 if T >= MIN_SLICE_STEPS else 1)
-    return max(1, min(want, fit))
+    SLg = LANES // rows // segments
+    if longest_read is None or geometry.streams_per_thread == 2:
+        want = round(sms * SLICE_WARPS_PER_SM * 32 / KERNEL_BLOCK / blocks)
+        shortest = max(MIN_SLICE_STEPS, PIPE_FILLS_PER_SLICE * SLg)
+        fit = max(T // shortest, 2 if T >= MIN_SLICE_STEPS else 1)
+        return max(1, min(want, fit))
+    warps = SLICE_WARPS_PER_SM / geometry.sublanes
+    want = round(sms * warps * 32 / KERNEL_BLOCK / blocks)
+    slices = max(1, min(want, T // (READS_PER_SLICE * (longest_read + SLg))))
+    while slices > 1 and slices * blocks > sms and -slices * blocks % sms > sms // 10:
+        slices -= 1
+    return slices
+
+
+# The longest read of the batch that the B1 launches inside a
+# ``reads_up_to`` block score: the bank sets it around each packed batch,
+# so that swtpu's public signatures stay as they are.
+_LONGEST_READ = contextvars.ContextVar("longest_read", default=None)
+
+
+@contextlib.contextmanager
+def reads_up_to(longest_read):
+    """Within the block, the wavefront launches that ``_strip_call`` makes
+    (every B1 of the public entry points) take their slice count from
+    `longest_read`, the longest read in bases of the batch they score
+    (:func:`choose_slices`); None keeps the rule without it."""
+    token = _LONGEST_READ.set(None if longest_read is None else int(longest_read))
+    try:
+        yield
+    finally:
+        _LONGEST_READ.reset(token)
 
 
 def chain_lag_chunks(rows):
@@ -495,7 +589,7 @@ def chain_geometry(S, rows, T, K, sms):
         ring=ring, lag_chunks=chain_lag_chunks(rows),
         wrap_lag_chunks=chain_wrap_lag_chunks(rows), ring_steps=RING_STEPS,
         streams_per_warp=per_warp, blocks=-(-S // per_warp), block_threads=32 * ring,
-        slices=choose_slices(S, rows, T, sms, tiles=ring), wrap=K > ring)
+        slices=choose_slices(S, rows, T, sms, tiles=ring, lanes=32 // per_warp), wrap=K > ring)
 
 
 def slice_steps(T, slices):
@@ -509,10 +603,12 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _slice_count(slices, S, rows, T, device, segments=1, state_dtype="int32"):
+def _slice_count(slices, S, rows, T, device, segments=1, state_dtype="int32",
+                 longest_read=None, lanes=None):
     """`slices` checked, or the wrapper's choice for None."""
     if slices is None:
-        return choose_slices(S, rows, T, _sm_count(device), segments, state_dtype)
+        return choose_slices(S, rows, T, _sm_count(device), segments, state_dtype,
+                             longest_read=longest_read, lanes=lanes)
     slices = operator.index(slices)
     if slices < 1 or (slices > 1 and slices * STEP_CHUNK > T):
         raise ValueError(
@@ -534,21 +630,23 @@ def _kernel_state(score_width, state_dtype):
 
 def stream_strip_cuda(
     qk, sk, penalties=DEFAULT_PENALTIES, segments=1, rows=1, tail_acc=True,
-    slices=None, score_width=None, state_dtype="int32",
+    slices=None, score_width=None, state_dtype="int32", longest_read=None,
 ):
     """The CUDA wavefront kernel on the same contract as
     :func:`stream_strip_reference`; CUDA tensors only.  ``slices`` time
-    slices a stream (None: :func:`choose_slices`; 1 runs each stream in one
-    pass); the strip does not depend on it.  Launches on the current stream,
-    counts each launch in ``stream_strip_cuda.launches`` and records the
-    last launch's ``.slices`` and ``.slice_steps``."""
+    slices a stream (None: :func:`choose_slices`, from ``longest_read``,
+    the batch's longest read in bases, where it is given; 1 runs each
+    stream in one pass); the strip depends on neither.  Launches on the
+    current stream, counts each launch in ``stream_strip_cuda.launches`` and
+    records the last launch's ``.slices`` and ``.slice_steps``."""
     from swtpu_torch.ops._build import load_library
 
     _validate_kernel_layout(qk, sk, segments, rows, state_dtype, score_width, penalties)
     _check_kernel_tensors(qk=(qk, torch.int8), sk=(sk, torch.int8))
     S = qk.shape[1]
     T = sk.shape[0]
-    slices = _slice_count(slices, S, rows, T, qk.device, segments, state_dtype)
+    slices = _slice_count(slices, S, rows, T, qk.device, segments, state_dtype,
+                          longest_read=longest_read)
     out = torch.empty((T, segments * S), dtype=torch.int32, device=qk.device)
     if T == 0 or S == 0:
         return out
@@ -593,7 +691,10 @@ def stream_chained_cuda(
             )
     S = qk.shape[1]
     T = sk.shape[0]
-    slices = _slice_count(slices, S, rows, T, qk.device, state_dtype=state_dtype)
+    # a 32-bit tile is the chain kernel at K = 1, a 16-bit one the x2
+    # kernel: both min(128 / rows, 32) threads a stream
+    slices = _slice_count(slices, S, rows, T, qk.device, state_dtype=state_dtype,
+                          lanes=min(LANES // rows, 32))
     outs = [torch.empty((T, S), dtype=torch.int32, device=qk.device) for _ in range(4)]
     if T == 0 or S == 0:
         return tuple(outs)
@@ -720,7 +821,8 @@ def _strip_call(qk, sk, penalties, segments, rows, tail_acc=True, score_width=No
     if qk.device.type == "cpu":
         return stream_strip_reference(qk, sk, penalties, segments, rows, tail_acc, **mode)
     if qk.device.type == "cuda":
-        return stream_strip_cuda(qk, sk, penalties, segments, rows, tail_acc, **mode)
+        return stream_strip_cuda(qk, sk, penalties, segments, rows, tail_acc, **mode,
+                                 longest_read=_LONGEST_READ.get())
     raise ValueError(f"no wavefront kernel for device {qk.device}")
 
 

@@ -162,12 +162,12 @@ def _score_database_multihost_stream(
     comes from ``stream_geometry``: the device settings on CUDA, swtpu's
     interpret settings (rows 1, 8 streams) on the CPU, so both packages
     pack the same batch there."""
-    from swtpu_torch.bank.scorebank import stream_geometry
+    from swtpu_torch.bank.scorebank import _dense_form, longest_read, stream_geometry
     from swtpu_torch.bank.streams import (
         LANES, STREAM_PAD, pack_streams_sharded, scatter_sharded_scores,
     )
     from swtpu_torch.config import SWConfig
-    from swtpu_torch.ops.stream import STEP_CHUNK
+    from swtpu_torch.ops.stream import STEP_CHUNK, reads_up_to
     from swtpu_torch.parallel.sharded import make_sharded_stream_scorer
 
     # a query over one tile packs segments 1; the rows and streams are the
@@ -229,7 +229,10 @@ def _score_database_multihost_stream(
         mesh, axis=mesh.axis_name, penalties=pen, k=k, rows=rows, state_dtype="int32",
         emit_regular=emit_regular,
     )
-    s, top_s, top_ids = scorer(batch.q, stream, emit_stream, emit_step.astype(np.int32), gids)
+    _, tlens = _dense_form(local_targets)
+    with reads_up_to(longest_read(tlens if tlens is not None else map(len, local_targets))):
+        s, top_s, top_ids = scorer(batch.q, stream, emit_stream, emit_step.astype(np.int32),
+                                   gids)
     # drop the cross-process R padding before the read-order scatter
     local_scores = scatter_sharded_scores(s[:, :R_local], batch, len(np.asarray(local_ids)))
     return top_s.cpu().numpy(), top_ids.cpu().numpy(), local_scores

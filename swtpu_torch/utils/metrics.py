@@ -114,7 +114,10 @@ def profile_trace(log_dir: Optional[Union[str, Path]], device=None) -> Iterator[
     and the card's when `device` is a CUDA device (None: whenever CUDA is
     available), written on exit as a Chrome trace (open it in Perfetto or
     chrome://tracing) into `log_dir`, which is made if missing.  Does
-    nothing when `log_dir` is falsy."""
+    nothing when `log_dir` is falsy.  On a card the device is synchronised
+    before the profiler starts (its context exists and earlier work has
+    ended) and before it stops, so that every kernel the region launched
+    has finished before the profiler collects the card's records."""
     if not log_dir:
         yield
         return
@@ -126,6 +129,12 @@ def profile_trace(log_dir: Optional[Union[str, Path]], device=None) -> Iterator[
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
+    if on_cuda:
+        torch.cuda.synchronize(device)
     with profile(activities=activities) as prof:
-        yield
+        try:
+            yield
+        finally:
+            if on_cuda:
+                torch.cuda.synchronize(device)
     prof.export_chrome_trace(str(out / f"swtpu_torch.{os.getpid()}.{time.time_ns()}.pt.trace.json"))

@@ -75,6 +75,86 @@ def test_kernel_strip_equals_plain_version(cuda_device, segments, rows, slices):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+# every legal (rows, segments) of the wavefront kernel's geometry
+GEOMETRIES = [(r, g) for r in port.ROWS for g in (1, 2, 4, 8)]
+# the state modes of the 32-bit kernel: (score_width, state_dtype)
+STRIP_MODES = {"int32": (None, "int32"), "W=12": (12, "int32"), "float32": (None, "float32")}
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_case(rows, segments, long_reads):
+    """(qk, sk, longest read) on the CPU: 40 physical streams of reads of
+    0-199 bases, the first equal to the query (it passes the 12-bit
+    ceiling at 128 bases); with `long_reads`, 40 reads of 513-2,048
+    bases, chip_smoke.py's (r), on 8 streams a segment."""
+    rng = np.random.default_rng(rows * 10 + segments + 1000 * long_reads)
+    if long_reads:
+        lens = rng.integers(513, 2049, size=40).astype(np.int32)
+        mat = rng.integers(0, 4, size=(40, 2048)).astype(np.int8)
+        mat[np.arange(2048)[None, :] >= lens[:, None]] = 4
+        db, phys = EncodedDB([f"db{i}" for i in range(40)], mat, lens), 8
+    else:
+        db, phys = _db(rng, 400, 200), 40
+    query = rng.integers(0, 4, size=128 // segments - 1).astype(np.int8)
+    db.mat[0, : len(query)] = query
+    db.mat[0, len(query):] = 4
+    db.lens[0] = len(query)
+    b = pack_streams(query, db.mat, n_streams=phys * segments, segments=segments,
+                     lens=db.lens, rows=rows)
+    qk, sk = port._to_kernel_layout(torch.from_numpy(b.q), torch.from_numpy(b.stream),
+                                    segments, rows)
+    return qk, sk, int(db.lens.max())
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_plain(rows, segments, long_reads, mode):
+    qk, sk, _ = _geometry_case(rows, segments, long_reads)
+    width, dtype = STRIP_MODES[mode]
+    return port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, segments, rows,
+                                       score_width=width, state_dtype=dtype)
+
+
+@pytest.mark.parametrize("mode", list(STRIP_MODES))
+@pytest.mark.parametrize("rows,segments", GEOMETRIES)
+def test_every_geometry_strip_equals_plain_version(cuda_device, rows, segments, mode):
+    """B1 (B2 at rows 1) at every legal rows x segments, 16 query rows a
+    thread at rows 4-16 (4 sublanes at rows 1 and 2), in int32, W = 12 and
+    float32: the strip in one slice and in the wrapper's slices for the
+    batch's longest read equals the plain version's, and the count is
+    choose_slices' for that read."""
+    qk, sk, longest = _geometry_case(rows, segments, False)
+    want = _geometry_plain(rows, segments, False, mode)
+    width, dtype = STRIP_MODES[mode]
+    geometry = port.wavefront_geometry(rows, segments, dtype)
+    assert geometry.sublanes == min(16 // rows, port.MAX_SUBLANES)
+    dq, ds = qk.to(cuda_device), sk.to(cuda_device)
+    for slices in (1, None):
+        got = port.stream_strip_cuda(dq, ds, DEFAULT_PENALTIES, segments, rows, slices=slices,
+                                     score_width=width, state_dtype=dtype,
+                                     longest_read=longest)
+        torch.cuda.synchronize()
+        assert port.stream_strip_cuda.slices == (slices or port.choose_slices(
+            qk.shape[1], rows, sk.shape[0], port._sm_count(cuda_device), segments, dtype,
+            longest_read=longest))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"{slices}")
+
+
+@pytest.mark.parametrize("mode", list(STRIP_MODES))
+@pytest.mark.parametrize("rows,segments", [(16, 1), (8, 2), (4, 4), (1, 1), (2, 8)])
+def test_long_read_strip_equals_plain_version(cuda_device, rows, segments, mode):
+    """Reads of 513-2,048 bases, (r)'s: every slice shorter than a read at
+    32-step slices, and the wrapper's slices for the longest read."""
+    qk, sk, longest = _geometry_case(rows, segments, True)
+    want = _geometry_plain(rows, segments, True, mode)
+    width, dtype = STRIP_MODES[mode]
+    dq, ds = qk.to(cuda_device), sk.to(cuda_device)
+    for slices in (1, None, sk.shape[0] // port.STEP_CHUNK):
+        got = port.stream_strip_cuda(dq, ds, DEFAULT_PENALTIES, segments, rows, slices=slices,
+                                     score_width=width, state_dtype=dtype,
+                                     longest_read=longest)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"{slices}")
+
+
 def test_kernel_rejects_bad_tensors(cuda_device):
     qk = torch.zeros((128, 8), dtype=torch.int8, device=cuda_device)
     sk = torch.zeros((32, 8), dtype=torch.int8, device=cuda_device)
@@ -146,7 +226,7 @@ def test_chained_kernel_equals_plain_version(cuda_device, rows, slices):
     torch.cuda.synchronize()
     assert port.stream_chained_cuda.launches == launches + 1
     assert port.stream_chained_cuda.slices == (slices or port.choose_slices(
-        40, rows, sk.shape[0], port._sm_count(cuda_device)))
+        40, rows, sk.shape[0], port._sm_count(cuda_device), lanes=min(128 // rows, 32)))
     for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
 

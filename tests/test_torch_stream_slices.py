@@ -289,10 +289,13 @@ def test_sliced_chain_tile_equals_swtpu_interpret():
 
 # (S physical streams, rows, T, segments) of chip_smoke.py's cases (a)-(e),
 # the shootout's rows-1 strip and its E2 comparison strip, and the slice
-# counts the wrapper gives them on a card of 132 SMs
+# counts the wrapper gives them on a card of 132 SMs without a longest
+# read (a direct call's rule); (b) at 8 threads a stream has a quarter of
+# the threads it had at 32, so the warps allow 33 slices and the 1,024-step
+# floor gives 17
 MAIN_SHAPES = [
     ((512, 16, 65568, 1), 33),  # (a)
-    ((512, 4, 18112, 4), 8),  # (b)
+    ((512, 4, 18112, 4), 17),  # (b)
     ((512, 8, 9152, 2), 8),  # (c)
     ((512, 16, 72064, 1), 33),  # (d)
     ((512, 16, 16448, 1), 16),  # (e)
@@ -312,16 +315,16 @@ def test_choose_slices_at_the_main_shapes(shape, want):
     assert steps >= port.PIPE_FILLS_PER_SLICE * (port.LANES // rows // segments)
 
 
-# the 16-bit states' launches hold two streams a thread, so the same
-# streams make half the threads, and the wrapper gives twice the slices
-# where the steps allow them: (a) and (d) at rows 8 (511 streams: the last
-# pair's high half dead), (c), where the slice length caps them, and the
-# 32-bit states beside them
+# the 16-bit states' launches hold two streams a thread of min(128 / rows,
+# 32) threads a stream pair, the 32-bit ones a stream of 8 threads: at
+# rows 8 both make 8 threads a stream, so the wrapper gives them the same
+# slices where the steps allow them: (a) and (d) at rows 8 (511 streams:
+# the last pair's high half dead), (c), where the slice length caps them
 PACKED_SHAPES = [
-    ((512, 8, 65568, 1), {"int32": 16, "float32": 16, "int16": 33, "uint16": 33,
+    ((512, 8, 65568, 1), {"int32": 33, "float32": 33, "int16": 33, "uint16": 33,
                           "bfloat16": 33}),
-    ((511, 8, 65568, 1), {"int32": 16, "int16": 33}),
-    ((512, 8, 72064, 1), {"int32": 16, "int16": 33, "bfloat16": 33}),
+    ((511, 8, 65568, 1), {"int32": 33, "int16": 33}),
+    ((512, 8, 72064, 1), {"int32": 33, "int16": 33, "bfloat16": 33}),
     ((512, 8, 9152, 2), {"int32": 8, "int16": 8, "uint16": 8}),
 ]
 
@@ -365,3 +368,163 @@ def test_slice_steps_is_the_longest_slice(slices, T, steps):
     assert port.slice_steps(T, slices) == steps
     b = kernel_starts(T, slices)
     assert max(np.diff(b)) == steps and min(np.diff(b)) >= port.STEP_CHUNK
+
+
+@pytest.mark.parametrize("rows,segments,state_dtype", [
+    (r, g, d) for r in port.ROWS for g in (1, 2, 4, 8) for d in ("int32", "float32", "int16")
+    if r < 16 or d != "int16"  # swtpu refuses rows 16 in a 16-bit state
+])
+def test_wavefront_geometry_is_legal(rows, segments, state_dtype):
+    """The kernel's thread mapping at every rows x segments: W threads of
+    V sublanes cover a stream's 128 / rows sublanes, a warp holds whole
+    streams, and a segment is whole threads, so its head and tail are a
+    thread's first and last sublanes; in a 32-bit state min(16 / rows, 4)
+    sublanes a thread, 16 query rows in 8 threads a stream at rows 4-16;
+    min(128 / rows, 32) threads a stream pair in a 16-bit one (rows <= 8)."""
+    port._validate_config(segments, rows, state_dtype)
+    g = port.wavefront_geometry(rows, segments, state_dtype)
+    SL = port.LANES // rows
+    assert g.lanes * g.sublanes == SL and 32 % g.lanes == 0
+    assert g.segment_sublanes == SL // segments
+    assert g.segment_sublanes % g.sublanes == 0
+    assert g.segment_sublanes // g.sublanes * segments == g.lanes
+    if state_dtype == "int16":
+        assert (g.lanes, g.streams_per_thread) == (min(SL, 32), 2)
+    else:
+        assert g.sublanes == min(16 // rows, port.MAX_SUBLANES)
+        assert rows * g.sublanes == (16 if rows >= 4 else 4 * rows)
+        assert g.streams_per_thread == 1
+
+
+# (S physical streams, rows, T, segments, longest read) of chip_smoke.py's
+# cases (a)-(c) and (r) and the slice counts the wrapper gives them from
+# the longest read on a card of 132 SMs
+LONGEST_SHAPES = [
+    ((512, 16, 65568, 1, 128), 33),  # (a): 32 warps an SM
+    ((512, 4, 18112, 4, 256), 8),  # (b): 8 warps an SM (4 sublanes a thread)
+    ((512, 8, 9152, 2, 256), 8),  # (c): 11 slices fit, 8 make whole waves
+    ((512, 16, 42240, 1, 2048), 4),  # (r): 6 fit, 4 make a whole wave
+    ((512, 1, 16512, 1, 128), 2),  # the shootout's rows-1 strip (B2)
+    ((40, 16, 4096, 1, 200), 6),  # fewer blocks than SMs: what fits
+]
+
+
+@pytest.mark.parametrize("shape,want", LONGEST_SHAPES)
+def test_choose_slices_from_the_longest_read(shape, want):
+    """At most SLICE_WARPS_PER_SM / V warps an SM, slices of at least
+    READS_PER_SLICE reads and a pipe fill, and blocks within a tenth of a
+    wave of whole waves over the SMs (or under one wave)."""
+    S, rows, T, segments, longest = shape
+    slices = port.choose_slices(S, rows, T, 132, segments, longest_read=longest)
+    assert slices == want
+    SLg = port.LANES // rows // segments
+    assert port.slice_steps(T, slices) >= port.READS_PER_SLICE * (longest + SLg)
+    blocks = slices * -(-S * port.wavefront_geometry(rows, segments).lanes
+                         // port.KERNEL_BLOCK)
+    assert blocks <= 132 or -blocks % 132 <= 132 // 10
+
+
+@pytest.mark.parametrize("shape,_", PACKED_SHAPES)
+def test_longest_read_leaves_the_16bit_and_chain_slices(shape, _):
+    """The 16-bit kernel and the chain kernel keep their slice counts: a
+    longest read changes no 16-bit count, and the chain's geometry counts
+    min(128 / rows, 32) threads a stream."""
+    S, rows, T, segments = shape
+    for dtype in ("int16", "uint16", "bfloat16"):
+        assert (port.choose_slices(S, rows, T, 132, segments, dtype, longest_read=100)
+                == port.choose_slices(S, rows, T, 132, segments, dtype))
+    for K in (1, 2, 5):
+        got = port.chain_geometry(S, rows, T, K, 132)
+        assert got.slices == port.choose_slices(S, rows, T, 132, tiles=got.ring,
+                                                lanes=min(port.LANES // rows, 32))
+        assert got.streams_per_warp == 32 // min(port.LANES // rows, 32)
+
+
+def _long_read_batch(seed, rows, n_reads=4, phys=2):
+    """(r)'s reads, 513-2,048 bases, on `phys` streams in the kernel
+    layout."""
+    rng = np.random.default_rng(seed)
+    targets = [rng.integers(0, 4, size=k).astype(np.int8)
+               for k in rng.integers(513, 2049, size=n_reads)]
+    query = rng.integers(0, 4, size=125).astype(np.int8)
+    b = streams.pack_streams(query, targets, n_streams=phys, rows=rows)
+    qk, sk = port._to_kernel_layout(_t(b.q), _t(b.stream), 1, rows)
+    return b, qk, sk, max(map(len, targets))
+
+
+def test_long_read_slices_equal_plain_and_swtpu_strip():
+    """Reads of 513-2,048 bases at rows 4: slices shorter than a read (2
+    and 3), the hand-placed boundaries and the count the rule gives for
+    the longest read on this batch's streams, each equal to the unsliced
+    plain strip and swtpu's interpret-mode strip."""
+    b, qk, sk, longest = _long_read_batch(2048, 4)
+    T = sk.shape[0]
+    want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, 1, 4)
+    ref_strip = np.asarray(ref.sw_scores_stream_strip(b.q, b.stream, interpret=True, rows=4))
+    np.testing.assert_array_equal(want.t().numpy(), ref_strip)
+    rule = port.choose_slices(qk.shape[1], 4, T, 132, longest_read=longest)
+    cuts = {f"{c} slices": kernel_starts(T, c) for c in {2, 3, rule}}
+    cuts["on a read start, inside a read, inside a pad run"] = hand_starts(sk)
+    for label, starts in cuts.items():
+        got = sliced_outputs(qk, sk, DEFAULT_PENALTIES, 1, 4, starts)
+        np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=label)
+
+
+def test_long_read_slices_at_rows_16_equal_plain_strip():
+    """(r)'s geometry, rows 16 on reads of 513-2,048 bases, in W = 12:
+    slices of about a read, each boundary inside a read of some stream."""
+    _, qk, sk, _ = _long_read_batch(4096, 16, n_reads=2, phys=1)
+    T = sk.shape[0]
+    mode = dict(score_width=12)
+    want = port.stream_strip_reference(qk, sk, DEFAULT_PENALTIES, 1, 16, **mode)
+    starts = kernel_starts(T, T // 1024)
+    assert all(((sk[t] >= 0) & (sk[t] < 4)).any() for t in starts[1:-1])
+    got = sliced_outputs(qk, sk, DEFAULT_PENALTIES, 1, 16, starts, **mode)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_reads_up_to_reaches_every_b1_batch(monkeypatch):
+    """Every bank path that packs a B1 batch hands the wrapper its longest
+    read through reads_up_to, with swtpu's signatures: one-shot, chunked,
+    resident, sharded resident, pair streams, score_streams; outside them,
+    none."""
+    from swtpu_torch import SWConfig, ScoreBank
+    from swtpu_torch.parallel.mesh import make_mesh
+
+    seen = []
+    real = port._strip_call
+
+    def spy(*a, **kw):
+        seen.append(port._LONGEST_READ.get())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port, "_strip_call", spy)
+    rng = np.random.default_rng(77)
+    targets = [rng.integers(0, 4, size=k).astype(np.int8) for k in rng.integers(1, 90, 60)]
+    lens = [len(t) for t in targets]
+    query = rng.integers(0, 4, size=20).astype(np.int8)
+    bank = ScoreBank(backend="stream", device="cpu")
+    bank.score_database(query, targets)
+    assert seen == [max(lens)]
+    seen.clear()
+    ScoreBank(SWConfig(stream_chunk_reads=25), backend="stream",
+              device="cpu").score_database(query, targets)
+    assert seen == [max(lens[:25]), max(lens[25:50]), max(lens[50:])]
+    seen.clear()
+    db = bank.load_database(targets, max_query_len=32)
+    bank.score_loaded(query, db)
+    assert seen == [max(lens)]
+    seen.clear()
+    sdb = bank.load_database_sharded(targets, make_mesh(devices=["cpu"] * 2))
+    bank.score_loaded_sharded(query, sdb)
+    assert seen == [max(lens)] * 2
+    seen.clear()
+    bank.score_pairs([query] * 60, targets)
+    assert seen == [max(lens)]
+    seen.clear()
+    streams.score_streams(query, targets, n_streams=8, device="cpu")
+    assert seen == [max(lens)]
+    seen.clear()
+    port.sw_scores_stream_strip(_t(np.zeros((8, 128), np.int8)),
+                                _t(np.full((8, 32), 4, np.int8)))
+    assert seen == [None]
