@@ -26,7 +26,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      no gap cost, bfloat16), two streams a thread, in both forms at rows
      1, 2, 4 and 8, at 512 physical streams and at 511 (the last pair's
      high half dead), and over whole K=2 chains at rows 8 on 512 and 511
-     streams (int16 and exact uint16 also equal to int32; bfloat16 and
+     streams, a launch a tile and in one launch of the chain kernel (int16
+     and exact uint16 also equal to int32; bfloat16 and
      wrapping uint16 must differ from it); on 4,096 ragged pairs, the
      column kernel (B4) at query widths 8, 32, 136 and 256, exact, at
      score widths 12 and 10 and in float32 and int16 state (those two also
@@ -70,7 +71,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      exact scores, cases (a) and (d) with float32 state equal to their
      int32 scores; and at stream_rows=8 in int16 state on (c) and (e)
      (the sample and top-10 against the oracle) and in bfloat16 (256
-     sampled reads against the plain path on the CPU).  Then resident
+     sampled reads against the plain path on the CPU), (e)'s 4 tiles one
+     chain launch a call in each.  Then resident
      serving (phase "serving"): (k) load_database on (a)'s reads, every
      8,192nd replaced by one 128-base query (32 reads tied at the top),
      for 256 bases (segments 1, rows 16, K <= 2), score_loaded_many
@@ -163,11 +165,15 @@ Phases, each reported on its own line; any failure exits non-zero:
      in float32 against the int32 chain (every tile's four strips in full:
      float32 equal, W = 12 equal plus the bias, since no (d) score nears
      2^11), and each W = 12 tile against the plain version on its first
-     4096 steps; every mode timed beside int32.  The 16-bit states at
-     rows 8 on (a)'s database and (d)'s chain: int16 and exact uint16
-     equal to int32 in full, each state's strip (tile 0) against the plain
-     version on the first 4096 steps (full run's and in 8 slices), timed
-     beside int32 at rows 8.  B4/B5 in float32 and int16 through
+     4096 steps; every mode timed beside int32.  The 16-bit states (two
+     streams a thread): B1 at (a) at rows 8 and 4 and at (c), the slices
+     from the batch's longest read, int16 and exact uint16 equal to int32
+     in full, each state against the plain version ((a): its first 4096
+     steps, full run's and in 8 slices; (c): in full); (d)'s and (e)'s
+     chains at rows 8 in one launch (hold_chain, as the 32-bit chains),
+     int16 and exact uint16 equal to the int32 chain; each timed beside
+     int32 at the same rows (a chain also beside the per-tile chain) with
+     its bound and share.  B4/B5 in float32 and int16 through
      sw_scores_column on every (f) bucket and (g)'s chain (launch counters
      set to 0 before each), equal to int32, timed beside it, and against
      the plain version at the largest bucket and on tile 0.  Then the top
@@ -200,8 +206,10 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, error, times and bound (the
 wavefront and the chained tile also with their slices and registers, and
 each state mode's time, bound, slices and registers at the main shape,
-the 16-bit ones at rows 8 with their share of the bound and the streams a
-thread holds; the column states with their share and registers).
+the 16-bit ones (B1 at (a) rows 8 and 4 and (c), B3's chains at (d) and
+(e), rows 8) with their share of the bound, registers and spill bytes
+and the streams a thread holds; the column states with their share and
+registers).
 """
 
 from __future__ import annotations
@@ -645,8 +653,8 @@ def resolve_plain(checks):
 
 
 def hold_chain(label, q, sk, rows, penalties=None, plain=True, streams=slice(None), **mode):
-    """The chain kernel (``_long_strip``'s route on the card in a 32-bit
-    state: one launch of stream_chain_cuda for every tile) against the
+    """The chain kernel (``_long_strip``'s route on the card in every
+    state mode: one launch of stream_chain_cuda for every tile) against the
     per-tile chain (run_chain with stream_chained_cuda: a launch a tile, the
     host's shifts) on the whole last accumulator strip, both on the card,
     and with `plain` against the plain chain on its first CHECK_STEPS steps
@@ -686,16 +694,18 @@ def resident_chain(label, query, stream, rows):
     return err, checks
 
 
-def chain_facts(rows, T, K, **mode):
+def chain_facts(rows, T, K, quiet=True, **mode):
     """The chain kernel's geometry at K tiles over [T, 512] (ring, lags,
     slices) and its instantiation's registers, spills, resident blocks and
-    shared bytes a block."""
+    shared bytes a block: the one with the pad shortcut (`quiet`, the
+    penalties' pads_stay_at_zero) or the one without."""
     import torch
     from swtpu_torch.ops.stream import _sm_count, chain_geometry, stream_chain_info
 
-    g = chain_geometry(512, rows, T, K, _sm_count(torch.device("cuda")))
-    regs, local, blocks, shared = stream_chain_info(rows, mode.get("score_width"),
-                                                    mode.get("state_dtype", "int32"))
+    dtype = mode.get("state_dtype", "int32")
+    g = chain_geometry(512, rows, T, K, _sm_count(torch.device("cuda")), dtype)
+    regs, local, blocks, shared = stream_chain_info(rows, mode.get("score_width"), dtype,
+                                                    quiet)
     return dict(ring=g.ring, lag_chunks=g.lag_chunks, wrap_lag_chunks=g.wrap_lag_chunks,
                 slices=g.slices, wrap=g.wrap, registers=regs, spill_bytes=local,
                 resident_blocks_per_sm=blocks, shared_bytes=shared)
@@ -1164,8 +1174,8 @@ def launches_of(run, column=False):
     """run() with the stream kernels' launch counters set to 0 just before
     it; (its result, (wavefront launches, chained launches)) read just
     after; with `column`, the column kernels' too: (B1, B3, B4, B5).  B3's
-    launches are those of a whole chain (stream_chain_cuda, the 32-bit
-    states) and of a single tile (stream_chained_cuda, the 16-bit states)."""
+    launches are those of a whole chain (stream_chain_cuda, the main path's
+    in every state) and of a single tile (stream_chained_cuda)."""
     from swtpu_torch.ops.column import column_chained_cuda, column_scores_cuda
     from swtpu_torch.ops.stream import stream_chain_cuda, stream_chained_cuda, stream_strip_cuda
 
@@ -1713,11 +1723,15 @@ def phase_16bit_vs_plain(rng):
 
 def chains_16bit(rng, S, rows):
     """Whole K = 2 chains on S physical streams in each 16-bit state
-    against the plain version (phase_16bit_vs_plain)."""
+    against the plain version (phase_16bit_vs_plain): the per-tile chain
+    (a launch a tile, the host's shifts) every tile's four strips and its
+    last accumulator, and the chain in one launch (``_long_strip``'s
+    route) its last accumulator."""
     import numpy as np
     from swtpu_torch import Penalties
     from swtpu_torch.ops.stream import (
-        _long_strip, stream_chained_cuda, stream_chained_reference, stream_kernel_info,
+        _long_strip, stream_chain_info, stream_chained_cuda, stream_chained_reference,
+        stream_kernel_info,
     )
     from swtpu_torch.utils.timing import cuda_ms, cuda_once
 
@@ -1732,141 +1746,215 @@ def chains_16bit(rng, S, rows):
         (want, want_tiles), plain_ms = cuda_once(
             lambda: run_chain(q, sk, rows, stream_chained_reference, pen, state_dtype=dtype))
         name = f"{label} chain K=2 rows={rows} S={S}"
+        (chain, launched) = launches_of(lambda: _long_strip(q, sk, pen, rows,
+                                                            state_dtype=dtype))
+        if launched != (0, 1):
+            fail(f"{name}: the chain made (B1, B3) {launched} launches, want one chain")
         err = max(strip_error(f"{name} last acc", acc, want),
+                  strip_error(f"{name} chain kernel", chain, want),
                   exact_or_not(name, label, acc, exact, len(query)))
         for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, want_tiles)):
             for strip, g, w in zip(STRIPS, outs, wouts):
                 err = max(err, strip_error(f"{name} tile {p} {strip}", g, w))
         ms = cuda_ms(lambda: _long_strip(q, sk, pen, rows, state_dtype=dtype), 5)
+        tiles_ms = cuda_ms(lambda: _long_strip(q, sk, pen, rows, tile=stream_chained_cuda,
+                                               state_dtype=dtype), 5)
         int32_ms = cuda_ms(lambda: _long_strip(q, sk, pen, rows), 5)
         T, N = sk.shape
         chains.append(dict(mode=label, tiles=2, rows=rows, T=T, N=N,
                            differ_from_int32=int((acc != exact).sum()), max_abs_err=err,
-                           ms=ms, int32_ms=int32_ms, plain_ms=plain_ms,
-                           registers=stream_kernel_info(rows, chained=True,
-                                                        state_dtype=dtype)[0]))
+                           ms=ms, per_tile_chain_ms=tiles_ms, int32_ms=int32_ms,
+                           plain_ms=plain_ms,
+                           registers=stream_chain_info(rows, state_dtype=dtype)[0],
+                           tile_registers=stream_kernel_info(rows, chained=True,
+                                                             state_dtype=dtype)[0]))
     print(f"phase kernel_vs_plain: ok 16-bit chain K=2 rows={rows} S={S} strips [{T}, {N}] "
-          f"bit-equal (last acc + 4 per tile) in " + ", ".join(
+          f"bit-equal (the one-launch chain's and the per-tile chain's last acc, 4 per "
+          f"tile) in " + ", ".join(
               f"{r['mode']} ({r['differ_from_int32']} cells off int32; chain {r['ms']:.4f} "
-              f"ms, int32 {r['int32_ms']:.4f}, plain {r['plain_ms']:.1f})" for r in chains),
+              f"ms, a launch a tile {r['per_tile_chain_ms']:.4f}, int32 "
+              f"{r['int32_ms']:.4f}, plain {r['plain_ms']:.1f})" for r in chains),
           flush=True)
     return chains
 
 
-def phase_16bit_at_main_shape(case_a, case_d):
-    """The 16-bit states at the main shapes, at rows SIXTEEN_ROWS: (a)'s
-    database laid out at segments 1, and (d)'s chain.  Each state's kernel
-    over the full strip (every tile of (d), four strips), int16 and exact
-    uint16 equal to the int32 kernel at rows 8 and the same penalties; then
-    the first CHECK_STEPS steps against the plain version, the full run's
-    and a run of the cut in CUT_SLICES slices ((d): tile 0, on its own
-    chain's inputs).  Each timed beside int32 at rows 8, in turns.  The
-    plain versions run on the CPU beside the card's work (PlainJobs)."""
+# the 16-bit states' B1 shapes: (label, index of the main case, segments,
+# rows, held in full): (a) at rows 8 and 4 on its first CHECK_STEPS steps,
+# (c) (segments 2, rows 8, ScoreBank's geometry for it) in full
+SIXTEEN_B1 = (("(a) rows 8", 0, 1, 8, False), ("(a) rows 4", 0, 1, 4, False),
+              ("(c) rows 8", 2, 2, 8, True))
+
+
+def phase_16bit_at_main_shape(cases, long_cases, peaks):
+    """The 16-bit states at the main shapes.  B1 (two streams a thread, 8
+    threads a pair at rows 4 and 8) at SIXTEEN_B1's shapes, the slices
+    from the batch's longest read as the bank passes it: int16 and exact
+    uint16 equal to the int32 kernel at the same rows over the full strip;
+    every state against the plain version ((a): the first CHECK_STEPS
+    steps, the full run's and a run of the cut in CUT_SLICES slices; (c):
+    in full).  B3 at rows SIXTEEN_ROWS on (d)'s and (e)'s chains in one
+    launch (hold_chain: = the per-tile chain in full, every tile = the
+    plain tile on the steps that hold the chain on its first CHECK_STEPS);
+    int16 and exact uint16 also = the int32 chain.  Each timed beside int32
+    at the same rows and, a chain, beside the per-tile chain (K launches of
+    the same kernel at K = 1 and the host's shifts), in turns; each with
+    its bound (peaks) and share, slices and registers.  The plain versions
+    run on the CPU beside the card's work (PlainJobs)."""
     from swtpu_torch import DEFAULT_PENALTIES, Penalties
-    from swtpu_torch.ops.stream import stream_chained_cuda, stream_kernel_info, stream_strip_cuda
+    from swtpu_torch.ops.stream import (
+        _long_strip, pads_stay_at_zero, stream_chain_cuda, stream_chained_cuda,
+        stream_kernel_info, stream_strip_cuda, streams_per_thread,
+    )
     from swtpu_torch.utils.timing import cuda_ms
 
-    n, rows = CHECK_STEPS, SIXTEEN_ROWS
+    n = CHECK_STEPS
     plain = plain_jobs()
-    checks = []  # ("a" or "d", state label, its PlainCheck)
-    qk, sk = laid_out_batch(case_a["query"], case_a["db"], 1, rows, MODE_STREAMS)
-    a = dict(name=case_a["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={})
-    cut = sk[:n].contiguous()
-    err = 0
-    for label, dtype, pen in SIXTEEN_BIT:
-        pen = Penalties(*pen)
-        got = stream_strip_cuda(qk, sk, pen, 1, rows, state_dtype=dtype)
-        slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
-        if label in ("int16", "uint16"):
-            err = max(err, strip_error(f"(a) rows {rows} {label} full strip", got,
-                                       stream_strip_cuda(qk, sk, pen, 1, rows),
-                                       (label, "int32")))
-        held = [(f"(a) rows {rows} {label} first {n} steps", 0, got[:n].clone()),
-                (f"(a) rows {rows} {label} first {n} steps in {CUT_SLICES} slices", 0,
-                 stream_strip_cuda(qk, cut, pen, 1, rows, slices=CUT_SLICES,
-                                   state_dtype=dtype))]
-        checks.append(("a", label, plain.check("stream_strip_reference",
-                                               (qk, cut, pen, 1, rows), held,
-                                               state_dtype=dtype)))
-        regs, _, blocks = stream_kernel_info(rows, state_dtype=dtype)
-        a["modes"][label] = dict(
-            state_dtype=dtype, penalties=list(pen.astuple()), slices=slices,
-            slice_steps=steps, registers=regs, resident_blocks_per_sm=blocks,
-            differ_from_int32=int((got != stream_strip_cuda(qk, sk, pen, 1, rows)).sum()))
-        del got, held
-    int32_first = cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, rows), 3)
-    for label, dtype, pen in SIXTEEN_BIT:
-        a["modes"][label]["ms"] = cuda_ms(
-            lambda: stream_strip_cuda(qk, sk, Penalties(*pen), 1, rows, state_dtype=dtype), 3)
-    a["int32_ms"] = (int32_first + cuda_ms(
-        lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, 1, rows), 3)) / 2
-    regs, _, _ = stream_kernel_info(rows)
-    a.update(int32_registers=regs, max_abs_err=err, check_steps=n)
-    del qk, sk, cut
+    b1, chains, pending = [], [], []
 
-    q, sk = long_batch(case_d["query"], case_d["db"], rows, MODE_STREAMS)
-    d = dict(name=case_d["name"], T=sk.shape[0], N=sk.shape[1], rows=rows, modes={})
-    err = 0
-    inputs = {}
-    for label, dtype, pen in SIXTEEN_BIT:
-        pen = Penalties(*pen)
-        _, tiles = run_chain(q, sk, rows, stream_chained_cuda, pen, state_dtype=dtype)
-        slices, steps = stream_chained_cuda.slices, stream_chained_cuda.slice_steps
-        if label in ("int16", "uint16"):
-            _, exact = run_chain(q, sk, rows, stream_chained_cuda, pen)
-            for p, ((_, outs), (_, wouts)) in enumerate(zip(tiles, exact)):
-                for strip, g, w in zip(STRIPS, outs, wouts):
-                    err = max(err, strip_error(f"(d) rows {rows} {label} tile {p} {strip}",
-                                               g, w, (label, "int32")))
-            del exact
-        args, outs = tiles[0]
-        qk0, _, bD, bG, bH, _, r = args
-        cutin = [x[:n].contiguous() for x in (sk, bD, bG, bH)]
-        got_cut = stream_chained_cuda(qk0, *cutin, pen, r, slices=CUT_SLICES, state_dtype=dtype)
-        held = []
-        for k, (strip, g, gc) in enumerate(zip(STRIPS, outs, got_cut)):
-            label_n = f"(d) rows {rows} {label} tile 0 {strip} first {n} steps"
-            held += [(label_n, k, g[:n].clone()), (f"{label_n} in {CUT_SLICES} slices", k, gc)]
-        checks.append(("d", label, plain.check("stream_chained_reference",
-                                               (qk0, *cutin, pen, r), held,
+    def ops_lanes(dtype):
+        ops = WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]
+        return ops, cell_lanes("wavefront", dtype, ops)
+
+    for label, k, seg, rows, full in SIXTEEN_B1:
+        case = cases[k]
+        qk, sk = laid_out_batch(case["query"], case["db"], seg, rows, MODE_STREAMS)
+        longest = int(case["db"].lens.max())
+        T, N = sk.shape
+        S = N // seg
+        cut = sk if full else sk[:n].contiguous()
+        row = dict(name=case["name"], shape=label, T=T, N=N, segments=seg, rows=rows,
+                   longest_read=longest, check_steps=T if full else n, modes={},
+                   int32_slices=stream_strip_cuda.slices)
+        err = 0
+        for mode, dtype, pen in SIXTEEN_BIT:
+            pen = Penalties(*pen)
+            kw = dict(state_dtype=dtype, longest_read=longest)
+            got = stream_strip_cuda(qk, sk, pen, seg, rows, **kw)
+            slices, steps = stream_strip_cuda.slices, stream_strip_cuda.slice_steps
+            # the int32 kernel at the state's penalties
+            exact = stream_strip_cuda(qk, sk, pen, seg, rows, longest_read=longest)
+            if mode in ("int16", "uint16"):
+                err = max(err, strip_error(f"{label} {mode} full strip", got, exact,
+                                           (mode, "int32")))
+            held = [(f"{label} {mode} first {cut.shape[0]} steps", 0,
+                     got[: cut.shape[0]].clone())]
+            if not full:
+                held.append((f"{label} {mode} first {n} steps in {CUT_SLICES} slices", 0,
+                             stream_strip_cuda(qk, cut, pen, seg, rows, slices=CUT_SLICES,
                                                state_dtype=dtype)))
-        regs, _, blocks = stream_kernel_info(rows, chained=True, state_dtype=dtype)
-        d["modes"][label] = dict(state_dtype=dtype, penalties=list(pen.astuple()),
-                                 slices=slices, slice_steps=steps, registers=regs,
-                                 resident_blocks_per_sm=blocks)
-        inputs[label] = (args, dtype)
-        del tiles, outs, cutin, got_cut, held
-    _, tiles = run_chain(q, sk, rows, stream_chained_cuda)
-    int32_args = tiles[0][0]
-    del tiles
-    int32_first = cuda_ms(lambda: stream_chained_cuda(*int32_args), 3)
-    for label, (args, dtype) in inputs.items():
-        d["modes"][label]["ms"] = cuda_ms(
-            lambda: stream_chained_cuda(*args, state_dtype=dtype), 3)
-    d["int32_ms"] = (int32_first + cuda_ms(lambda: stream_chained_cuda(*int32_args), 3)) / 2
-    regs, _, _ = stream_kernel_info(rows, chained=True)
-    d.update(int32_registers=regs, max_abs_err=err, check_steps=n)
-    for case, label, check in checks:
-        e, ms, where = check.result()
-        case = a if case == "a" else d
-        case["max_abs_err"] = max(case["max_abs_err"], e)
-        case["modes"][label]["plain_ms"] = ms
-        case["plain_on"] = where
-    print(f"phase 16bit_main_shape: ok {a['name']} seg=1 rows={rows} strip [{a['T']}, "
-          f"{a['N']}]: int16 and uint16 = the int32 kernel (full strip), every state = the "
-          f"plain version on the first {n} steps (full run's and in {CUT_SLICES} slices) | "
-          f"kernel int32 {a['int32_ms']:.3f} ms, " + ", ".join(
-              f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
-              f"plain {v['plain_ms']:.1f} ms)" for k, v in a["modes"].items())
-          + f" (plain on the {a['plain_on']})", flush=True)
-    print(f"phase 16bit_main_shape: ok {d['name']} rows={rows} strips [{d['T']}, {d['N']}]: "
-          f"int16 and uint16 = the int32 chain (4 strips of every tile, full length), every "
-          f"state's tile 0 = the plain version on the first {n} steps (full run's and in "
-          f"{CUT_SLICES} slices) | tile 0 kernel int32 {d['int32_ms']:.3f} ms, " + ", ".join(
-              f"{k} {v['ms']:.3f} ms ({v['slices']} slices, {v['registers']} registers; "
-              f"plain {v['plain_ms']:.1f} ms)" for k, v in d["modes"].items())
-          + f" (plain on the {d['plain_on']})", flush=True)
-    return a, d
+            pending.append((row, mode, plain.check("stream_strip_reference",
+                                                    (qk, cut, pen, seg, rows), held,
+                                                    state_dtype=dtype)))
+            regs, spill, blocks = stream_kernel_info(rows, state_dtype=dtype)
+            ops, lanes = ops_lanes(dtype)
+            bound = peaks.bound(128 * S + T * N * 5, 128 * T * S * ops, lanes)
+            row["modes"][mode] = dict(
+                state_dtype=dtype, penalties=list(pen.astuple()), slices=slices,
+                slice_steps=steps, registers=regs, spill_bytes=spill,
+                resident_blocks_per_sm=blocks, streams_per_thread=streams_per_thread(dtype),
+                bound_ms=bound[0], bound_by=bound[1],
+                differ_from_int32=int((got != exact).sum()))
+            if spill:
+                fail(f"B1 rows {rows} {dtype} spills {spill} bytes a thread")
+            del got, held
+        # timed in turns: int32, every state, int32 again (10 calls each)
+        int32 = [cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows,
+                                                   longest_read=longest), 10)]
+        for mode, dtype, pen in SIXTEEN_BIT:
+            m = row["modes"][mode]
+            m["ms"] = cuda_ms(lambda: stream_strip_cuda(
+                qk, sk, Penalties(*pen), seg, rows, state_dtype=dtype,
+                longest_read=longest), 10)
+            m["bound_share"] = m["bound_ms"] / m["ms"]
+        int32.append(cuda_ms(lambda: stream_strip_cuda(qk, sk, DEFAULT_PENALTIES, seg, rows,
+                                                       longest_read=longest), 10))
+        row.update(int32_ms=sum(int32) / 2, int32_registers=stream_kernel_info(rows)[0],
+                   max_abs_err=err)
+        b1.append(row)
+        del qk, sk, cut
+
+    rows = SIXTEEN_ROWS
+    for case in long_cases:
+        q, sk = long_batch(case["query"], case["db"], rows, MODE_STREAMS)
+        T, N = sk.shape
+        K = q.shape[1] // 128
+        row = dict(name=case["name"], T=T, N=N, tiles=K, rows=rows, check_steps=n, modes={})
+        err = 0
+        for mode, dtype, pen in SIXTEEN_BIT:
+            pen = Penalties(*pen)
+            chain, e, checks = hold_chain(f"{case['name'][0]} rows {rows} {mode}", q, sk,
+                                          rows, pen, state_dtype=dtype)
+            slices, steps = stream_chain_cuda.slices, stream_chain_cuda.slice_steps
+            err = max(err, e)
+            exact = _long_strip(q, sk, pen, rows)  # the int32 chain at the same penalties
+            if mode in ("int16", "uint16"):
+                err = max(err, strip_error(f"{case['name'][0]} rows {rows} {mode} chain",
+                                           chain, exact, (mode, "int32")))
+            pending.append((row, mode, checks))
+            facts = chain_facts(rows, T, K, pads_stay_at_zero(pen, dtype), state_dtype=dtype)
+            if facts["slices"] != slices:
+                fail(f"the chain at rows {rows} in {dtype} ran {slices} slices, its "
+                     f"geometry gives {facts['slices']}")
+            if facts["spill_bytes"]:
+                fail(f"the chain kernel at rows {rows} in {dtype} spills "
+                     f"{facts['spill_bytes']} bytes a thread")
+            tile_regs, tile_spill, tile_blocks = stream_kernel_info(rows, chained=True,
+                                                                    state_dtype=dtype)
+            if tile_spill:
+                fail(f"the per-tile chain kernel at rows {rows} in {dtype} spills "
+                     f"{tile_spill} bytes a thread")
+            ops, lanes = ops_lanes(dtype)
+            # every tile's register and the stream read once, the last strip
+            # written once, K tiles' operations
+            bound = peaks.bound(K * 128 * N + T * N * (1 + 4), K * 128 * T * N * ops, lanes)
+            row["modes"][mode] = dict(
+                state_dtype=dtype, penalties=list(pen.astuple()), slices=slices,
+                slice_steps=steps, chain=facts, tile_registers=tile_regs,
+                tile_resident_blocks_per_sm=tile_blocks, bound_ms=bound[0],
+                bound_by=bound[1], differ_from_int32=int((chain != exact).sum()))
+            del chain, exact
+        int32 = [cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 5)]
+        for mode, dtype, pen in SIXTEEN_BIT:
+            m = row["modes"][mode]
+            pen = Penalties(*pen)
+            m["ms"] = cuda_ms(lambda: _long_strip(q, sk, pen, rows, state_dtype=dtype), 5)
+            m["per_tile_chain_ms"] = cuda_ms(lambda: _long_strip(
+                q, sk, pen, rows, tile=stream_chained_cuda, state_dtype=dtype), 5)
+            m["bound_share"] = m["bound_ms"] / m["ms"]
+        int32.append(cuda_ms(lambda: _long_strip(q, sk, DEFAULT_PENALTIES, rows), 5))
+        row.update(int32_ms=sum(int32) / 2, max_abs_err=err)
+        chains.append(row)
+        del q, sk
+
+    for row, mode, check in pending:
+        e, ms, where = resolve_plain(check) if isinstance(check, list) else check.result()
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+        row["modes"][mode]["plain_ms"] = ms
+        row["plain_on"] = where
+    for row in b1:
+        print(f"phase 16bit_main_shape: ok B1 {row['name']} seg={row['segments']} rows="
+              f"{row['rows']} strip [{row['T']}, {row['N']}], longest read "
+              f"{row['longest_read']}: int16 and uint16 = the int32 kernel (full strip), "
+              f"every state = the plain version on the first {row['check_steps']} steps"
+              f"{'' if row['check_steps'] == row['T'] else f' (and in {CUT_SLICES} slices)'}"
+              f" | int32 {row['int32_ms']:.3f} ms ({row['int32_slices']} slices), " + ", ".join(
+                  f"{k} {v['ms']:.3f} ms: {100 * v['bound_share']:.1f} % of "
+                  f"{v['bound_ms']:.3f} ({v['slices']} slices, {v['registers']} registers; "
+                  f"plain {v['plain_ms']:.1f} ms)" for k, v in row["modes"].items())
+              + f" (plain on the {row['plain_on']})", flush=True)
+    for row in chains:
+        print(f"phase 16bit_main_shape: ok B3 {row['name']} rows={row['rows']} chain of "
+              f"{row['tiles']} tiles [{row['T']}, {row['N']}], one launch: = the per-tile "
+              f"chain in full, = the plain chain on its first {n} steps (every tile), "
+              f"int16 and uint16 = the int32 chain | int32 chain {row['int32_ms']:.3f} ms, "
+              + ", ".join(
+                  f"{k} {v['ms']:.3f} ms: {100 * v['bound_share']:.1f} % of "
+                  f"{v['bound_ms']:.3f} (a launch a tile {v['per_tile_chain_ms']:.3f}; "
+                  f"{v['slices']} slices, ring {v['chain']['ring']}, "
+                  f"{v['chain']['registers']} registers; plain tiles "
+                  f"{v['plain_ms']:.1f} ms)" for k, v in row["modes"].items())
+              + f" (plain on the {row['plain_on']})", flush=True)
+    return b1, chains
 
 
 BF16_SAMPLE = 256  # reads of a bfloat16 bank run held against the plain path
@@ -1875,8 +1963,9 @@ BF16_SAMPLE = 256  # reads of a bfloat16 bank run held against the plain path
 def phase_16bit_databases(card, case_c, case_e):
     """ScoreBank(stream_state_dtype=..., stream_rows=SIXTEEN_ROWS,
     device="cuda").score_database on case (c)'s database and (e)'s long
-    query, each path's launch counters set to 0 just before it: int16's
-    seeded sample of 2048 reads and top-10 against the oracle; bfloat16's
+    query, each path's launch counters set to 0 just before it (B1 once a
+    call on (c), one B3 chain a call on (e): its 4 tiles in one launch):
+    int16's seeded sample of 2048 reads and top-10 against the oracle; bfloat16's
     first BF16_SAMPLE sampled reads against the port's plain path on the
     CPU on those reads (a bfloat16 score does not depend on rows or on the
     stream a read rides)."""
@@ -1886,7 +1975,7 @@ def phase_16bit_databases(card, case_c, case_e):
     out = []
     for dtype in ("int16", "bfloat16"):
         cfg = SWConfig(stream_state_dtype=dtype, stream_rows=SIXTEEN_ROWS)
-        for c, want_launches in ((case_c, (4, 0)), (case_e, (0, 16))):
+        for c, want_launches in ((case_c, (4, 0)), (case_e, (0, 4))):
             name = f"{c['name'][0]}_{dtype}_rows{SIXTEEN_ROWS}"
             bank = ScoreBank(cfg, device="cuda")
             (res, wall, walls, peak), launched = launches_of(
@@ -4593,7 +4682,7 @@ def main() -> int:
                                            rng_lane)
     from swtpu_torch.ops.stream import (
         chained_launches as b3_launches, stream_chain_cuda, stream_chained_cuda,
-        stream_kernel_info, stream_strip_cuda, streams_per_thread,
+        stream_kernel_info, stream_strip_cuda,
     )
 
     stream_strip_cuda.launches = 0
@@ -4631,8 +4720,8 @@ def main() -> int:
     mode_a, mode_d = timed("modes_main_shape", phase_modes_at_main_shape, bank, cases[0],
                            long_cases[0])
     check_bench_headline(bench, mode_a["ms"]["float32"], card)
-    a_16, d_16 = timed("16bit_main_shape", phase_16bit_at_main_shape, cases[0],
-                       long_cases[0])
+    b1_16, b3_16 = timed("16bit_main_shape", phase_16bit_at_main_shape, cases, long_cases,
+                         peaks)
     col_batches, col_tile = timed(
         "column_main_shape", phase_column_at_main_shape,
         col_bank, col_cases[0], col_cases[1], long_mains[1]["chain_ms"], peaks)
@@ -4740,23 +4829,6 @@ def main() -> int:
                                plain_ms=plain[label], plain_note=plain_note)
         return rows
 
-    def rows_16bit(at, bound_of):
-        """Each 16-bit state at a main shape (rows 8): its time beside
-        int32's at rows 8 in the same call, its bound with the state's
-        operations on its lanes, its share of the bound, slices, registers
-        and the plain version's time on the first CHECK_STEPS steps."""
-        rows = {}
-        for label, dtype, _ in SIXTEEN_BIT:
-            ops = WAVEFRONT_OPS + SIXTEEN_EXTRA_OPS[dtype]
-            b = bound_of(ops, cell_lanes("wavefront", dtype, ops))
-            m = at["modes"][label]
-            rows[label] = dict(m, int32_ms=at["int32_ms"], bound_ms=b[0], bound_by=b[1],
-                               bound_share=b[0] / m["ms"], rows=at["rows"],
-                               streams_per_thread=streams_per_thread(dtype),
-                               int32_registers=at["int32_registers"],
-                               plain_note=f"the first {at['check_steps']} steps")
-        return rows
-
     def column_states(at, bound_of, k):
         """The column kernels' float32 and int16 states at a main shape:
         time per batch beside int32's, the bound at the plain version's
@@ -4774,12 +4846,11 @@ def main() -> int:
                                pairs_per_warp=2 if dtype == "int16" else 1)
         return rows
 
-    T8, N8 = a_16["T"], a_16["N"]
-    modes_a16 = rows_16bit(a_16, lambda ops, lanes: peaks.bound(
-        128 * N8 + T8 * N8 * 5, 128 * T8 * N8 * ops, lanes))
-    Td, Nd = d_16["T"], d_16["N"]
-    modes_d16 = rows_16bit(d_16, lambda ops, lanes: peaks.bound(
-        128 * Nd + Td * Nd * (1 + 12 + 16), 128 * Td * Nd * ops, lanes))
+    # the 16-bit rows (phase 16bit_main_shape): B1 at (a) rows 8 and 4 and
+    # at (c), B3's chain in one launch at (d) and (e), rows 8; each with its
+    # time, bound, share, slices, registers and spill bytes
+    modes_b1_16 = {f"{r['shape']} {r['name']}": r for r in b1_16}
+    modes_b3_16 = {f"{r['name']} rows {r['rows']}": r for r in b3_16}
     modes_f = column_states(f_states, lambda ops, lanes: peaks.bound(
         B * (m + n + 4), B * m * n * ops, lanes), -1)
     modes_g = column_states(g_states, lambda ops, lanes: peaks.bound(
@@ -4822,11 +4893,11 @@ def main() -> int:
         entry("stream_wavefront", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:193", launches_total[0],
               max(c["max_abs_err"] for c in checks + mains + [b2] + mode_checks + [mode_a]
-                  + checks_16 + [a_16, ladders["kernels"]["B1 r"]]),
+                  + checks_16 + b1_16 + [ladders["kernels"]["B1 r"]]),
               head["ms"], head["plain_ms"], b_wave,
               plain_note=f"(a)'s first {head['check_steps']} steps",
               launches_by_path={k: v[0] for k, v in by_path.items()},
-              modes=modes_a, mode_configs=mode_checks, modes_16bit=modes_a16,
+              modes=modes_a, mode_configs=mode_checks, modes_16bit=modes_b1_16,
               configs_16bit=checks_16,
               also_replaces="swtpu/ops/pallas_stream.py:57 (tail-accumulator and "
                             "ripple-H forms)",
@@ -4838,14 +4909,14 @@ def main() -> int:
         entry("stream_chained", "swtpu_torch/ops/csrc/stream_wavefront.cu",
               "swtpu/ops/pallas_stream.py:314", launches_total[1],
               max(c["max_abs_err"] for c in chains + long_mains + chain_mode_checks
-                  + [mode_d] + chains_16 + [d_16, ladders["kernels"]["B3 q"]]),
+                  + [mode_d] + chains_16 + b3_16 + [ladders["kernels"]["B3 q"]]),
               lhead["chain_ms"], lhead["chain_plain_ms"], b_fused,
               plain_note=f"the plain chain ({Kd} tiles) on (d)'s first {Tc} steps, on the "
                          f"{lhead['chain_plain_on']}",
               launches_by_path={k: v[1] for k, v in by_path.items()},
               tiles=Kd, tile_bound_ms=b_chain[0], per_tile_chain_ms=lhead["per_tile_chain_ms"],
               modes=modes_d, mode_tile_ms=mode_d["tile_ms"], mode_configs=chain_mode_checks,
-              modes_16bit=modes_d16, configs_16bit=chains_16,
+              modes_16bit=modes_b3_16, configs_16bit=chains_16,
               shape=[Tl, Nl], plain_shape=[Tc, Nl], ring=lhead["chain"]["ring"],
               slices=lhead["chain"]["slices"], registers=lhead["chain"]["registers"],
               spill_bytes=lhead["chain"]["spill_bytes"],

@@ -1,6 +1,7 @@
 """B3's long-query chains timed so that two trees compare in one call.
 
     python experiments/torch_chain_b3.py [--root DIR] [--tag NAME] [--reps N] [--seed S]
+                                         [--sixteen]
 
 Runs the package of the checkout at --root (default: this one; unpack a
 parent with `git archive` into build/, which git ignores) on data made
@@ -19,6 +20,12 @@ chain runs in one launch see the same inputs:
   - (j): J_SHORT + J_LONG at width 12 (2,048 short queries x 8 targets,
     and 16 long queries of 410-512 bases x 64 targets), and its 1,024
     long pairs alone.
+--sixteen times instead the 16-bit states' chains: (d) and (e) packed at
+rows 8 (the 16-bit states refuse 16) and run exact in int32 and in each
+of chip_smoke's SIXTEEN_BIT modes (int16, uint16 at +5/0 and +5/-4 with no
+gap cost, bfloat16) at its penalties, then (d) and (e) at rows 16 in int32
+(the 32-bit chain beside them); a tree whose 16-bit chain runs a launch a
+tile (and shifts on the host) against one whose chain is one launch.
 For each: the chain's time (CUDA events around `reps` warm calls,
 median), or for (s) the call's wall (host clock, median); the host's
 dispatch (the time until the call returns, before the card finishes; for
@@ -66,6 +73,8 @@ def main() -> int:
     ap.add_argument("--tag", default="this", help="label of every line")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--sixteen", action="store_true",
+                    help="only the 16-bit states' chains at (d) and (e), rows 8")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -73,9 +82,10 @@ def main() -> int:
     import numpy as np
     import torch
     from chip_smoke import (
-        J_LONG, J_SHORT, J_WIDTH, LADDER_S, LONG_CASES, long_batch, make_db, query_pairs,
+        J_LONG, J_SHORT, J_WIDTH, LADDER_S, LONG_CASES, SIXTEEN_BIT, long_batch, make_db,
+        query_pairs,
     )
-    from swtpu_torch import DEFAULT_PENALTIES, SWConfig, ScoreBank
+    from swtpu_torch import DEFAULT_PENALTIES, Penalties, SWConfig, ScoreBank
     from swtpu_torch.ops import stream as st
 
     if not torch.cuda.is_available():
@@ -141,9 +151,9 @@ def main() -> int:
               f"{median:.4f} ms | peak device memory {peak:.3f} GB | digest {digest}",
               flush=True)
 
-    def chain_case(label, q, sk, width):
+    def chain_case(label, q, sk, width, rows=16, penalties=DEFAULT_PENALTIES, **mode):
         def run():
-            return st._long_strip(q, sk, DEFAULT_PENALTIES, 16, score_width=width)
+            return st._long_strip(q, sk, penalties, rows, score_width=width, **mode)
 
         strip = run()
         torch.cuda.synchronize()
@@ -197,6 +207,21 @@ def main() -> int:
         report(label, walls, dispatch, traced_call, digest, "wall")
 
     rng = np.random.default_rng([args.seed, 19])
+    if args.sixteen:
+        for name, n, (lo, hi), qlen in LONG_CASES:
+            db = make_db(rng, n, lo, hi)
+            query = rng.integers(0, 4, size=qlen).astype(np.int8)
+            for rows in (8, 16):
+                q, sk = long_batch(query, db, rows, 512)
+                T, N = sk.shape
+                head = f"{name} [{T}, {N}] K={q.shape[1] // 128} rows={rows}"
+                chain_case(f"{head} int32", q, sk, None, rows)
+                for label, dtype, pen in SIXTEEN_BIT if rows == 8 else ():
+                    chain_case(f"{head} {label}", q, sk, None, rows, Penalties(*pen),
+                               state_dtype=dtype)
+                del q, sk
+            del db
+        return 0
     for name, n, (lo, hi), qlen in (*LONG_CASES, Q_CASE):
         db = make_db(rng, n, lo, hi)
         query = rng.integers(0, 4, size=qlen).astype(np.int8)

@@ -25,7 +25,10 @@ times B1 at (a), (b), (c) and chip_smoke.py's (r) (16,384 reads of
 513-2,048 bases, rows 16) and B2 (the shootout's rows-1 strip in both
 forms, E2's comparison strip) over wide sweeps of slice counts, the
 default passing the batch's longest read where the tree's wrapper takes
-it (`longest_read`).
+it (`longest_read`); --only b1_16 times B1 in the 16-bit states (int16,
+uint16, bfloat16) beside int32 at (a) at rows 8 and 4 and at (c)
+(segments 2, rows 8), at the default passing the batch's longest read
+and at a few fixed counts.
 Each line ends with a digest of the outputs: equal digests across trees
 and counts mean bit-equal strips.  Prints the card's name and power limit
 first; every number is this run's.
@@ -46,9 +49,10 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose swtpu_torch and chip_smoke.py to run")
     ap.add_argument("--tag", default="this", help="label of every line")
-    ap.add_argument("--only", choices=("all", "states", "b1"), default="all",
+    ap.add_argument("--only", choices=("all", "states", "b1", "b1_16"), default="all",
                     help="states: only (a)/(d) at rows 16 and the state-mode lines; "
-                    "b1: only B1 at (a)-(c) and (r) and B2, over wide slice sweeps")
+                    "b1: only B1 at (a)-(c) and (r) and B2, over wide slice sweeps; "
+                    "b1_16: only B1 in the 16-bit states at (a) rows 8 and 4 and (c)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -108,6 +112,9 @@ def main() -> int:
 
     if args.only == "b1":
         b1_sweeps(report, P)
+        return 0
+    if args.only == "b1_16":
+        b1_16bit(report, runs_16)
         return 0
     rng = np.random.default_rng(1)
     short = args.only == "all"
@@ -254,6 +261,32 @@ def b1_sweeps(report, P):
     s2 = torch.from_numpy(s2).cuda()
     report("B2 E2 comparison rows=1 [4096, 512]",
            lambda **kw: st.stream_strip_cuda(qT, s2, P, 1, 1, **kw), [1, 2, 4, 8])
+
+
+def b1_16bit(report, runs_16):
+    """B1 in each 16-bit state beside int32 at (a) at rows 8 and 4 and at
+    (c) (segments 2, rows 8), the batch as ScoreBank packs it, the default
+    count from the batch's longest read where the tree's wrapper takes it."""
+    import numpy as np
+    from chip_smoke import laid_out_batch, make_db
+    from swtpu_torch.ops import stream as st
+
+    takes_longest = "longest_read" in inspect.signature(st.stream_strip_cuda).parameters
+    cases = [("(a)", np.random.default_rng(7), 262144, (128, 128), 128, 1, (8, 4)),
+             ("(c)", np.random.default_rng(19), 65536, (24, 256), 64, 2, (8,))]
+    for name, rng, n, (lo, hi), qlen, seg, rows_list in cases:
+        db = make_db(rng, n, lo, hi)
+        query = rng.integers(0, 4, size=qlen).astype(np.int8)
+        lr = dict(longest_read=int(db.lens.max())) if takes_longest else {}
+        for rows in rows_list:
+            qk, sk = laid_out_batch(query, db, seg, rows, 512)
+            for label, pen, mode in runs_16:
+                report(f"B1 {name} seg={seg} rows={rows} {label} [{sk.shape[0]}, "
+                       f"{sk.shape[1]}] longest read {int(db.lens.max())}",
+                       lambda **kw: st.stream_strip_cuda(qk, sk, pen, seg, rows, **mode, **lr,
+                                                         **kw),
+                       [8, 16, 33, 66], reps=5)
+            del qk, sk
 
 
 def short_cases(rng, report, tile0, P):

@@ -121,7 +121,7 @@ def load_library() -> ctypes.CDLL:
             lib.swtpu_stream_chain.restype = ctypes.c_int
             lib.swtpu_stream_chain.argtypes = [
                 *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8, ctypes.c_void_p,
-                *[ctypes.c_int] * 4,
+                *[ctypes.c_int] * 5,
             ]
             lib.swtpu_stream_kernel_info.restype = ctypes.c_int
             lib.swtpu_stream_kernel_info.argtypes = [

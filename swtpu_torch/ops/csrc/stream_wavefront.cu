@@ -21,13 +21,16 @@
 // previous H, reset at a read's first char, and the strip row is the
 // segment tail's H itself.
 //
-// Chained tiles (B3, seg = 1, stream_chain_kernel).  A query of K x 128
+// Chained tiles (B3, seg = 1, stream_chain_kernel; in a 16-bit state
+// stream_chain_x2_kernel, the same schedule).  A query of K x 128
 // bases is K tiles of 128 query rows.  Tile p+1's row 0 reads tile p's row
 // 127 in place of the zero boundary: at step t, diag = f0 ? 0 :
 // D127[t + SL - 2], G_up = G127[t + SL - 1], H_up = H127[t + SL - 1] (the
-// same column of the same read; SL = 128/R).  One launch runs a chain:
+// same column of the same read; SL = 128/R).  One launch runs a chain, in
+// every state mode:
 //   - a block is P = min(K, 4) warps on one group of streams (the 32/W
-//     streams of a warp); warp w runs tiles w, w + P, w + 2P, ..., each
+//     streams of a warp, twice as many in a 16-bit state, two a thread);
+//     warp w runs tiles w, w + P, w + 2P, ..., each
 //     kLag char chunks behind the tile above, all warps in lockstep with
 //     one __syncthreads a chunk;
 //   - warp w hands its row 127 to warp w + 1 through a ring of kRing steps
@@ -47,10 +50,12 @@
 // per-tile contract (swtpu_stream_chained: bD/bG/bH [T, S], the tile
 // above's row 127 shifted by the host, in; acc, oD, oG, oH [T, S] out
 // wherever the tile writes) is the same kernel at K = 1 with those strips
-// switched on (kOneTile).  A tile moves at most 12 bytes
+// switched on (kOneTile), which serves no main path: it is the card's
+// witness that the chain equals the per-tile chain.  A tile moves at most 12 bytes
 // in and 16 out a stream-step against 128 cells, so the chain is bound by
-// the dependent integer chain of each tile.  The 16-bit states keep a
-// launch a tile (stream_wavefront_x2_kernel in kChained mode).
+// the dependent integer chain of each tile.  In a 16-bit state the ring
+// holds one packed value a stream pair, so its bytes do not grow, and warp
+// 0 packs two int32 strip values into each staged one (Arith::load).
 //
 // What bounds it.  Per stream-step a segment head reads 1 byte and a
 // segment tail writes 4, so the card's memory bandwidth is far from the
@@ -65,8 +70,11 @@
 //     one-tile kernel's 32-bit states (B1) at R = 4, 8, 16, so that each
 //     thread owns V = 16/R consecutive wavefront sublanes, 16 query rows,
 //     with their D/G/H state and query codes in registers; 16 and 32 at
-//     R = 2 and 1, 4 sublanes a thread (kStreamLanesOf, below);
-//     W = min(128/R, 32) in the chain kernel and the 16-bit one;
+//     R = 2 and 1, 4 sublanes a thread (kStreamLanesOf, below); the
+//     16-bit kernel the same at R = 4 and 8 (8 threads a stream pair) and
+//     32 threads a pair at R = 2 and 1; W = min(128/R, 32) threads a
+//     stream in the 32-bit chain kernel, min(64/R, 32) a stream pair in
+//     the 16-bit one but on the per-tile contract (kChainPairLanes);
 //   - the one-sublane shift of the char pipe, D (two steps back), G and H
 //     is four __shfl_up_sync per step at width W, and a register move
 //     between the V sublanes inside a thread;
@@ -109,8 +117,11 @@
 // start feed only columns that tile p+1 does not write either.  A chain's
 // block first looks for a read start at or after b0 in its streams: with
 // none it writes nothing in a slice after the first, and in slice 0 (zero
-// boundary, pads only, so every tile's accumulator is the zero) it writes
-// the zero into the strip and computes nothing.
+// boundary, pads only, so every tile's accumulator is the zero where no
+// penalty is positive in the state's arithmetic: not with a positive one,
+// nor in uint16 with a negative one, which wraps; the host decides and
+// picks the instantiation, kQuiet) it writes the zero into the strip and
+// computes nothing.
 //
 // State modes (kState), each form in each, as the TPU kernels have them:
 //   - kExact: int32 state, the boundary zero 0, M = max(diag + s, 0);
@@ -142,26 +153,29 @@
 // Each mode is its own instantiation, so the exact kernel's code is what
 // it was before the other modes existed; a 32-bit mode adds its own
 // arithmetic through Arith's add() and cst(), which are plain + and the
-// identity for the first three, and the 16-bit modes have a kernel of
-// their own (stream_wavefront_x2_kernel).
+// identity for the first three; the 16-bit modes have kernels of their
+// own (stream_wavefront_x2_kernel, stream_chain_x2_kernel).
 //
-// Two streams a register (the 16-bit modes, stream_wavefront_x2_kernel).
-// A thread holds the same sublanes of two adjacent streams, 2p in the low
+// Two streams a register (the 16-bit modes: stream_wavefront_x2_kernel for
+// B1 and B2, stream_chain_x2_kernel for B3).  A
+// thread holds the same sublanes of two adjacent streams, 2p in the low
 // half of each 32-bit register and 2p + 1 in the high half, and runs the
 // step on both at once with Hopper's 16x2 instructions (packed16.cuh): the
 // grid is ceil(S/2) stream pairs x W threads x C slices, a shuffle carries
 // two streams' state, and one instruction does two cells.  The selects of
 // the step become masks (sublane_step_x2): a read start is 0xFFFF in its
 // half, and zeroing is an AND.  Both halves share the geometry (segment
-// heads and tails, the slice), so only the chars, the query codes and what
-// the chars decide differ: a tail's accumulator reset, whether it writes
-// and whether it is done are per half, and a slice stops when both halves
-// of every lane are done.  A dead high half (S odd) reads pads and query
-// pads, is done from the start and never writes.  The chars and boundary
-// values of the two streams are adjacent in memory, and so are their
-// strip values; each is loaded and stored on its own (S odd puts a pair at
-// any alignment), once a step and stream, beside the step's 2 x R x V
-// cells.
+// heads and tails, the slice, a chain's tiles and ring), so only the
+// chars, the query codes and what the chars decide differ: a tail's
+// accumulator reset, whether it writes and whether it is done are per
+// half, and a slice stops when both halves of every lane are done.  A dead
+// high half (S odd) reads pads and query pads, is done from the start and
+// never writes.  The chars and strip values of the two streams are
+// adjacent in memory; each is loaded and stored on its own (S odd puts a
+// pair at any alignment), once a step and stream, beside the step's 2 x R
+// x V cells.  A step's two chars are packed into their slot one step after
+// they are loaded, when they have arrived (packing them at once made every
+// step wait for its loads: the one-slice tile ran 3x slower).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -358,19 +372,15 @@ __device__ __forceinline__ unsigned sublane_step_x2(
 
 // What a launch computes: the strip of tail accumulators (B1, B2), the
 // strip of tail H (B2 ripple-H), or one chained tile (B3); kChainMode
-// names the whole chain (stream_chain_kernel) to swtpu_stream_kernel_info.
-enum Mode { kTailAcc, kRippleH, kChained, kChainMode };
+// and kChainAllGroups name the whole chain (stream_chain_kernel or
+// stream_chain_x2_kernel) to swtpu_stream_kernel_info, with the pad
+// shortcut (kQuiet) and without it.
+enum Mode { kTailAcc, kRippleH, kChained, kChainMode, kChainAllGroups };
 
 struct Args {
   const int8_t* qk;
   const int8_t* sk;
-  const int32_t* bD;  // 16-bit kChained only: the tile above's shifted row 127
-  const int32_t* bG;
-  const int32_t* bH;
   int32_t* strip;
-  int32_t* oD;  // 16-bit kChained only: this tile's row 127
-  int32_t* oG;
-  int32_t* oH;
   int S, T, seg, ma, mi, go, ge;
   int width;  // kBiased only: W
 };
@@ -389,7 +399,10 @@ struct Args {
 // sublanes: 16 and 32 threads a stream.  A segment
 // holds SLg = 128 / (R x seg) sublanes, a multiple of V, so a segment's
 // head and tail are a thread's first and last sublanes.  The 16-bit
-// kernel and the chain kernel keep min(128 / R, 32) threads a stream.
+// kernel (two streams a thread) takes the same mapping at R = 4 and 8, 8
+// threads a stream pair of 2 x 16 query rows each, and keeps 32 threads a
+// pair at R = 2 and 1 (V = 2 and 4), where more sublanes spilled in the
+// 32-bit kernel.  The chain kernels have their own mappings.
 constexpr int kRowsPerThread = 16;
 constexpr int kMaxSublanes = 4;
 
@@ -398,8 +411,7 @@ constexpr int kSublanesOf =
     kRowsPerThread / R < kMaxSublanes ? kRowsPerThread / R : kMaxSublanes;
 
 template <int R, bool kPackedState>
-constexpr int kStreamLanesOf =
-    kPackedState ? (kLanes / R < 32 ? kLanes / R : 32) : kLanes / R / kSublanesOf<R>;
+constexpr int kStreamLanesOf = kPackedState && R < 4 ? 32 : kLanes / R / kSublanesOf<R>;
 
 template <int R, int kMode, int kState>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
@@ -513,12 +525,28 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
 }
 
+// The chars of streams s and s + 1 at step t of a segment head, as loaded
+// (src at the head's stream s, ld the step's stride): pads off the head
+// and in a dead high half.
+__device__ __forceinline__ void fetch_x2(const int8_t* src, size_t ld, bool in, bool in_hi,
+                                         int t, int (&c)[2]) {
+  const int8_t* p = src + (size_t)t * ld;
+  c[0] = in ? p[0] : kPad;
+  c[1] = in && in_hi ? p[1] : kPad;
+}
+
 // The chained tiles of a long query (B3) in a 32-bit state: one launch a
 // chain, a block's P warps on one group of streams, warp w running tiles
 // w, w + P, ... kLag chunks behind the tile above (see the header).
+// kQuiet: pads alone leave every state at the boundary zero (no penalty
+// is positive; the host's pads_stay_at_zero), so that a chain's group with
+// no read start writes the zero in slice 0 and computes nothing.  It is a
+// template argument, not a test of ChainArgs: a runtime test moved ptxas's
+// register allocation in 10 of the 30 instantiations (up to 13 registers)
+// and the int32 chain at rows 8 ran 6 % slower on an H100.
 constexpr int kRingWarps = kBlock / 32;  // P at most: tiles a block runs side by side
 constexpr int kRing = 32;                // steps of row 127 a ring holds
-constexpr int kGroupMax = 4;             // streams a warp holds at most (rows 16)
+constexpr int kGroupMax = 4;             // streams (pairs) a warp holds at most
 constexpr int kScanLoads = 4;            // chars a thread loads a round of the scan
 
 struct ChainArgs {
@@ -536,7 +564,7 @@ struct ChainArgs {
 };
 
 // kOneTile: one tile on the per-tile contract (K = 1, the strips in and out)
-template <int R, int kState, bool kOneTile>
+template <int R, int kState, bool kOneTile, bool kQuiet>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_chain_kernel(const ChainArgs a) {
   using A = Arith<kState>;
@@ -592,8 +620,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   // a read start in the group's streams at or after b0?  Without one a
   // slice after the first writes nothing, and slice 0 of a chain (zero
   // boundary, pads only) writes the zero that every tile's accumulator
-  // holds; the per-tile contract's slice 0 runs as it is
-  if (slice > 0 || !kOneTile) {
+  // holds where kQuiet (else it runs as it is); the per-tile contract's
+  // slice 0 runs as it is
+  if (slice > 0 || (!kOneTile && kQuiet)) {
     const int per = blockDim.x / NG;  // steps one load of the block covers
     const int ts = threadIdx.x / NG, ss = s0 + threadIdx.x % NG;
     bool any = false;
@@ -783,50 +812,290 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
 }
 
-// What a thread of two streams, s and s + 1, loads for one step: the
-// chars and, in a chained tile, the boundary values of both, as loaded;
-// pads, query pads and zeros in a dead high half.
-struct Loads {
-  int c[2], d[2], g[2], h[2];
-};
+// The chained tiles of a long query (B3) in a 16-bit state: the same
+// schedule as stream_chain_kernel (slices, a block's P warps on one group
+// of streams, each kLag chunks behind the tile above, the ring, the wrap
+// strips, the skipped groups), with two adjacent streams a thread, one in
+// each half of its registers, as stream_wavefront_x2_kernel holds them,
+// and two sublanes of them at R = 2 to 8: W = min(64 / R, 32) threads a
+// stream pair (kChainPairLanes; 8 at R = 8, so a warp's group is 4
+// pairs).  A thread's fixed work a step (shuffles, ring, char slot, the
+// tails' selects) is paid for 2 x 2 x R cells, and its row-0 read of the
+// ring has two sublanes' work to hide behind: at one sublane, rows 8, the
+// chain ran no faster than the per-tile launches it replaced; four
+// sublanes, B1's mapping at rows 4, spilled.  The ring holds one packed
+// value a pair, so its bytes do not grow; warp 0 packs a staged pair of
+// int32 strip values as it loads it (Arith::load: one register held, not
+// two, at the register cap); a tail's accumulator reset, writes and done
+// are per half.  The per-tile contract (kOneTile) serves no main path: it
+// is the card's witness that the chain equals the per-tile chain.  It
+// keeps one sublane a thread, min(128 / R, 32) threads a pair: it stages
+// and stores all four strips every step, and at two sublanes it spilled in
+// uint16 at rows 8 (8 bytes), or at 2 blocks an SM fell short of the
+// resident warps that the slice rule counts on.  kQuiet as in
+// stream_chain_kernel.
+template <int R, bool kOneTile>
+constexpr int kChainPairLanes = kOneTile ? (kLanes / R < 32 ? kLanes / R : 32)
+                                         : (kLanes / R / 2 < 32 ? kLanes / R / 2 : 32);
 
-template <bool kChain>
-__device__ __forceinline__ void fetch_x2(const Args& a, const int8_t* src, size_t ld,
-                                         int s, bool in, int t, Loads& l) {
-  const bool in_hi = in && s + 1 < a.S;
-  const int8_t* p = src + (size_t)t * ld;
-  l.c[0] = in ? p[0] : kPad;
-  l.c[1] = in_hi ? p[1] : kPad;
-  if (kChain) {
-    const size_t o = (size_t)t * a.S + s;
-    l.d[0] = in ? a.bD[o] : 0;
-    l.d[1] = in_hi ? a.bD[o + 1] : 0;
-    l.g[0] = in ? a.bG[o] : 0;
-    l.g[1] = in_hi ? a.bG[o + 1] : 0;
-    l.h[0] = in ? a.bH[o] : 0;
-    l.h[1] = in_hi ? a.bH[o + 1] : 0;
+template <int R, int kState, bool kOneTile, bool kQuiet>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    stream_chain_x2_kernel(const ChainArgs a) {
+  using A = Arith<kState>;
+  const A ar(a.width);
+  const unsigned ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
+                 ge = ar.cst(a.ge), z = 0u;
+  constexpr int SL = kLanes / R;                // wavefront sublanes per stream
+  constexpr int W = kChainPairLanes<R, kOneTile>;  // threads per stream pair
+  constexpr int V = SL / W;                     // sublanes per thread
+  constexpr int NG = 32 / W;                    // stream pairs a warp holds
+  constexpr int NS = 2 * NG;                    // streams a warp holds
+  // the lags and the ring as in stream_chain_kernel
+  constexpr int kLag = (SL + kChunk - 2) / kChunk + 1;
+  constexpr int kWrapLag = (SL + 3 * kChunk - 3) / kChunk + 1;
+  static_assert(kChunk * kLag - SL + 10 <= kRing, "the ring is too short for the lag");
+  static_assert(NG <= kGroupMax, "a warp holds more stream pairs than the ring");
+  const int S = a.S, nT = a.T;
+  const int P = blockDim.x / 32;
+  const int w = threadIdx.x / 32;      // this warp's place in the ring
+  const int g = threadIdx.x % 32 / W;  // its stream pair in the group
+  const int lane = threadIdx.x % W;
+  const int s0 = blockIdx.x * NS;  // the group's first stream
+  const int s = s0 + 2 * g;        // this thread's first stream
+  // threads past the last stream run the loop (the shuffles need the
+  // whole warp) but read and write nothing; a high half past S is dead
+  const bool live = s < S;
+  const bool live_hi = s + 1 < S;
+  const int p0 = lane * V;  // this thread's first sublane
+  const bool head = live && p0 == 0;
+  const bool tail = live && p0 + V - 1 == SL - 1;
+  const int8_t* src = a.sk + s;
+
+  // this block's slice: nominal steps [b0, b1), as in stream_wavefront_kernel
+  const int slice = blockIdx.y;
+  const int quanta = nT / kSliceQuantum;
+  const int b0 = kSliceQuantum * (int)((long long)slice * quanta / gridDim.y);
+  const int b1 = slice + 1 == (int)gridDim.y
+                     ? nT
+                     : kSliceQuantum * (int)((long long)(slice + 1) * quanta / gridDim.y);
+  const int handover = b1 + SL - 1;
+
+  // row 127's D, G and H by step, a stream pair a value (see
+  // stream_chain_kernel)
+  constexpr int kStage = kRingWarps - 1;
+  __shared__ unsigned ring[kRingWarps][kRing][kGroupMax][3];
+  __shared__ int s_end;  // the step the block's tiles stopped at (T before)
+
+  // a read start in the group's streams at or after b0?  As in
+  // stream_chain_kernel; the zero a 16-bit strip holds is 0
+  if (slice > 0 || (!kOneTile && kQuiet)) {
+    const int per = blockDim.x / NS;  // steps one load of the block covers
+    const int ts = threadIdx.x / NS, ss = s0 + threadIdx.x % NS;
+    bool any = false;
+    for (int tb = b0; tb < nT && !any; tb += kScanLoads * per) {
+      bool f = false;
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u) {
+        const int t = tb + u * per + ts;
+        if (t < nT && ss < S && a.sk[(size_t)t * S + ss] >= kFlag) f = true;
+      }
+      any = __syncthreads_or(f);
+    }
+    if (!any) {
+      if (slice == 0) {
+        for (int t = ts; t < nT; t += per) {
+          if (ss < S) a.strip[(size_t)t * S + ss] = 0;
+        }
+      }
+      return;
+    }
+  }
+  if (threadIdx.x == 0) s_end = nT;
+  __syncthreads();
+  volatile int* const end_at = &s_end;
+
+  // row 0 reads the tile above's row 127 at t + shd (D) and t + shg (G, H);
+  // the per-tile contract's strips are shifted by the host
+  constexpr int shd = kOneTile ? 0 : SL - 2, shg = kOneTile ? 0 : SL - 1;
+  auto strip_of = [&](int v) {
+    return v == 0 ? (kOneTile ? a.bD : a.oD) : v == 1 ? (kOneTile ? a.bG : a.oG)
+                                                       : (kOneTile ? a.bH : a.oH);
+  };
+  const int wl = threadIdx.x % 32;  // lane in the warp
+  // Warp 0 stages the strips as stream_chain_kernel does, a lane up to 3
+  // of the 24 x NG packed values of a chunk (D, G, H of 8 steps of NG
+  // pairs), each pair's two int32 values packed as they are loaded
+  unsigned staged[3];
+  auto stage_load = [&](int m, int lim) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int i = wl + 32 * u;
+      const int gs = i % NG, j = i / NG % kChunk, v = i / (NG * kChunk);
+      const int x = b0 + kChunk * m + shd + j;
+      const bool in = i < 3 * kChunk * NG && x < lim;
+      const int sh = s0 + 2 * gs;
+      const int32_t* src2 = strip_of(v) + (size_t)x * S + sh;
+      staged[u] = ar.load(in && sh < S ? src2[0] : 0, in && sh + 1 < S ? src2[1] : 0);
+    }
+  };
+  auto stage_store = [&](int m) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int i = wl + 32 * u;
+      const int gs = i % NG, j = i / NG % kChunk, v = i / (NG * kChunk);
+      const int x = b0 + kChunk * m + shd + j;
+      if (i < 3 * kChunk * NG) ring[kStage][(x - b0) & (kRing - 1)][gs][v] = staged[u];
+    }
+    __syncwarp();
+  };
+
+  unsigned q[V][R], C[V];
+  unsigned D[V][R], G[V][R], D2L[V], H[V];
+  unsigned acc = z;
+  bool writing[2] = {false, false}, done[2] = {true, true};
+  // slot k holds the head's two chars of step t0 + k, refilled a chunk
+  // ahead; `pend` holds the last step's two loads until they are packed
+  // into their slot, a step after they were issued (the header)
+  unsigned cin[kChunk];
+  int pend[2];
+  // the warp's tile p, as in stream_chain_kernel
+  int p = w, start = w * kLag, c = -1;
+  const int from = w > 0 ? w - 1 : kStage;
+  const bool staging = w == 0 && (kOneTile || P < a.K);
+
+  for (int it = 0;; ++it) {
+    if (c < 0 && p < a.K && it == start) {  // tile p starts
+      const int8_t* qk = a.qk + (size_t)p * kLanes * S;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        C[v] = splat16(kPad);
+        D2L[v] = z;
+        H[v] = z;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          D[v][r] = z;
+          G[v][r] = z;
+          const int8_t* qp = qk + (size_t)(r * SL + p0 + v) * S + s;
+          q[v][r] = pack16(live ? qp[0] : kQueryPad, live_hi ? qp[1] : kQueryPad);
+        }
+      }
+      acc = z;
+      // slice 0 writes from step 0, the others from their first tail flag;
+      // a thread that is no tail, or a dead high half, never writes and is
+      // always done
+      writing[0] = tail && slice == 0;
+      done[0] = !tail;
+      writing[1] = tail && live_hi && slice == 0;
+      done[1] = !(tail && live_hi);
+      c = 0;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        fetch_x2(src, S, head, live_hi, b0 + k, pend);
+        if (k + 1 < kChunk) cin[k] = pack16(pend[0], pend[1]);
+      }
+      if (staging && (kOneTile || p > 0)) {
+        const int lim = *end_at;
+        stage_load(0, lim);
+        stage_store(0);
+        stage_load(1, lim);
+        stage_store(1);
+        stage_load(2, lim);
+      }
+    }
+    if (c >= 0) {
+      const int t0 = b0 + kChunk * c;
+      if (t0 >= nT || (t0 >= b1 && __all_sync(kFull, done[0] && done[1]))) {
+        if (wl == 0) *end_at = t0;
+        p += P;
+        start = max(it + 1, it - c + (P - 1) * kLag + kWrapLag);
+        c = -1;
+      } else {
+        const bool next = head && t0 + kChunk < nT;
+        const int lim = kOneTile || p > 0 ? *end_at : b0;
+        if (staging && (kOneTile || p > 0) && c > 0) {
+          stage_store(c + 1);
+          stage_load(c + 2, lim);
+        }
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int t = t0 + k;
+          const unsigned c_in = cin[k];
+          // the last step's loads into the slot they refill
+          cin[(k + kChunk - 1) % kChunk] = pack16(pend[0], pend[1]);
+          fetch_x2(src, S, next, live_hi, t + kChunk, pend);
+          // the tile above's row 127: D at t + shd, G and H at t + shg
+          unsigned d_in = z, g_in = z, h_in = z;
+          if (head && t + shd < lim) d_in = ring[from][(t + shd - b0) & (kRing - 1)][g][0];
+          if (head && t + shg < lim) {
+            g_in = ring[from][(t + shg - b0) & (kRing - 1)][g][1];
+            h_in = ring[from][(t + shg - b0) & (kRing - 1)][g][2];
+          }
+          // the sublane above this thread's first one lives in lane - 1
+          const unsigned nC = __shfl_up_sync(kFull, C[V - 1], 1, W);
+          const unsigned nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
+          const unsigned nH = __shfl_up_sync(kFull, H[V - 1], 1, W);
+          const unsigned nD = __shfl_up_sync(kFull, D2L[V - 1], 1, W);
+          unsigned f0_tail = 0u;  // 0xFFFF in each half whose tail char starts a read
+#pragma unroll
+          for (int v = V - 1; v >= 1; --v) {
+            C[v] = C[v - 1];
+            const unsigned f0 = sublane_step_x2<R, false>(
+                ar, C[v], false, G[v - 1][R - 1], H[v - 1], D2L[v - 1], q[v], D[v], G[v],
+                D2L[v], H[v], ma, mi, go, ge);
+            if (v == V - 1) f0_tail = f0;
+          }
+          C[0] = head ? c_in : nC;
+          // the tile's row 0 reads the tile above's row 127
+          const unsigned f0 = sublane_step_x2<R, false>(
+              ar, C[0], false, head ? g_in : nG, head ? h_in : nH, head ? d_in : nD, q[0],
+              D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
+          if (V == 1) f0_tail = f0;
+          acc = ar.max(acc & ~f0_tail, H[V - 1]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const bool f0h = (f0_tail >> (16 * h)) & 1;
+            writing[h] = f0h ? tail && t < handover : writing[h];
+            done[h] = f0h ? !writing[h] : done[h];
+          }
+          // as in stream_chain_kernel: the last tile writes the
+          // accumulator, a tile above it hands its row 127 on
+          const bool last = kOneTile || p == a.K - 1;
+          if (!kOneTile && !last && w < P - 1 && tail) {
+            unsigned* r = ring[w][(t - b0) & (kRing - 1)][g];
+            r[0] = D[V - 1][R - 1];
+            r[1] = G[V - 1][R - 1];
+            r[2] = H[V - 1];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (writing[h]) {
+              const size_t o = (size_t)t * S + s + h;
+              if (last) a.strip[o] = ar.store(acc, h);
+              if (kOneTile || (!last && w == P - 1)) {
+                a.oD[o] = ar.store(D[V - 1][R - 1], h);
+                a.oG[o] = ar.store(G[V - 1][R - 1], h);
+                a.oH[o] = ar.store(H[V - 1], h);
+              }
+            }
+          }
+        }
+        ++c;
+      }
+    }
+    if (!__syncthreads_or(p < a.K)) break;
   }
 }
 
-// One step's loads packed two a register (every 16-bit state's zero is 0).
-template <bool kChain, class A>
-__device__ __forceinline__ void pack_x2(const A& ar, const Loads& l, unsigned& c,
-                                        unsigned& d, unsigned& g, unsigned& h) {
-  c = pack16(l.c[0], l.c[1]);
-  if (kChain) {
-    d = ar.load(l.d[0], l.d[1]);
-    g = ar.load(l.g[0], l.g[1]);
-    h = ar.load(l.h[0], l.h[1]);
-  }
-}
-
-// stream_wavefront_kernel in a 16-bit state, two streams a thread: the
-// same geometry and slices, the state of streams 2p and 2p + 1 in the
+// stream_wavefront_kernel (B1, B2) in a 16-bit state, two streams a
+// thread: the same slices, the state of streams 2p and 2p + 1 in the
 // halves of each register, and per stream the tail's accumulator reset,
-// whether it writes and whether it is done.
+// whether it writes and whether it is done.  At R = 4 and 8 the 32-bit
+// kernel's mapping (8 threads a pair, 16 query rows of each stream a
+// thread), at R = 2 and 1 32 threads a pair.
 template <int R, int kMode, int kState>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_wavefront_x2_kernel(const Args a) {
+  static_assert(kMode != kChained, "a chained tile is stream_chain_x2_kernel");
   using A = Arith<kState>;
   const A ar(a.width);
   const unsigned ma = ar.cst(a.ma), mi = ar.cst(a.mi), go = ar.cst(a.go),
@@ -834,8 +1103,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   constexpr int SL = kLanes / R;               // wavefront sublanes per stream
   constexpr int W = kStreamLanesOf<R, true>;   // threads per stream pair
   constexpr int V = SL / W;                    // sublanes per thread
+  static_assert(W * V == SL && 32 % W == 0, "V sublanes a thread, whole pairs a warp");
   constexpr bool kRipple = kMode == kRippleH;
-  constexpr bool kChain = kMode == kChained;
   const int S = a.S;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = tid / W * 2;  // the pair's first stream
@@ -849,8 +1118,6 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   const int pt = p0 + V - 1;   // and last
   const bool head = live && p0 % SLg == 0;
   const bool tail = live && pt % SLg == SLg - 1;
-  // a segment head sees zero boundaries, a chained tile's row 0 the strips
-  const bool seghead = head && !kChain;
   const size_t ld = (size_t)a.seg * S;
   const int8_t* src = a.sk + (size_t)(p0 / SLg) * S + s;
   int32_t* dst = a.strip + (size_t)(pt / SLg) * S + s;
@@ -886,17 +1153,15 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
   unsigned acc = z;
 
-  // slot k holds the inputs of step t0 + k, loaded a chunk ahead as in
-  // stream_wavefront_kernel; packing two values a register takes an
-  // instruction on the loaded values, so a step's loads are packed into
-  // their slot one step later, when they have arrived (packing them at once
-  // made every step wait for its loads: the one-slice tile ran 3x slower)
-  unsigned cin[kChunk], bd[kChunk], bg[kChunk], bh[kChunk];
-  Loads pending;  // the last step's loads, for slot kChunk - 1 at first
+  // slot k holds the chars of step t0 + k, loaded a chunk ahead as in
+  // stream_wavefront_kernel and packed into their slot a step after their
+  // loads were issued (the header)
+  unsigned cin[kChunk];
+  int pend[2];  // the last step's loads, for slot kChunk - 1 at first
 #pragma unroll
   for (int k = 0; k < kChunk; ++k) {
-    fetch_x2<kChain>(a, src, ld, s, head, b0 + k, pending);
-    if (k + 1 < kChunk) pack_x2<kChain>(ar, pending, cin[k], bd[k], bg[k], bh[k]);
+    fetch_x2(src, ld, head, live_hi, b0 + k, pend);
+    if (k + 1 < kChunk) cin[k] = pack16(pend[0], pend[1]);
   }
   for (int t0 = b0; t0 < a.T; t0 += kChunk) {
     if (t0 >= b1 && __all_sync(kFull, done[0] && done[1])) break;
@@ -904,12 +1169,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       const unsigned c_in = cin[k];
-      const unsigned d_in = kChain ? bd[k] : z;
-      const unsigned g_in = kChain ? bg[k] : z;
-      const unsigned h_in = kChain ? bh[k] : z;
-      const int prev = (k + kChunk - 1) % kChunk;  // the pending loads' slot
-      pack_x2<kChain>(ar, pending, cin[prev], bd[prev], bg[prev], bh[prev]);
-      fetch_x2<kChain>(a, src, ld, s, next, t0 + kChunk + k, pending);
+      cin[(k + kChunk - 1) % kChunk] = pack16(pend[0], pend[1]);
+      fetch_x2(src, ld, next, live_hi, t0 + kChunk + k, pend);
       // the sublane above this thread's first one lives in lane - 1
       const unsigned nC = __shfl_up_sync(kFull, C[V - 1], 1, W);
       const unsigned nG = __shfl_up_sync(kFull, G[V - 1][R - 1], 1, W);
@@ -925,10 +1186,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
         if (v == V - 1) f0_tail = f0;
       }
       C[0] = head ? c_in : nC;
-      const bool row0 = kChain && head;
+      // a segment head sees zero boundaries
       const unsigned f0 = sublane_step_x2<R, kRipple>(
-          ar, C[0], seghead, row0 ? g_in : nG, row0 ? h_in : nH,
-          row0 ? d_in : nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
+          ar, C[0], head, nG, nH, nD, q[0], D[0], G[0], D2L[0], H[0], ma, mi, go, ge);
       if (V == 1) f0_tail = f0;
       const int t = t0 + k;
       if (!kRipple) acc = ar.max(acc & ~f0_tail, H[V - 1]);
@@ -937,30 +1197,23 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
         const bool f0h = (f0_tail >> (16 * h)) & 1;
         writing[h] = f0h ? tail && t < handover : writing[h];
         done[h] = f0h ? !writing[h] : done[h];
-        if (writing[h]) {
-          const size_t o = (size_t)t * ld + h;
-          if (kChain) {  // seg = 1: o is (t, s + h)
-            dst[o] = ar.store(acc, h);
-            a.oD[o + s] = ar.store(D[V - 1][R - 1], h);
-            a.oG[o + s] = ar.store(G[V - 1][R - 1], h);
-            a.oH[o + s] = ar.store(H[V - 1], h);
-          } else {
-            dst[o] = ar.emit(kRipple ? H[V - 1] : acc, h);
-          }
-        }
+        if (writing[h]) dst[(size_t)t * ld + h] = ar.emit(kRipple ? H[V - 1] : acc, h);
       }
     }
   }
 }
 
-// The kernel of a mode and a state mode: two streams a thread in a 16-bit
-// state; a 32-bit chained tile is stream_chain_kernel (ChainArgs).
+// The kernel of a mode and a state mode: a chained tile is the chain
+// kernel at K = 1 (ChainArgs); a 16-bit state takes the kernels of two
+// streams a thread.
 template <int R, int kMode, int kState>
 constexpr auto kernel_of() {
-  if constexpr (kPacked<kState>) {
-    return stream_wavefront_x2_kernel<R, kMode, kState>;
+  if constexpr (kMode == kChained && kPacked<kState>) {
+    return stream_chain_x2_kernel<R, kState, true, true>;
   } else if constexpr (kMode == kChained) {
-    return stream_chain_kernel<R, kState, true>;
+    return stream_chain_kernel<R, kState, true, true>;
+  } else if constexpr (kPacked<kState>) {
+    return stream_wavefront_x2_kernel<R, kMode, kState>;
   } else {
     return stream_wavefront_kernel<R, kMode, kState>;
   }
@@ -976,14 +1229,20 @@ cudaError_t launch(const Args& a, int slices, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A chain (or one tile) in a 32-bit state: a block of `ring` warps a group
-// of streams, a slice a grid row.
-template <int R, int kState, bool kOneTile>
+// A chain (or one tile): a block of `ring` warps a group of streams, a
+// slice a grid row; in a 16-bit state two streams a thread.
+template <int R, int kState, bool kOneTile, bool kQuiet>
 cudaError_t launch_chain(const ChainArgs& a, int ring, int slices, cudaStream_t stream) {
-  constexpr int SL = kLanes / R;
-  constexpr int NG = 32 / (SL < 32 ? SL : 32);  // streams a warp holds
-  const int groups = (a.S + NG - 1) / NG;
-  stream_chain_kernel<R, kState, kOneTile><<<dim3(groups, slices), 32 * ring, 0, stream>>>(a);
+  if constexpr (kPacked<kState>) {
+    constexpr int NS = 2 * 32 / kChainPairLanes<R, kOneTile>;  // streams a warp holds
+    stream_chain_x2_kernel<R, kState, kOneTile, kQuiet>
+        <<<dim3((a.S + NS - 1) / NS, slices), 32 * ring, 0, stream>>>(a);
+  } else {
+    constexpr int SL = kLanes / R;
+    constexpr int NG = 32 / (SL < 32 ? SL : 32);  // streams a warp holds
+    stream_chain_kernel<R, kState, kOneTile, kQuiet>
+        <<<dim3((a.S + NG - 1) / NG, slices), 32 * ring, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -1073,8 +1332,7 @@ extern "C" int swtpu_stream_wavefront(const void* qk, const void* sk,
                                       int go, int ge, void* stream,
                                       int slices, int width, int state) {
   const Args a{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(sk),
-               nullptr, nullptr, nullptr, static_cast<int32_t*>(strip),
-               nullptr, nullptr, nullptr, S, T, seg, ma, mi, go, ge, width};
+               static_cast<int32_t*>(strip), S, T, seg, ma, mi, go, ge, width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!tail_acc && rows == 1) {
     return with_state(width, state, [&](auto m) {
@@ -1086,11 +1344,10 @@ extern "C" int swtpu_stream_wavefront(const void* qk, const void* sk,
 
 // One chained tile at segments 1: qk [128, S] int8, sk [T, S] int8,
 // bD/bG/bH [T, S] int32 -> acc, oD, oG, oH [T, S] int32 (biased in the
-// biased mode).  rows in {1, 2, 4, 8, 16}; T % 8 == 0; slices, width and
-// state as for swtpu_stream_wavefront.  A 32-bit state runs
-// stream_chain_kernel at K = 1 with the strips switched on, a 16-bit one
-// stream_wavefront_x2_kernel.  The caller checks these.  Returns the
-// launch's CUDA error.
+// biased mode).  rows in {1, 2, 4, 8, 16} (at most 8 in a 16-bit state);
+// T % 8 == 0; slices, width and state as for swtpu_stream_wavefront.
+// Every state runs its chain kernel at K = 1 with the strips switched on.
+// The caller checks these.  Returns the launch's CUDA error.
 extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
                                     const void* bD, const void* bG,
                                     const void* bH, void* acc, void* oD,
@@ -1104,7 +1361,6 @@ extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
              *h = static_cast<const int32_t*>(bH);
   auto *o = static_cast<int32_t*>(acc), *od = static_cast<int32_t*>(oD),
        *og = static_cast<int32_t*>(oG), *oh = static_cast<int32_t*>(oH);
-  const Args a{q8, s8, d, g, h, o, od, og, oh, S, T, 1, ma, mi, go, ge, width};
   const ChainArgs c{q8, s8, d, g, h, o, od, og, oh, S, T, 1, ma, mi, go, ge, width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_state(width, state, [&](auto m) {
@@ -1112,27 +1368,26 @@ extern "C" int swtpu_stream_chained(const void* qk, const void* sk,
       constexpr int M = decltype(m)::value, R = decltype(r)::value;
       if constexpr (!kInstantiated<M, R>) {
         return cudaErrorInvalidValue;
-      } else if constexpr (kPacked<M>) {
-        return launch<R, kChained, M>(a, slices, st);
       } else {
-        return launch_chain<R, M, true>(c, 1, slices, st);
+        return launch_chain<R, M, true, true>(c, 1, slices, st);
       }
     });
   });
 }
 
-// A whole chain of K tiles in a 32-bit state: qk [K, 128, S] int8 (tile
-// p's register at p x 128 x S), sk [T, S] int8 -> strip [T, S] int32, the
-// last tile's accumulator (biased in the biased mode).  `ring` warps a
-// block in 1..4, at most K; wrap: [3, T, S] int32 scratch, the strips
-// through which every ring-th tile hands its row 127 on (null when
-// K <= ring).  rows, T, slices, width and state as for
-// swtpu_stream_chained; a 16-bit state returns cudaErrorInvalidValue.
-// The caller checks these.  Returns the launch's CUDA error.
+// A whole chain of K tiles: qk [K, 128, S] int8 (tile p's register at p x
+// 128 x S), sk [T, S] int8 -> strip [T, S] int32, the last tile's
+// accumulator (biased in the biased mode).  `ring` warps a block in 1..4,
+// at most K; wrap: [3, T, S] int32 scratch, the strips through which
+// every ring-th tile hands its row 127 on (null when K <= ring).  rows,
+// T, slices, width and state as for swtpu_stream_chained; quiet = 1 where
+// pads alone leave every state at the zero (kQuiet).  The caller checks
+// these.  Returns the launch's CUDA error.
 extern "C" int swtpu_stream_chain(const void* qk, const void* sk, void* strip,
                                   void* wrap, int S, int T, int K, int rows,
                                   int ma, int mi, int go, int ge, void* stream,
-                                  int slices, int ring, int width, int state) {
+                                  int slices, int ring, int width, int state,
+                                  int quiet) {
   if (ring < 1 || ring > kRingWarps || ring > K || (K > ring && wrap == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -1146,10 +1401,11 @@ extern "C" int swtpu_stream_chain(const void* qk, const void* sk, void* strip,
   return with_state(width, state, [&](auto m) {
     return with_rows(rows, [&](auto r) {
       constexpr int M = decltype(m)::value, R = decltype(r)::value;
-      if constexpr (kPacked<M>) {
+      if constexpr (!kInstantiated<M, R>) {
         return cudaErrorInvalidValue;
       } else {
-        return launch_chain<R, M, false>(a, ring, slices, st);
+        return quiet ? launch_chain<R, M, false, true>(a, ring, slices, st)
+                     : launch_chain<R, M, false, false>(a, ring, slices, st);
       }
     });
   });
@@ -1158,8 +1414,9 @@ extern "C" int swtpu_stream_chain(const void* qk, const void* sk, void* strip,
 // out[4] = registers a thread, local bytes a thread, resident blocks an SM
 // of kBlock threads and static shared bytes a block of the instantiation
 // for `rows` in `mode` (0 tail accumulator, 1 ripple-H at rows 1, 2
-// chained tile, 3 the whole chain, 32-bit states only) and the state mode
-// of width and state.  Returns the CUDA error.
+// chained tile, 3 the whole chain, 4 the whole chain without the pad
+// shortcut) and the state mode of width and state.  Returns the CUDA
+// error.
 extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
                                         int state, int* out) {
   return with_state(width, state, [&](auto m) {
@@ -1172,11 +1429,13 @@ extern "C" int swtpu_stream_kernel_info(int rows, int mode, int width,
       constexpr int R = decltype(r)::value;
       if constexpr (!kInstantiated<K, R>) {
         return cudaErrorInvalidValue;
-      } else if (mode == kChainMode) {
+      } else if (mode == kChainMode || mode == kChainAllGroups) {
         if constexpr (kPacked<K>) {
-          return cudaErrorInvalidValue;
+          return mode == kChainMode ? func_info(stream_chain_x2_kernel<R, K, false, true>, out)
+                                    : func_info(stream_chain_x2_kernel<R, K, false, false>, out);
         } else {
-          return func_info(stream_chain_kernel<R, K, false>, out);
+          return mode == kChainMode ? func_info(stream_chain_kernel<R, K, false, true>, out)
+                                    : func_info(stream_chain_kernel<R, K, false, false>, out);
         }
       } else {
         return mode == kChained ? kernel_info<R, kChained, K>(out)

@@ -12,9 +12,9 @@ instead be the tail row's rippled H (``tail_acc=False``).
 Queries longer than 128 bases chain K = ceil(len/128) tiles of 128 query
 rows (``sw_scores_stream_long``): each tile's row 0 reads the tile above's
 row-127 D/G/H from boundary strips, and each tile emits its own row 127
-for the tile below.  On CUDA in a 32-bit state one launch runs the whole
-chain (``stream_chain_cuda``): the tiles run side by side, a fixed lag
-apart, and hand row 127 down on the chip.
+for the tile below.  On CUDA one launch runs the whole chain in every
+state mode (``stream_chain_cuda``): the tiles run side by side, a fixed
+lag apart, and hand row 127 down on the chip.
 
 Every form runs in swtpu's six state modes: exact int32 state; float32
 state (the same values, exact below 2^24); the RTL's W-bit biased
@@ -37,10 +37,10 @@ strips bit for bit; in a 16-bit state a thread holds two streams, one in
 each half of its 32-bit registers.  ``stream_chain_cuda`` is the chained
 tile's kernel over a whole chain (``chain_geometry``), whose plain
 version is ``_long_strip`` with ``stream_chained_reference``; the per-tile
-``stream_chained_cuda`` is the same kernel at K = 1 in a 32-bit state.
-``_strip_call`` and ``_strip_call_chained`` take the plain version for a
-tensor on the CPU and the kernel for a CUDA tensor; there is no fallback
-from one to the other.
+``stream_chained_cuda`` is the same kernel at K = 1.
+``_strip_call`` takes the plain version for a tensor on the CPU and the
+kernel for a CUDA tensor, and ``_long_strip`` the plain tiles on the CPU
+and the chain kernel on CUDA; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -85,9 +85,10 @@ PIPE_FILLS_PER_SLICE = 16
 # were slices of 8.6, 4.3 and 2.6 such reads (8 slices each); at 3, with
 # whole waves of blocks (choose_slices), the rule gives them 8, 8 and 4.
 READS_PER_SLICE = 3
-# query rows a thread of the 32-bit wavefront kernel (B1, B2) holds, in at
-# most MAX_SUBLANES sublanes: 16 rows, 8 threads a stream, at rows 4, 8
-# and 16 (csrc/stream_wavefront.cu kRowsPerThread, kMaxSublanes)
+# query rows a thread of the wavefront kernel (B1, B2) holds of each of
+# its streams, in at most MAX_SUBLANES sublanes: 16 rows, 8 threads a
+# stream (a stream pair in a 16-bit state), at rows 4, 8 and 16
+# (csrc/stream_wavefront.cu kRowsPerThread, kMaxSublanes)
 ROWS_PER_THREAD = 16
 MAX_SUBLANES = 4
 # The chain kernel: a block runs up to RING_WARPS tiles of one group of
@@ -459,19 +460,21 @@ class WavefrontGeometry(NamedTuple):
 
 
 def wavefront_geometry(rows, segments=1, state_dtype="int32"):
-    """The thread mapping of stream_wavefront_kernel (B1, B2) in a 32-bit
-    state: a thread holds V = min(16 / rows, MAX_SUBLANES) sublanes, so 16
-    query rows in 8 threads a stream at rows 4, 8 and 16, and 4 sublanes
-    in 16 and 32 threads at rows 2 and 1 (more spilled registers, and
-    rows 1's long pipe fill wants the threads); a segment's SLg =
-    128 / (rows x segments) sublanes are whole threads.  In a 16-bit state
-    (stream_wavefront_x2_kernel, two streams a thread) and in the chain
-    kernel, min(128 / rows, 32) threads a stream.  The kernels compute the
-    same; the strip does not depend on the mapping."""
+    """The thread mapping of the wavefront kernels (B1, B2): in a 32-bit
+    state (stream_wavefront_kernel) a thread holds V = min(16 / rows,
+    MAX_SUBLANES) sublanes, so 16 query rows in 8 threads a stream at rows
+    4, 8 and 16, and 4 sublanes in 16 and 32 threads at rows 2 and 1 (more
+    spilled registers, and rows 1's long pipe fill wants the threads); in
+    a 16-bit state (stream_wavefront_x2_kernel, two streams a thread) the
+    same at rows 4 and 8, 8 threads a stream pair, and 32 threads a pair
+    at rows 2 and 1.  A segment's SLg = 128 / (rows x segments) sublanes
+    are whole threads.  The chain kernel maps its own (:func:`chain_lanes`).
+    The kernels compute the same; the strip does not depend on the
+    mapping."""
     SL = LANES // rows
     per_thread = streams_per_thread(state_dtype)
-    if per_thread == 2:
-        lanes = min(SL, 32)
+    if per_thread == 2 and rows < 4:
+        lanes = 32
     else:
         lanes = SL // min(ROWS_PER_THREAD // rows, MAX_SUBLANES)
     return WavefrontGeometry(lanes=lanes, sublanes=SL // lanes,
@@ -486,13 +489,13 @@ def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32", tiles=1,
     kernel's, :func:`wavefront_geometry`, by default) times the `tiles` a
     chain's block runs side by side.
 
-    Without `longest_read` (and in a 16-bit state): a grid of about
+    Without `longest_read`: a grid of about
     SLICE_WARPS_PER_SM warps for every SM, no slice under MIN_SLICE_STEPS
     steps nor under PIPE_FILLS_PER_SLICE times the steps a slice takes to
     fill a segment's pipe, and 2 slices where that leaves fewer and
     T >= MIN_SLICE_STEPS.
 
-    With the batch's longest read (in bases), in a 32-bit state: a grid of
+    With the batch's longest read (in bases): a grid of
     about SLICE_WARPS_PER_SM / V warps an SM (V, the sublanes a thread
     holds, independent within a step, hide what warps would), no slice
     under READS_PER_SLICE x (longest_read + SLg) steps (SLg = 128 /
@@ -506,7 +509,7 @@ def choose_slices(S, rows, T, sms, segments=1, state_dtype="int32", tiles=1,
     threads = -(-S // geometry.streams_per_thread) * lanes * tiles
     blocks = -(-threads // KERNEL_BLOCK)
     SLg = LANES // rows // segments
-    if longest_read is None or geometry.streams_per_thread == 2:
+    if longest_read is None:
         want = round(sms * SLICE_WARPS_PER_SM * 32 / KERNEL_BLOCK / blocks)
         shortest = max(MIN_SLICE_STEPS, PIPE_FILLS_PER_SLICE * SLg)
         fit = max(T // shortest, 2 if T >= MIN_SLICE_STEPS else 1)
@@ -576,20 +579,49 @@ class ChainGeometry(NamedTuple):
     wrap: bool
 
 
-def chain_geometry(S, rows, T, K, sms):
+def chain_lanes(rows, state_dtype="int32", one_tile=False):
+    """Threads a stream of the chain kernel, min(128 / rows, 32), or in a
+    16-bit state threads a stream pair, min(64 / rows, 32): two sublanes a
+    thread at rows 2 to 8; on the per-tile contract (`one_tile`,
+    stream_chained_cuda, the card's witness for the chain) min(128 / rows,
+    32) in every state (csrc stream_chain_kernel, and kChainPairLanes of
+    stream_chain_x2_kernel)."""
+    return min(LANES // rows // (1 if one_tile else streams_per_thread(state_dtype)), 32)
+
+
+def pads_stay_at_zero(penalties, state_dtype="int32"):
+    """Whether pads alone leave every state of a chain at the boundary
+    zero: no penalty a pad's cell adds (mismatch, gap open, gap extend) is
+    positive in the state's arithmetic, where uint16 wraps a negative one
+    to a positive one.  Where they do, the chain kernel writes the zero for
+    a group with no read start in slice 0 and computes nothing there (its
+    instantiation with the shortcut; the other runs such groups)."""
+    mi, go, ge = penalties.astuple()[1:]
+    if state_dtype == "uint16":
+        return all(p % (1 << 16) == 0 for p in (mi, go, ge))
+    return max(mi, go, ge) <= 0
+
+
+def chain_geometry(S, rows, T, K, sms, state_dtype="int32"):
     """The chain kernel's geometry for K tiles over S streams and T steps
-    at `rows` on a card of `sms` SMs: min(K, RING_WARPS) warps a block.
-    The slices are choose_slices' for the grid a slice holds at once, the
-    streams times the ring's warps: a block runs its K tiles in passes of
-    the ring, so the resident grid, not the K tiles, sets how many warps
-    each SM gets."""
+    at `rows` in `state_dtype` on a card of `sms` SMs: min(K, RING_WARPS)
+    warps a block, W = min(128 / rows, 32) threads a stream, so that a
+    warp holds 32 / W streams; in a 16-bit state W = min(64 / rows, 32)
+    threads a stream pair (:func:`chain_lanes`), so that a warp holds 2 x
+    32 / W streams.  The slices are choose_slices' for the grid a slice
+    holds at once, the streams times the ring's warps: a block runs its K
+    tiles in passes of the ring, so the resident grid, not the K tiles,
+    sets how many warps each SM gets."""
     ring = min(K, RING_WARPS)
-    per_warp = 32 // min(LANES // rows, 32)
+    lanes = chain_lanes(rows, state_dtype)
+    per_warp = 32 // lanes * streams_per_thread(state_dtype)
     return ChainGeometry(
         ring=ring, lag_chunks=chain_lag_chunks(rows),
         wrap_lag_chunks=chain_wrap_lag_chunks(rows), ring_steps=RING_STEPS,
         streams_per_warp=per_warp, blocks=-(-S // per_warp), block_threads=32 * ring,
-        slices=choose_slices(S, rows, T, sms, tiles=ring, lanes=32 // per_warp), wrap=K > ring)
+        slices=choose_slices(S, rows, T, sms, state_dtype=state_dtype, tiles=ring,
+                             lanes=lanes),
+        wrap=K > ring)
 
 
 def slice_steps(T, slices):
@@ -691,10 +723,9 @@ def stream_chained_cuda(
             )
     S = qk.shape[1]
     T = sk.shape[0]
-    # a 32-bit tile is the chain kernel at K = 1, a 16-bit one the x2
-    # kernel: both min(128 / rows, 32) threads a stream
+    # the chain kernel at K = 1: its threads a stream (pair)
     slices = _slice_count(slices, S, rows, T, qk.device, state_dtype=state_dtype,
-                          lanes=min(LANES // rows, 32))
+                          lanes=chain_lanes(rows, state_dtype, one_tile=True))
     outs = [torch.empty((T, S), dtype=torch.int32, device=qk.device) for _ in range(4)]
     if T == 0 or S == 0:
         return tuple(outs)
@@ -723,16 +754,14 @@ def stream_chain_cuda(qks, sk, penalties=DEFAULT_PENALTIES, rows=16, slices=None
     ``_long_strip`` lays them out), sk [T, S] int8 -> the last tile's
     accumulator strip [T, S] int32 (biased with score_width), equal to the
     plain chain's (``_long_strip`` with ``stream_chained_reference``).
-    CUDA tensors and 32-bit states only.  ``slices`` as for
-    :func:`stream_strip_cuda` (None: :func:`chain_geometry`'s); the
-    strip does not depend on them.  Launches on the current stream, counts
-    each launch in ``stream_chain_cuda.launches`` and records the last
-    launch's ``.slices`` and ``.slice_steps``."""
+    CUDA tensors only; every state mode (the 16-bit ones at rows <= 8, two
+    streams a thread).  ``slices`` as for :func:`stream_strip_cuda` (None:
+    :func:`chain_geometry`'s); the strip does not depend on them.
+    Launches on the current stream, counts each launch in
+    ``stream_chain_cuda.launches`` and records the last launch's
+    ``.slices`` and ``.slice_steps``."""
     from swtpu_torch.ops._build import load_library
 
-    if state_dtype in SIXTEEN_BIT_STATES:
-        raise ValueError(f"the chain kernel takes 32-bit states, not {state_dtype!r}; "
-                         "a 16-bit chain runs a tile a launch (stream_chained_cuda)")
     _validate_config(1, rows, state_dtype, score_width, penalties)
     _check_kernel_tensors(qks=(qks, torch.int8), sk=(sk, torch.int8))
     if qks.dim() != 3 or qks.shape[1] != LANES or qks.shape[2] != sk.shape[1]:
@@ -744,7 +773,7 @@ def stream_chain_cuda(qks, sk, penalties=DEFAULT_PENALTIES, rows=16, slices=None
         raise ValueError("a chain needs at least one tile")
     if T % STEP_CHUNK:
         raise ValueError(f"stream length {T} not a multiple of {STEP_CHUNK}")
-    geometry = chain_geometry(S, rows, T, K, _sm_count(qks.device))
+    geometry = chain_geometry(S, rows, T, K, _sm_count(qks.device), state_dtype)
     slices = geometry.slices if slices is None else _slice_count(slices, S, rows, T, None)
     out = torch.empty((T, S), dtype=torch.int32, device=qks.device)
     if T == 0 or S == 0:
@@ -760,6 +789,7 @@ def stream_chain_cuda(qks, sk, penalties=DEFAULT_PENALTIES, rows=16, slices=None
             None if wrap is None else wrap.data_ptr(), S, T, K, rows, ma, mi, go, ge,
             torch.cuda.current_stream().cuda_stream, slices, geometry.ring,
             *_kernel_state(score_width, state_dtype),
+            int(pads_stay_at_zero(penalties, state_dtype)),
         )
     _raise_on_error(lib, err, "stream_chain")
     stream_chain_cuda.launches += 1
@@ -789,15 +819,15 @@ def stream_kernel_info(rows, tail_acc=True, chained=False, score_width=None,
                         score_width, state_dtype)[:3]
 
 
-def stream_chain_info(rows, score_width=None, state_dtype="int32"):
+def stream_chain_info(rows, score_width=None, state_dtype="int32", quiet=True):
     """(registers a thread, local spill bytes a thread, resident blocks of
     KERNEL_BLOCK threads an SM, static shared bytes a block) of the chain
-    kernel's instantiation for `rows` in a 32-bit state, from the CUDA
-    runtime on the current device."""
+    kernel's instantiation for `rows` in the state mode that `score_width`
+    and `state_dtype` pick, from the CUDA runtime on the current device:
+    the one that skips a group with no read start (`quiet`, penalties for
+    which :func:`pads_stay_at_zero` holds) or the one that runs it."""
     _validate_config(1, rows, state_dtype, score_width, Penalties(0, 0, 0, 0))
-    if state_dtype in SIXTEEN_BIT_STATES:
-        raise ValueError(f"the chain kernel takes 32-bit states, not {state_dtype!r}")
-    return _kernel_info(rows, 3, score_width, state_dtype)
+    return _kernel_info(rows, 3 if quiet else 4, score_width, state_dtype)
 
 
 def _kernel_info(rows, mode, score_width, state_dtype):
@@ -828,14 +858,14 @@ def _strip_call(qk, sk, penalties, segments, rows, tail_acc=True, score_width=No
 
 def _strip_call_chained(qk, sk, bD, bG, bH, penalties, rows, score_width=None,
                         state_dtype="int32"):
-    """One chained tile: qk [128, S] int8, sk [T, S] int8, boundary strips
-    [T, S] int32 -> (acc, oD, oG, oH), each [T, S] int32 (biased with
-    score_width): the plain version on the CPU, the kernel on CUDA."""
-    mode = dict(score_width=score_width, state_dtype=state_dtype)
+    """One chained tile of ``_long_strip``'s per-tile loop: qk [128, S]
+    int8, sk [T, S] int8, boundary strips [T, S] int32 -> (acc, oD, oG,
+    oH), each [T, S] int32 (biased with score_width): the plain version on
+    the CPU.  On CUDA a chain runs in one launch (stream_chain_cuda), and
+    one tile on swtpu's per-tile contract through stream_chained_cuda."""
     if qk.device.type == "cpu":
-        return stream_chained_reference(qk, sk, bD, bG, bH, penalties, rows, **mode)
-    if qk.device.type == "cuda":
-        return stream_chained_cuda(qk, sk, bD, bG, bH, penalties, rows, **mode)
+        return stream_chained_reference(qk, sk, bD, bG, bH, penalties, rows,
+                                        score_width=score_width, state_dtype=state_dtype)
     raise ValueError(f"no chained wavefront kernel for device {qk.device}")
 
 
@@ -1008,20 +1038,20 @@ def _long_strip(q, sk, penalties, rows, tile=None, score_width=None, state_dtype
     wrap-parity (a plain 0 there would make row 0's M wrap to 2^W - 4 at
     the first mismatch).
 
-    On CUDA in a 32-bit state, with no `tile` given, one launch of the
-    chain kernel (``stream_chain_cuda``) runs every tile and hands the
-    boundaries down on the chip: no shift and no intermediate strip is
+    On CUDA, with no `tile` given, one launch of the chain kernel
+    (``stream_chain_cuda``) runs every tile in every state mode and hands
+    the boundaries down on the chip: no shift and no intermediate strip is
     made.  Otherwise each tile runs through `tile` (``_strip_call_chained``'s
     contract, the mode as keywords; None: ``_strip_call_chained``, the
-    plain tile on the CPU and a launch a tile on CUDA), only the previous
-    tile's strips stay alive, every tile's register is laid out in one
-    copy, and each shift is one concatenation onto rows of the first
-    tile's boundary zero, which no tile writes."""
+    plain tile on the CPU), only the previous tile's strips stay alive,
+    every tile's register is laid out in one copy, and each shift is one
+    concatenation onto rows of the first tile's boundary zero, which no
+    tile writes."""
     K = q.shape[1] // LANES
     SL = LANES // rows
     qks = tile_registers(q, rows)
     if tile is None:
-        if sk.device.type == "cuda" and state_dtype not in SIXTEEN_BIT_STATES:
+        if sk.device.type == "cuda":
             return stream_chain_cuda(qks, sk, penalties, rows, score_width=score_width,
                                      state_dtype=state_dtype)
         tile = _strip_call_chained

@@ -33,9 +33,10 @@ and power limit, then:
   ``lanes_of`` calls) at those rates and at the nominal ones: a wavefront
   cell's 10 operations and a column cell's 11 in results an SM a clock.
 - ``loop`` lines: the opcodes of the hottest loop of the kernel library's
-  float32 wavefront (rows 8 and 16, one tile and chained) and column (B4 at
-  16 and 32 lanes a pair, the B5 tile) instantiations and its packed
-  bfloat16 wavefront (rows 8, one tile and chained), a cell, and the
+  float32 wavefront (rows 8 and 16, one tile and the chain kernel's whole
+  chain) and column (B4 at 16 and 32 lanes a pair, the B5 tile)
+  instantiations and its packed bfloat16 wavefront (rows 8, one tile and
+  the whole chain), a cell, and the
   results an SM a clock the probe's rates of its type give that mix: the
   largest of the pipes' and the dispatch's times, against their sum.  A
   wavefront's loop is the innermost backward branch's body with the most
@@ -144,6 +145,11 @@ def float32_label(name: str):
     m = re.search(r"stream_wavefront_kernel<(\d+), (\d+), 2>", name)
     if m and m.group(1) in ("8", "16") and m.group(2) != "1":
         return f"wavefront rows={m.group(1)} {'chained' if m.group(2) == '2' else 'tail-acc'}"
+    # the chain kernel (B3), a whole chain (with the pad shortcut, where
+    # the tree has the choice)
+    m = re.search(r"stream_chain_kernel<(\d+), 2, (false|0)(?:, (true|1))?>", name)
+    if m and m.group(1) in ("8", "16"):
+        return f"chain rows={m.group(1)}"
     m = re.search(r"column_scores_kernel<(\d+), 2(?:, (true|false|1|0))?>", name)
     if m and m.group(2) in ("true", "1"):
         return "column B5 tile"
@@ -206,11 +212,14 @@ def column_run(ops, columns=32):
 
 def bfloat16_label(name: str):
     """A label of the kernel library's packed bfloat16 wavefront at rows 8
-    (one tile or chained; its main-shape rows), or None."""
+    (one tile, a chained tile of older trees, or the chain kernel's whole
+    chain; its main-shape rows), or None."""
     name = re.sub(r"\((?:int|bool)\)", "", name)
     m = re.search(r"stream_wavefront_x2_kernel<8, (\d+), 5>", name)
     if m and m.group(1) != "1":
         return f"wavefront rows=8 {'chained' if m.group(1) == '2' else 'tail-acc'} bfloat16"
+    if re.search(r"stream_chain_(x2_)?kernel<8, 5, (false|0)(?:, (true|1))?>", name):
+        return "chain rows=8 bfloat16"
     return None
 
 

@@ -444,6 +444,35 @@ def test_chain_kernel_equals_plain_chain(cuda_device, mode):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"rows {rows}")
 
 
+@pytest.mark.parametrize("rows,dtype,width", [
+    (r, d, w) for r in (1, 8, 16)
+    for d, w in (("int32", None), ("int32", 12), ("float32", None), ("int16", None),
+                 ("bfloat16", None)) if r <= 8 or d not in port.SIXTEEN_BIT_STATES])
+def test_chain_kernel_with_positive_penalties_equals_plain_chain(cuda_device, rows, dtype,
+                                                                 width):
+    """A positive mismatch and gap open raise the pad-only streams off the
+    zero, so the chain kernel runs the groups with no read start in slice
+    0 (pads_stay_at_zero is false): = the plain chain on 107 streams of
+    which the last warps hold pads only, in the geometry's slices and in
+    32-step slices."""
+    pen = Penalties(match=3, mismatch=1, gap_open=2, gap_extend=-1)
+    kw = dict(score_width=width, state_dtype=dtype)
+    assert not port.pads_stay_at_zero(pen, dtype)
+    q, sk = _chain_case(rows, 2, 107, 24, 100, 300)
+    want = port._long_strip(q, sk, pen, rows, **kw)
+    assert bool((sk[:, -32:] == 4).all()) and bool((want[:, -32:] != port._bias(width)).any())
+    qks = port.tile_registers(q.to(cuda_device), rows)
+    for slices in (None, sk.shape[0] // port.STEP_CHUNK):
+        got = port.stream_chain_cuda(qks, sk.to(cuda_device), pen, rows, slices=slices, **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"{slices}")
+    # the instantiation without the pad shortcut: no spill, the launch
+    # bounds' resident warps, the same ring
+    regs, local, blocks, shared = port.stream_chain_info(rows, width, dtype, quiet=False)
+    assert 0 < regs <= 65536 // (port.RESIDENT_WARPS_PER_SM * 32) and local == 0
+    assert blocks * port.KERNEL_BLOCK >= port.RESIDENT_WARPS_PER_SM * 32
+    assert shared == port.stream_chain_info(rows, width, dtype)[3]
+
+
 @pytest.mark.parametrize("rows", port.ROWS)
 def test_chain_kernel_holds_its_occupancy(cuda_device, rows):
     """Every 32-bit instantiation of the chain kernel holds the resident
@@ -458,14 +487,15 @@ def test_chain_kernel_holds_its_occupancy(cuda_device, rows):
 
 
 def test_chain_kernel_rejects_bad_inputs(cuda_device):
-    """Bad shapes and a 16-bit state raise before any launch."""
+    """Bad shapes and a 16-bit state at rows 16 (no such instantiation)
+    raise before any launch."""
     qks = torch.zeros((3, 128, 8), dtype=torch.int8, device=cuda_device)
     sk = torch.zeros((64, 8), dtype=torch.int8, device=cuda_device)
     launches = port.stream_chain_cuda.launches
     with pytest.raises(ValueError, match="qks must be"):
         port.stream_chain_cuda(qks[:, :64], sk, DEFAULT_PENALTIES, 16)
-    with pytest.raises(ValueError, match="32-bit states"):
-        port.stream_chain_cuda(qks, sk, DEFAULT_PENALTIES, 8, state_dtype="int16")
+    with pytest.raises(ValueError, match="rows=16 requires a 32-bit state dtype"):
+        port.stream_chain_cuda(qks, sk, DEFAULT_PENALTIES, 16, state_dtype="int16")
     with pytest.raises(ValueError, match="stream length"):
         port.stream_chain_cuda(qks, sk[:40], DEFAULT_PENALTIES, 16)
     assert port.stream_chain_cuda.launches == launches
@@ -944,6 +974,10 @@ def test_16bit_chained_kernel_equals_plain_version(cuda_device, rows, mode, slic
         qk.to(cuda_device), sk.to(cuda_device), *(x.to(cuda_device) for x in bounds),
         pen, rows, slices=slices, state_dtype=dtype,
     )
+    # the chain kernel at K = 1, one sublane a thread
+    assert port.stream_chained_cuda.slices == (slices or port.choose_slices(
+        40, rows, sk.shape[0], port._sm_count(cuda_device), state_dtype=dtype,
+        lanes=port.chain_lanes(rows, dtype, one_tile=True)))
     for name, g, w in zip(("acc", "oD", "oG", "oH"), got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
 
@@ -1289,6 +1323,118 @@ def test_packed_chain_equals_plain_version(cuda_device, S, rows, mode):
             np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
                                           err_msg=f"tile {k} {name}")
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# The 16-bit chain in one launch: (rows, K) of the chain kernel's packed
+# instantiations, every rows at 1, 2 and 5 tiles (5: one wrap past the
+# 4-warp ring), rows 8 (the main shapes') also at 4 and 9 (two wraps)
+CHAIN16_CASES = [(r, k) for r in (1, 2, 4, 8) for k in (1, 2, 5)] + [(8, 4), (8, 9)]
+
+
+@functools.lru_cache(maxsize=None)
+def _chain16_case(rows, K, mode, sparse):
+    """(q, sk, the plain chain's strip) on the CPU: 43 streams full of reads
+    (odd: the last pair's high half dead), or with `sparse` 24 reads on 107
+    streams, which leaves groups (2 x 32 / W streams) with no read start."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    S, reads, lo, hi = (107, 24, 100, 300) if sparse else (43, 150, 10, 120)
+    q, sk = _chain_case(rows, K, S, reads, lo, hi)
+    return q, sk, port._long_strip(q, sk, pen, rows, state_dtype=dtype)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("rows,K", CHAIN16_CASES)
+def test_16bit_chain_kernel_equals_plain_chain(cuda_device, rows, K, mode, sparse):
+    """The chain kernel in each 16-bit state (two streams a thread, uint16's
+    wrapping mismatch included) = the plain chain (the plain tile, the
+    host's shifts) bit for bit: in one slice, in the geometry's and in
+    32-step slices, one launch each; _long_strip on the card takes the one
+    launch and no per-tile one."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    q, sk, want = _chain16_case(rows, K, mode, sparse)
+    if sparse:
+        assert bool((sk[:, -32:] == 4).all())
+    dq, ds = q.to(cuda_device), sk.to(cuda_device)
+    qks = port.tile_registers(dq, rows)
+    T = sk.shape[0]
+    geometry = port.chain_geometry(sk.shape[1], rows, T, K, port._sm_count(cuda_device), dtype)
+    for slices in (1, None, T // port.STEP_CHUNK):
+        launches = port.stream_chain_cuda.launches
+        got = port.stream_chain_cuda(qks, ds, pen, rows, slices=slices, state_dtype=dtype)
+        torch.cuda.synchronize()
+        assert port.stream_chain_cuda.launches == launches + 1
+        assert port.stream_chain_cuda.slices == (slices or geometry.slices)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"{slices}")
+    launches = port.stream_chain_cuda.launches, port.stream_chained_cuda.launches
+    got = port._long_strip(dq, ds, pen, rows, state_dtype=dtype)
+    assert (port.stream_chain_cuda.launches - launches[0],
+            port.stream_chained_cuda.launches - launches[1]) == (1, 0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype", port.SIXTEEN_BIT_STATES)
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_16bit_chain_kernel_holds_its_occupancy(cuda_device, rows, dtype):
+    """Every instantiation of the 16-bit chain kernel, the whole chain's
+    and the per-tile contract's: no spill, the resident warps its launch
+    bounds promise, its ring in the 32-bit state's shared bytes; with the
+    pad shortcut and without it."""
+    for quiet in (True, False):
+        regs, local, blocks, shared = port.stream_chain_info(rows, state_dtype=dtype,
+                                                             quiet=quiet)
+        assert 0 < regs <= 65536 // (port.RESIDENT_WARPS_PER_SM * 32)
+        assert local == 0
+        assert blocks * port.KERNEL_BLOCK >= port.RESIDENT_WARPS_PER_SM * 32
+        assert shared == port.stream_chain_info(rows)[3]
+    regs, local, blocks = port.stream_kernel_info(rows, chained=True, state_dtype=dtype)
+    assert 0 < regs <= 65536 // (port.RESIDENT_WARPS_PER_SM * 32) and local == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry16_plain(rows, segments, mode):
+    qk, sk, _ = _geometry_case(rows, segments, False)
+    dtype, pen = SIXTEEN_BIT[mode]
+    return port.stream_strip_reference(qk, sk, pen, segments, rows, state_dtype=dtype)
+
+
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT))
+@pytest.mark.parametrize("rows,segments", [(r, g) for r, g in GEOMETRIES if r <= 8])
+def test_16bit_every_geometry_strip_equals_plain_version(cuda_device, rows, segments, mode):
+    """B1 (B2 at rows 1) in each 16-bit state at every legal rows x
+    segments, 8 threads a stream pair of 16 query rows at rows 4 and 8:
+    the strip in one slice and in the wrapper's slices for the batch's
+    longest read equals the plain version's; the count is choose_slices'
+    for that read."""
+    dtype, pen = SIXTEEN_BIT[mode]
+    qk, sk, longest = _geometry_case(rows, segments, False)
+    want = _geometry16_plain(rows, segments, mode)
+    assert port.wavefront_geometry(rows, segments, dtype).lanes == (8 if rows >= 4 else 32)
+    dq, ds = qk.to(cuda_device), sk.to(cuda_device)
+    for slices in (1, None):
+        got = port.stream_strip_cuda(dq, ds, pen, segments, rows, slices=slices,
+                                     state_dtype=dtype, longest_read=longest)
+        torch.cuda.synchronize()
+        assert port.stream_strip_cuda.slices == (slices or port.choose_slices(
+            qk.shape[1], rows, sk.shape[0], port._sm_count(cuda_device), segments, dtype,
+            longest_read=longest))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=f"{slices}")
+
+
+def test_16bit_bank_long_query_is_one_chain_launch(cuda_device):
+    """ScoreBank(stream_state_dtype="int16", stream_rows=8) on (e)'s shape
+    cut down (a 512-base query, reads of 128): one chain launch a call, no
+    per-tile launch, the oracle's scores."""
+    rng = np.random.default_rng(512)
+    db = _db(rng, 2000, 129)
+    query = rng.integers(0, 4, size=512).astype(np.int8)
+    bank = ScoreBank(SWConfig(stream_state_dtype="int16", stream_rows=8), device=cuda_device)
+    for _ in range(2):
+        launches = port.stream_chain_cuda.launches, port.stream_chained_cuda.launches
+        res = bank.score_database(query, db)
+        assert (port.stream_chain_cuda.launches - launches[0],
+                port.stream_chained_cuda.launches - launches[1]) == (1, 0)
+        np.testing.assert_array_equal(res.scores, score_many_vs_one(query, db.as_list()))
 
 
 @pytest.mark.parametrize("pen", [DEFAULT_PENALTIES, Penalties(40, -4, -12, -4)])

@@ -94,6 +94,16 @@ def test_column_run_counts_the_random_reads_path():
     ("void column_scores_kernel<32, 2, false>(Args)", "column lanes=32 B4"),
     ("void column_scores_kernel<(int)4, (int)2, (bool)0>(Args)", None),  # not a main shape
     ("void column_scores_kernel<32, 0, true>(Args)", None),  # int32
+    ("void (anonymous namespace)::stream_chain_kernel<16, 2, false>(ChainArgs)",
+     "chain rows=16"),
+    ("void stream_chain_kernel<(int)8, (int)2, (bool)0>(ChainArgs)", "chain rows=8"),
+    ("void stream_chain_kernel<16, 2, true>(ChainArgs)", None),  # the per-tile contract
+    ("void stream_chain_kernel<16, 0, false>(ChainArgs)", None),  # int32
+    ("void (anonymous namespace)::stream_chain_kernel<16, 2, false, true>(ChainArgs)",
+     "chain rows=16"),
+    ("void stream_chain_kernel<(int)8, (int)2, (bool)0, (bool)1>(ChainArgs)", "chain rows=8"),
+    ("void stream_chain_kernel<16, 2, false, false>(ChainArgs)", None),  # no pad shortcut
+    ("void stream_chain_kernel<16, 2, true, true>(ChainArgs)", None),  # the per-tile contract
 ])
 def test_float32_label(name, label):
     assert fp32_rates.float32_label(name) == label
@@ -125,6 +135,15 @@ def test_main_needs_a_gpu(monkeypatch, capsys):
     ("void stream_wavefront_x2_kernel<8, 0, 3>(Args)", None),  # int16
     ("void stream_wavefront_x2_kernel<4, 0, 5>(Args)", None),  # not the main rows
     ("void stream_wavefront_kernel<16, 0, 2>(Args)", None),  # float32
+    ("void (anonymous namespace)::stream_chain_kernel<8, 5, false>(ChainArgs)",
+     "chain rows=8 bfloat16"),
+    ("void stream_chain_kernel<(int)8, (int)5, (bool)1>(ChainArgs)", None),  # one tile
+    ("void stream_chain_kernel<8, 3, false>(ChainArgs)", None),  # int16
+    ("void (anonymous namespace)::stream_chain_x2_kernel<8, 5, false, true>(ChainArgs)",
+     "chain rows=8 bfloat16"),
+    ("void stream_chain_x2_kernel<(int)8, (int)5, (bool)0, (bool)0>(ChainArgs)", None),
+    ("void stream_chain_x2_kernel<8, 5, true, true>(ChainArgs)", None),  # one tile
+    ("void stream_chain_x2_kernel<8, 4, false, true>(ChainArgs)", None),  # uint16
 ])
 def test_bfloat16_label(name, label):
     assert fp32_rates.bfloat16_label(name) == label

@@ -76,7 +76,8 @@ def fused_chain(qks, sk, penalties, rows, starts, **mode):
     (each tile's register), sk [T, S], slice boundaries `starts`; a ring
     of min(K, RING_WARPS) tiles a block, as the kernel runs them.
 
-    Streams go in groups of 32 / min(128 / rows, 32), a block's.  In each
+    Streams go in groups of chain_geometry's streams_per_warp, a block's:
+    32 / min(128 / rows, 32), twice as many in a 16-bit state.  In each
     slice [b0, b1) a group runs if one of its streams holds a read start
     at or after b0; its tiles stop at the first chunk start at or after
     b1 by which every tail has handed over (or at T).  Tile p+1 of a slice
@@ -87,21 +88,26 @@ def fused_chain(qks, sk, penalties, rows, starts, **mode):
     stop on.  Each tile writes column s from the step its tail sees the
     first read start at or after b0 (slice 0: step 0) up to the one at or
     after b1.  A group with no read start at all writes the zero in slice
-    0.  Returns the last tile's strip [T, S] int32; fails if an element
-    is written by no slice or by two."""
+    0, where pads alone leave every state at the zero
+    (``pads_stay_at_zero``), and runs there otherwise.  Returns the last
+    tile's strip [T, S] int32; fails if an element is written by no slice
+    or by two."""
     K = qks.shape[0]
     T, S = sk.shape
     SL = port.LANES // rows
     ring = min(K, port.RING_WARPS)
-    group = torch.arange(S) // (32 // min(SL, 32))
+    per_warp = port.chain_geometry(S, rows, T, K, 132,
+                                   mode.get("state_dtype", "int32")).streams_per_warp
+    group = torch.arange(S) // per_warp
     n_groups = int(group.max()) + 1
     zero = port._bias(mode.get("score_width"))
     flags = sk >= port.FLAG_BIT
+    quiet = port.pads_stay_at_zero(penalties, mode.get("state_dtype", "int32"))
     slices = []
     for k, (b0, b1) in enumerate(zip(starts, starts[1:])):
         lo = torch.zeros(S, dtype=torch.int64) if k == 0 else handover_steps(sk, SL, b0)
         hi = handover_steps(sk, SL, b1) if b1 < T else torch.full((S,), T)
-        has = flags[b0:].any(0).to(torch.int64)
+        has = (flags[b0:].any(0) | (k == 0 and not quiet)).to(torch.int64)
         runs = torch.zeros(n_groups, dtype=torch.int64).scatter_reduce(
             0, group, has, "amax") > 0
         last_hi = torch.zeros(n_groups, dtype=torch.int64).scatter_reduce(
@@ -263,6 +269,42 @@ def test_all_pad_stream_chain_is_the_boundary_zero(rows, mode):
     assert bool((acc[:, :LIVE] != zero).any())
 
 
+# a positive mismatch (and gap open): pads alone raise every state
+POSITIVE = Penalties(match=3, mismatch=1, gap_open=2, gap_extend=-1)
+
+
+@pytest.mark.parametrize("state_dtype,penalties,want", [
+    ("int32", DEFAULT_PENALTIES, True), ("int32", CUSTOM, True),
+    ("int32", POSITIVE, False), ("float32", Penalties(2, 0, 0, 0), True),
+    ("float32", Penalties(2, -1, -2, 1), False), ("int16", DEFAULT_PENALTIES, True),
+    ("bfloat16", POSITIVE, False), ("uint16", Penalties(5, 0, 0, 0), True),
+    ("uint16", Penalties(5, -4, 0, 0), False), ("uint16", Penalties(5, 0, -65536, 0), True),
+])
+def test_pads_stay_at_zero_reads_the_penalties_in_the_state(state_dtype, penalties, want):
+    """No penalty a pad's cell adds (mismatch, open, extend) positive in the
+    state's arithmetic; uint16 wraps a negative one (-4 is 65532), and -2^16
+    is 0 there."""
+    assert port.pads_stay_at_zero(penalties, state_dtype) is want
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("rows", [1, 16])
+def test_fused_chain_with_positive_penalties_equals_plain_chain(rows, mode):
+    """With a positive mismatch the pad-only streams' accumulator rises off
+    the zero, so a group with no read start must run in slice 0 too: the
+    rule (pads_stay_at_zero) gives the plain chain's strip in each
+    slicing, and writing the zero there would not."""
+    K = 2
+    q, sk = _chain_batch(rows * 10 + K + 100, rows, K)
+    want = port._long_strip(q, sk, POSITIVE, rows, **MODES[mode])
+    zero = port._bias(MODES[mode].get("score_width"))
+    assert bool((want[:, LIVE:] != zero).any())
+    qks = port.tile_registers(q, rows)
+    for label, starts in _slicings(sk.shape[0]):
+        got = fused_chain(qks, sk, POSITIVE, rows, starts, **MODES[mode])
+        np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=label)
+
+
 # (S, rows, T, K) of chip_smoke.py's long cases: (d), (e), (q) and the
 # longest job of (s), and the chain's geometry on a card of 132 SMs
 CHAIN_SHAPES = [
@@ -314,14 +356,20 @@ def test_greedy_packer_puts_few_reads_on_the_first_streams():
 
 
 def test_chain_wrapper_refuses_cpu_tensors_and_16bit_states():
+    """CPU tensors raise in every state; a 16-bit state is taken at rows up
+    to 8 and refused at rows 16 with swtpu's ValueError (no rows-16
+    instantiation of it exists)."""
     qks = torch.zeros((2, 128, 8), dtype=torch.int8)
     sk = torch.zeros((32, 8), dtype=torch.int8)
     launches = port.stream_chain_cuda.launches
     with pytest.raises(ValueError, match="qks must be a CUDA int8 tensor"):
         port.stream_chain_cuda(qks, sk, DEFAULT_PENALTIES, 16)
     for dtype in port.SIXTEEN_BIT_STATES:
-        with pytest.raises(ValueError, match="32-bit states"):
-            port.stream_chain_cuda(qks, sk, DEFAULT_PENALTIES, 8, state_dtype=dtype)
+        pen = Penalties(5, 0, 0, 0)
+        with pytest.raises(ValueError, match="qks must be a CUDA int8 tensor"):
+            port.stream_chain_cuda(qks, sk, pen, 8, state_dtype=dtype)
+        with pytest.raises(ValueError, match="rows=16 requires a 32-bit state dtype"):
+            port.stream_chain_cuda(qks, sk, pen, 16, state_dtype=dtype)
     assert port.stream_chain_cuda.launches == launches
 
 

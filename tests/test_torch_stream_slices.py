@@ -315,16 +315,17 @@ def test_choose_slices_at_the_main_shapes(shape, want):
     assert steps >= port.PIPE_FILLS_PER_SLICE * (port.LANES // rows // segments)
 
 
-# the 16-bit states' launches hold two streams a thread of min(128 / rows,
-# 32) threads a stream pair, the 32-bit ones a stream of 8 threads: at
-# rows 8 both make 8 threads a stream, so the wrapper gives them the same
-# slices where the steps allow them: (a) and (d) at rows 8 (511 streams:
-# the last pair's high half dead), (c), where the slice length caps them
+# the 16-bit states' launches hold two streams a thread of 8 threads a
+# stream pair at rows 8, the 32-bit ones a stream of 8 threads: half the
+# threads, so without a longest read the wrapper gives the 16-bit states
+# twice the slices where the steps allow them: (a) and (d) at rows 8 (511
+# streams: the last pair's high half dead), (c), where the slice length
+# caps both
 PACKED_SHAPES = [
-    ((512, 8, 65568, 1), {"int32": 33, "float32": 33, "int16": 33, "uint16": 33,
-                          "bfloat16": 33}),
-    ((511, 8, 65568, 1), {"int32": 33, "int16": 33}),
-    ((512, 8, 72064, 1), {"int32": 33, "int16": 33, "bfloat16": 33}),
+    ((512, 8, 65568, 1), {"int32": 33, "float32": 33, "int16": 64, "uint16": 64,
+                          "bfloat16": 64}),
+    ((511, 8, 65568, 1), {"int32": 33, "int16": 64}),
+    ((512, 8, 72064, 1), {"int32": 33, "int16": 66, "bfloat16": 66}),
     ((512, 8, 9152, 2), {"int32": 8, "int16": 8, "uint16": 8}),
 ]
 
@@ -378,9 +379,10 @@ def test_wavefront_geometry_is_legal(rows, segments, state_dtype):
     """The kernel's thread mapping at every rows x segments: W threads of
     V sublanes cover a stream's 128 / rows sublanes, a warp holds whole
     streams, and a segment is whole threads, so its head and tail are a
-    thread's first and last sublanes; in a 32-bit state min(16 / rows, 4)
-    sublanes a thread, 16 query rows in 8 threads a stream at rows 4-16;
-    min(128 / rows, 32) threads a stream pair in a 16-bit one (rows <= 8)."""
+    thread's first and last sublanes; min(16 / rows, 4) sublanes a thread,
+    16 query rows of each stream in 8 threads a stream at rows 4-16, or a
+    stream pair in a 16-bit state (rows <= 8), whose rows 2 and 1 take 32
+    threads a pair."""
     port._validate_config(segments, rows, state_dtype)
     g = port.wavefront_geometry(rows, segments, state_dtype)
     SL = port.LANES // rows
@@ -388,12 +390,12 @@ def test_wavefront_geometry_is_legal(rows, segments, state_dtype):
     assert g.segment_sublanes == SL // segments
     assert g.segment_sublanes % g.sublanes == 0
     assert g.segment_sublanes // g.sublanes * segments == g.lanes
-    if state_dtype == "int16":
-        assert (g.lanes, g.streams_per_thread) == (min(SL, 32), 2)
+    if state_dtype == "int16" and rows < 4:
+        assert (g.lanes, g.streams_per_thread) == (32, 2)
     else:
         assert g.sublanes == min(16 // rows, port.MAX_SUBLANES)
         assert rows * g.sublanes == (16 if rows >= 4 else 4 * rows)
-        assert g.streams_per_thread == 1
+        assert g.streams_per_thread == (2 if state_dtype == "int16" else 1)
 
 
 # (S physical streams, rows, T, segments, longest read) of chip_smoke.py's
@@ -426,18 +428,35 @@ def test_choose_slices_from_the_longest_read(shape, want):
 
 @pytest.mark.parametrize("shape,_", PACKED_SHAPES)
 def test_longest_read_leaves_the_16bit_and_chain_slices(shape, _):
-    """The 16-bit kernel and the chain kernel keep their slice counts: a
-    longest read changes no 16-bit count, and the chain's geometry counts
-    min(128 / rows, 32) threads a stream."""
+    """The batch's longest read sets the 16-bit kernel's slices as it sets
+    the 32-bit kernel's, over the 16-bit kernel's own threads (two streams
+    a thread): slices of at least READS_PER_SLICE reads and a pipe fill,
+    at most SLICE_WARPS_PER_SM / V warps an SM, whole waves to a tenth.
+    The chain kernel takes no read: its geometry counts min(128 / rows,
+    32) threads a stream, or in a 16-bit state min(64 / rows, 32) threads
+    a stream pair, two streams a thread."""
     S, rows, T, segments = shape
+    SLg = port.LANES // rows // segments
     for dtype in ("int16", "uint16", "bfloat16"):
-        assert (port.choose_slices(S, rows, T, 132, segments, dtype, longest_read=100)
-                == port.choose_slices(S, rows, T, 132, segments, dtype))
-    for K in (1, 2, 5):
-        got = port.chain_geometry(S, rows, T, K, 132)
-        assert got.slices == port.choose_slices(S, rows, T, 132, tiles=got.ring,
-                                                lanes=min(port.LANES // rows, 32))
-        assert got.streams_per_warp == 32 // min(port.LANES // rows, 32)
+        g = port.wavefront_geometry(rows, segments, dtype)
+        got = port.choose_slices(S, rows, T, 132, segments, dtype, longest_read=100)
+        blocks = -(-(-(-S // 2)) * g.lanes // port.KERNEL_BLOCK)
+        want = max(1, min(round(132 * port.SLICE_WARPS_PER_SM / g.sublanes * 32
+                                / port.KERNEL_BLOCK / blocks),
+                          T // (port.READS_PER_SLICE * (100 + SLg))))
+        while want > 1 and want * blocks > 132 and -want * blocks % 132 > 132 // 10:
+            want -= 1
+        assert got == want, dtype
+        assert got == 1 or port.slice_steps(T, got) >= port.READS_PER_SLICE * (100 + SLg)
+        assert got != port.choose_slices(S, rows, T, 132, segments, dtype)
+    for dtype, per_thread in (("int32", 1), ("int16", 2), ("bfloat16", 2)):
+        for K in (1, 2, 5):
+            got = port.chain_geometry(S, rows, T, K, 132, dtype)
+            lanes = min(port.LANES // rows // per_thread, 32)
+            assert got.slices == port.choose_slices(S, rows, T, 132, state_dtype=dtype,
+                                                    tiles=got.ring, lanes=lanes)
+            assert got.streams_per_warp == 32 // lanes * per_thread
+            assert got.blocks == -(-S // got.streams_per_warp)
 
 
 def _long_read_batch(seed, rows, n_reads=4, phys=2):
